@@ -1,0 +1,63 @@
+"""hashgraph_tpu_torch — the PyTorch and CUDA port of ``hashgraph_tpu``.
+
+Binary yes/no consensus among n peers via signed hashgraph vote chains,
+ceil(2n/3) quorum math, Gossipsub/P2P round semantics and silent-peer
+liveness at timeout, with the per-proposal tallies held as dense tensors on
+an NVIDIA GPU. The arrival-ordered vote scan is a hand-written CUDA kernel
+(``csrc/ingest_scan.cu``, built at first use for ``sm_90a``); every other
+device step is PyTorch.
+
+The port imports nothing of the JAX package: the modules that carry no
+device code (errors, wire, protocol, types, events, scope config, session,
+signing) are copies of that package's, and the JAX package stays the
+reference the tests hold the port against. Entry points take ``device=``
+and default to ``"cuda"``; they raise without a GPU rather than move to the
+CPU, which callers ask for with ``device="cpu"``.
+"""
+
+from .engine import (
+    ConsensusStats,
+    PoolFullError,
+    ProposalPool,
+    TorchConsensusEngine,
+)
+from .errors import ConsensusError, StatusCode
+from .events import BroadcastEventBus, ConsensusEventBus, EventReceiver
+from .protocol import build_vote, calculate_consensus_result, compute_vote_hash
+from .scope_config import NetworkType, ScopeConfig, ScopeConfigBuilder
+from .session import ConsensusConfig, ConsensusSession, ConsensusState
+from .signing import ConsensusSignatureScheme, StubConsensusSigner
+from .types import (
+    ConsensusFailedEvent,
+    ConsensusReached,
+    CreateProposalRequest,
+)
+from .wire import Proposal, Vote
+
+__all__ = [
+    "BroadcastEventBus",
+    "ConsensusConfig",
+    "ConsensusError",
+    "ConsensusEventBus",
+    "ConsensusFailedEvent",
+    "ConsensusReached",
+    "ConsensusSession",
+    "ConsensusSignatureScheme",
+    "ConsensusState",
+    "ConsensusStats",
+    "CreateProposalRequest",
+    "EventReceiver",
+    "NetworkType",
+    "PoolFullError",
+    "Proposal",
+    "ProposalPool",
+    "ScopeConfig",
+    "ScopeConfigBuilder",
+    "StatusCode",
+    "StubConsensusSigner",
+    "TorchConsensusEngine",
+    "Vote",
+    "build_vote",
+    "calculate_consensus_result",
+    "compute_vote_hash",
+]

@@ -1,0 +1,125 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes). Wrappers pass raw device pointers from
+``tensor.data_ptr()`` and PyTorch's current stream. Libraries land in
+``_build/`` beside this file (listed in ``.gitignore``), named by a hash of
+the source and flags, so an unchanged source is not compiled again.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises
+:class:`BuildError` carrying the compiler's output.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+# Kernel launches per kernel name: each wrapper adds one where it launches
+# its kernel, so a caller can show that a path really ran through it.
+launches: collections.Counter = collections.Counter()
+
+_libs: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}
+_lock = threading.Lock()
+
+
+class BuildError(RuntimeError):
+    """A CUDA source could not be compiled or loaded."""
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
+    then ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def sources() -> list[str]:
+    """Names (file stems) of every CUDA source of the port."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, ctypes.CDLL]:
+    """Compile (one ``nvcc`` per source, all started together) and load the
+    named sources, default all; returns name -> loaded library."""
+    names = sources() if names is None else list(names)
+    with _lock:
+        todo = [name for name in names if name not in _libs]
+        if todo:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            compiler = nvcc()
+            procs = {}
+            for name in todo:
+                target = _target(name)
+                if target.exists():
+                    continue
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                procs[name] = (
+                    subprocess.Popen(
+                        [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                        stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT,
+                        text=True,
+                    ),
+                    tmp,
+                    target,
+                )
+            failed = []
+            for name, (proc, tmp, target) in procs.items():
+                output, _ = proc.communicate()
+                _logs[name] = output
+                if proc.returncode != 0:
+                    failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{output}")
+                else:
+                    tmp.replace(target)
+            if failed:
+                raise BuildError("CUDA build failed:\n" + "\n".join(failed))
+            for name in todo:
+                try:
+                    _libs[name] = ctypes.CDLL(str(_target(name)))
+                except OSError as exc:
+                    raise BuildError(f"cannot load {name}: {exc}") from exc
+        return {name: _libs[name] for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built at first use."""
+    return build([name])[name]
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed for a source built by this process (registers,
+    shared memory and spills per kernel); empty if it was not rebuilt."""
+    return _logs.get(name, "")

@@ -1,0 +1,97 @@
+"""Carry pool state across between the JAX package and the port.
+
+:func:`pool_from_numpy` builds a port :class:`ProposalPool` from the arrays
+of a pool of the JAX package, given as numpy (device arrays and host
+mirrors), so traffic that started there can continue on the port.
+:func:`pool_to_numpy` is its inverse. This module takes and gives numpy
+only: extracting the arrays from a JAX pool is the caller's business.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .engine.pool import ProposalPool, SlotMeta, resolve_device
+
+# Device arrays: name -> (pool attribute, dtype).
+DEVICE_ARRAYS = {
+    "state": ("_state", torch.int32),
+    "yes": ("_yes", torch.int32),
+    "tot": ("_tot", torch.int32),
+    "vote_mask": ("_vote_mask", torch.bool),
+    "vote_val": ("_vote_val", torch.bool),
+    "n": ("_n", torch.int32),
+    "req": ("_req", torch.int32),
+    "cap": ("_cap", torch.int32),
+    "gossip": ("_gossip", torch.bool),
+    "liveness": ("_liveness", torch.bool),
+}
+
+# Host mirrors: name -> pool attribute. ``meta`` maps slot -> (key,
+# expiry, created_at); the rest are numpy arrays, lists, dicts or ints.
+HOST_FIELDS = {
+    "state_host": "_state_host",
+    "expiry_host": "_expiry_host",
+    "free": "_free",
+    "gid_of": "_gid_of",
+    "owners": "_owners",
+    "gid_refs": "_gid_refs",
+    "gid_live": "_gid_live",
+    "gid_gen": "_gid_gen",
+    "gen_floor": "_gen_floor",
+    "free_gids": "_free_gids",
+    "lane_gids": "_lane_gids",
+    "lane_count": "_lane_count",
+}
+
+
+def _copy(value):
+    if isinstance(value, np.ndarray):
+        return value.copy()
+    if isinstance(value, (list, dict)):
+        return type(value)(value)
+    return value
+
+
+def pool_from_numpy(arrays: dict, host_meta: dict, device="cuda") -> ProposalPool:
+    """A port pool holding exactly the given state.
+
+    ``arrays`` has one numpy array per name of :data:`DEVICE_ARRAYS`
+    (``state [P]``, ``vote_mask [P, V]`` ...); ``host_meta`` has one value
+    per name of :data:`HOST_FIELDS` plus ``meta``. Capacity and voter
+    capacity come from the shape of ``vote_mask``.
+    """
+    p, v = np.asarray(arrays["vote_mask"]).shape
+    pool = ProposalPool.__new__(ProposalPool)
+    pool.capacity = int(p)
+    pool.voter_capacity = int(v)
+    pool.device = resolve_device(device)
+    for name, (attr, dtype) in DEVICE_ARRAYS.items():
+        arr = np.asarray(arrays[name])
+        if arr.shape[0] != p:
+            raise ValueError(f"{name}: {arr.shape[0]} rows, expected {p}")
+        # torch.tensor copies: the pool never aliases the caller's arrays.
+        setattr(pool, attr, torch.tensor(arr, dtype=dtype, device=pool.device))
+    for name, attr in HOST_FIELDS.items():
+        setattr(pool, attr, _copy(host_meta[name]))
+    pool._meta = {
+        int(slot): SlotMeta(key=key, expiry=int(expiry), created_at=int(created))
+        for slot, (key, expiry, created) in host_meta["meta"].items()
+    }
+    pool._inflight = []
+    return pool
+
+
+def pool_to_numpy(pool: ProposalPool) -> tuple[dict, dict]:
+    """``(arrays, host_meta)`` of a port pool, in the form
+    :func:`pool_from_numpy` takes."""
+    arrays = {
+        name: getattr(pool, attr).cpu().numpy()
+        for name, (attr, _) in DEVICE_ARRAYS.items()
+    }
+    host_meta = {name: _copy(getattr(pool, attr)) for name, attr in HOST_FIELDS.items()}
+    host_meta["meta"] = {
+        slot: (m.key, m.expiry, m.created_at) for slot, m in pool._meta.items()
+    }
+    return arrays, host_meta

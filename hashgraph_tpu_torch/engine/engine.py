@@ -1,0 +1,1125 @@
+"""TorchConsensusEngine: the vote path of the batch consensus engine.
+
+Port of the vote-path subset of ``hashgraph_tpu/engine/engine.py``
+(``TpuConsensusEngine``) to PyTorch. Same observable semantics as the JAX
+engine built with ``verify_cache=None`` (the uncached admission flow):
+proposals claim pool slots, votes arrive through the scalar
+(:meth:`cast_vote`, :meth:`process_incoming_vote`), batch
+(:meth:`ingest_votes`) and columnar (:meth:`ingest_columnar`) entry points,
+tallies and decisions run on the device, and transitions come back as
+events.
+
+Division of labor:
+- device (:class:`ProposalPool`): tallies, vote masks, round-cap
+  projection, the decision rule, timeout sweeps — everything
+  order-sensitive replays arrival-ordered in the ingest scan;
+- host (this class): vote validation (reference: src/utils.rs:55-171),
+  scope configs and their resolution precedence (src/service.rs:440-484),
+  per-scope session registries with LRU eviction (src/service.rs:512-522),
+  and the event bus.
+
+Not ported yet (the JAX engine has them): the host-spill substrate (the
+port raises :class:`PoolFullError` when the pool is full), session
+tiering, WAL and checkpoint, health/metrics/tracing/timelines, the verify
+cache, proposal ingest and chain validation, wire-columnar and multi-scope
+columnar ingest, multi-host pools and adaptive timeouts.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Generic, Hashable, TypeVar
+
+import numpy as np
+
+from ..errors import (
+    ConsensusError,
+    ConsensusFailed,
+    InsufficientVotesAtTimeout,
+    SessionNotFound,
+    StatusCode,
+    UserAlreadyVoted,
+    error_for_code,
+)
+from ..events import BroadcastEventBus, ConsensusEventBus
+from ..ops.decide import (
+    STATE_ACTIVE,
+    STATE_FAILED,
+    STATE_REACHED_NO,
+    STATE_REACHED_YES,
+    required_votes_np,
+)
+from ..protocol import (
+    build_vote,
+    regenerate_until_unique,
+    validate_proposal_timestamp,
+    validate_vote,
+)
+from ..scope_config import ScopeConfig, ScopeConfigBuilder, NetworkType
+from ..session import ConsensusConfig
+from ..signing import ConsensusSignatureScheme
+from ..types import (
+    ConsensusEvent,
+    ConsensusFailedEvent,
+    ConsensusReached,
+    CreateProposalRequest,
+)
+from ..wire import Proposal, Vote
+from .pool import PoolFullError, ProposalPool
+from .session_sync import allocate_slot
+
+Scope = TypeVar("Scope", bound=Hashable)
+
+_U32_MAX = 0xFFFFFFFF
+
+DEFAULT_MAX_SESSIONS_PER_SCOPE = 10  # reference: src/service.rs:89-90
+
+__all__ = [
+    "ConsensusStats",
+    "DEFAULT_MAX_SESSIONS_PER_SCOPE",
+    "PoolFullError",
+    "SessionRecord",
+    "TorchConsensusEngine",
+]
+
+
+@dataclass
+class ConsensusStats:
+    """Aggregate per-scope counters (reference: src/service_stats.rs:10-19)."""
+
+    total_sessions: int = 0
+    active_sessions: int = 0
+    failed_sessions: int = 0
+    consensus_reached: int = 0
+
+
+@dataclass(slots=True)
+class SessionRecord(Generic[Scope]):
+    """Host-side view of one pooled session: the scalar bookkeeping the
+    device does not need. Accepted votes are kept for chain linking and
+    proposal export (reference: src/utils.rs:62-77)."""
+
+    scope: Scope
+    slot: int
+    proposal: Proposal  # votes list appended in acceptance order
+    config: ConsensusConfig
+    created_at: int
+    votes: dict[bytes, Vote] = field(default_factory=dict)  # accepted only
+    seq: int = 0  # per-scope registration order (LRU tie order)
+
+    def bump_round(self, accepted: int) -> None:
+        """Host mirror of the device round update
+        (reference: src/session.rs:351-366)."""
+        if accepted <= 0:
+            return
+        if self.config.use_gossipsub_rounds:
+            if self.proposal.round == 1:
+                self.proposal.round = 2
+        else:
+            self.proposal.round = min(self.proposal.round + accepted, _U32_MAX)
+
+
+class TorchConsensusEngine(Generic[Scope]):
+    """Batch consensus engine with the ConsensusService API surface, its
+    state on one device.
+
+    Capacity is fixed at construction: ``capacity`` concurrent sessions
+    across all scopes, ``voter_capacity`` voter lanes per proposal.
+    ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
+    ``device="cpu"`` to run on the CPU, where the scan runs its plain
+    PyTorch version.
+    """
+
+    def __init__(
+        self,
+        signer: ConsensusSignatureScheme,
+        capacity: int,
+        voter_capacity: int,
+        event_bus: ConsensusEventBus[Scope] | None = None,
+        max_sessions_per_scope: int = DEFAULT_MAX_SESSIONS_PER_SCOPE,
+        device="cuda",
+    ):
+        self._signer = signer
+        self._event_bus: ConsensusEventBus[Scope] = (
+            event_bus if event_bus is not None else BroadcastEventBus()
+        )
+        self._pool = ProposalPool(capacity, voter_capacity, device=device)
+        self._max_sessions_per_scope = max_sessions_per_scope
+        # One engine-wide reentrant lock, as the JAX engine holds: scalar
+        # entry points funnel into ingest_votes.
+        self._lock = threading.RLock()
+        self._records: dict[int, SessionRecord[Scope]] = {}  # slot -> record
+        self._index: dict[tuple[Scope, int], int] = {}  # (scope, pid) -> slot
+        self._scopes: dict[Scope, list[int]] = {}  # scope -> slots (insertion order)
+        self._scope_configs: dict[Scope, ScopeConfig] = {}
+        self._scope_seq: dict[Scope, int] = {}
+        # Columnar-path cache: per-scope (pids, slots) arrays and their
+        # pid -> slot hash; dropped on any membership change.
+        self._pid_tables: dict[Scope, tuple[np.ndarray, np.ndarray]] = {}
+        self._pid_hashes: dict[Scope, _PidLookup] = {}
+
+    # ── Accessors ──────────────────────────────────────────────────────
+
+    def signer(self) -> ConsensusSignatureScheme:
+        return self._signer
+
+    def event_bus(self) -> ConsensusEventBus[Scope]:
+        return self._event_bus
+
+    def pool(self) -> ProposalPool:
+        return self._pool
+
+    @property
+    def device(self):
+        return self._pool.device
+
+    @property
+    def _scheme(self) -> type[ConsensusSignatureScheme]:
+        return type(self._signer)
+
+    # ── Proposal lifecycle ─────────────────────────────────────────────
+
+    def create_proposal(
+        self,
+        scope: Scope,
+        request: CreateProposalRequest,
+        now: int,
+        config: ConsensusConfig | None = None,
+    ) -> Proposal:
+        """Create a local proposal and claim a pool slot
+        (reference: src/service.rs:183-209)."""
+        proposal = request.into_proposal(now)
+        regenerate_until_unique(
+            proposal, lambda pid: (scope, pid) in self._index
+        )
+        validate_proposal_timestamp(proposal.expiration_timestamp, now)
+        resolved = self._resolve_config(scope, config, proposal)
+        self._register(scope, proposal, resolved, now)
+        return proposal.clone()
+
+    def _draw_unique_pids(self, existing: np.ndarray, count: int) -> np.ndarray:
+        """Batch id draw: one urandom read, vectorized collision rejection
+        against ``existing`` live pids and within the batch itself (0 is
+        treated as a collision: proto3 drops zero fields from the wire)."""
+        ids = np.frombuffer(os.urandom(4 * count), dtype=np.uint32).astype(np.int64)
+        for _ in range(64):
+            bad = np.isin(ids, existing) | (ids == 0)
+            _, first_idx, inverse, counts = np.unique(
+                ids, return_index=True, return_inverse=True, return_counts=True
+            )
+            is_first = np.zeros(count, bool)
+            is_first[first_idx] = True
+            bad |= (counts[inverse] > 1) & ~is_first
+            n_bad = int(bad.sum())
+            if n_bad == 0:
+                return ids
+            ids[bad] = np.frombuffer(
+                os.urandom(4 * n_bad), dtype=np.uint32
+            ).astype(np.int64)
+        raise RuntimeError("could not draw unique proposal ids")  # pragma: no cover
+
+    def create_proposals(
+        self,
+        scope: Scope,
+        requests: list[CreateProposalRequest],
+        now: int,
+        config: ConsensusConfig | None = None,
+    ) -> list[Proposal]:
+        """Batch counterpart of create_proposal: one device dispatch claims
+        and configures every slot. Success semantics match calling
+        create_proposal in a loop; the error path is batch-atomic (any
+        invalid request raises before anything registers). A scope that
+        would exceed its session cap takes the per-proposal path, whose
+        LRU eviction interleaves with insertion as the reference's does."""
+        existing = len(self._scopes.get(scope, []))
+        if existing + len(requests) > self._max_sessions_per_scope:
+            return [self.create_proposal(scope, r, now, config) for r in requests]
+        if not requests:
+            return []
+        pids = self._draw_unique_pids(self._pid_table(scope)[0], len(requests))
+        proposals: list[Proposal] = []
+        configs: list[ConsensusConfig] = []
+        # Config resolution is identical for requests sharing (expiration,
+        # liveness) when no per-proposal override exists — memoize.
+        cfg_cache: dict = {}
+        for request, pid in zip(requests, pids.tolist()):
+            proposal = request.into_proposal(now, pid=pid)
+            validate_proposal_timestamp(proposal.expiration_timestamp, now)
+            key = (proposal.expiration_timestamp, proposal.liveness_criteria_yes)
+            resolved = cfg_cache.get(key)
+            if resolved is None:
+                resolved = self._resolve_config(scope, config, proposal)
+                cfg_cache[key] = resolved
+            proposals.append(proposal)
+            configs.append(resolved)
+
+        n_arr = np.asarray([r.expected_voters_count for r in requests], np.int64)
+        thr = np.asarray([c.consensus_threshold for c in configs], np.float64)
+        gossip = np.asarray([c.use_gossipsub_rounds for c in configs], bool)
+        maxr = np.asarray([c.max_rounds for c in configs], np.int64)
+        req_arr = required_votes_np(n_arr, thr)
+        # max_round_limit semantics (reference: src/session.rs:120-128):
+        # gossipsub -> max_rounds; P2P -> explicit override, else the
+        # dynamic ceil(n*t) cap, which equals the required votes.
+        cap_arr = np.where(gossip, maxr, np.where(maxr == 0, req_arr, maxr))
+        slots = self._pool.allocate_batch(
+            keys=[(scope, p.proposal_id) for p in proposals],
+            n=n_arr,
+            req=req_arr,
+            cap=cap_arr,
+            gossip=gossip,
+            liveness=np.asarray([p.liveness_criteria_yes for p in proposals], bool),
+            expiry=np.asarray([p.expiration_timestamp for p in proposals], np.int64),
+            created_at=np.full(len(proposals), now, np.int64),
+        )
+        # Batch-registered records keep seq 0 and leave the per-scope
+        # sequence alone, as the JAX engine's batch registration does, so
+        # later LRU evictions rank sessions identically.
+        for slot, proposal, cfg in zip(slots, proposals, configs):
+            self._track(SessionRecord(scope, slot, proposal, cfg, now))
+        self._drop_pid_cache(scope)
+        return [p.clone() for p in proposals]
+
+    def _register(
+        self,
+        scope: Scope,
+        proposal: Proposal,
+        config: ConsensusConfig,
+        now: int,
+    ) -> None:
+        """Claim a pool slot for the proposal after the per-scope LRU
+        eviction. Raises PoolFullError when no slot is free and ValueError
+        when the proposal needs more voter lanes than the pool has."""
+        if self._evict_for(scope, now):
+            # The incoming session itself loses the LRU ranking (created_at
+            # tie): never tracked, nothing allocated — the same observable
+            # result as insert-then-trim.
+            return
+        slot = allocate_slot(
+            self._pool, (scope, proposal.proposal_id), proposal, config, now
+        )
+        seq = self._scope_seq.get(scope, 0)
+        self._scope_seq[scope] = seq + 1
+        self._track(SessionRecord(scope, slot, proposal, config, now, seq=seq))
+        self._drop_pid_cache(scope)
+
+    def _track(self, record: SessionRecord[Scope]) -> None:
+        scope = record.scope
+        self._records[record.slot] = record
+        self._index[(scope, record.proposal.proposal_id)] = record.slot
+        self._scopes.setdefault(scope, []).append(record.slot)
+
+    # ── Voting ─────────────────────────────────────────────────────────
+
+    def cast_vote(self, scope: Scope, proposal_id: int, choice: bool, now: int) -> Vote:
+        """Sign, chain, and apply this peer's vote
+        (reference: src/service.rs:216-237)."""
+        record = self._get_record(scope, proposal_id)
+        validate_proposal_timestamp(record.proposal.expiration_timestamp, now)
+        if self._signer.identity() in record.votes:
+            raise UserAlreadyVoted()
+        vote = build_vote(record.proposal, choice, self._signer, now)
+        statuses = self.ingest_votes([(scope, vote)], now, pre_validated=True)
+        exc = error_for_code(int(statuses[0]))
+        if exc is not None:
+            raise exc()
+        return vote
+
+    def process_incoming_vote(self, scope: Scope, vote: Vote, now: int) -> None:
+        """Scalar network-vote entry point (reference: src/service.rs:286-305):
+        full host validation, then the batched device path."""
+        statuses = self.ingest_votes([(scope, vote)], now)
+        exc = error_for_code(int(statuses[0]))
+        if exc is not None:
+            raise exc()
+
+    def ingest_votes(
+        self,
+        items: list[tuple[Scope, Vote]],
+        now: int,
+        pre_validated: bool = False,
+    ) -> np.ndarray:
+        """The batch path: apply many votes across many sessions and scopes
+        in one device dispatch.
+
+        Per vote: resolve the session, host-validate (hash, signature,
+        replay/expiry — skipped when ``pre_validated``), map owner→lane,
+        then run the arrival-ordered ingest scan. Emits ConsensusReached
+        for every session the batch decides. Returns int32 status codes in
+        batch order (StatusCode.OK / ALREADY_REACHED are successes).
+        """
+        batch = len(items)
+        statuses = np.zeros(batch, np.int32)
+        dev_rows: list[int] = []  # indices into items that reach the device
+        slots = np.empty(batch, np.int64)
+        lanes = np.empty(batch, np.int32)
+        values = np.empty(batch, bool)
+        # Same-batch chain tails per record: a chained run (v2 extends the
+        # tail, v3 extends v2) must see v2 as the effective tail although
+        # its host-side append happens after the dispatch.
+        pending_tail: dict[int, bytes] = {}
+
+        # Batched signature verification: one scheme call for the batch,
+        # verdicts injected into the per-vote check sequence (exact scalar
+        # error precedence). A single unvalidated vote verifies inline.
+        sig_verdicts: dict[int, object] = {}
+        if not pre_validated and batch > 1:
+            idxs = [
+                i for i, (scope, vote) in enumerate(items)
+                if (scope, vote.proposal_id) in self._index
+            ]
+            if idxs:
+                sub = [items[i][1] for i in idxs]
+                verdicts = self._scheme.verify_batch_submit(
+                    [v.vote_owner for v in sub],
+                    [v.signing_payload() for v in sub],
+                    [v.signature for v in sub],
+                ).collect()
+                sig_verdicts = dict(zip(idxs, verdicts))
+
+        for i, (scope, vote) in enumerate(items):
+            slot = self._index.get((scope, vote.proposal_id))
+            if slot is None:
+                statuses[i] = int(StatusCode.SESSION_NOT_FOUND)
+                continue
+            record = self._records[slot]
+            if not pre_validated:
+                try:
+                    validate_vote(
+                        vote,
+                        self._scheme,
+                        record.proposal.expiration_timestamp,
+                        record.proposal.timestamp,
+                        now,
+                        sig_verdict=sig_verdicts.get(i),
+                    )
+                except ConsensusError as exc:
+                    statuses[i] = int(exc.code)
+                    continue
+            # Dangling-vote guard: a FIRST-TIME voter whose received_hash
+            # names a vote this session never accepted is rejected instead
+            # of appended (an empty chain has no tail, so a first vote
+            # claiming a link is dangling by definition).
+            if vote.vote_owner not in record.votes:
+                if vote.received_hash:
+                    tail = pending_tail.get(
+                        slot,
+                        record.proposal.votes[-1].vote_hash
+                        if record.proposal.votes
+                        else b"",
+                    )
+                    if vote.received_hash != tail:
+                        statuses[i] = int(StatusCode.RECEIVED_HASH_MISMATCH)
+                        continue
+                pending_tail[slot] = vote.vote_hash
+            lane = self._pool.lane_for(slot, vote.vote_owner)
+            if lane is None:
+                statuses[i] = int(StatusCode.VOTER_CAPACITY_EXCEEDED)
+                continue
+            slots[len(dev_rows)] = slot
+            lanes[len(dev_rows)] = lane
+            values[len(dev_rows)] = vote.vote
+            dev_rows.append(i)
+
+        if not dev_rows:
+            return statuses
+
+        k = len(dev_rows)
+        dev_statuses, transitions = self._pool.ingest(
+            slots[:k], lanes[:k], values[:k], now
+        )
+        statuses[np.asarray(dev_rows)] = dev_statuses
+
+        # Host bookkeeping for accepted votes, in arrival order; remember the
+        # last accepted vote per slot — the vote that flipped a slot that
+        # ended the batch decided (OK can never follow REACHED).
+        last_ok: dict[int, int] = {}
+        for j, i in enumerate(dev_rows):
+            if dev_statuses[j] == int(StatusCode.OK):
+                _, vote = items[i]
+                record = self._records[int(slots[j])]
+                stored = vote.clone()  # as the scalar add_vote does
+                record.votes[stored.vote_owner] = stored
+                record.proposal.votes.append(stored)
+                record.bump_round(1)
+                last_ok[int(slots[j])] = j
+
+        # Events in per-vote arrival order, mirroring the scalar path: the
+        # deciding vote emits ConsensusReached, and every later vote to the
+        # decided session re-emits it (src/session.rs:246,
+        # src/service.rs:303). A STATE_FAILED transition emits nothing
+        # (src/session.rs:334-343).
+        newly_reached = {
+            slot: new_state
+            for slot, new_state in transitions
+            if new_state in (STATE_REACHED_YES, STATE_REACHED_NO)
+        }
+        for j, i in enumerate(dev_rows):
+            slot = int(slots[j])
+            code = int(dev_statuses[j])
+            emit_reached = (
+                code == int(StatusCode.OK)
+                and slot in newly_reached
+                and last_ok.get(slot) == j
+            ) or code == int(StatusCode.ALREADY_REACHED)
+            if emit_reached:
+                record = self._records[slot]
+                self._emit(
+                    record.scope,
+                    ConsensusReached(
+                        proposal_id=record.proposal.proposal_id,
+                        result=self._pool.state_of(slot) == STATE_REACHED_YES,
+                        timestamp=now,
+                    ),
+                )
+        return statuses
+
+    def voter_gid(self, owner: bytes) -> int:
+        """Intern an owner identity for the columnar ingest path
+        (generation-tagged: a gid freed by a session-releasing call is
+        rejected with EMPTY_VOTE_OWNER from then on)."""
+        return self._pool.voter_gid(owner)
+
+    def ingest_columnar(
+        self,
+        scope: Scope,
+        proposal_ids: np.ndarray,
+        voter_gids: np.ndarray,
+        values: np.ndarray,
+        now: int,
+        max_depth: int = 8,
+    ) -> np.ndarray:
+        """The throughput path: apply an arrival-ordered vote batch given as
+        dense columns — proposal ids, interned voter ids (:meth:`voter_gid`),
+        yes/no values — with no per-vote Python.
+
+        Same observable semantics as :meth:`ingest_votes` with
+        ``pre_validated=True``, except that no per-vote ``Vote`` objects are
+        kept host-side and events are ordered per session, not across
+        sessions. A batch of fresh slots with no repeated voter takes one
+        closed-form dispatch; any other batch runs the arrival-ordered scan
+        in segments of at most ``max_depth`` votes per slot. Returns int32
+        statuses in batch order.
+        """
+        proposal_ids = np.asarray(proposal_ids, np.int64)
+        voter_gids = np.asarray(voter_gids, np.int64)
+        values = np.asarray(values, bool)
+        statuses = np.full(
+            len(proposal_ids), int(StatusCode.SESSION_NOT_FOUND), np.int32
+        )
+        if len(proposal_ids) == 0:
+            return statuses
+        found, slots = self._pid_lookup(scope).lookup(proposal_ids)
+        return self._columnar_apply(
+            slots, found, voter_gids, values, now, max_depth, statuses
+        )
+
+    def _columnar_apply(
+        self,
+        slots: np.ndarray,
+        found: np.ndarray,
+        voter_gids: np.ndarray,
+        values: np.ndarray,
+        now: int,
+        max_depth: int,
+        statuses: np.ndarray,
+    ) -> np.ndarray:
+        """Slot-resolved columnar pipeline: gid filter, lane resolution,
+        the dispatch plan (fresh or segmented scan), round bookkeeping and
+        event emission."""
+        # Gids must be LIVE current-generation identities: out-of-range,
+        # freed and stale-generation ids get a typed per-row status.
+        bad_gid = ~self._pool.gids_live(voter_gids)
+        if bad_gid.any():
+            statuses[found & bad_gid] = int(StatusCode.EMPTY_VOTE_OWNER)
+            found = found & ~bad_gid
+        dev_rows = np.nonzero(found)[0]
+        if dev_rows.size == 0:
+            return statuses
+
+        def _group(s_sorted: np.ndarray):
+            b = len(s_sorted)
+            is_start = np.empty(b, bool)
+            is_start[0] = True
+            np.not_equal(s_sorted[1:], s_sorted[:-1], out=is_start[1:])
+            starts_idx = np.nonzero(is_start)[0]
+            grp = np.cumsum(is_start) - 1
+            col = np.arange(b) - starts_idx[grp]
+            counts = np.diff(np.append(starts_idx, b))
+            return s_sorted[starts_idx], starts_idx, grp, col, counts
+
+        # ONE stable slot-sort of the batch; grouping, lane assignment,
+        # depth segmentation and round bookkeeping all derive from the
+        # sorted domain.
+        dslots = slots[dev_rows]
+        dgids = voter_gids[dev_rows]
+        # Grouped-stream fast path: a proposal-major batch (each slot's rows
+        # contiguous, checked as "no slot starts two runs") is already a
+        # valid sorted-domain order, and its slot groups keep their order
+        # of appearance. Only probed when runs are few.
+        ordered = len(dslots) == 1
+        if len(dslots) > 1:
+            run_starts = np.empty(len(dslots), bool)
+            run_starts[0] = True
+            np.not_equal(dslots[1:], dslots[:-1], out=run_starts[1:])
+            n_runs = int(run_starts.sum())
+            if n_runs * 4 <= len(dslots):
+                ordered = len(np.unique(dslots[run_starts])) == n_runs
+        if ordered:
+            order = np.arange(len(dslots), dtype=np.int64)
+        else:
+            order = np.argsort(dslots, kind="stable")
+        sel = dev_rows[order]  # statuses-row index per sorted item
+        s_sorted = dslots[order]
+        uniq, starts_idx, grp_sorted, col_sorted, counts = _group(s_sorted)
+        lanes_sorted = self._pool.fresh_lanes_grouped(
+            s_sorted, voter_gids[sel] & 0xFFFFFFFF, col_sorted, uniq, counts
+        )
+        fast_lanes = lanes_sorted is not None
+        if lanes_sorted is None:
+            # General path (pre-voted slots or an in-batch duplicate voter).
+            lanes_sorted = self._pool.lanes_for_batch(
+                dslots, dgids, assume_live=True
+            )[order]
+        no_lane = lanes_sorted < 0
+        if no_lane.any():
+            statuses[sel[no_lane]] = int(StatusCode.VOTER_CAPACITY_EXCEEDED)
+            keep = ~no_lane
+            order = order[keep]
+            sel = sel[keep]
+            s_sorted = s_sorted[keep]
+            lanes_sorted = lanes_sorted[keep]
+            if len(order) == 0:
+                return statuses
+            uniq, starts_idx, grp_sorted, col_sorted, counts = _group(s_sorted)
+        vals_sorted = values[sel]
+
+        # Dispatch plan. Preferred: ONE closed-form (scan-free) dispatch —
+        # valid when the fast lane path ran (fresh slots, no duplicate
+        # voters) and every touched slot is still ACTIVE, within the padded
+        # cell budget. Otherwise: bounded-depth scan segments (segment k
+        # holds votes [k*D, (k+1)*D) of every slot, uniform depth D).
+        segs: list[tuple] = []  # (uniq_k, rows_k, cols_k, depth_k, idx_k, fresh)
+        depth = int(counts.max())
+        everything = np.arange(len(order), dtype=np.int64)
+        if fast_lanes and self._pool.fresh_ingest_viable(uniq, depth, len(order)):
+            segs.append((uniq, grp_sorted, col_sorted, depth, everything, True))
+        elif depth > max_depth:
+            d = max_depth
+            for k in range(-(-depth // d)):
+                seg_mask = counts > k * d
+                g_starts = starts_idx[seg_mask] + k * d
+                g_lens = np.minimum(counts[seg_mask] - k * d, d)
+                m = int(g_lens.sum())
+                off = np.zeros(len(g_lens) + 1, np.int64)
+                np.cumsum(g_lens, out=off[1:])
+                local = np.arange(m, dtype=np.int64) - np.repeat(off[:-1], g_lens)
+                idx_k = np.repeat(g_starts, g_lens) + local
+                rows_k = np.repeat(
+                    np.arange(int(seg_mask.sum()), dtype=np.int64), g_lens
+                )
+                segs.append((uniq[seg_mask], rows_k, local, d, idx_k, False))
+        else:
+            segs.append((uniq, grp_sorted, col_sorted, depth, everything, False))
+
+        pendings = []
+        orig_of = []  # statuses rows per pending, in dispatch item order
+        for uniq_k, rows_k, cols_k, depth_k, idx_k, fresh_k in segs:
+            pendings.append(
+                self._pool.ingest_async_grouped(
+                    uniq_k,
+                    rows_k,
+                    cols_k,
+                    depth_k,
+                    lanes_sorted[idx_k],
+                    vals_sorted[idx_k],
+                    now,
+                    fresh=fresh_k,
+                )
+            )
+            orig_of.append(sel[idx_k])
+        results = self._pool.complete_all(pendings)
+
+        reached_transitions: list[tuple[int, int]] = []
+        for orig_rows, (seg_statuses, transitions) in zip(orig_of, results):
+            statuses[orig_rows] = seg_statuses
+            reached_transitions.extend(
+                (slot, st) for slot, st in transitions
+                if st in (STATE_REACHED_YES, STATE_REACHED_NO)
+            )
+
+        # Round bookkeeping per touched slot, via bincount over the
+        # sorted-domain group index (totals are order-independent).
+        sorted_statuses = statuses[sel]
+        ok_m = sorted_statuses == int(StatusCode.OK)
+        if ok_m.any():
+            cnt = np.bincount(grp_sorted[ok_m], minlength=len(uniq))
+            for g in np.nonzero(cnt)[0].tolist():
+                self._records[int(uniq[g])].bump_round(int(cnt[g]))
+
+        # Events: one ConsensusReached per deciding transition plus one per
+        # late (ALREADY_REACHED) vote — the scalar path's per-session counts;
+        # cross-session order is per-slot grouped.
+        for slot, new_state in reached_transitions:
+            record = self._records[slot]
+            self._emit(
+                record.scope,
+                ConsensusReached(
+                    proposal_id=record.proposal.proposal_id,
+                    result=new_state == STATE_REACHED_YES,
+                    timestamp=now,
+                ),
+            )
+        ar_m = sorted_statuses == int(StatusCode.ALREADY_REACHED)
+        if ar_m.any():
+            cnt = np.bincount(grp_sorted[ar_m], minlength=len(uniq))
+            for g in np.nonzero(cnt)[0].tolist():
+                slot = int(uniq[g])
+                record = self._records[slot]
+                event = ConsensusReached(
+                    proposal_id=record.proposal.proposal_id,
+                    result=self._pool.state_of(slot) == STATE_REACHED_YES,
+                    timestamp=now,
+                )
+                for _ in range(int(cnt[g])):
+                    self._emit(record.scope, event)
+        return statuses
+
+    def _drop_pid_cache(self, scope: Scope) -> None:
+        self._pid_tables.pop(scope, None)
+        self._pid_hashes.pop(scope, None)
+
+    def _pid_lookup(self, scope: Scope) -> "_PidLookup":
+        """Vectorized pid -> slot hash for one scope (lazily rebuilt)."""
+        lookup = self._pid_hashes.get(scope)
+        if lookup is None:
+            lookup = _PidLookup(*self._pid_table(scope))
+            self._pid_hashes[scope] = lookup
+        return lookup
+
+    def _pid_table(self, scope: Scope) -> tuple[np.ndarray, np.ndarray]:
+        """(proposal_ids, slots) membership arrays for one scope; rebuilt
+        lazily after any membership change."""
+        table = self._pid_tables.get(scope)
+        if table is None:
+            scope_slots = self._scopes.get(scope, [])
+            pids = np.fromiter(
+                (self._records[s].proposal.proposal_id for s in scope_slots),
+                np.int64,
+                len(scope_slots),
+            )
+            table = (pids, np.fromiter(scope_slots, np.int64, len(scope_slots)))
+            self._pid_tables[scope] = table
+        return table
+
+    # ── Timeouts ───────────────────────────────────────────────────────
+
+    def handle_consensus_timeout(self, scope: Scope, proposal_id: int, now: int) -> bool:
+        """App-driven timeout for one session
+        (reference: src/service.rs:323-373). Idempotent for decided sessions;
+        raises InsufficientVotesAtTimeout (after emitting ConsensusFailed)
+        when undecidable."""
+        slot = self._index.get((scope, proposal_id))
+        if slot is None:
+            raise SessionNotFound()
+        [(_, new_state)] = self._pool.timeout([slot])
+        if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
+            result = new_state == STATE_REACHED_YES
+            self._emit(
+                scope,
+                ConsensusReached(proposal_id=proposal_id, result=result, timestamp=now),
+            )
+            return result
+        self._emit(scope, ConsensusFailedEvent(proposal_id=proposal_id, timestamp=now))
+        raise InsufficientVotesAtTimeout()
+
+    def sweep_timeouts(self, now: int) -> list[tuple[Scope, int, bool | None]]:
+        """Fire the timeout decision for every still-ACTIVE session whose
+        expiration has passed, in one device dispatch. Returns
+        (scope, proposal_id, result-or-None) per swept session and emits the
+        same events as per-session timeouts. A FAILED session is not swept
+        again (its tallies are frozen, so it would re-fail forever)."""
+        expired = [
+            slot
+            for slot in self._records
+            if self._pool.state_of(slot) == STATE_ACTIVE
+            and self._pool.meta(slot).expiry <= now
+        ]
+        out: list[tuple[Scope, int, bool | None]] = []
+        for slot, new_state in self._pool.timeout(expired):
+            record = self._records[slot]
+            pid = record.proposal.proposal_id
+            if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
+                result = new_state == STATE_REACHED_YES
+                self._emit(
+                    record.scope,
+                    ConsensusReached(proposal_id=pid, result=result, timestamp=now),
+                )
+                out.append((record.scope, pid, result))
+            else:
+                self._emit(
+                    record.scope, ConsensusFailedEvent(proposal_id=pid, timestamp=now)
+                )
+                out.append((record.scope, pid, None))
+        return out
+
+    # ── Queries (reference: src/storage.rs:112-180 derived helpers) ────
+
+    def get_proposal(self, scope: Scope, proposal_id: int) -> Proposal:
+        return self._get_record(scope, proposal_id).proposal.clone()
+
+    def get_consensus_result(self, scope: Scope, proposal_id: int) -> bool | None:
+        """None while active; raises ConsensusFailed for a failed session
+        (reference: src/storage.rs:112-126)."""
+        state = self._pool.state_of(self._get_record(scope, proposal_id).slot)
+        if state == STATE_REACHED_YES:
+            return True
+        if state == STATE_REACHED_NO:
+            return False
+        if state == STATE_FAILED:
+            raise ConsensusFailed()
+        return None
+
+    def get_active_proposals(self, scope: Scope) -> list[Proposal]:
+        return [
+            r.proposal.clone()
+            for r in self._scope_records(scope)
+            if self._pool.state_of(r.slot) == STATE_ACTIVE
+        ]
+
+    def get_reached_proposals(self, scope: Scope) -> list[tuple[Proposal, bool]]:
+        out = []
+        for r in self._scope_records(scope):
+            state = self._pool.state_of(r.slot)
+            if state in (STATE_REACHED_YES, STATE_REACHED_NO):
+                out.append((r.proposal.clone(), state == STATE_REACHED_YES))
+        return out
+
+    def get_scope_stats(self, scope: Scope) -> ConsensusStats:
+        """reference: src/service_stats.rs:32-59 (zeros for unknown scope)."""
+        stats = ConsensusStats()
+        for r in self._scope_records(scope):
+            stats.total_sessions += 1
+            state = self._pool.state_of(r.slot)
+            if state == STATE_ACTIVE:
+                stats.active_sessions += 1
+            elif state == STATE_FAILED:
+                stats.failed_sessions += 1
+            else:
+                stats.consensus_reached += 1
+        return stats
+
+    def occupancy(self) -> dict:
+        """Capacity snapshot: live sessions and device slots claimed vs the
+        pool's capacity."""
+        with self._lock:
+            live = len(self._records)
+        return {
+            "live_sessions": live,
+            "device_slots_used": live,
+            "capacity": self._pool.capacity,
+            "voter_capacity": self._pool.voter_capacity,
+        }
+
+    # ── Scope config (reference: src/service.rs:375-484) ───────────────
+
+    def scope(self, scope: Scope) -> "ScopeConfigBuilderWrapper[Scope]":
+        """Fluent per-scope configuration builder, same surface as the
+        scalar service (reference: src/service.rs:558-668)."""
+        existing = self._scope_configs.get(scope)
+        builder = (
+            ScopeConfigBuilder.from_existing(existing)
+            if existing is not None
+            else ScopeConfigBuilder()
+        )
+        return ScopeConfigBuilderWrapper(self, scope, builder)
+
+    def set_scope_config(self, scope: Scope, config: ScopeConfig) -> None:
+        config.validate()
+        self._scope_configs[scope] = config
+
+    def get_scope_config(self, scope: Scope) -> ScopeConfig | None:
+        return self._scope_configs.get(scope)
+
+    # ScopeConfigBuilderWrapper terminal hooks.
+    def _initialize_scope(self, scope: Scope, config: ScopeConfig) -> None:
+        self.set_scope_config(scope, config)
+
+    def _update_scope_config(self, scope: Scope, config: ScopeConfig) -> None:
+        """Create-default-then-mutate-then-validate, matching
+        InMemoryConsensusStorage.update_scope_config
+        (reference: src/storage.rs:366-375)."""
+        existing = self._scope_configs.get(scope, ScopeConfig())
+        existing.network_type = config.network_type
+        existing.default_consensus_threshold = config.default_consensus_threshold
+        existing.default_timeout = config.default_timeout
+        existing.default_liveness_criteria_yes = config.default_liveness_criteria_yes
+        existing.max_rounds_override = config.max_rounds_override
+        existing.demote_after = config.demote_after
+        existing.evict_decided_after = config.evict_decided_after
+        existing.decide_p99_ms = config.decide_p99_ms
+        existing.timeout_min = config.timeout_min
+        existing.timeout_max = config.timeout_max
+        existing.validate()
+        self._scope_configs[scope] = existing
+
+    def _resolve_config(
+        self,
+        scope: Scope,
+        proposal_override: ConsensusConfig | None,
+        proposal: Proposal,
+    ) -> ConsensusConfig:
+        """Same precedence as the service: explicit override > scope config >
+        gossipsub default; timeout from the proposal's expiration window
+        unless overridden; liveness always from the proposal
+        (reference: src/service.rs:440-484)."""
+        if proposal_override is not None:
+            base = proposal_override
+            timeout_seconds = base.consensus_timeout
+        else:
+            scope_config = self._scope_configs.get(scope)
+            base = (
+                ConsensusConfig.from_scope_config(scope_config)
+                if scope_config is not None
+                else ConsensusConfig.gossipsub()
+            )
+            if proposal.expiration_timestamp > proposal.timestamp:
+                timeout_seconds = float(
+                    proposal.expiration_timestamp - proposal.timestamp
+                )
+            else:
+                timeout_seconds = base.consensus_timeout
+        return ConsensusConfig(
+            consensus_threshold=base.consensus_threshold,
+            consensus_timeout=timeout_seconds,
+            max_rounds=base.max_rounds,
+            use_gossipsub_rounds=base.use_gossipsub_rounds,
+            liveness_criteria=proposal.liveness_criteria_yes,
+        )
+
+    # ── Internals ──────────────────────────────────────────────────────
+
+    def _get_record(self, scope: Scope, proposal_id: int) -> SessionRecord[Scope]:
+        slot = self._index.get((scope, proposal_id))
+        if slot is None:
+            raise SessionNotFound()
+        return self._records[slot]
+
+    def _scope_records(self, scope: Scope) -> list[SessionRecord[Scope]]:
+        return [self._records[s] for s in self._scopes.get(scope, [])]
+
+    def _evict_for(self, scope: Scope, now: int) -> bool:
+        """LRU-by-created_at eviction beyond the per-scope cap
+        (reference: src/service.rs:512-522), applied for an incoming session
+        stamped ``created_at=now`` before it is allocated: keep the newest
+        ``max`` of incumbents+newcomer (ties favor incumbents, matching the
+        insert-then-trim stable sort). Evicts surplus incumbents; returns
+        True when the newcomer itself loses the ranking."""
+        slots = self._scopes.get(scope, [])
+        if len(slots) + 1 <= self._max_sessions_per_scope:
+            return False
+        items = [(self._records[s].created_at, self._records[s].seq, s) for s in slots]
+        newcomer = (now, float("inf"), None)
+        items.append(newcomer)
+        items.sort(key=lambda t: t[1])
+        items.sort(key=lambda t: t[0], reverse=True)
+        keep = items[: self._max_sessions_per_scope]
+        evicted = [s for _, _, s in items[self._max_sessions_per_scope:] if s is not None]
+        if evicted:
+            gone = set(evicted)
+            for slot in evicted:
+                record = self._records.pop(slot)
+                del self._index[(scope, record.proposal.proposal_id)]
+            self._scopes[scope] = [s for s in slots if s not in gone]
+            self._pool.release(evicted)
+            self._drop_pid_cache(scope)
+        return newcomer not in keep
+
+    def _emit(self, scope: Scope, event: ConsensusEvent) -> None:
+        self._event_bus.publish(scope, event)
+
+
+class _PidLookup:
+    """Open-addressing proposal-id -> slot hash with fully vectorized
+    probing. Fibonacci hashing, power-of-two size, load factor <= 0.5."""
+
+    _GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+
+    def __init__(self, pids: np.ndarray, slots: np.ndarray):
+        n = max(len(pids), 1)
+        size = 1
+        while size < 2 * n:
+            size <<= 1
+        self._shift = np.uint64(64 - (size.bit_length() - 1))
+        self._mask = np.int64(size - 1)
+        self.keys = np.full(size, -1, np.int64)
+        self.vals = np.zeros(size, np.int64)
+        if len(pids) == 0:
+            return
+        rem_pids = np.asarray(pids, np.int64)
+        rem_slots = np.asarray(slots, np.int64)
+        if (rem_pids == -1).any():
+            raise ValueError("proposal id -1 collides with the hash sentinel")
+        h = self._bucket(rem_pids)
+        while rem_pids.size:
+            # A bucket contested by several pending keys: the first occupant
+            # wins, the rest advance one step (linear probing).
+            empty = self.keys[h] == -1
+            _, first = np.unique(h, return_index=True)
+            win = np.zeros(len(h), bool)
+            win[first] = True
+            place = empty & win
+            self.keys[h[place]] = rem_pids[place]
+            self.vals[h[place]] = rem_slots[place]
+            rest = ~place
+            h = (h[rest] + 1) & self._mask
+            rem_pids = rem_pids[rest]
+            rem_slots = rem_slots[rest]
+
+    def _bucket(self, q: np.ndarray) -> np.ndarray:
+        return ((q.astype(np.uint64) * self._GOLDEN) >> self._shift).astype(np.int64)
+
+    def lookup(self, q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (found bool[B], slot int64[B]; 0 where not found)."""
+        q = np.asarray(q, np.int64)
+        found = np.zeros(len(q), bool)
+        out = np.zeros(len(q), np.int64)
+        # -1 is the empty-bucket sentinel and is never stored.
+        active = np.nonzero(q != -1)[0]
+        h = self._bucket(q[active])
+        while active.size:
+            k = self.keys[h]
+            hit = (k == q[active]) & (k != -1)
+            if hit.any():
+                rows = active[hit]
+                found[rows] = True
+                out[rows] = self.vals[h[hit]]
+            cont = ~hit & (k != -1)
+            active = active[cont]
+            h = (h[cont] + 1) & self._mask
+        return found, out
+
+
+class ScopeConfigBuilderWrapper(Generic[Scope]):
+    """Builder bound to a service+scope with terminal ``initialize``/``update``
+    (reference: src/service.rs:558-668)."""
+
+    def __init__(
+        self,
+        service: "TorchConsensusEngine[Scope]",
+        scope: Scope,
+        builder: ScopeConfigBuilder,
+    ):
+        self._service = service
+        self._scope = scope
+        self._builder = builder
+
+    def with_network_type(self, network_type: NetworkType) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_network_type(network_type)
+        return self
+
+    def with_threshold(self, threshold: float) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_threshold(threshold)
+        return self
+
+    def with_timeout(self, timeout_seconds: float) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_timeout(timeout_seconds)
+        return self
+
+    def with_liveness_criteria(self, liveness_criteria_yes: bool) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_liveness_criteria(liveness_criteria_yes)
+        return self
+
+    def with_max_rounds(self, max_rounds: int | None) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_max_rounds(max_rounds)
+        return self
+
+    def with_demote_after(self, seconds: float | None) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_demote_after(seconds)
+        return self
+
+    def with_evict_decided_after(self, seconds: float | None) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_evict_decided_after(seconds)
+        return self
+
+    def with_decide_p99_ms(self, ms: float | None) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_decide_p99_ms(ms)
+        return self
+
+    def with_timeout_bounds(
+        self, timeout_min: float | None, timeout_max: float | None
+    ) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_timeout_bounds(timeout_min, timeout_max)
+        return self
+
+    def p2p_preset(self) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.p2p_preset()
+        return self
+
+    def gossipsub_preset(self) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.gossipsub_preset()
+        return self
+
+    def strict_consensus(self) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.strict_consensus()
+        return self
+
+    def fast_consensus(self) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.fast_consensus()
+        return self
+
+    def with_network_defaults(self, network_type: NetworkType) -> "ScopeConfigBuilderWrapper[Scope]":
+        self._builder.with_network_defaults(network_type)
+        return self
+
+    def initialize(self) -> None:
+        """Persist as the scope's configuration (validated)."""
+        self._service._initialize_scope(self._scope, self._builder.build())
+
+    def update(self) -> None:
+        """Overwrite the existing scope configuration (validated)."""
+        self._service._update_scope_config(self._scope, self._builder.build())
+
+    def get_config(self) -> ScopeConfig:
+        return self._builder.get_config()
+
+
+def _synchronized(fn):
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+
+    return wrapper
+
+
+# Public API surface runs under the engine lock (reentrant: scalar entry
+# points funnel into ingest_votes).
+for _name in (
+    "create_proposal",
+    "create_proposals",
+    "ingest_columnar",
+    "voter_gid",
+    "cast_vote",
+    "process_incoming_vote",
+    "ingest_votes",
+    "handle_consensus_timeout",
+    "sweep_timeouts",
+    "get_proposal",
+    "get_consensus_result",
+    "get_active_proposals",
+    "get_reached_proposals",
+    "get_scope_stats",
+    "set_scope_config",
+    "get_scope_config",
+    "_initialize_scope",
+    "_update_scope_config",
+):
+    setattr(
+        TorchConsensusEngine,
+        _name,
+        _synchronized(getattr(TorchConsensusEngine, _name)),
+    )

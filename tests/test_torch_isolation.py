@@ -1,0 +1,88 @@
+"""The port imports no JAX and nothing of the JAX package.
+
+The run-time check happens in a fresh interpreter with ``jax`` and
+``hashgraph_tpu`` blocked in ``sys.modules``, so this test process keeps
+its own modules untouched. A static scan covers every import statement of
+the package and of ``chip_smoke.py``, including imports inside functions.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "hashgraph_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "hashgraph_tpu")
+
+CYCLE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["hashgraph_tpu"] = None
+import hashgraph_tpu_torch as ht
+for info in pkgutil.walk_packages(ht.__path__, "hashgraph_tpu_torch."):
+    importlib.import_module(info.name)
+import torch
+torch.set_num_threads(1)
+eng = ht.TorchConsensusEngine(ht.StubConsensusSigner(b"me"), 8, 4, device="cpu")
+rx = eng.event_bus().subscribe()
+p = eng.create_proposal("s", ht.CreateProposalRequest(
+    name="x", payload=b"", proposal_owner=b"me", expected_voters_count=3,
+    expiration_timestamp=60, liveness_criteria_yes=True), 1000)
+eng.cast_vote("s", p.proposal_id, True, 1001)
+prop = eng.get_proposal("s", p.proposal_id)
+eng.process_incoming_vote(
+    "s", ht.build_vote(prop, True, ht.StubConsensusSigner(b"peer"), 1002), 1002)
+assert eng.get_consensus_result("s", p.proposal_id) is True
+assert type(rx.try_recv()[1]).__name__ == "ConsensusReached"
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "jaxlib") or m.startswith("hashgraph_tpu.")))
+print("LOADED", loaded)
+"""
+
+
+def test_full_cycle_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", CYCLE],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout
+
+
+def _imports(path: Path):
+    """(module, line) for every import statement in a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module, node.lineno
+
+
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_anywhere(path):
+    bad = [(m, line) for m, line in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_build_or_triton_at_import_time(path):
+    """Kernels are built inside the function that launches them: nothing at
+    module level imports triton or PyTorch's extension builder."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            assert not name.startswith(("triton", "torch.utils.cpp_extension")), name
