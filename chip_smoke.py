@@ -18,20 +18,33 @@ the README's single-chip engine (``capacity=100_000``,
 4. BASELINE config 2: one P2P proposal × 1024 voters in 8 columnar calls of
    128 votes (decision at vote 683);
 5. timeouts: silent peers under both liveness settings, a vote after
-   expiry, ``sweep_timeouts`` and per-session timeouts.
+   expiry, ``sweep_timeouts`` and per-session timeouts;
+6. the field-multiply kernel against its plain version: ``fe_mul`` against
+   ``field._mul_plain`` bit-exact at the MSM's shape, 16,384 lanes, on
+   seeded carried inputs plus the boundary and carry-ripple rows, and
+   ``field.pow22523`` through the kernel against it through the plain
+   multiply at 8,192 lanes, with times per launch and the bound;
+7. validated ingest through device verification (the slice-2 main path): a
+   GPU engine signed by an ``Ed25519DeviceConsensusSigner`` takes 256
+   proposals x 16 voters (64 voter keys) as one ``ingest_votes`` call of
+   4,096 Ed25519-signed votes — one device batch — then a call of 64 votes
+   holding a corrupted scalar, an s >= L, an undecodable key and an R with
+   its sign bit flipped, which forces the host blame pass. A CPU engine
+   with the host signer (the pure-Python twin) takes the same vote bytes.
 
-Phases 3-5 run the same traffic on a ``device="cpu"`` port engine (plain
-scan) and require identical statuses, results, events per session and
-scope stats. Launch counts are reset just before each phase and read just
-after it. The last lines are the kernel table as JSON, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
-without the package beside it, the script exits non-zero and prints no
-result.
+Phases 3-5 and 7 run the same traffic on a ``device="cpu"`` port engine
+and require identical statuses, results, events per session and scope
+stats. Launch counts are reset just before each phase and read just after
+it. The last lines are the kernel table as JSON, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or without the
+package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import random
 import subprocess
 import sys
 import time
@@ -43,6 +56,10 @@ NOW = 1_700_000_000
 CAPACITY = 100_000
 VOTER_CAPACITY = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+# H100 SXM 32-bit integer rate: the data sheet's 67 TFLOP/s float32 is 132
+# SMs x 128 FP32 lanes x 2 (FMA) x 1.98 GHz; each SM has 64 INT32 lanes, so
+# 132 x 64 x 1.98e9 = 67e12 / 4 integer operations per second.
+INT32_OPS_PER_S = 67e12 / 4
 
 
 def log(msg: str) -> None:
@@ -406,6 +423,319 @@ def timeout_traffic(run, seed):
     return log_
 
 
+# ── Phase 6: the field-multiply kernel against its plain version ───────
+
+MSM_LANES = 16_384  # the MSM's lane bucket for one batch of 4,096 signatures
+DECOMPRESS_LANES = 8_192  # A and R of 4,096 signatures
+# Integer operations of one field product, as csrc/fe_mul.cu does them:
+# 256 limb products; per product a mask, a shift and two column adds; the
+# fold (16 multiplies by 38, 16 adds); two carry-save passes (16 shifts, 16
+# masks, 15 adds, the fold's multiply and add); two sequential passes (16
+# adds, 16 masks, 16 shifts, the fold's multiply and add).
+FE_MUL_OPS_PER_LANE = 256 + 256 * 4 + 32 + 2 * 49 + 2 * 50
+FE_MUL_BYTES_PER_LANE = 3 * 16 * 8  # two int64 operands read, one written
+
+
+def field_rows(seed, lanes):
+    """Carried operands from a seeded ``torch.Generator``, with the
+    boundary and carry-ripple rows of the JAX package's field battery in
+    the first ten lanes: 0, 1, 19, p-1, p, p+1, 2p, 2^256-1, 2^256-2^240
+    and (2^256-2^240)|0xFFFF against 2^256-1."""
+    from hashgraph_tpu_torch.crypto_device import field
+
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randint(0, 1 << 16, (lanes, 16), generator=gen, dtype=torch.int64)
+    b = torch.randint(0, 1 << 16, (lanes, 16), generator=gen, dtype=torch.int64)
+    p = field.P
+    edge_a = [0, 1, 19, p - 1, p, p + 1, 2 * p, 2**256 - 1, 2**256 - 2**240,
+              (2**256 - 2**240) | 0xFFFF]
+    edge_b = [2**256 - 1] * 3 + [1, 0, p, 1, 2**256 - 1, 1, 2**256 - 1]
+    for i, (x, y) in enumerate(zip(edge_a, edge_b)):
+        a[i] = torch.from_numpy(field._int_to_limbs(x))
+        b[i] = torch.from_numpy(field._int_to_limbs(y))
+    return a, b
+
+
+@contextlib.contextmanager
+def plain_field_mul():
+    """Route ``field.mul`` to the plain version (for the comparison only)."""
+    from hashgraph_tpu_torch.crypto_device import field
+
+    kernel_mul = field.mul
+    field.mul = field._mul_plain
+    try:
+        yield
+    finally:
+        field.mul = kernel_mul
+
+
+def device_ms(fn, reps):
+    """Device time per call of ``fn``: the stream is held by a sleep while
+    the host enqueues ``reps`` calls, so the calls run back to back and the
+    host's launch cost stays out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_field(dev):
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.crypto_device import cuda_field, field
+
+    a, b = (t.to(dev) for t in field_rows(6, MSM_LANES))
+    plain = field._mul_plain(a, b)
+    before = _build.launches[cuda_field.KERNEL]
+    kern = cuda_field.fe_mul(a, b)
+    torch.cuda.synchronize()
+    if _build.launches[cuda_field.KERNEL] != before + 1:
+        raise AssertionError("the fe_mul wrapper did not count its launch")
+    max_err = int((kern - plain).abs().max())
+    if not torch.equal(kern, plain):
+        bad = int((kern != plain).any(dim=-1).sum())
+        raise AssertionError(f"fe_mul differs from the plain version in {bad} lanes")
+    if not bool(((kern >= 0) & (kern < 1 << 16)).all()):
+        raise AssertionError("fe_mul left a limb outside [0, 2^16)")
+    for i in range(10):
+        x, y = field.limbs_to_int(a[i]), field.limbs_to_int(b[i])
+        if field.limbs_to_int(kern[i]) % field.P != x * y % field.P:
+            raise AssertionError(f"fe_mul boundary row {i} is not the product mod p")
+    log(f"[field] fe_mul [{MSM_LANES}, 16] bit-exact against the plain version "
+        f"(boundary and ripple rows included); max_abs_err {max_err}")
+
+    z = field_rows(7, DECOMPRESS_LANES)[0].to(dev)
+    chain_kernel = field.pow22523(z)
+    with plain_field_mul():
+        chain_plain = field.pow22523(z)
+    if not torch.equal(chain_kernel, chain_plain):
+        raise AssertionError("pow22523 through the kernel differs from the plain chain")
+    log(f"[field] pow22523 [{DECOMPRESS_LANES}, 16] through the kernel bit-exact "
+        "against the chain through the plain multiply")
+
+    ms = device_ms(lambda: cuda_field.fe_mul(a, b), 20)
+    plain_ms = device_ms(lambda: field._mul_plain(a, b), 5)
+    n_bytes = MSM_LANES * FE_MUL_BYTES_PER_LANE
+    n_ops = MSM_LANES * FE_MUL_OPS_PER_LANE
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"[field] fe_mul: {ms:.6f} ms/launch (plain {plain_ms:.6f} ms); bound "
+        f"{bound:.6f} ms by {bound_by}: {n_bytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, "
+        f"{n_ops} int32 ops ({FE_MUL_OPS_PER_LANE}/lane) / {INT32_OPS_PER_S:.4g}/s = "
+        f"{ops_ms:.6f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=max_err)
+
+
+# ── Phase 7: validated ingest through device verification ──────────────
+
+VERIFY_PROPOSALS = 256
+VERIFY_VOTERS = 16
+VERIFY_KEYS = 64
+
+
+def verify_engine(dev, signer):
+    from hashgraph_tpu_torch import TorchConsensusEngine
+    from hashgraph_tpu_torch.events import BroadcastEventBus
+
+    return TorchConsensusEngine(
+        signer, CAPACITY, VOTER_CAPACITY,
+        event_bus=BroadcastEventBus(max_queued_events=1_000_000),
+        max_sessions_per_scope=CAPACITY, device=dev,
+    )
+
+
+def create_seeded(run, scope, n, seed):
+    """``n`` proposals of 16 voters whose ids come from seeded entropy, so
+    two engines hold the same proposal ids and take the same vote bytes."""
+    from hashgraph_tpu_torch import protocol
+
+    rng = random.Random(seed)
+    protocol.set_id_entropy(lambda: rng.getrandbits(128))
+    try:
+        for req in requests(n, VERIFY_VOTERS, 3600, lambda i: i % 2 == 0):
+            proposal = run.engine.create_proposal(scope, req, NOW)
+            run.pids.setdefault(scope, []).append(proposal.proposal_id)
+    finally:
+        protocol.set_id_entropy(None)
+
+
+def signed_votes(engine, scope, pids, keys, seed, corrupt=None):
+    """Encoded votes, 16 per proposal from distinct keys, each chained onto
+    the proposal's previous one and interleaved across proposals.
+    ``corrupt`` maps a proposal's index to a damage applied to its last
+    vote (nothing chains onto it)."""
+    from hashgraph_tpu_torch import build_vote, compute_vote_hash, protocol
+    from hashgraph_tpu_torch.signing._ed25519 import L
+
+    rng = random.Random(seed)
+    protocol.set_id_entropy(lambda: rng.getrandbits(128))
+    try:
+        shadows = [engine.get_proposal(scope, pid) for pid in pids]
+        out = []
+        for j in range(VERIFY_VOTERS):
+            for k, prop in enumerate(shadows):
+                vote = build_vote(prop, rng.random() < 0.8,
+                                  keys[(4 * k + j) % len(keys)], NOW + 1)
+                kind = (corrupt or {}).get(k) if j == VERIFY_VOTERS - 1 else None
+                sig, s_int = vote.signature, int.from_bytes(vote.signature[32:], "little")
+                if kind == "scalar":
+                    vote.signature = sig[:32] + ((s_int + 7) % L).to_bytes(32, "little")
+                elif kind == "s>=L":
+                    vote.signature = sig[:32] + (s_int + L).to_bytes(32, "little")
+                elif kind == "bad-A":
+                    vote.vote_owner = b"\xff" * 32
+                    vote.vote_hash = compute_vote_hash(vote)
+                elif kind == "R-sign":
+                    vote.signature = sig[:31] + bytes([sig[31] ^ 0x80]) + sig[32:]
+                prop.votes.append(vote)
+                out.append(vote.encode())
+        return out
+    finally:
+        protocol.set_id_entropy(None)
+
+
+def torch_ops(fn) -> int:
+    """PyTorch operator calls that ``fn`` makes (on the card each non-view
+    call is a launch; the fe_mul wrapper's ctypes launch is not one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.calls
+
+
+def stage_ops(dev):
+    """Operator calls of each verification stage at 16 lanes (the count
+    does not depend on the lane count, except the MSM's tree reduction,
+    which adds one point add per doubling of the lanes)."""
+    from hashgraph_tpu_torch.crypto_device import curve, msm, sha512
+
+    enc = torch.zeros((16, 32), dtype=torch.uint8, device=dev)
+    enc[:, 0] = 1
+    points = curve.identity((16,), dev).clone()
+    nibbles = torch.zeros((16, msm.WINDOWS), dtype=torch.int64, device=dev)
+    return {
+        "decompress": torch_ops(lambda: curve.decompress(enc)),
+        "hash (2 blocks)": torch_ops(lambda: sha512.sha512_batch_dispatch([b"m" * 150] * 8, 2, dev)),
+        "msm": torch_ops(lambda: msm.msm_is_identity(points, nibbles)),
+    }
+
+
+def phase_verify(dev):
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.crypto_device import cuda_field
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.ops import cuda_ingest
+    from hashgraph_tpu_torch.signing import (
+        Ed25519ConsensusSigner,
+        Ed25519DeviceConsensusSigner,
+    )
+    from hashgraph_tpu_torch.signing import _ed25519 as twin
+    from hashgraph_tpu_torch.wire import Vote
+
+    scope = "verify"
+    rng = random.Random(70)
+    keys = [Ed25519ConsensusSigner(rng.randbytes(32)) for _ in range(VERIFY_KEYS)]
+    gpu = Run(verify_engine(dev, Ed25519DeviceConsensusSigner(rng.randbytes(32))))
+    cpu = Run(verify_engine("cpu", Ed25519ConsensusSigner(rng.randbytes(32))))
+    if torch.device(type(gpu.engine.signer()).device).type != torch.device(dev).type:
+        raise AssertionError("the device signer does not verify on the card")
+    n_main, n_blame = VERIFY_PROPOSALS, 4
+    for run in (gpu, cpu):
+        create_seeded(run, scope, n_main + n_blame, 71)
+    if gpu.pids != cpu.pids:
+        raise AssertionError("the two engines minted different proposal ids")
+    pids = gpu.pids[scope]
+    t0 = time.perf_counter()
+    main_bytes = signed_votes(gpu.engine, scope, pids[:n_main], keys, 72)
+    blame_bytes = signed_votes(gpu.engine, scope, pids[n_main:], keys, 73,
+                               corrupt={0: "scalar", 1: "s>=L", 2: "bad-A", 3: "R-sign"})
+    log(f"[verify] signed {len(main_bytes) + len(blame_bytes)} votes with the "
+        f"pure-Python twin in {time.perf_counter() - t0:.3f} s (outside the timed window)")
+
+    def ingest(run, data, now):
+        items = [(scope, Vote.decode(b)) for b in data]
+        sync = torch.cuda.synchronize if run.engine.device.type == "cuda" else (lambda: None)
+        sync()
+        t = time.perf_counter()
+        statuses = run.engine.ingest_votes(items, now)
+        sync()
+        return statuses.tolist(), time.perf_counter() - t
+
+    # Warm the pipeline (allocator, first launches) on a batch of its own.
+    warm = [Vote.decode(b) for b in blame_bytes[:32]]
+    Ed25519DeviceConsensusSigner.verify_batch(
+        [v.vote_owner for v in warm], [v.signing_payload() for v in warm],
+        [v.signature for v in warm])
+
+    # The main path: counts are zeroed just before it and read just after.
+    _build.launches.clear()
+    st_main, wall_main = ingest(gpu, main_bytes, NOW + 2)
+    phases_main = Ed25519DeviceConsensusSigner.device_phase_seconds()
+    fe_main = _build.launches[cuda_field.KERNEL]
+    scan_main = _build.launches[cuda_ingest.KERNEL]
+    _build.launches.clear()
+    st_blame, wall_blame = ingest(gpu, blame_bytes, NOW + 3)
+    phases_blame = Ed25519DeviceConsensusSigner.device_phase_seconds()
+    fe_blame = _build.launches[cuda_field.KERNEL]
+    if fe_main == 0 or fe_blame == 0:
+        raise AssertionError(f"device verification launched fe_mul {fe_main} / {fe_blame} times")
+    if phases_main["fallback"] != 0.0 or not phases_blame["fallback"] > 0.0:
+        raise AssertionError(f"blame fallback: main {phases_main}, second call {phases_blame}")
+
+    cpu_main, cpu_wall_main = ingest(cpu, main_bytes, NOW + 2)
+    cpu_blame, _ = ingest(cpu, blame_bytes, NOW + 3)
+    compare("verify statuses", [st_main, st_blame], [cpu_main, cpu_blame])
+    compare("verify results", gpu.outcome(scope), cpu.outcome(scope))
+    compare("verify events", gpu.events_by_session(), cpu.events_by_session())
+    codes = {StatusCode(c).name: st_main.count(c) for c in sorted(set(st_main))}
+    blame_codes = {StatusCode(c).name: st_blame.count(c) for c in sorted(set(st_blame))}
+    if set(codes) - {"OK", "ALREADY_REACHED"} or not codes.get("OK"):
+        raise AssertionError(f"the valid batch was not accepted: {codes}")
+    if blame_codes.get("INVALID_VOTE_SIGNATURE") != 4:
+        raise AssertionError(f"the damaged votes were not all rejected: {blame_codes}")
+    results, stats = gpu.outcome(scope)
+
+    # The host twin's rate on this machine, on a slice of the same batch.
+    sample = [Vote.decode(b) for b in main_bytes[:256]]
+    t = time.perf_counter()
+    twin_ok = [twin.verify(v.vote_owner, v.signing_payload(), v.signature) for v in sample]
+    twin_rate = len(sample) / (time.perf_counter() - t)
+    if not all(twin_ok):
+        raise AssertionError("the twin rejected a valid signature")
+
+    ops = stage_ops(dev)
+    rate = len(main_bytes) / phases_main["total"]
+    log(f"[verify] {len(main_bytes)} votes in one ingest_votes call on the GPU engine: "
+        f"{wall_main:.6f} s wall; device verify {phases_main['total']:.6f} s = {rate:.1f} "
+        f"signatures/s; phases {json.dumps(phases_main)}; fe_mul launches {fe_main}, "
+        f"scan launches {scan_main}; statuses {codes}")
+    log(f"[verify] second call, 64 votes with 4 damaged: {wall_blame:.6f} s wall; phases "
+        f"{json.dumps(phases_blame)}; fe_mul launches {fe_blame}; statuses {blame_codes}")
+    log(f"[verify] host twin: {twin_rate:.1f} signatures/s on this machine's CPU; the CPU "
+        f"engine took {cpu_wall_main:.6f} s for the {len(main_bytes)}-vote call; stats (total, active, "
+        f"failed, reached) {stats}; identical statuses, results and events")
+    log(f"[verify] PyTorch operator calls per stage at 16 lanes: {ops}")
+    return dict(launches=fe_main, launches_blame=fe_blame, rate=rate, twin_rate=twin_rate,
+                phases=phases_main, phases_blame=phases_blame)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -491,6 +821,10 @@ def main() -> int:
         f"{sum(1 for _, r in swept if r is None)} failed; late vote PROPOSAL_EXPIRED; "
         f"scan launches {launches5}; identical to the CPU engine")
 
+    # Phases 6 and 7.
+    field_timing = phase_field(dev)
+    verify = phase_verify(dev)
+
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.3f} s")
     kernel = {
         "name": "ingest_scan",
@@ -509,7 +843,25 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [kernel]}))
+    fe_kernel = {
+        "name": "fe_mul",
+        "route": "cuda",
+        "source": "hashgraph_tpu_torch/csrc/fe_mul.cu",
+        "replaces": "hashgraph_tpu/crypto_device/pallas_msm.py:65",
+        "implementation": "hand-written CUDA C++ for sm_90a, one thread per lane, "
+                          "uint32 columns in registers",
+        "launches": verify["launches"],
+        "launches_blame_call": verify["launches_blame"],
+        "parity": "bit-exact against field._mul_plain at [16384, 16] (boundary and "
+                  "ripple rows included) and through pow22523 at [8192, 16]",
+        "max_abs_err": field_timing["max_abs_err"],
+        "ms": field_timing["ms"],
+        "plain_ms": field_timing["plain_ms"],
+        "bound_ms": field_timing["bound_ms"],
+        "bound_by": field_timing["bound_by"],
+        "library_ms": None,
+    }
+    print(json.dumps({"kernels": [kernel, fe_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

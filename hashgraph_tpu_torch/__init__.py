@@ -3,9 +3,11 @@
 Binary yes/no consensus among n peers via signed hashgraph vote chains,
 ceil(2n/3) quorum math, Gossipsub/P2P round semantics and silent-peer
 liveness at timeout, with the per-proposal tallies held as dense tensors on
-an NVIDIA GPU. The arrival-ordered vote scan is a hand-written CUDA kernel
-(``csrc/ingest_scan.cu``, built at first use for ``sm_90a``); every other
-device step is PyTorch.
+an NVIDIA GPU. Ed25519 batch verification can run on the GPU too
+(``Ed25519DeviceConsensusSigner``, :mod:`.crypto_device`). Two kernels are
+hand-written CUDA, built at first use for ``sm_90a``: the arrival-ordered
+vote scan (``csrc/ingest_scan.cu``) and the GF(2^255-19) field product
+(``csrc/fe_mul.cu``); every other device step is PyTorch.
 
 The port imports nothing of the JAX package: the modules that carry no
 device code (errors, wire, protocol, types, events, scope config, session,
@@ -26,7 +28,12 @@ from .events import BroadcastEventBus, ConsensusEventBus, EventReceiver
 from .protocol import build_vote, calculate_consensus_result, compute_vote_hash
 from .scope_config import NetworkType, ScopeConfig, ScopeConfigBuilder
 from .session import ConsensusConfig, ConsensusSession, ConsensusState
-from .signing import ConsensusSignatureScheme, StubConsensusSigner
+from .signing import (
+    ConsensusSignatureScheme,
+    Ed25519ConsensusSigner,
+    Ed25519DeviceConsensusSigner,
+    StubConsensusSigner,
+)
 from .types import (
     ConsensusFailedEvent,
     ConsensusReached,
@@ -46,6 +53,8 @@ __all__ = [
     "ConsensusState",
     "ConsensusStats",
     "CreateProposalRequest",
+    "Ed25519ConsensusSigner",
+    "Ed25519DeviceConsensusSigner",
     "EventReceiver",
     "NetworkType",
     "PoolFullError",

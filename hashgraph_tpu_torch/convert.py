@@ -3,8 +3,11 @@
 :func:`pool_from_numpy` builds a port :class:`ProposalPool` from the arrays
 of a pool of the JAX package, given as numpy (device arrays and host
 mirrors), so traffic that started there can continue on the port.
-:func:`pool_to_numpy` is its inverse. This module takes and gives numpy
-only: extracting the arrays from a JAX pool is the caller's business.
+:func:`pool_to_numpy` is its inverse. :func:`field_from_numpy` and
+:func:`points_from_numpy` carry field elements and curve points of the
+device verifier across (the JAX package's uint32 limbs to the port's
+int64), with their inverses. This module takes and gives numpy only:
+extracting the arrays from JAX is the caller's business.
 """
 
 from __future__ import annotations
@@ -95,3 +98,31 @@ def pool_to_numpy(pool: ProposalPool) -> tuple[dict, dict]:
         slot: (m.key, m.expiry, m.created_at) for slot, m in pool._meta.items()
     }
     return arrays, host_meta
+
+
+def field_from_numpy(limbs, device="cuda") -> torch.Tensor:
+    """Field elements of the JAX package (``uint32[..., 16]`` radix-2^16
+    limbs) as the port's ``int64[..., 16]``."""
+    arr = np.asarray(limbs)
+    if arr.shape[-1:] != (16,):
+        raise ValueError(f"field elements need 16 limbs, got shape {arr.shape}")
+    return torch.tensor(arr.astype(np.int64), device=resolve_device(device))
+
+
+def field_to_numpy(limbs: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`field_from_numpy`: ``uint32[..., 16]``."""
+    return limbs.cpu().numpy().astype(np.uint32)
+
+
+def points_from_numpy(points, device="cuda") -> torch.Tensor:
+    """Extended points of the JAX package (``uint32[..., 4, 16]``) as the
+    port's ``int64[..., 4, 16]``."""
+    arr = np.asarray(points)
+    if arr.shape[-2:] != (4, 16):
+        raise ValueError(f"points need shape [..., 4, 16], got {arr.shape}")
+    return field_from_numpy(arr, device)
+
+
+def points_to_numpy(points: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`points_from_numpy`: ``uint32[..., 4, 16]``."""
+    return field_to_numpy(points)

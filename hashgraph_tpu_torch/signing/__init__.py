@@ -8,9 +8,10 @@ a scheme instance carries private state and produces signatures via
 ``identity()`` / ``sign()``; the scheme *type* verifies incoming signatures via
 the class-level ``verify()``. All peers on a network must use the same scheme.
 
-Signature verification always runs on the host — ECDSA does not map to the
-MXU — and is batched across worker threads (or the native runtime) by the
-ingest pipeline; only the vote tally/decision state lives on device.
+Verification runs on the host, except the batch verification of
+:class:`Ed25519DeviceConsensusSigner`, which runs the whole batch equation on
+the GPU (:mod:`hashgraph_tpu_torch.crypto_device`); the vote tally and
+decision state live on the device in every case.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from ..errors import ConsensusSchemeError
 __all__ = [
     "ConsensusSignatureScheme",
     "ConsensusSchemeError",
+    "Ed25519ConsensusSigner",
+    "Ed25519DeviceConsensusSigner",
     "PendingVerdicts",
     "StubConsensusSigner",
 ]
@@ -110,4 +113,8 @@ class ConsensusSignatureScheme(abc.ABC):
         )
 
 
+from .ed25519 import (  # noqa: E402
+    Ed25519ConsensusSigner,
+    Ed25519DeviceConsensusSigner,
+)
 from .stub import StubConsensusSigner  # noqa: E402
