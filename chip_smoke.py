@@ -8,7 +8,9 @@ the README's single-chip engine (``capacity=100_000``,
 ``voter_capacity=1024``), and fails unless every phase holds:
 
 1. build and device: build every CUDA kernel from ``hashgraph_tpu_torch/
-   csrc`` and print the toolchain and the card;
+   csrc``, print the toolchain and the card, and count the instructions of
+   the compiled crypto routines in the build's SASS (``cuobjdump``) beside
+   the counts that the operation bounds use;
 2. kernel against its plain version: the CUDA ingest scan against the plain
    PyTorch scan on the card, for the three packed-grid layouts and at the
    main path's shape — bit-exact — with times per launch;
@@ -19,12 +21,20 @@ the README's single-chip engine (``capacity=100_000``,
    128 votes (decision at vote 683);
 5. timeouts: silent peers under both liveness settings, a vote after
    expiry, ``sweep_timeouts`` and per-session timeouts;
-6. the field-multiply kernel against its plain version: ``fe_mul`` against
-   ``field._mul_plain`` bit-exact at the MSM's shape, 16,384 lanes, on
-   seeded carried inputs plus the boundary and carry-ripple rows, and
-   ``field.pow22523`` through the kernel against it through the plain
-   multiply at 8,192 lanes, with times per launch and the bound;
-7. validated ingest through device verification (the slice-2 main path): a
+6. the field kernels against their plain versions: ``fe_mul`` against
+   ``field._mul_plain`` bit-exact at 16,384 lanes on seeded carried inputs
+   plus the boundary and carry-ripple rows, and ``fe_pow22523`` (what
+   ``field.pow22523`` launches on the card) against ``field.
+   _pow22523_plain`` at decompression's 8,192 lanes, with times and bounds;
+6b. the MSM kernels against their plain versions at a batch's 16,384 lanes
+   of real curve points (seeded multiples of the base point, identity lanes
+   and the order-4 point) and seeded nibbles (with all-0 and all-15 rows):
+   ``msm_windows`` against ``msm._windows_plain`` limb for limb, the root of
+   ``msm_reduce`` against ``msm._reduce_plain``, the ``msm_final`` verdict
+   for an accepting and a rejecting combination, and the fold of 1, 5 and
+   1,000 lanes, with times and bounds;
+7. validated ingest through device verification (the main path of slices 2
+   and 3): a
    GPU engine signed by an ``Ed25519DeviceConsensusSigner`` takes 256
    proposals x 16 voters (64 voter keys) as one ``ingest_votes`` call of
    4,096 Ed25519-signed votes — one device batch — then a call of 64 votes
@@ -35,9 +45,13 @@ the README's single-chip engine (``capacity=100_000``,
 Phases 3-5 and 7 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
 stats. Launch counts are reset just before each phase and read just after
-it. The last lines are the kernel table as JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or without the
-package beside it, the script exits non-zero and prints no result.
+it; phase 7 fails unless the batch launched every verification kernel, with
+at most 20 launches for the MSM and 20 for ``fe_mul``. The plain versions
+that the kernels are held against run with ``field.mul`` routed to
+``field._mul_plain``, so they touch no kernel. The last lines are the
+kernel table as JSON, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``. Without a GPU, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -45,9 +59,11 @@ from __future__ import annotations
 import contextlib
 import json
 import random
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,10 +72,15 @@ NOW = 1_700_000_000
 CAPACITY = 100_000
 VOTER_CAPACITY = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
-# H100 SXM 32-bit integer rate: the data sheet's 67 TFLOP/s float32 is 132
-# SMs x 128 FP32 lanes x 2 (FMA) x 1.98 GHz; each SM has 64 INT32 lanes, so
-# 132 x 64 x 1.98e9 = 67e12 / 4 integer operations per second.
-INT32_OPS_PER_S = 67e12 / 4
+# H100 SXM integer instruction rate. Each of the 132 SMs has 4 schedulers,
+# and each issues one warp instruction (32 lanes) per clock to whichever
+# pipe takes it: the ALU (logic, shifts, adds; 64 lanes per SM) or the FMA
+# pipe (IMAD, and the adds, left shifts and moves that ptxas issues there as
+# IMAD.IADD, IMAD.SHL and IMAD.MOV). At the 1.98 GHz implied by the data
+# sheet's 67 TFLOP/s float32 (132 x 128 lanes x 2 per FMA x 1.98e9), that
+# is 132 x 4 x 32 x 1.98e9 = 67e12 / 2 lane-instructions per second, the
+# most any integer mix can reach.
+INT_OPS_PER_S = 67e12 / 2
 
 
 def log(msg: str) -> None:
@@ -427,13 +448,94 @@ def timeout_traffic(run, seed):
 
 MSM_LANES = 16_384  # the MSM's lane bucket for one batch of 4,096 signatures
 DECOMPRESS_LANES = 8_192  # A and R of 4,096 signatures
-# Integer operations of one field product, as csrc/fe_mul.cu does them:
-# 256 limb products; per product a mask, a shift and two column adds; the
-# fold (16 multiplies by 38, 16 adds); two carry-save passes (16 shifts, 16
-# masks, 15 adds, the fold's multiply and add); two sequential passes (16
-# adds, 16 masks, 16 shifts, the fold's multiply and add).
-FE_MUL_OPS_PER_LANE = 256 + 256 * 4 + 32 + 2 * 49 + 2 * 50
+# Integer instructions per lane that the field and point routines need,
+# counted at the granularity of the card's instructions, each of a kind that
+# ptxas emits for this code (sass_counts reads the build): IMAD (multiply,
+# or multiply and add), LOP3 (a mask), LEA.HI (a shift and an add in one)
+# and IADD3 (a three-input add). A carry pass is per limb a mask and the
+# neighbour's carry shifted and added by one LEA.HI, and one IMAD for the
+# x38 fold into limb 0 (with its shift): 4 passes of 16 * 2 + 1.
+FE_CARRY_OPS = 4 * (16 * 2 + 1)
+# A product: per limb product an IMAD, a mask for the low half, one LEA.HI
+# adding the high half to its column and half an IADD3 adding the low half
+# to its own (one IADD3 takes two), so 256 * 7 / 2; the 2^256 fold is one
+# IMAD per limb (16); the carry.
+FE_MUL_OPS_PER_LANE = 256 * 7 // 2 + 16 + FE_CARRY_OPS
+# A squaring gets the same columns from 136 limb products: the 16 squares
+# and the 120 cross products a_i * a_j (i < j), whose halves gather in
+# columns of their own that one IMAD per column doubles into the squares'
+# (32); then the fold and the carry as in a product.
+FE_SQR_OPS_PER_LANE = 136 * 7 // 2 + 32 + 16 + FE_CARRY_OPS
+FE_ADD_OPS = 16 + FE_CARRY_OPS  # 16 limb adds, the carry
+FE_SUB_OPS = 16 + FE_CARRY_OPS  # a + (pad - b): one IADD3 a limb, the carry
+# curve.add: 9 products, 5 adds, 4 subs; curve.dbl: 4 squarings, 4
+# products, 2 adds, 6 subs.
+ED_ADD_OPS = 9 * FE_MUL_OPS_PER_LANE + 5 * FE_ADD_OPS + 4 * FE_SUB_OPS
+ED_DBL_OPS = (4 * FE_SQR_OPS_PER_LANE + 4 * FE_MUL_OPS_PER_LANE + 2 * FE_ADD_OPS
+              + 6 * FE_SUB_OPS)
+# msm_windows per lane: 15 table adds, then per window 4 doublings and 1 add.
+MSM_WINDOWS_OPS_PER_LANE = 15 * ED_ADD_OPS + 64 * (4 * ED_DBL_OPS + ED_ADD_OPS)
+# canon: two conditional subtracts of p, each per limb an IADD3 (limb,
+# constant, borrow), a mask, a shift and the borrow's 1 - x, and 16 selects;
+# is_zero adds an OR of 16 limbs (8 three-input LOP3); is_identity is one
+# sub and two is_zero.
+FE_IS_ZERO_OPS = 2 * (16 * 4 + 16) + 8
+MSM_FINAL_OPS = 3 * ED_DBL_OPS + FE_SUB_OPS + 2 * FE_IS_ZERO_OPS
+POW22523_OPS_PER_LANE = 251 * FE_SQR_OPS_PER_LANE + 11 * FE_MUL_OPS_PER_LANE
 FE_MUL_BYTES_PER_LANE = 3 * 16 * 8  # two int64 operands read, one written
+POINT_BYTES = 4 * 16 * 8  # one int64 [4, 16] point
+
+
+def sass_functions(lib) -> "dict[str, list[tuple[int, str]]]":
+    """Kernel name -> its SASS as (address, instruction), from ``cuobjdump
+    -sass`` (beside ``nvcc``) of a built library."""
+    from hashgraph_tpu_torch import _build
+
+    cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    parts = re.split(r"Function : (\S+)", text)
+    return {name: [(int(a, 16), ins.strip()) for a, ins in
+                   re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def sass_counts():
+    """Instructions of the compiled routines, counted in this build's SASS:
+    the two subroutines that msm_windows calls (ed_add first, in the table
+    loop, then ed_dbl), each from its entry to its RET; the chain's squaring
+    (the body of each of fe_pow22523's loops, its loop control included);
+    and fe_mul's kernel, loads and stores included. Logged beside the counts
+    that the bounds use."""
+    from hashgraph_tpu_torch import _build
+
+    def kernel(source, word):
+        funcs = sass_functions(_build._target(source))
+        return next(rows for name, rows in funcs.items() if word in name)
+
+    rows = kernel("ed_msm", "msm_windows")
+    calls = list(dict.fromkeys(int(m, 16) for _, ins in rows
+                               for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
+    if len(calls) != 2:
+        raise AssertionError(f"msm_windows calls {len(calls)} subroutines, not ed_add and ed_dbl")
+    body = {}
+    for name, entry in zip(("ed_add", "ed_dbl"), calls):
+        ret = next(a for a, ins in rows if a >= entry and ins.startswith("RET"))
+        body[name] = (ret - entry) // 16 + 1
+    loops = [(a - int(t, 16)) // 16 + 1 for a, ins in kernel("fe_pow22523", "pow22523")
+             for t in re.findall(r"BRA\s+(0x[0-9a-f]+)", ins) if int(t, 16) < a]
+    if len(set(loops)) != 1:
+        raise AssertionError(f"fe_pow22523's loops differ in length: {loops}")
+    fe_mul_n = len(kernel("fe_mul", "fe_mul"))
+    windows = 15 * body["ed_add"] + 64 * (4 * body["ed_dbl"] + body["ed_add"])
+    log(f"[sass] ed_add {body['ed_add']} instructions (the bound counts {ED_ADD_OPS}), "
+        f"ed_dbl {body['ed_dbl']} ({ED_DBL_OPS}), a squaring of the chain {loops[0]} "
+        f"with its loop control ({FE_SQR_OPS_PER_LANE}), fe_mul's kernel {fe_mul_n} with "
+        f"its loads and stores ({FE_MUL_OPS_PER_LANE}); msm_windows issues at least "
+        f"{windows} a lane ({MSM_WINDOWS_OPS_PER_LANE}), "
+        f"{MSM_LANES * windows / INT_OPS_PER_S * 1e3:.6f} ms at {MSM_LANES} lanes")
+    return dict(body, pow_squaring=loops[0], fe_mul_kernel=fe_mul_n,
+                windows_per_lane=windows)
 
 
 def field_rows(seed, lanes):
@@ -511,28 +613,174 @@ def phase_field(dev):
         f"(boundary and ripple rows included); max_abs_err {max_err}")
 
     z = field_rows(7, DECOMPRESS_LANES)[0].to(dev)
+    before = _build.launches[cuda_field.POW_KERNEL]
     chain_kernel = field.pow22523(z)
+    torch.cuda.synchronize()
+    if _build.launches[cuda_field.POW_KERNEL] != before + 1:
+        raise AssertionError("field.pow22523 did not launch the chain kernel once")
+    chain_fe_mul = field._pow22523_plain(z)
     with plain_field_mul():
-        chain_plain = field.pow22523(z)
-    if not torch.equal(chain_kernel, chain_plain):
-        raise AssertionError("pow22523 through the kernel differs from the plain chain")
-    log(f"[field] pow22523 [{DECOMPRESS_LANES}, 16] through the kernel bit-exact "
-        "against the chain through the plain multiply")
+        chain_plain = field._pow22523_plain(z)
+    pow_err = int((chain_kernel - chain_plain).abs().max())
+    if not torch.equal(chain_kernel, chain_plain) or not torch.equal(chain_fe_mul, chain_plain):
+        raise AssertionError("fe_pow22523 or the chain through fe_mul differs from the plain chain")
+    for i in range(10):
+        x = field.limbs_to_int(z[i])
+        if field.limbs_to_int(chain_kernel[i]) % field.P != pow(x % field.P, (field.P - 5) // 8, field.P):
+            raise AssertionError(f"fe_pow22523 boundary row {i} is not z^((p-5)/8)")
+    log(f"[field] fe_pow22523 [{DECOMPRESS_LANES}, 16] bit-exact against _pow22523_plain "
+        "(plain multiply; boundary and ripple rows included), and so is the chain "
+        f"through the fe_mul kernel; max_abs_err {pow_err}")
 
     ms = device_ms(lambda: cuda_field.fe_mul(a, b), 20)
     plain_ms = device_ms(lambda: field._mul_plain(a, b), 5)
-    n_bytes = MSM_LANES * FE_MUL_BYTES_PER_LANE
-    n_ops = MSM_LANES * FE_MUL_OPS_PER_LANE
+    fe_mul_row = kernel_row("fe_mul", ms, plain_ms, MSM_LANES * FE_MUL_BYTES_PER_LANE,
+                            MSM_LANES * FE_MUL_OPS_PER_LANE, max_err)
+    pow_ms = device_ms(lambda: cuda_field.fe_pow22523(z), 20)
+    with plain_field_mul():
+        pow_plain_ms = device_ms(lambda: field._pow22523_plain(z), 1)
+    pow_row = kernel_row("fe_pow22523", pow_ms, pow_plain_ms, DECOMPRESS_LANES * 2 * 16 * 8,
+                         DECOMPRESS_LANES * POW22523_OPS_PER_LANE, pow_err)
+    return fe_mul_row, pow_row
+
+
+def kernel_row(name, ms, plain_ms, n_bytes, n_ops, max_err):
+    """Log one kernel's time against its bound (the larger of its bytes over
+    the memory rate and the integer instructions it needs over the issue
+    rate) and return the timing keys of its row in the kernel table."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    ops_ms = n_ops / INT_OPS_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"[field] fe_mul: {ms:.6f} ms/launch (plain {plain_ms:.6f} ms); bound "
-        f"{bound:.6f} ms by {bound_by}: {n_bytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, "
-        f"{n_ops} int32 ops ({FE_MUL_OPS_PER_LANE}/lane) / {INT32_OPS_PER_S:.4g}/s = "
-        f"{ops_ms:.6f} ms")
+    log(f"[{name}] {ms:.6f} ms (plain {plain_ms:.6f} ms); bound {bound:.6f} ms by "
+        f"{bound_by}: {n_bytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, {n_ops} integer "
+        f"instructions / {INT_OPS_PER_S:.4g}/s = {ops_ms:.6f} ms; {ms / bound:.2f}x the bound")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=max_err)
+
+
+# ── Phase 6b: the MSM kernels against their plain versions ─────────────
+
+MSM_ODD_FOLDS = (1, 5, 1000)
+
+
+def msm_inputs(seed, lanes, dev):
+    """Real curve points, nibbles and the index of the solved lane, at
+    ``lanes`` lanes. Lanes are sums of two of 128 seeded multiples of B,
+    added on the card by the plain formulas (extended coordinates, Z != 1);
+    lanes 2-65 are the identity and lanes 66-69 the order-4 point (y = 0).
+    Nibbles are seeded, with row 0 all 0 and row 1 all 15; the last lane's
+    row is then solved so that the combination accepts."""
+    from hashgraph_tpu_torch.crypto_device import curve, field, msm
+    from hashgraph_tpu_torch.signing import _ed25519 as twin
+
+    rng = random.Random(seed)
+    ks = [rng.randrange(1, twin.L) for _ in range(128)]
+    base = torch.tensor(np.stack([
+        np.stack([field._int_to_limbs(c) for c in twin._mul(twin._BASE, k)]) for k in ks
+    ]), device=dev)
+    a_idx = np.arange(lanes) % 128
+    b_idx = (np.arange(lanes) // 128) % 128
+    with plain_field_mul():
+        pts = curve.add(base[torch.from_numpy(a_idx).to(dev)],
+                        base[torch.from_numpy(b_idx).to(dev)]).contiguous()
+    scalars = [(ks[a] + ks[b]) % twin.L for a, b in zip(a_idx.tolist(), b_idx.tolist())]
+    pts[2:66] = curve.identity((64,), dev)
+    low = twin._decode(bytes(32))
+    pts[66:70] = torch.from_numpy(np.stack([field._int_to_limbs(c) for c in low])).to(dev)
+    for i in range(2, 70):
+        scalars[i] = None
+
+    gen = torch.Generator().manual_seed(seed)
+    nib = torch.randint(0, 16, (lanes, msm.WINDOWS), generator=gen, dtype=torch.int32).numpy()
+    nib[0], nib[1] = 0, 15
+    packed = ((nib[:, 0::2] << 4) | nib[:, 1::2]).astype(np.uint8)  # MSB-first bytes
+    last = lanes - 1
+    total = sum(int.from_bytes(packed[i].tobytes(), "big") * t
+                for i, t in enumerate(scalars[:last]) if t is not None) % twin.L
+    nib[last] = msm.scalars_to_nibbles([(-total * pow(scalars[last], -1, twin.L)) % twin.L])[0]
+    return pts, torch.from_numpy(nib).to(dev), last
+
+
+def phase_msm(dev):
+    from hashgraph_tpu_torch.crypto_device import cuda_msm, msm
+
+    pts, nib, last = msm_inputs(61, MSM_LANES, dev)
+    acc = cuda_msm.msm_windows(pts, nib)
+    with plain_field_mul():
+        acc_plain = msm._windows_plain(pts, nib)
+    torch.cuda.synchronize()
+    windows_err = int((acc - acc_plain).abs().max())
+    if not torch.equal(acc, acc_plain):
+        bad = int((acc != acc_plain).flatten(1).any(dim=1).sum())
+        raise AssertionError(f"msm_windows differs from _windows_plain in {bad} lanes")
+    if not bool(((acc >= 0) & (acc < 1 << 16)).all()):
+        raise AssertionError("msm_windows left a limb outside [0, 2^16)")
+    log(f"[msm] msm_windows [{MSM_LANES}, 4, 16] x {msm.WINDOWS} windows bit-exact against "
+        "_windows_plain (plain multiply; identity, order-4, all-0 and all-15 rows included)")
+
+    root = cuda_msm.msm_reduce(acc, msm.reduce_levels(MSM_LANES))
+    with plain_field_mul():
+        root_plain = msm._reduce_plain(acc_plain)
+        verdict_plain = int(msm._final_plain(root_plain))
+    verdict = int(cuda_msm.msm_final(root))
+    reduce_err = int((root - root_plain).abs().max())
+    if not torch.equal(root, root_plain) or verdict != verdict_plain or verdict != 1:
+        raise AssertionError(f"accepting case: root equal {torch.equal(root, root_plain)}, "
+                             f"verdict {verdict} against plain {verdict_plain}")
+    if not bool(msm.msm_is_identity(pts, nib)):
+        raise AssertionError("msm.msm_is_identity rejected the accepting combination")
+
+    # Rejecting: flip the last window of the solved lane. Windows are per
+    # lane, so the plain accumulators change in that lane only.
+    bad_nib = nib.clone()
+    bad_nib[last, -1] ^= 1
+    bad_acc = cuda_msm.msm_windows(pts, bad_nib)
+    bad_plain = acc_plain.clone()
+    with plain_field_mul():
+        bad_plain[last] = msm._windows_plain(pts[last:], bad_nib[last:])[0]
+        bad_verdict_plain = int(msm._final_plain(msm._reduce_plain(bad_plain)))
+    bad_verdict = int(cuda_msm.msm_final(cuda_msm.msm_reduce(
+        bad_acc, msm.reduce_levels(MSM_LANES))))
+    if not torch.equal(bad_acc, bad_plain) or bad_verdict != bad_verdict_plain or bad_verdict != 0:
+        raise AssertionError(f"rejecting case: windows equal {torch.equal(bad_acc, bad_plain)}, "
+                             f"verdict {bad_verdict} against plain {bad_verdict_plain}")
+    if bool(msm.msm_is_identity(pts, bad_nib)):
+        raise AssertionError("msm.msm_is_identity accepted the rejecting combination")
+    log(f"[msm] root and verdict equal to the plain versions: accepting {verdict}, "
+        f"rejecting {bad_verdict}; max_abs_err {reduce_err}")
+
+    for n in MSM_ODD_FOLDS:
+        part = acc[:n].contiguous()
+        with plain_field_mul():
+            want = msm._reduce_plain(acc_plain[:n])
+            want_verdict = int(msm._final_plain(want))
+        got = cuda_msm.msm_reduce(part, msm.reduce_levels(n))
+        if not torch.equal(got, want) or int(cuda_msm.msm_final(got)) != want_verdict:
+            raise AssertionError(f"msm_reduce differs from _reduce_plain at {n} lanes")
+    log(f"[msm] the tree folds lane counts {MSM_ODD_FOLDS} as _reduce_plain does")
+
+    levels = msm.reduce_levels(MSM_LANES)
+    windows_ms = device_ms(lambda: cuda_msm.msm_windows(pts, nib), 3)
+    reduce_ms = device_ms(lambda: cuda_msm.msm_reduce(acc, levels), 20)
+    final_ms = device_ms(lambda: cuda_msm.msm_final(root), 20)
+    with plain_field_mul():
+        windows_plain_ms = device_ms(lambda: msm._windows_plain(pts, nib), 1)
+        reduce_plain_ms = device_ms(lambda: msm._reduce_plain(acc_plain), 2)
+        final_plain_ms = device_ms(lambda: msm._final_plain(root_plain), 2)
+    windows_row = kernel_row(
+        "msm_windows", windows_ms, windows_plain_ms,
+        MSM_LANES * (2 * POINT_BYTES + 4 * msm.WINDOWS), MSM_LANES * MSM_WINDOWS_OPS_PER_LANE,
+        windows_err)
+    reduce_row = kernel_row(
+        "msm_reduce", reduce_ms, reduce_plain_ms,
+        sum(n + (n + 1) // 2 for n in levels) * POINT_BYTES,
+        sum((n + 1) // 2 for n in levels) * ED_ADD_OPS, reduce_err)
+    reduce_row["levels"] = len(levels)
+    final_row = kernel_row("msm_final", final_ms, final_plain_ms, POINT_BYTES + 4,
+                           MSM_FINAL_OPS, 0)
+    log(f"[msm] msm_reduce times are for the whole tree: {len(levels)} launches, one per level")
+    return windows_row, reduce_row, final_row
 
 
 # ── Phase 7: validated ingest through device verification ──────────────
@@ -540,6 +788,8 @@ def phase_field(dev):
 VERIFY_PROPOSALS = 256
 VERIFY_VOTERS = 16
 VERIFY_KEYS = 64
+# Every kernel a device-verified batch launches.
+VERIFY_KERNELS = ("fe_mul", "fe_pow22523", "msm_windows", "msm_reduce", "msm_final")
 
 
 def verify_engine(dev, signer):
@@ -621,9 +871,10 @@ def torch_ops(fn) -> int:
 
 
 def stage_ops(dev):
-    """Operator calls of each verification stage at 16 lanes (the count
-    does not depend on the lane count, except the MSM's tree reduction,
-    which adds one point add per doubling of the lanes)."""
+    """PyTorch operator calls of each verification stage at 16 lanes (the
+    count does not depend on the lane count; the MSM's kernels are ctypes
+    launches, so what it counts is the allocations and casts around
+    them)."""
     from hashgraph_tpu_torch.crypto_device import curve, msm, sha512
 
     enc = torch.zeros((16, 32), dtype=torch.uint8, device=dev)
@@ -639,7 +890,7 @@ def stage_ops(dev):
 
 def phase_verify(dev):
     from hashgraph_tpu_torch import _build
-    from hashgraph_tpu_torch.crypto_device import cuda_field
+    from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.signing import (
@@ -688,14 +939,18 @@ def phase_verify(dev):
     _build.launches.clear()
     st_main, wall_main = ingest(gpu, main_bytes, NOW + 2)
     phases_main = Ed25519DeviceConsensusSigner.device_phase_seconds()
-    fe_main = _build.launches[cuda_field.KERNEL]
+    main_launches = dict(_build.launches)
     scan_main = _build.launches[cuda_ingest.KERNEL]
     _build.launches.clear()
     st_blame, wall_blame = ingest(gpu, blame_bytes, NOW + 3)
     phases_blame = Ed25519DeviceConsensusSigner.device_phase_seconds()
-    fe_blame = _build.launches[cuda_field.KERNEL]
-    if fe_main == 0 or fe_blame == 0:
-        raise AssertionError(f"device verification launched fe_mul {fe_main} / {fe_blame} times")
+    blame_launches = dict(_build.launches)
+    for label, counts in (("main", main_launches), ("blame", blame_launches)):
+        missing = [k for k in VERIFY_KERNELS if not counts.get(k)]
+        msm_total = sum(counts.get(k, 0) for k in cuda_msm.KERNELS)
+        if missing or msm_total > 20 or counts[cuda_field.KERNEL] > 20:
+            raise AssertionError(f"{label} call: launches {counts}; kernels never launched "
+                                 f"{missing}; MSM launches {msm_total} (at most 20)")
     if phases_main["fallback"] != 0.0 or not phases_blame["fallback"] > 0.0:
         raise AssertionError(f"blame fallback: main {phases_main}, second call {phases_blame}")
 
@@ -724,16 +979,17 @@ def phase_verify(dev):
     rate = len(main_bytes) / phases_main["total"]
     log(f"[verify] {len(main_bytes)} votes in one ingest_votes call on the GPU engine: "
         f"{wall_main:.6f} s wall; device verify {phases_main['total']:.6f} s = {rate:.1f} "
-        f"signatures/s; phases {json.dumps(phases_main)}; fe_mul launches {fe_main}, "
-        f"scan launches {scan_main}; statuses {codes}")
+        f"signatures/s; phases {json.dumps(phases_main)}; launches per kernel "
+        f"{json.dumps(main_launches)} (scan launches {scan_main}); statuses {codes}")
     log(f"[verify] second call, 64 votes with 4 damaged: {wall_blame:.6f} s wall; phases "
-        f"{json.dumps(phases_blame)}; fe_mul launches {fe_blame}; statuses {blame_codes}")
+        f"{json.dumps(phases_blame)}; launches per kernel {json.dumps(blame_launches)}; "
+        f"statuses {blame_codes}")
     log(f"[verify] host twin: {twin_rate:.1f} signatures/s on this machine's CPU; the CPU "
         f"engine took {cpu_wall_main:.6f} s for the {len(main_bytes)}-vote call; stats (total, active, "
         f"failed, reached) {stats}; identical statuses, results and events")
     log(f"[verify] PyTorch operator calls per stage at 16 lanes: {ops}")
-    return dict(launches=fe_main, launches_blame=fe_blame, rate=rate, twin_rate=twin_rate,
-                phases=phases_main, phases_blame=phases_blame)
+    return dict(launches=main_launches, launches_blame=blame_launches, rate=rate,
+                twin_rate=twin_rate, phases=phases_main, phases_blame=phases_blame)
 
 
 def main() -> int:
@@ -760,6 +1016,7 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    sass_counts()
 
     timing = phase_kernel(dev)
 
@@ -821,12 +1078,13 @@ def main() -> int:
         f"{sum(1 for _, r in swept if r is None)} failed; late vote PROPOSAL_EXPIRED; "
         f"scan launches {launches5}; identical to the CPU engine")
 
-    # Phases 6 and 7.
-    field_timing = phase_field(dev)
+    # Phases 6, 6b and 7.
+    fe_mul_timing, pow_timing = phase_field(dev)
+    msm_timings = phase_msm(dev)
     verify = phase_verify(dev)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.3f} s")
-    kernel = {
+    kernels = [{
         "name": "ingest_scan",
         "route": "cuda",
         "source": "hashgraph_tpu_torch/csrc/ingest_scan.cu",
@@ -842,26 +1100,40 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-    }
-    fe_kernel = {
-        "name": "fe_mul",
-        "route": "cuda",
-        "source": "hashgraph_tpu_torch/csrc/fe_mul.cu",
-        "replaces": "hashgraph_tpu/crypto_device/pallas_msm.py:65",
-        "implementation": "hand-written CUDA C++ for sm_90a, one thread per lane, "
-                          "uint32 columns in registers",
-        "launches": verify["launches"],
-        "launches_blame_call": verify["launches_blame"],
-        "parity": "bit-exact against field._mul_plain at [16384, 16] (boundary and "
-                  "ripple rows included) and through pow22523 at [8192, 16]",
-        "max_abs_err": field_timing["max_abs_err"],
-        "ms": field_timing["ms"],
-        "plain_ms": field_timing["plain_ms"],
-        "bound_ms": field_timing["bound_ms"],
-        "bound_by": field_timing["bound_by"],
-        "library_ms": None,
-    }
-    print(json.dumps({"kernels": [kernel, fe_kernel]}))
+    }]
+    crypto = [
+        ("fe_mul", "fe_mul.cu", fe_mul_timing,
+         "one thread per lane, uint32 columns in registers; decompression's products "
+         "outside the chain",
+         "bit-exact against field._mul_plain at [16384, 16] (boundary and ripple rows)"),
+        ("fe_pow22523", "fe_pow22523.cu", pow_timing,
+         "one thread per lane, the 262-product chain in registers",
+         "bit-exact against field._pow22523_plain at [8192, 16] (boundary and ripple rows)"),
+        ("msm_windows", "ed_msm.cu", msm_timings[0],
+         "one thread per lane: the 16-entry table (uint16, lane-major, in L2) and 64 "
+         "windows with the accumulator in registers",
+         "bit-exact against msm._windows_plain at [16384, 4, 16]"),
+        ("msm_reduce", "ed_msm.cu", msm_timings[1],
+         "one launch per tree level, one thread per output point; ms is the whole tree",
+         "root bit-exact against msm._reduce_plain at 16384, 1000, 5 and 1 lanes"),
+        ("msm_final", "ed_msm.cu", msm_timings[2],
+         "one thread: 8 * root and the identity test, an int32 verdict on the device",
+         "verdict equal to msm._final_plain, accepting and rejecting"),
+    ]
+    for name, source, t, design, parity in crypto:
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"hashgraph_tpu_torch/csrc/{source}",
+            "replaces": "hashgraph_tpu/crypto_device/pallas_msm.py:65",
+            "implementation": f"hand-written CUDA C++ for sm_90a, {design}",
+            "launches": verify["launches"].get(name, 0),
+            "launches_blame_call": verify["launches_blame"].get(name, 0),
+            "parity": parity,
+            "library_ms": None,
+            **t,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

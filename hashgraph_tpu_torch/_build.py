@@ -5,7 +5,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes). Wrappers pass raw device pointers from
 ``tensor.data_ptr()`` and PyTorch's current stream. Libraries land in
 ``_build/`` beside this file (listed in ``.gitignore``), named by a hash of
-the source and flags, so an unchanged source is not compiled again.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+unchanged source is not compiled again.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises
 :class:`BuildError` carrying the compiler's output.
@@ -66,7 +67,12 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> Path:
+    """The library's path, named by a hash of the source, every shared
+    header under ``csrc/`` (so an edited header rebuilds what includes it)
+    and the flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -117,6 +123,25 @@ def build(names: list[str] | None = None) -> dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built at first use."""
     return build([name])[name]
+
+
+def check_operand(kernel: str, label: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's raw pointer needs."""
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{kernel}: {label} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous: {t.is_contiguous()})")
+
+
+def launched(kernel: str, err: int) -> None:
+    """Raise if a launch returned a non-zero ``cudaError``, else count it
+    under the kernel's name."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
+    launches[kernel] += 1
 
 
 def build_log(name: str) -> str:

@@ -2,17 +2,20 @@
 
 Port of ``hashgraph_tpu/crypto_device``: the randomized-linear-combination
 check — batched point decompression, vectorized SHA-512 challenge hashes
-and one Straus multi-scalar multiply across every signature lane — runs in
-PyTorch on the GPU, with the field product as a hand-written CUDA kernel
-(``csrc/fe_mul.cu``).
+and one Straus multi-scalar multiply across every signature lane — runs on
+the GPU: the MSM as three hand-written CUDA kernels (``csrc/ed_msm.cu``),
+decompression's inverse-square-root chain as one (``csrc/fe_pow22523.cu``)
+and its remaining field products as another (``csrc/fe_mul.cu``), all over
+the shared arithmetic of ``csrc/fe25519.cuh``; the rest is PyTorch.
 
 Layering:
 
 - :mod:`.field`      — radix-2^16 int64-limb GF(2^255-19) core
-- :mod:`.cuda_field` — the field product's kernel wrapper
+- :mod:`.cuda_field` — the field product's and the chain's kernel wrappers
 - :mod:`.sha512`     — vectorized SHA-512 in 32-bit pairs, ragged batches
 - :mod:`.curve`      — extended-Edwards point ops + batched decompression
 - :mod:`.msm`        — the Straus MSM + cofactored identity test
+- :mod:`.cuda_msm`   — the MSM's kernel wrappers
 - :mod:`.backend`    — pipeline orchestration, buckets, phase split, blame
 
 The public seam is not here: engines select the backend through

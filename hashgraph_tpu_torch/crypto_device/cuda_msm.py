@@ -1,0 +1,122 @@
+"""The Straus MSM's three CUDA kernels and their dispatch.
+
+They replace, for the MSM, ``hashgraph_tpu/crypto_device/pallas_msm.py::
+_mul_kernel`` as the JAX package's jitted MSM (``msm.py:59``) fused it:
+the point formulas run around the field product inside the kernels of
+``csrc/ed_msm.cu`` (built at first use by :mod:`hashgraph_tpu_torch._build`),
+launched on PyTorch's current stream:
+
+- :func:`msm_windows` — one launch: per lane the window table and the 64
+  windows, accumulator in registers;
+- :func:`msm_reduce` — one launch per tree level, ``ceil(log2 lanes)``
+  levels, ping-ponging between two scratch buffers;
+- :func:`msm_final` — one launch: ``8 * root`` and the identity test, as an
+  int32 verdict on the device.
+
+They take CUDA tensors only: :func:`.msm.msm_is_identity` runs the plain
+versions on CPU tensors and calls here for CUDA ones. Nothing falls back:
+a call whose build or launch fails raises, and so does an operand of the
+wrong dtype, shape, contiguity or device. Every launch adds one to
+``_build.launches`` under its kernel's name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+SOURCE = "ed_msm"
+WINDOWS_KERNEL = "msm_windows"
+REDUCE_KERNEL = "msm_reduce"
+FINAL_KERNEL = "msm_final"
+KERNELS = (WINDOWS_KERNEL, REDUCE_KERNEL, FINAL_KERNEL)
+
+_ENTRIES = 16  # window table entries per lane
+_POINT = (4, 16)  # extended coordinates x limbs
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The bound C entry points, built at first use and bound once."""
+    lib = _build.library(SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+        ("hg_msm_windows", [ptr] * 4 + [i32, i32, ptr]),
+        ("hg_msm_reduce", [ptr, ptr, i32, ptr]),
+        ("hg_msm_final", [ptr, ptr, ptr]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _device(kernel: str, t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: takes CUDA tensors, got one on {t.device}")
+    return t.device
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def msm_windows(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
+    """Per-lane window accumulators, int64[Lanes, 4, 16], of points
+    int64[Lanes, 4, 16] under MSB-first nibbles in [0, 16), int32[Lanes, W]
+    (the kernel reads their low 4 bits)."""
+    dev = _device(WINDOWS_KERNEL, points)
+    lanes = points.shape[0]
+    _build.check_operand(WINDOWS_KERNEL, "points", points, torch.int64, (lanes, *_POINT), dev)
+    if nibbles.dim() != 2:
+        raise ValueError(f"{WINDOWS_KERNEL}: nibbles must be [Lanes, W], got "
+                         f"{tuple(nibbles.shape)}")
+    _build.check_operand(WINDOWS_KERNEL, "nibbles", nibbles, torch.int32,
+                         (lanes, nibbles.shape[1]), dev)
+    out = torch.empty_like(points)
+    if lanes == 0:
+        return out
+    # Each lane's table, entry by entry as 64 uint16 limbs (int16 bits).
+    # Dropping it on return is safe: the caching allocator hands the block
+    # out again only to work ordered after this launch on the stream.
+    table = torch.empty((lanes, _ENTRIES, 4 * 16), dtype=torch.int16, device=dev)
+    _build.launched(WINDOWS_KERNEL, _lib().hg_msm_windows(
+        points.data_ptr(), nibbles.data_ptr(), table.data_ptr(), out.data_ptr(),
+        lanes, nibbles.shape[1], _stream(dev)))
+    return out
+
+
+def msm_reduce(acc: torch.Tensor, levels: "list[int]") -> torch.Tensor:
+    """The root of the tree reduction over int64[Lanes, 4, 16], the sum of
+    every lane, int64[4, 16]: one launch per entry of ``levels``, the point
+    count entering that level (``msm.reduce_levels``)."""
+    dev = _device(REDUCE_KERNEL, acc)
+    lanes = acc.shape[0]
+    _build.check_operand(REDUCE_KERNEL, "acc", acc, torch.int64, (lanes, *_POINT), dev)
+    if lanes == 0 or not levels or levels[0] != lanes:
+        raise ValueError(f"{REDUCE_KERNEL}: levels {levels} do not start at "
+                         f"{lanes} lanes")
+    half = (lanes + 1) // 2
+    bufs = [torch.empty((half, *_POINT), dtype=torch.int64, device=dev)
+            for _ in range(2 if lanes > 2 else 1)]
+    src = acc
+    for level, n_in in enumerate(levels):
+        dst = bufs[level % len(bufs)]
+        _build.launched(REDUCE_KERNEL, _lib().hg_msm_reduce(
+            src.data_ptr(), dst.data_ptr(), n_in, _stream(dev)))
+        src = dst
+    return src[0]
+
+
+def msm_final(root: torch.Tensor) -> torch.Tensor:
+    """int32[] 1 iff 8 * root is the identity, for root int64[4, 16]."""
+    dev = _device(FINAL_KERNEL, root)
+    _build.check_operand(FINAL_KERNEL, "root", root, torch.int64, _POINT, dev)
+    verdict = torch.empty((), dtype=torch.int32, device=dev)
+    _build.launched(FINAL_KERNEL, _lib().hg_msm_final(
+        root.data_ptr(), verdict.data_ptr(), _stream(dev)))
+    return verdict

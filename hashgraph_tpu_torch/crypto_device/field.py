@@ -15,8 +15,10 @@ The *carried* form (every public op's output) has all limbs < 2^16; the
 value may be anywhere in [0, 2^256), and only :func:`canon` reduces it
 below p. :func:`mul` takes carried inputs: on CUDA tensors it launches the
 hand-written kernel (:mod:`.cuda_field`, ``csrc/fe_mul.cu``), on CPU
-tensors it runs the plain version :func:`_mul_plain`. Every other op is
-PyTorch, shape-polymorphic over leading batch axes.
+tensors it runs the plain version :func:`_mul_plain`; :func:`pow22523`
+does the same with its own kernel (``csrc/fe_pow22523.cu``) and
+:func:`_pow22523_plain`. Every other op is PyTorch, shape-polymorphic over
+leading batch axes.
 """
 
 from __future__ import annotations
@@ -180,7 +182,17 @@ def pow2k(a, k: int):
 
 def pow22523(z):
     """z^((p-5)/8) = z^(2^252 - 3): the shared exponent of inverse-sqrt
-    decompression (RFC 8032 5.1.3), one chain across every lane."""
+    decompression (RFC 8032 5.1.3), one chain across every lane. On CUDA
+    tensors the whole chain is one kernel launch (``csrc/fe_pow22523.cu``);
+    on CPU tensors it is the plain version :func:`_pow22523_plain`."""
+    if z.device.type == "cuda":
+        z = z.contiguous()
+    return cuda_field.fe_pow22523(z)
+
+
+def _pow22523_plain(z):
+    """The plain version of :func:`pow22523`: 251 squarings and 11
+    products through :func:`mul`."""
     z2 = sqr(z)
     z9 = mul(pow2k(z2, 2), z)            # z^9
     z11 = mul(z9, z2)                    # z^11

@@ -23,8 +23,11 @@ Shape of the computation (Straus, interleaved 4-bit windows):
   limbs of the JAX package's fixed-shape reduction;
 - 3 doublings (the *8) and the projective identity test.
 
-The verdict stays on the device until :func:`msm_accepts` reads it: one
-read per batch.
+On the card each stage is a hand-written kernel (``csrc/ed_msm.cu``): the
+JAX package ran the MSM as one jitted program, and an eager loop of point
+formulas would enqueue some 200,000 PyTorch operator calls. The verdict
+stays on the device until :func:`msm_accepts` reads it: one read per
+batch.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import curve
+from . import cuda_msm, curve
 
 WINDOWS = 64  # 4-bit windows over 256-bit scalars, MSB first
 
@@ -51,14 +54,35 @@ def scalars_to_nibbles(scalars: "list[int]") -> np.ndarray:
 
 
 def msm_is_identity(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
-    """points: int64[Lanes, 4, 16], nibbles: int[Lanes, 64] on the same
-    device -> bool[] (True iff 8 * sum_i scalar_i * point_i == identity)."""
+    """points: int64[Lanes, 4, 16], nibbles: int[Lanes, W] -> bool[] on
+    the points' device (True iff 8 * sum_i scalar_i * point_i ==
+    identity).
+
+    On CUDA tensors the three stages are the kernels of ``csrc/ed_msm.cu``
+    (:mod:`.cuda_msm`): one window launch, one launch per tree level and
+    one final launch. On CPU tensors they are the plain versions below."""
+    if points.device.type == "cpu":
+        root = _reduce_plain(_windows_plain(points, nibbles))
+        return _final_plain(root) != 0
+    if points.device.type != "cuda":
+        raise ValueError(f"msm_is_identity: unsupported device {points.device}")
+    nibbles = nibbles.to(device=points.device, dtype=torch.int32).contiguous()
+    acc = cuda_msm.msm_windows(points, nibbles)
+    root = cuda_msm.msm_reduce(acc, reduce_levels(acc.shape[0]))
+    return cuda_msm.msm_final(root) != 0
+
+
+def _windows_plain(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
+    """The plain version of the window stage: per lane, the 16-entry table
+    (table[0] = identity, table[k] = table[k-1] + P), then per window (MSB
+    first) four doublings and one gathered table add. Returns the lane
+    accumulators, int64[Lanes, 4, 16]."""
     lanes, dev = points.shape[0], points.device
     lane_iota = torch.arange(lanes, device=dev)
     ident = curve.identity((lanes,), dev)
 
-    # Window tables: table[k] = k * P per lane, k = 0..15. Local, so the
-    # 16 x lanes x 512-byte table is freed when the batch is done.
+    # Local, so the 16 x lanes x 512-byte table is freed when the stage is
+    # done.
     table = torch.empty((16, lanes, 4, 16), dtype=torch.int64, device=dev)
     table[0] = ident
     acc = ident
@@ -68,21 +92,41 @@ def msm_is_identity(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor
 
     nib = nibbles.to(device=dev, dtype=torch.int64)
     acc = ident
-    for w in range(WINDOWS):
+    for w in range(nib.shape[1]):
         acc = curve.dbl(curve.dbl(curve.dbl(curve.dbl(acc))))
         acc = curve.add(acc, table[nib[:, w], lane_iota])
-    del table
+    return acc
 
+
+def reduce_levels(lanes: int) -> "list[int]":
+    """Point counts entering each level of the tree reduction: ceil(log2
+    lanes) levels, at least one, each halving the count (rounded up)."""
+    counts = []
+    for _ in range((max(lanes, 2) - 1).bit_length()):
+        counts.append(lanes)
+        lanes = (lanes + 1) // 2
+    return counts
+
+
+def _reduce_plain(acc: torch.Tensor) -> torch.Tensor:
+    """The plain version of the tree reduction: lane i <- lane 2i + lane
+    2i+1 per level, an odd count padded with the identity. Returns the
+    root, int64[4, 16] (the JAX package's fixed-shape tree leaves the same
+    limbs in its lane 0)."""
     q = acc
-    steps = max(1, int(np.ceil(np.log2(max(lanes, 2)))))
-    for _ in range(steps):
+    for _ in reduce_levels(acc.shape[0]):
         if q.shape[0] % 2:
-            q = torch.cat([q, curve.identity((1,), dev)])
+            q = torch.cat([q, curve.identity((1,), q.device)])
         q = curve.add(q[0::2], q[1::2])
-    total = q[:1]
+    return q[0]
+
+
+def _final_plain(root: torch.Tensor) -> torch.Tensor:
+    """The plain version of the final stage: int32[] 1 iff 8 * root is the
+    identity."""
     for _ in range(3):
-        total = curve.dbl(total)
-    return curve.is_identity(total[0])
+        root = curve.dbl(root)
+    return curve.is_identity(root).to(torch.int32)
 
 
 def msm_accepts(points, nibbles) -> bool:

@@ -24,73 +24,18 @@
 //
 // Bound. Per lane the kernel reads 256 bytes and writes 128, and does 256
 // 32-bit multiplies plus about 1,250 integer adds, masks and shifts for the
-// columns, the fold and the carries. At the MSM's 16,384 lanes that is
-// 6.3 MB against 24.7 M integer operations: the bytes bound it, narrowly.
-// A simple kernel first: scalar loads, no shared memory, no fusion of the
-// point formulas around it yet (fe_mul below is a __device__ function so
-// that a later kernel can fuse them).
+// columns, the fold and the carries. At 16,384 lanes that is 6.3 MB
+// against 24.7 M integer operations: the bytes bound it, narrowly.
+//
+// The arithmetic is fe25519.cuh's __device__ fe_mul, which the MSM and the
+// inverse-square-root chain run inside their own kernels (ed_msm.cu,
+// fe_pow22523.cu). This standalone launch serves decompression's products
+// outside the chain.
 
-#include <stdint.h>
-
-namespace {
-
-constexpr int kLimbs = 16;
-constexpr uint32_t kMask = 0xFFFFu;
-constexpr uint32_t kFold = 38u;  // 2^256 mod p
-
-// Carry-save pass: every limb sheds its high bits to its neighbour at once.
-__device__ __forceinline__ void carry_vec(uint32_t t[kLimbs]) {
-  uint32_t c[kLimbs];
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    c[i] = t[i] >> 16;
-    t[i] &= kMask;
-  }
-#pragma unroll
-  for (int i = 1; i < kLimbs; ++i) t[i] += c[i - 1];
-  t[0] += c[kLimbs - 1] * kFold;
-}
-
-// Exact sequential pass; limb 0 absorbs 38 * carry_out unmasked.
-__device__ __forceinline__ void carry_seq(uint32_t t[kLimbs]) {
-  uint32_t c = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t cur = t[i] + c;
-    t[i] = cur & kMask;
-    c = cur >> 16;
-  }
-  t[0] += c * kFold;
-}
-
-}  // namespace
-
-// The carried product of two carried field elements.
-__device__ __forceinline__ void fe_mul(const uint32_t a[kLimbs],
-                                       const uint32_t b[kLimbs],
-                                       uint32_t out[kLimbs]) {
-  uint32_t col[2 * kLimbs];
-#pragma unroll
-  for (int k = 0; k < 2 * kLimbs; ++k) col[k] = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) {
-      const uint32_t p = a[i] * b[j];
-      col[i + j] += p & kMask;
-      col[i + j + 1] += p >> 16;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kLimbs; ++k) out[k] = col[k] + col[k + kLimbs] * kFold;
-  carry_vec(out);
-  carry_vec(out);
-  carry_seq(out);
-  carry_seq(out);
-}
+#include "fe25519.cuh"
 
 // The launch code below needs nvcc; a host C++ compiler sees only the
-// arithmetic above, which is how a CPU test checks it against the plain
+// header's arithmetic, which is how a CPU test checks it against the plain
 // version (tests/test_torch_crypto.py).
 #ifdef __CUDACC__
 #include <cuda_runtime.h>

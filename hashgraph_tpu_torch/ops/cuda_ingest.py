@@ -80,15 +80,12 @@ def ingest_scan(
     if s_count == 0:
         return out
     fn = _bind(_build.library(KERNEL))
-    err = fn(
+    _build.launched(KERNEL, fn(
         *(t.data_ptr() for t in tensors),
         grid_pack.data_ptr(),
         out.data_ptr(),
         s_count, depth, p, v, _CELL_BYTES[grid_pack.dtype],
         lane_mask, val_bit, valid_bit,
         torch.cuda.current_stream(state.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"ingest_scan: kernel launch failed (cudaError {err})")
-    _build.launches[KERNEL] += 1
+    ))
     return out
