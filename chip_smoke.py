@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``hashgraph_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only 1,2,6b]
 
 Drives the port's vote path through its public entry points at the size of
 the README's single-chip engine (``capacity=100_000``,
 ``voter_capacity=1024``), and fails unless every phase holds:
 
 1. build and device: build every CUDA kernel from ``hashgraph_tpu_torch/
-   csrc``, print the toolchain and the card, and count the instructions of
-   the compiled crypto routines in the build's SASS (``cuobjdump``) beside
-   the counts that the operation bounds use;
+   csrc`` (and ``msm_windows`` at each group size tried), print the
+   toolchain, the card and each kernel's registers and stack, and count the
+   instructions of the compiled crypto routines in the build's SASS
+   (``cuobjdump``) beside the counts that the operation bounds use;
 2. kernel against its plain version: the CUDA ingest scan against the plain
-   PyTorch scan on the card, for the three packed-grid layouts and at the
-   main path's shape — bit-exact — with times per launch;
+   PyTorch scan on the card, for the three packed-grid layouts with pad
+   rows, pad rows deeper than the kernel's 32-vote chunk, the main path's
+   shape and config 2's one-row depth-128 call — bit-exact — with times per
+   call;
 3. BASELINE config 3 (the main path): one scope, 10,000 proposals × 64
    voters, half gossipsub and half P2P, voted in four columnar waves of 16
    votes per proposal plus one redelivered wave;
 4. BASELINE config 2: one P2P proposal × 1024 voters in 8 columnar calls of
-   128 votes (decision at vote 683);
+   128 votes (decision at vote 683), in at most 7 scan calls;
 5. timeouts: silent peers under both liveness settings, a vote after
    expiry, ``sweep_timeouts`` and per-session timeouts;
+5b. sessions the pool cannot hold: 16 proposals of 2,000 voters (wider than
+   ``voter_capacity``, served on the host) among 10,000 pooled proposals of
+   64 voters, voted in the same ``ingest_columnar`` and pre-validated
+   ``ingest_votes`` calls; a pool of 64 slots that overflows by 32
+   sessions; ``sweep_timeouts``; spill counts from ``occupancy()``;
 6. the field kernels against their plain versions: ``fe_mul`` against
    ``field._mul_plain`` bit-exact at 16,384 lanes on seeded carried inputs
    plus the boundary and carry-ripple rows, and ``fe_pow22523`` (what
@@ -29,7 +37,8 @@ the README's single-chip engine (``capacity=100_000``,
 6b. the MSM kernels against their plain versions at a batch's 16,384 lanes
    of real curve points (seeded multiples of the base point, identity lanes
    and the order-4 point) and seeded nibbles (with all-0 and all-15 rows):
-   ``msm_windows`` against ``msm._windows_plain`` limb for limb, the root of
+   ``msm_windows`` against ``msm._windows_plain`` limb for limb at every
+   group size tried (4, 8 and 16 threads a lane), each timed, the root of
    ``msm_reduce`` against ``msm._reduce_plain``, the ``msm_final`` verdict
    for an accepting and a rejecting combination, and the fold of 1, 5 and
    1,000 lanes, with times and bounds;
@@ -42,7 +51,7 @@ the README's single-chip engine (``capacity=100_000``,
    its sign bit flipped, which forces the host blame pass. A CPU engine
    with the host signer (the pure-Python twin) takes the same vote bytes.
 
-Phases 3-5 and 7 run the same traffic on a ``device="cpu"`` port engine
+Phases 3-5b and 7 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
 stats. Launch counts are reset just before each phase and read just after
 it; phase 7 fails unless the batch launched every verification kernel, with
@@ -50,7 +59,8 @@ at most 20 launches for the MSM and 20 for ``fe_mul``. The plain versions
 that the kernels are held against run with ``field.mul`` routed to
 ``field._mul_plain``, so they touch no kernel. The last lines are the
 kernel table as JSON, the card's name and power limit, and ``{"ok": true,
-"device": {...}}``. Without a GPU, or without the package beside it, the
+"device": {...}}``. ``--only`` runs phase 1 and the named phases and prints
+no result lines. Without a GPU, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 
@@ -100,11 +110,11 @@ POOL_DTYPES = (torch.int32, torch.int32, torch.int32, torch.bool, torch.bool,
                torch.int32, torch.int32, torch.int32, torch.bool, torch.bool)
 
 
-def random_rows(seed, p, v, s, depth, grid_np_dtype):
+def random_rows(seed, p, v, s, depth, grid_np_dtype, pad_share=0.02):
     """Pool arrays (numpy) and one packed batch drawn from a seeded
     ``torch.Generator``: random prior votes, decided/failed rows, rows at
-    their round cap, expired rows, duplicate voters, partly empty rows and
-    pad rows (id == P)."""
+    their round cap, expired rows, duplicate voters, partly empty rows and,
+    with ``pad_share`` > 0, pad rows (id == P)."""
     from hashgraph_tpu_torch.ops.decide import required_votes_np
     from hashgraph_tpu_torch.ops.ingest import grid_layout, pack_slots
 
@@ -135,7 +145,7 @@ def random_rows(seed, p, v, s, depth, grid_np_dtype):
     pool = [state, yes, tot, mask, vals, n, req, cap, gossip, live]
 
     slots = torch.randperm(p, generator=gen)[:s].numpy().astype(np.int32)
-    slots[uniform(s) < 0.02] = p  # pad rows
+    slots[uniform(s) < pad_share] = p  # pad rows
     expired = uniform(s) < 0.1
     lane_mask, val_bit, valid_bit = grid_layout(grid_np_dtype)
     hi = min(v, lane_mask + 1)
@@ -204,24 +214,36 @@ def phase_kernel(dev):
     from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.ops.ingest import ingest_body
 
+    # (label, P, V, S, L, grid, share of pad rows). Only the first three
+    # carry pad rows: the engine sends none, so the main path's shapes are
+    # timed as the engine dispatches them, one launch a call.
     cases = [
-        ("uint8", 8192, 64, 4096, 8, np.uint8),
-        ("uint16", 8192, 1024, 4096, 8, np.uint16),
-        ("int32", 512, 65536, 256, 8, np.int32),
-        ("main path (uint16)", CAPACITY, VOTER_CAPACITY, 10_000, 8, np.uint16),
+        ("uint8 with pad rows", 8192, 64, 4096, 8, np.uint8, 0.02),
+        ("uint16 with pad rows", 8192, 1024, 4096, 8, np.uint16, 0.02),
+        ("int32 with pad rows", 512, 65536, 256, 8, np.int32, 0.02),
+        ("pad rows, depth 70", 4096, 1024, 1024, 70, np.uint16, 0.2),
+        ("main path (uint16)", CAPACITY, VOTER_CAPACITY, 10_000, 8, np.uint16, 0.0),
+        ("config 2's call (uint16)", CAPACITY, VOTER_CAPACITY, 1, 128, np.uint16, 0.0),
     ]
-    timing = None
-    for i, (label, p, v, s, depth, dt) in enumerate(cases):
-        pool, slot_pack, grid = random_rows(100 + i, p, v, s, depth, dt)
+    timing = {}
+    for i, (label, p, v, s, depth, dt, pad_share) in enumerate(cases):
+        pool, slot_pack, grid = random_rows(100 + i, p, v, s, depth, dt, pad_share)
+        has_pad = bool(((slot_pack & ((1 << 30) - 1)) >= p).any())
+        if has_pad != (pad_share > 0):
+            raise AssertionError(f"{label}: pad rows {has_pad}, share {pad_share}")
         base, sp, g = to_device(pool, slot_pack, grid, dev)
         plain = [t.clone() for t in base]
         plain_out = ingest_body(*plain, sp, g)[-1]
         before = _build.launches[cuda_ingest.KERNEL]
+        grid_before = cuda_ingest.grid_launches
         kern = [t.clone() for t in base]
-        kern_out = cuda_ingest.ingest_scan(*kern, sp, g)
+        kern_out = cuda_ingest.ingest_scan(*kern, sp, g, pad_rows=has_pad)
         torch.cuda.synchronize()
         if _build.launches[cuda_ingest.KERNEL] != before + 1:
             raise AssertionError("the scan wrapper did not count its launch")
+        per_call = cuda_ingest.grid_launches - grid_before
+        if per_call != (2 if has_pad else 1):
+            raise AssertionError(f"{label}: {per_call} device launches for one call")
         for name, a, b in zip(
             ("state", "yes", "tot", "vote_mask", "vote_val", "n", "req", "cap",
              "gossip", "liveness", "out"),
@@ -233,7 +255,7 @@ def phase_kernel(dev):
         statuses = kern_out[:, :-1].cpu().numpy()
         seen = sorted(set(np.unique(statuses).tolist()))
         log(f"[kernel] {label}: P={p} V={v} S={s} L={depth} grid={np.dtype(dt).name} "
-            f"bit-exact against plain; statuses seen {seen}")
+            f"bit-exact against plain; {per_call} device launch(es); statuses seen {seen}")
 
         work = [t.clone() for t in base]
 
@@ -241,14 +263,22 @@ def phase_kernel(dev):
             for w, b0 in zip(work, base):
                 w.copy_(b0)
 
-        ms = event_ms(lambda: cuda_ingest.ingest_scan(*work, sp, g), restore, 20)
+        # call_ms: CUDA events around one wrapper call on restored inputs, the
+        # host's enqueue included (how earlier runs timed it). ms: device time
+        # alone, the stream held while 20 calls on the same batch are
+        # enqueued (calls after the first meet the rows the first voted: the
+        # same loads, fewer accepted votes to write).
+        call_ms = event_ms(lambda: cuda_ingest.ingest_scan(*work, sp, g, pad_rows=has_pad),
+                           restore, 20)
+        restore()
+        ms = device_ms(lambda: cuda_ingest.ingest_scan(*work, sp, g, pad_rows=has_pad), 20)
         plain_ms = event_ms(lambda: ingest_body(*work, sp, g), restore, 5)
         parts = scan_bytes(pool, slot_pack, grid)
         bound = sum(parts.values()) / HBM_BYTES_PER_S * 1e3
-        log(f"[kernel] {label}: {ms:.6f} ms/launch (plain {plain_ms:.6f} ms, "
-            f"byte bound {bound:.6f} ms = {sum(parts.values())} B / 3.35 TB/s: {parts})")
-        if label.startswith("main path"):
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        log(f"[kernel] {label}: {ms:.6f} ms device time a call, {call_ms:.6f} ms with the "
+            f"host's enqueue (plain {plain_ms:.6f} ms, byte bound {bound:.6f} ms = "
+            f"{sum(parts.values())} B / 3.35 TB/s: {parts})")
+        timing[label] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound)
     return timing
 
 
@@ -405,12 +435,16 @@ def config2_traffic(run, seed):
     gids = np.array([run.engine.voter_gid(b"peer-%d" % i) for i in range(1024)])
     vals = np.random.default_rng(seed).random(1024) < 0.9
     statuses = []
+    sync = torch.cuda.synchronize if run.engine.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
     for c in range(8):
         sl = slice(128 * c, 128 * (c + 1))
         st = run.engine.ingest_columnar(
             scope, np.full(128, pid), gids[sl], vals[sl], NOW + 1 + c, max_depth=8)
         statuses.extend(st.tolist())
-    return statuses
+    sync()
+    return statuses, time.perf_counter() - t0
 
 
 def timeout_traffic(run, seed):
@@ -442,6 +476,142 @@ def timeout_traffic(run, seed):
         except InsufficientVotesAtTimeout:  # raised after ConsensusFailed is emitted
             log_.append("insufficient votes")
     return log_
+
+
+# ── Phase 5b: sessions the pool cannot hold, served on the host ────────
+
+SPILL_WIDE = 16  # proposals of 2,000 voters, wider than voter_capacity
+SPILL_POOLED = 10_000  # proposals of 64 voters beside them
+
+
+def spill_traffic(run, seed):
+    """16 proposals of 2,000 voters (served on the host) among 10,000 pooled
+    proposals of 64 voters, voted in the same calls: one arrival-shuffled
+    ingest_columnar call (1,400 votes a wide proposal, 16 a pooled one) and
+    one pre-validated ingest_votes call of chained Vote objects; then a
+    second engine whose pool of 64 slots overflows by 32 sessions; then
+    sweep_timeouts on both. Returns (log, votes of the mixed calls, their
+    wall seconds)."""
+    from hashgraph_tpu_torch import ConsensusConfig, StubConsensusSigner, build_vote
+
+    engine = run.engine
+    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
+    scope = "spill"
+    wide_at = set(range(0, SPILL_POOLED + SPILL_WIDE, (SPILL_POOLED + SPILL_WIDE) // SPILL_WIDE))
+    reqs = requests(SPILL_POOLED + SPILL_WIDE, 64, 60, lambda i: i % 3 != 0)
+    for i in wide_at:
+        reqs[i].expected_voters_count = 2_000
+    run.create(scope, reqs, NOW, ConsensusConfig.gossipsub())
+    log_ = [engine.occupancy()["host_spilled"]]
+    pids = np.asarray(run.pids[scope], np.int64)
+    wide = np.array(sorted(wide_at))
+    pooled = np.array([i for i in range(len(reqs)) if i not in wide_at])
+    gids = np.array([engine.voter_gid(b"s-%d" % i) for i in range(2_000)])
+    rng = np.random.default_rng(seed)
+    rows_p = np.concatenate([np.repeat(wide, 1_400), np.repeat(pooled, 16)])
+    rows_v = np.concatenate([np.tile(rng.permutation(2_000)[:1_400], len(wide)),
+                             np.tile(np.arange(16), len(pooled))])
+    order = rng.permutation(len(rows_p))
+    vals = rng.random(len(rows_p)) < 0.6
+    sync()
+    t0 = time.perf_counter()
+    log_.append(engine.ingest_columnar(scope, pids[rows_p[order]], gids[rows_v[order]],
+                                       vals, NOW + 1).tolist())
+    sync()
+    wall = time.perf_counter() - t0
+    # Pre-validated object votes: 2 wide and 500 pooled proposals, chained,
+    # by voters the columnar call did not use.
+    targets = [int(wide[0]), int(wide[1])] * 100 + [int(k) for k in pooled[:500]] * 4
+    shadows = {k: engine.get_proposal(scope, int(pids[k])) for k in set(targets)}
+    items = []
+    for j, k in enumerate(targets):
+        signer = StubConsensusSigner(b"w-%d-%d" % (k, j))
+        vote = build_vote(shadows[k], bool(rng.random() < 0.7), signer, NOW + 2)
+        shadows[k].votes.append(vote)
+        items.append((scope, vote))
+    sync()
+    t0 = time.perf_counter()
+    log_.append(engine.ingest_votes(items, NOW + 2, pre_validated=True).tolist())
+    sync()
+    wall += time.perf_counter() - t0
+    n_votes = len(rows_p) + len(items)
+    index = {pid: k for k, pid in enumerate(run.pids[scope])}
+    log_.append(sorted((index[pid], r) for _, pid, r in engine.sweep_timeouts(NOW + 60)))
+    log_.append(engine.occupancy()["host_spilled"])
+    return log_, n_votes, wall
+
+
+def overflow_traffic(run, seed):
+    """A pool of 64 slots (voter_capacity 1,024) takes 96 proposals of 16
+    voters: 32 are served on the host. Columnar votes on all, then
+    sweep_timeouts after expiry."""
+    scope = "overflow"
+    engine = run.engine
+    run.create(scope, requests(96, 16, 30, lambda i: i % 2 == 0), NOW)
+    pids = np.asarray(run.pids[scope], np.int64)
+    gids = np.array([engine.voter_gid(b"o-%d" % i) for i in range(16)])
+    rng = np.random.default_rng(seed)
+    rows_p, rows_v = [], []
+    for k in range(96):
+        for v in rng.permutation(16)[: int(rng.integers(0, 14))]:
+            rows_p.append(k)
+            rows_v.append(v)
+    order = rng.permutation(len(rows_p))
+    rows_p, rows_v = np.array(rows_p)[order], np.array(rows_v)[order]
+    log_ = [engine.occupancy()["host_spilled"]]
+    log_.append(engine.ingest_columnar(scope, pids[rows_p], gids[rows_v],
+                                       rng.random(len(rows_p)) < 0.5, NOW + 1).tolist())
+    index = {pid: k for k, pid in enumerate(run.pids[scope])}
+    log_.append(sorted((index[pid], r) for _, pid, r in engine.sweep_timeouts(NOW + 40)))
+    log_.append(engine.occupancy()["host_spilled"])
+    return log_
+
+
+def overflow_engine(dev):
+    from hashgraph_tpu_torch import StubConsensusSigner, TorchConsensusEngine
+    from hashgraph_tpu_torch.events import BroadcastEventBus
+
+    return TorchConsensusEngine(
+        StubConsensusSigner(b"chip-smoke"), 64, VOTER_CAPACITY,
+        event_bus=BroadcastEventBus(max_queued_events=1_000_000),
+        max_sessions_per_scope=1_000, device=dev,
+    )
+
+
+def phase_spill(dev):
+    from hashgraph_tpu_torch.errors import StatusCode
+
+    gpu, cpu = Run(make_engine(dev)), Run(make_engine("cpu"))
+    gpu_log, n_votes, wall = spill_traffic(gpu, 51)
+    cpu_log, _, _ = spill_traffic(cpu, 51)
+    compare("spill statuses", gpu_log, cpu_log)
+    compare("spill results", gpu.outcome("spill"), cpu.outcome("spill"))
+    compare("spill events", gpu.events_by_session(), cpu.events_by_session())
+    if gpu_log[0] != SPILL_WIDE or gpu_log[-1] != SPILL_WIDE:
+        raise AssertionError(f"spill: host_spilled {gpu_log[0]} then {gpu_log[-1]}, "
+                             f"not {SPILL_WIDE}")
+    results = gpu.outcome("spill")[0]
+    wide = sorted(set(range(0, SPILL_POOLED + SPILL_WIDE,
+                            (SPILL_POOLED + SPILL_WIDE) // SPILL_WIDE)))
+    if not all(results[k] is not None for k in wide):
+        raise AssertionError("a wide proposal served on the host did not decide")
+    small_gpu, small_cpu = Run(overflow_engine(dev)), Run(overflow_engine("cpu"))
+    o_gpu = overflow_traffic(small_gpu, 52)
+    compare("overflow statuses", o_gpu, overflow_traffic(small_cpu, 52))
+    compare("overflow results", small_gpu.outcome("overflow"), small_cpu.outcome("overflow"))
+    compare("overflow events", small_gpu.events_by_session(), small_cpu.events_by_session())
+    if o_gpu[0] != 32:
+        raise AssertionError(f"overflow: {o_gpu[0]} sessions on the host, not 32")
+    flat = gpu_log[1] + gpu_log[2]
+    codes = {StatusCode(c).name: flat.count(c) for c in sorted(set(flat))}
+    log(f"[spill] {SPILL_WIDE} proposals x 2000 voters on the host among {SPILL_POOLED} "
+        f"pooled x 64: {n_votes} votes in one ingest_columnar and one pre-validated "
+        f"ingest_votes call, {wall:.6f} s = {n_votes / wall:.1f} votes/s on the GPU engine; "
+        f"statuses {codes}; wide results {[results[k] for k in wide]}; swept "
+        f"{len(gpu_log[3])}; host_spilled {gpu_log[-1]}")
+    log(f"[spill] pool of 64 took 96 proposals: host_spilled {o_gpu[0]}, swept {len(o_gpu[2])}; "
+        "statuses, results, events, scope stats and spill counts identical to the CPU engine")
+    return dict(votes=n_votes, seconds=wall)
 
 
 # ── Phase 6: the field-multiply kernel against its plain version ───────
@@ -500,42 +670,59 @@ def sass_functions(lib) -> "dict[str, list[tuple[int, str]]]":
             for name, body in zip(parts[1::2], parts[2::2])}
 
 
-def sass_counts():
+def sass_loops(rows) -> "list[tuple[int, int]]":
+    """(first, last) instruction addresses of each loop: every backward
+    branch and its target."""
+    return sorted((int(t, 16), a) for a, ins in rows
+                  for t in re.findall(r"BRA\S*\s+(0x[0-9a-f]+)", ins) if int(t, 16) < a)
+
+
+def call_body(rows, entry) -> int:
+    """Instructions of a subroutine, from its entry to its RET."""
+    ret = next(a for a, ins in rows if a >= entry and ins.startswith("RET"))
+    return (ret - entry) // 16 + 1
+
+
+def sass_counts(variants):
     """Instructions of the compiled routines, counted in this build's SASS:
-    the two subroutines that msm_windows calls (ed_add first, in the table
-    loop, then ed_dbl), each from its entry to its RET; the chain's squaring
+    the one-thread ed_add and ed_dbl (what msm_reduce and msm_final call,
+    each from its entry to its RET); the msm_windows kernel of each build
+    of ``variants`` (threads per lane -> defines); the chain's squaring
     (the body of each of fe_pow22523's loops, its loop control included);
     and fe_mul's kernel, loads and stores included. Logged beside the counts
     that the bounds use."""
     from hashgraph_tpu_torch import _build
 
-    def kernel(source, word):
-        funcs = sass_functions(_build._target(source))
+    def kernel(source, word, defines=()):
+        funcs = sass_functions(_build._target(source, defines))
         return next(rows for name, rows in funcs.items() if word in name)
 
-    rows = kernel("ed_msm", "msm_windows")
-    calls = list(dict.fromkeys(int(m, 16) for _, ins in rows
-                               for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
-    if len(calls) != 2:
-        raise AssertionError(f"msm_windows calls {len(calls)} subroutines, not ed_add and ed_dbl")
     body = {}
-    for name, entry in zip(("ed_add", "ed_dbl"), calls):
-        ret = next(a for a, ins in rows if a >= entry and ins.startswith("RET"))
-        body[name] = (ret - entry) // 16 + 1
-    loops = [(a - int(t, 16)) // 16 + 1 for a, ins in kernel("fe_pow22523", "pow22523")
-             for t in re.findall(r"BRA\s+(0x[0-9a-f]+)", ins) if int(t, 16) < a]
+    for name, word in (("ed_add", "msm_reduce"), ("ed_dbl", "msm_final")):
+        rows = kernel("ed_msm", word)
+        calls = list(dict.fromkeys(int(m, 16) for _, ins in rows
+                                   for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
+        if len(calls) != 1:
+            raise AssertionError(f"{word} calls {len(calls)} subroutines, not {name} alone")
+        body[name] = call_body(rows, calls[0])
+    windows = {}
+    for group, defines in variants.items():
+        rows = kernel("ed_msm", "msm_windows", defines)
+        windows[group] = len(rows)
+        log(f"[sass] msm_windows, {group} threads a lane: {len(rows)} instructions in the "
+            f"kernel, {sum(1 for _, ins in rows if ins.startswith('SHFL'))} of them shuffles, "
+            f"{len(sass_loops(rows))} backward branches, "
+            f"{sum(1 for _, ins in rows if ins.startswith('CALL'))} calls")
+    loops = [(last - first) // 16 + 1
+             for first, last in sass_loops(kernel("fe_pow22523", "pow22523"))]
     if len(set(loops)) != 1:
         raise AssertionError(f"fe_pow22523's loops differ in length: {loops}")
     fe_mul_n = len(kernel("fe_mul", "fe_mul"))
-    windows = 15 * body["ed_add"] + 64 * (4 * body["ed_dbl"] + body["ed_add"])
     log(f"[sass] ed_add {body['ed_add']} instructions (the bound counts {ED_ADD_OPS}), "
         f"ed_dbl {body['ed_dbl']} ({ED_DBL_OPS}), a squaring of the chain {loops[0]} "
         f"with its loop control ({FE_SQR_OPS_PER_LANE}), fe_mul's kernel {fe_mul_n} with "
-        f"its loads and stores ({FE_MUL_OPS_PER_LANE}); msm_windows issues at least "
-        f"{windows} a lane ({MSM_WINDOWS_OPS_PER_LANE}), "
-        f"{MSM_LANES * windows / INT_OPS_PER_S * 1e3:.6f} ms at {MSM_LANES} lanes")
-    return dict(body, pow_squaring=loops[0], fe_mul_kernel=fe_mul_n,
-                windows_per_lane=windows)
+        f"its loads and stores ({FE_MUL_OPS_PER_LANE})")
+    return dict(body, pow_squaring=loops[0], fe_mul_kernel=fe_mul_n, windows_per_lane=windows)
 
 
 def field_rows(seed, lanes):
@@ -702,7 +889,21 @@ def msm_inputs(seed, lanes, dev):
     return pts, torch.from_numpy(nib).to(dev), last
 
 
-def phase_msm(dev):
+# Threads per lane timed for msm_windows: 4, 8 and 16 are the sizes the
+# kernel is written for; 2 is timed beside them for reference.
+MSM_GROUPS = (2, 4, 8, 16)
+
+
+def msm_variants():
+    """Threads per lane -> defines of the ed_msm build: the port's own build
+    (no defines) for the size it keeps, a variant build for the others."""
+    text = (Path(__file__).resolve().parent / "hashgraph_tpu_torch" / "csrc"
+            / "ed_msm.cu").read_text()
+    kept = int(re.search(r"#define MSM_GROUP (\d+)", text).group(1))
+    return {g: () if g == kept else (f"MSM_GROUP={g}",) for g in MSM_GROUPS}
+
+
+def phase_msm(dev, variants):
     from hashgraph_tpu_torch.crypto_device import cuda_msm, msm
 
     pts, nib, last = msm_inputs(61, MSM_LANES, dev)
@@ -760,6 +961,22 @@ def phase_msm(dev):
             raise AssertionError(f"msm_reduce differs from _reduce_plain at {n} lanes")
     log(f"[msm] the tree folds lane counts {MSM_ODD_FOLDS} as _reduce_plain does")
 
+    # Every group size tried, each against the plain window stage, timed in
+    # this call; the port's build is the one kept.
+    group_ms = {}
+    for group, defines in variants.items():
+        if cuda_msm.threads_per_lane(defines) != group:
+            raise AssertionError(f"the build for {group} threads a lane reports "
+                                 f"{cuda_msm.threads_per_lane(defines)}")
+        got = cuda_msm.msm_windows(pts, nib, _defines=defines)
+        if not torch.equal(got, acc_plain):
+            raise AssertionError(f"msm_windows with {group} threads a lane differs from "
+                                 "_windows_plain")
+        group_ms[group] = device_ms(lambda: cuda_msm.msm_windows(pts, nib, _defines=defines), 3)
+    kept = cuda_msm.threads_per_lane()
+    log(f"[msm] msm_windows at {MSM_LANES} lanes, bit-exact at every group size; ms by "
+        f"threads a lane {json.dumps(group_ms)}; kept {kept}")
+
     levels = msm.reduce_levels(MSM_LANES)
     windows_ms = device_ms(lambda: cuda_msm.msm_windows(pts, nib), 3)
     reduce_ms = device_ms(lambda: cuda_msm.msm_reduce(acc, levels), 20)
@@ -776,6 +993,8 @@ def phase_msm(dev):
         "msm_reduce", reduce_ms, reduce_plain_ms,
         sum(n + (n + 1) // 2 for n in levels) * POINT_BYTES,
         sum((n + 1) // 2 for n in levels) * ED_ADD_OPS, reduce_err)
+    windows_row["threads_per_lane"] = kept
+    windows_row["ms_by_threads_per_lane"] = group_ms
     reduce_row["levels"] = len(levels)
     final_row = kernel_row("msm_final", final_ms, final_plain_ms, POINT_BYTES + 4,
                            MSM_FINAL_OPS, 0)
@@ -992,14 +1211,22 @@ def phase_verify(dev):
                 twin_rate=twin_rate, phases=phases_main, phases_blame=phases_blame)
 
 
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # ``--only 1,2,6b`` runs the named phases and prints no result lines.
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
     # The package sits beside this script; without it this import fails.
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
+
+    def run(phase):
+        return only is None or phase in only
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1010,96 +1237,123 @@ def main() -> int:
     log(f"[build] device {props.name}: {props.multi_processor_count} SMs, "
         f"{props.total_memory / 2**30:.1f} GiB; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    _build.build()
-    log(f"[build] kernels {_build.sources()} built in {time.perf_counter() - t0:.3f} s")
-    for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
-    sass_counts()
+    variants = msm_variants()
+    _build.build_jobs([(name, ()) for name in _build.sources()]
+                      + [("ed_msm", d) for d in variants.values() if d])
+    log(f"[build] kernels {_build.sources()} and msm_windows at "
+        f"{sorted(variants)} threads a lane built in {time.perf_counter() - t0:.3f} s")
+    builds = [(name, ()) for name in _build.sources()]
+    builds += [("ed_msm", d) for d in variants.values() if d]
+    for name, defines in builds:
+        for line in _build.build_log(name, defines).splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line:
+                log(f"[build] {name}{' ' + ' '.join(defines) if defines else ''}: {line.strip()}")
+    sass_counts(variants)
 
-    timing = phase_kernel(dev)
+    timing = phase_kernel(dev) if run("2") else None
 
-    # Phase 3, the main path: counts are zeroed just before it.
     gpu, cpu = Run(make_engine(dev)), Run(make_engine("cpu"))
-    _build.launches.clear()
-    with Timer() as timer:
-        gpu_st, wall, n_votes = config3_traffic(gpu, 3)
-        scan_ms, fresh_ms = timer.ms("scan"), timer.ms("fresh")
-        n_scan_calls, n_fresh = len(timer.events["scan"]), len(timer.events["fresh"])
-    main_launches = _build.launches[cuda_ingest.KERNEL]
-    if main_launches == 0:
-        raise AssertionError("config 3 never launched the CUDA scan")
-    cpu_st, _, _ = config3_traffic(cpu, 3)
-    compare("config 3 statuses", gpu_st, cpu_st)
-    for scope in ("config3",):
-        compare("config 3 results", gpu.outcome(scope), cpu.outcome(scope))
-    compare("config 3 events", gpu.events_by_session(), cpu.events_by_session())
-    flat = np.concatenate([np.asarray(s) for s in gpu_st])
-    codes = {StatusCode(c).name: int((flat == c).sum()) for c in np.unique(flat)}
-    if not {"OK", "DUPLICATE_VOTE", "ALREADY_REACHED"} <= set(codes):
-        raise AssertionError(f"config 3 did not reach the expected statuses: {codes}")
-    results, stats = gpu.outcome("config3")
-    log(f"[config3] {n_votes} votes in {wall:.6f} s = {n_votes / wall:.1f} votes/s on the GPU "
-        f"engine; scan launches {main_launches} ({n_scan_calls} wrapper calls), fresh "
-        f"dispatches {n_fresh}; scan {scan_ms:.6f} ms + fresh {fresh_ms:.6f} ms of device "
-        f"time = {(scan_ms + fresh_ms) / (wall * 1e3):.6f} of wall "
-        f"(scan alone {scan_ms / (wall * 1e3):.6f})")
-    log(f"[config3] statuses {codes}; stats (total, active, failed, reached) {stats}; "
-        "identical to the CPU engine")
+    if run("3"):
+        # Phase 3, the main path: counts are zeroed just before it.
+        _build.launches.clear()
+        grid_before = cuda_ingest.grid_launches
+        with Timer() as timer:
+            gpu_st, wall, n_votes = config3_traffic(gpu, 3)
+            scan_ms, fresh_ms = timer.ms("scan"), timer.ms("fresh")
+            n_scan_calls, n_fresh = len(timer.events["scan"]), len(timer.events["fresh"])
+        main_launches = _build.launches[cuda_ingest.KERNEL]
+        per_call = (cuda_ingest.grid_launches - grid_before) / max(main_launches, 1)
+        if main_launches == 0:
+            raise AssertionError("config 3 never launched the CUDA scan")
+        cpu_st, _, _ = config3_traffic(cpu, 3)
+        compare("config 3 statuses", gpu_st, cpu_st)
+        compare("config 3 results", gpu.outcome("config3"), cpu.outcome("config3"))
+        compare("config 3 events", gpu.events_by_session(), cpu.events_by_session())
+        flat = np.concatenate([np.asarray(s) for s in gpu_st])
+        codes = {StatusCode(c).name: int((flat == c).sum()) for c in np.unique(flat)}
+        if not {"OK", "DUPLICATE_VOTE", "ALREADY_REACHED"} <= set(codes):
+            raise AssertionError(f"config 3 did not reach the expected statuses: {codes}")
+        results, stats = gpu.outcome("config3")
+        log(f"[config3] {n_votes} votes in {wall:.6f} s = {n_votes / wall:.1f} votes/s on the "
+            f"GPU engine; scan launches {main_launches} ({n_scan_calls} wrapper calls, "
+            f"{per_call:g} device launches a call), fresh dispatches {n_fresh}; scan "
+            f"{scan_ms:.6f} ms + fresh {fresh_ms:.6f} ms of device time = "
+            f"{(scan_ms + fresh_ms) / (wall * 1e3):.6f} of wall "
+            f"(scan alone {scan_ms / (wall * 1e3):.6f})")
+        log(f"[config3] statuses {codes}; stats (total, active, failed, reached) {stats}; "
+            "identical to the CPU engine")
 
-    # Phase 4.
-    _build.launches.clear()
-    gpu_st2 = config2_traffic(gpu, 4)
-    launches2 = _build.launches[cuda_ingest.KERNEL]
-    compare("config 2 statuses", gpu_st2, config2_traffic(cpu, 4))
-    compare("config 2 results", gpu.outcome("config2"), cpu.outcome("config2"))
-    compare("config 2 events", gpu.events_by_session(), cpu.events_by_session())
-    ok_votes = sum(1 for c in gpu_st2 if c == int(StatusCode.OK))
-    if ok_votes != 683 or gpu.outcome("config2")[0] != [True] or launches2 == 0:
-        raise AssertionError(f"config 2: {ok_votes} votes accepted, result "
-                             f"{gpu.outcome('config2')[0]}, {launches2} scan launches")
-    log(f"[config2] decided YES at vote {ok_votes} of 1024; scan launches {launches2}; "
-        "identical to the CPU engine")
+    if run("4"):
+        _build.launches.clear()
+        gpu_st2, wall2 = config2_traffic(gpu, 4)
+        launches2 = _build.launches[cuda_ingest.KERNEL]
+        cpu_st2, _ = config2_traffic(cpu, 4)
+        compare("config 2 statuses", gpu_st2, cpu_st2)
+        compare("config 2 results", gpu.outcome("config2"), cpu.outcome("config2"))
+        compare("config 2 events", gpu.events_by_session(), cpu.events_by_session())
+        ok_votes = sum(1 for c in gpu_st2 if c == int(StatusCode.OK))
+        if ok_votes != 683 or gpu.outcome("config2")[0] != [True] or not 0 < launches2 <= 7:
+            raise AssertionError(f"config 2: {ok_votes} votes accepted, result "
+                                 f"{gpu.outcome('config2')[0]}, {launches2} scan wrapper "
+                                 "calls (at most 7)")
+        log(f"[config2] decided YES at vote {ok_votes} of 1024; scan wrapper calls {launches2}; "
+            f"8 calls in {wall2:.6f} s wall; identical to the CPU engine")
 
-    # Phase 5.
-    _build.launches.clear()
-    gpu_t = timeout_traffic(gpu, 5)
-    launches5 = _build.launches[cuda_ingest.KERNEL]
-    compare("timeouts", gpu_t, timeout_traffic(cpu, 5))
-    compare("timeout results", gpu.outcome("timeouts"), cpu.outcome("timeouts"))
-    compare("timeout events", gpu.events_by_session(), cpu.events_by_session())
-    if gpu_t[1] != [int(StatusCode.PROPOSAL_EXPIRED)]:
-        raise AssertionError(f"late vote got {gpu_t[1]}")
-    swept = gpu_t[2]
-    log(f"[timeouts] swept {len(swept)} sessions: "
-        f"{sum(1 for _, r in swept if r is True)} YES, "
-        f"{sum(1 for _, r in swept if r is False)} NO, "
-        f"{sum(1 for _, r in swept if r is None)} failed; late vote PROPOSAL_EXPIRED; "
-        f"scan launches {launches5}; identical to the CPU engine")
+    if run("5"):
+        _build.launches.clear()
+        gpu_t = timeout_traffic(gpu, 5)
+        launches5 = _build.launches[cuda_ingest.KERNEL]
+        compare("timeouts", gpu_t, timeout_traffic(cpu, 5))
+        compare("timeout results", gpu.outcome("timeouts"), cpu.outcome("timeouts"))
+        compare("timeout events", gpu.events_by_session(), cpu.events_by_session())
+        if gpu_t[1] != [int(StatusCode.PROPOSAL_EXPIRED)]:
+            raise AssertionError(f"late vote got {gpu_t[1]}")
+        swept = gpu_t[2]
+        log(f"[timeouts] swept {len(swept)} sessions: "
+            f"{sum(1 for _, r in swept if r is True)} YES, "
+            f"{sum(1 for _, r in swept if r is False)} NO, "
+            f"{sum(1 for _, r in swept if r is None)} failed; late vote PROPOSAL_EXPIRED; "
+            f"scan launches {launches5}; identical to the CPU engine")
+    del gpu, cpu
 
-    # Phases 6, 6b and 7.
-    fe_mul_timing, pow_timing = phase_field(dev)
-    msm_timings = phase_msm(dev)
-    verify = phase_verify(dev)
+    if run("5b"):
+        _build.launches.clear()
+        spill = phase_spill(dev)
+        spill["scan_launches"] = _build.launches[cuda_ingest.KERNEL]
 
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.3f} s")
+    fe_mul_timing, pow_timing = phase_field(dev) if run("6") else (None, None)
+    msm_timings = phase_msm(dev, variants) if run("6b") else None
+    verify = phase_verify(dev) if run("7") else None
+
+    log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
+        f"{time.perf_counter() - t_start:.3f} s")
+    if only is not None:
+        return 0
+    main_timing = timing["main path (uint16)"]
     kernels = [{
         "name": "ingest_scan",
         "route": "cuda",
         "source": "hashgraph_tpu_torch/csrc/ingest_scan.cu",
         "replaces": "hashgraph_tpu/ops/pallas_ingest.py:83",
-        "implementation": "hand-written CUDA C++ for sm_90a, one thread per touched row",
+        "implementation": "hand-written CUDA C++ for sm_90a, one thread per touched row; "
+                          "a row's cells read as vectors and the mask bytes of up to 32 "
+                          "votes gathered before the walk; one launch a call (a second "
+                          "only for pad rows)",
         "launches": main_launches,
+        "launches_per_call": per_call,
         "launches_config2": launches2,
         "launches_timeouts": launches5,
-        "parity": "bit-exact against the plain PyTorch scan (uint8, uint16, int32 grids)",
+        "launches_spill": spill["scan_launches"],
+        "parity": "bit-exact against the plain PyTorch scan (uint8, uint16, int32 grids; "
+                  "pad rows; depths 8, 70 and 128)",
         "max_abs_err": 0,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
+        "ms": main_timing["ms"],
+        "plain_ms": main_timing["plain_ms"],
+        "bound_ms": main_timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "call_ms": main_timing["call_ms"],
+        "config2_call_ms": timing["config 2's call (uint16)"]["ms"],
     }]
     crypto = [
         ("fe_mul", "fe_mul.cu", fe_mul_timing,
@@ -1110,9 +1364,11 @@ def main() -> int:
          "one thread per lane, the 262-product chain in registers",
          "bit-exact against field._pow22523_plain at [8192, 16] (boundary and ripple rows)"),
         ("msm_windows", "ed_msm.cu", msm_timings[0],
-         "one thread per lane: the 16-entry table (uint16, lane-major, in L2) and 64 "
-         "windows with the accumulator in registers",
-         "bit-exact against msm._windows_plain at [16384, 4, 16]"),
+         f"a group of {msm_timings[0]['threads_per_lane']} threads per lane, each holding "
+         "its limbs of the accumulator and exchanging operand limbs by shuffles; the "
+         "16-entry table (uint16, lane-major, in L2) and 64 windows",
+         "bit-exact against msm._windows_plain at [16384, 4, 16] for 4, 8 and 16 threads "
+         "a lane"),
         ("msm_reduce", "ed_msm.cu", msm_timings[1],
          "one launch per tree level, one thread per output point; ms is the whole tree",
          "root bit-exact against msm._reduce_plain at 16384, 1000, 5 and 1 lanes"),

@@ -7,7 +7,8 @@ the point formulas run around the field product inside the kernels of
 launched on PyTorch's current stream:
 
 - :func:`msm_windows` — one launch: per lane the window table and the 64
-  windows, accumulator in registers;
+  windows, a group of :func:`threads_per_lane` threads sharing each lane's
+  accumulator;
 - :func:`msm_reduce` — one launch per tree level, ``ceil(log2 lanes)``
   levels, ping-ponging between two scratch buffers;
 - :func:`msm_final` — one launch: ``8 * root`` and the identity test, as an
@@ -40,11 +41,15 @@ _POINT = (4, 16)  # extended coordinates x limbs
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The bound C entry points, built at first use and bound once."""
-    lib = _build.library(SOURCE)
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The bound C entry points, built at first use and bound once.
+    ``defines`` selects a variant build (``MSM_GROUP=8``) for measurements
+    that compare variants; the port itself uses the default."""
+    lib = _build.build([SOURCE], defines)[SOURCE]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
+        ("hg_msm_group", []),
+        ("hg_msm_table_lanes", [i32]),
         ("hg_msm_windows", [ptr] * 4 + [i32, i32, ptr]),
         ("hg_msm_reduce", [ptr, ptr, i32, ptr]),
         ("hg_msm_final", [ptr, ptr, ptr]),
@@ -65,10 +70,18 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def msm_windows(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
+def threads_per_lane(defines: tuple[str, ...] = ()) -> int:
+    """Threads that share one lane in the built msm_windows kernel."""
+    return _lib(defines).hg_msm_group()
+
+
+def msm_windows(
+    points: torch.Tensor, nibbles: torch.Tensor, _defines: tuple[str, ...] = ()
+) -> torch.Tensor:
     """Per-lane window accumulators, int64[Lanes, 4, 16], of points
     int64[Lanes, 4, 16] under MSB-first nibbles in [0, 16), int32[Lanes, W]
-    (the kernel reads their low 4 bits)."""
+    (the kernel reads their low 4 bits). ``_defines`` launches a variant
+    build instead of the default (measurement only)."""
     dev = _device(WINDOWS_KERNEL, points)
     lanes = points.shape[0]
     _build.check_operand(WINDOWS_KERNEL, "points", points, torch.int64, (lanes, *_POINT), dev)
@@ -80,11 +93,14 @@ def msm_windows(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(points)
     if lanes == 0:
         return out
-    # Each lane's table, entry by entry as 64 uint16 limbs (int16 bits).
+    # Each group's table (the lanes padded to the launch grid), entry by
+    # entry as 64 uint16 limbs (int16 bits).
     # Dropping it on return is safe: the caching allocator hands the block
     # out again only to work ordered after this launch on the stream.
-    table = torch.empty((lanes, _ENTRIES, 4 * 16), dtype=torch.int16, device=dev)
-    _build.launched(WINDOWS_KERNEL, _lib().hg_msm_windows(
+    lib = _lib(tuple(_defines))
+    table = torch.empty((lib.hg_msm_table_lanes(lanes), _ENTRIES, 4 * 16),
+                        dtype=torch.int16, device=dev)
+    _build.launched(WINDOWS_KERNEL, lib.hg_msm_windows(
         points.data_ptr(), nibbles.data_ptr(), table.data_ptr(), out.data_ptr(),
         lanes, nibbles.shape[1], _stream(dev)))
     return out

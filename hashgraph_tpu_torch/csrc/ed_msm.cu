@@ -25,25 +25,39 @@
 // outside a lane's table). The wrapper (crypto_device/cuda_msm.py) allocates
 // every output and the table scratch; no kernel allocates.
 //
-// Design. One thread owns one lane; its accumulator and both operands of
-// every point formula live in registers. The only device memory the window
-// loop touches is the lane's table: 16 entries x 4 coordinates x 16 limbs.
-// Carried limbs are < 2^16, so an entry is exact in uint16: 128 bytes, one
-// cache line, stored lane-major ([lane][entry][64 limbs]) so each gather of
-// an entry is one line. At the 16,384 lanes of a 4,096-signature batch the
-// tables take 32 MB, which stays resident in the 50 MB L2 (in uint32 they
-// would take 64 MB and would not). Shared memory cannot hold them: each SM
-// carries about 124 lanes, 248 KB of tables against 227 KB a block can use.
+// Design. The window loop gives a group of MSM_GROUP threads (G = 4, 8 or
+// 16) to each lane, with fe25519_group.cuh's routines: thread t of a group
+// holds limbs [t*16/G, (t+1)*16/G) of the accumulator, the base point and
+// the selected entry, sums the product columns of its own limbs and gets
+// the operand limbs it lacks by shuffles within the group. A thread needs
+// about G times fewer registers than a whole lane, and at the 16,384 lanes
+// of a 4,096-signature batch the card holds G times the warps: with one
+// thread a lane, four warps an SM were too few to hide the integer
+// pipeline's latency. The table stays in device memory: 16 entries x 4
+// coordinates x 16 limbs, exact in uint16 (carried limbs are < 2^16), 128
+// bytes an entry, lane-major ([lane][entry][64 limbs]), 32 MB at 16,384
+// lanes, resident in the 50 MB L2 (in uint32 it would take 64 MB). Each
+// thread stores and loads only its own limbs of an entry, so a group's
+// gather of one entry is one 128-byte line. The tree and the final test
+// keep one thread a point (fe25519.cuh). Four threads a lane is the build's
+// default: of 4, 8 and 16 it was the fastest at 16,384 lanes, the larger
+// groups paying more in shuffles than they gain in warps (chip_smoke.py
+// phase 6b times every size; PERF.md keeps the times).
 //
 // Bound. Per lane the window kernel does 15 + 64 point additions and 256
-// doublings, about 4.8 M 32-bit integer operations (chip_smoke.py counts
+// doublings, 2,891,416 needed integer instructions (chip_smoke.py counts
 // them as MSM_WINDOWS_OPS_PER_LANE), and moves 1,280 bytes (points and
 // nibbles in, accumulators out): the operations bound it by three orders of
-// magnitude. A simple kernel first: one thread per lane leaves about four
-// warps on an SM at 16,384 lanes, too few to hide the integer pipeline's
-// latency; splitting a lane across threads is later work.
+// magnitude. The shuffles, the carry lookahead and the squarings done as
+// full products are what the split adds on top.
 
 #include "fe25519.cuh"
+#include "fe25519_group.cuh"
+
+// Threads per lane of the window kernel (4, 8 or 16).
+#ifndef MSM_GROUP
+#define MSM_GROUP 4
+#endif
 
 constexpr int kEntries = 16;              // table entries: 0 * P .. 15 * P
 constexpr int kPointLimbs = 4 * kLimbs;   // X, Y, Z, T
@@ -66,73 +80,100 @@ __device__ __forceinline__ void pt_store(const uint32_t p[4][kLimbs],
       dst[c * kLimbs + i] = static_cast<int64_t>(p[c][i]);
 }
 
-// One table entry as 64 uint16 limbs: eight 16-byte stores on the card.
-__device__ __forceinline__ void entry_store(const uint32_t p[4][kLimbs],
-                                            uint16_t* dst) {
-#ifdef __CUDA_ARCH__
-  uint4* d = reinterpret_cast<uint4*>(dst);
+// This thread's limbs of a point: int64 [4][16] in device memory.
+template <int G>
+__device__ __forceinline__ void gpt_load(const int64_t* src, uint32_t p[4][16 / G]) {
+  constexpr int K = 16 / G;
+  const int r = grp_rank<G>();
 #pragma unroll
   for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t* l = &p[c][8 * h];
-      d[2 * c + h] = make_uint4(
-          (l[0] & kMask) | (l[1] << 16), (l[2] & kMask) | (l[3] << 16),
-          (l[4] & kMask) | (l[5] << 16), (l[6] & kMask) | (l[7] << 16));
-    }
-#else
-  for (int c = 0; c < 4; ++c)
-    for (int i = 0; i < kLimbs; ++i)
-      dst[c * kLimbs + i] = static_cast<uint16_t>(p[c][i]);
-#endif
+    for (int i = 0; i < K; ++i)
+      p[c][i] = static_cast<uint32_t>(src[c * kLimbs + r * K + i]);
 }
 
-__device__ __forceinline__ void entry_load(const uint16_t* src,
-                                           uint32_t p[4][kLimbs]) {
-#ifdef __CUDA_ARCH__
-  const uint4* s = reinterpret_cast<const uint4*>(src);
+template <int G>
+__device__ __forceinline__ void gpt_store(const uint32_t p[4][16 / G], int64_t* dst) {
+  constexpr int K = 16 / G;
+  const int r = grp_rank<G>();
 #pragma unroll
   for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 v = s[2 * c + h];
-      uint32_t* l = &p[c][8 * h];
-      l[0] = v.x & kMask; l[1] = v.x >> 16;
-      l[2] = v.y & kMask; l[3] = v.y >> 16;
-      l[4] = v.z & kMask; l[5] = v.z >> 16;
-      l[6] = v.w & kMask; l[7] = v.w >> 16;
-    }
-#else
-  for (int c = 0; c < 4; ++c)
-    for (int i = 0; i < kLimbs; ++i) p[c][i] = src[c * kLimbs + i];
-#endif
+    for (int i = 0; i < K; ++i)
+      dst[c * kLimbs + r * K + i] = static_cast<int64_t>(p[c][i]);
 }
 
-// One lane of msm_windows: the table, then the window loop. `table` is the
-// lane's kEntries x kPointLimbs scratch.
-__device__ __forceinline__ void msm_lane_windows(const int64_t* point,
-                                                 const int32_t* nibbles,
-                                                 int windows, uint16_t* table,
-                                                 int64_t* out) {
-  uint32_t base[4][kLimbs], acc[4][kLimbs];
-  pt_load(point, base);
-  ed_identity(acc);
-  entry_store(acc, table);
+// This thread's limbs of one table entry (64 uint16 limbs): on the card one
+// store (or load) of K limbs a coordinate.
+template <int G>
+__device__ __forceinline__ void gentry_store(const uint32_t p[4][16 / G], uint16_t* entry) {
+  constexpr int K = 16 / G;
+  uint16_t* d = entry + grp_rank<G>() * K;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#ifdef __CUDA_ARCH__
+    if constexpr (K == 4) {
+      *reinterpret_cast<uint2*>(d + c * kLimbs) =
+          make_uint2((p[c][0] & kMask) | (p[c][1] << 16), (p[c][2] & kMask) | (p[c][3] << 16));
+      continue;
+    } else if constexpr (K == 2) {
+      *reinterpret_cast<uint32_t*>(d + c * kLimbs) = (p[c][0] & kMask) | (p[c][1] << 16);
+      continue;
+    }
+#endif
+    for (int i = 0; i < K; ++i) d[c * kLimbs + i] = static_cast<uint16_t>(p[c][i]);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void gentry_load(const uint16_t* entry, uint32_t p[4][16 / G]) {
+  constexpr int K = 16 / G;
+  const uint16_t* s = entry + grp_rank<G>() * K;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#ifdef __CUDA_ARCH__
+    if constexpr (K == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(s + c * kLimbs);
+      p[c][0] = v.x & kMask; p[c][1] = v.x >> 16;
+      p[c][2] = v.y & kMask; p[c][3] = v.y >> 16;
+      continue;
+    } else if constexpr (K == 2) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(s + c * kLimbs);
+      p[c][0] = v & kMask; p[c][1] = v >> 16;
+      continue;
+    }
+#endif
+    for (int i = 0; i < K; ++i) p[c][i] = s[c * kLimbs + i];
+  }
+}
+
+// One lane of msm_windows, run by the G threads of a group: the table, then
+// the window loop. `table` is the lane's kEntries x kPointLimbs scratch.
+template <int G>
+__device__ __forceinline__ void msm_group_windows(const int64_t* point,
+                                                  const int32_t* nibbles,
+                                                  int windows, uint16_t* table,
+                                                  int64_t* out) {
+  constexpr int K = 16 / G;
+  uint32_t base[4][K], acc[4][K];
+  gpt_load<G>(point, base);
+  ged_identity<G>(acc);
+  gentry_store<G>(acc, table);
 #pragma unroll 1
   for (int k = 1; k < kEntries; ++k) {
-    ed_add(acc, base, acc);
-    entry_store(acc, table + k * kPointLimbs);
+    ged_add<G>(acc, base, acc);
+    gentry_store<G>(acc, table + k * kPointLimbs);
   }
-  ed_identity(acc);
+  ged_identity<G>(acc);
 #pragma unroll 1
   for (int w = 0; w < windows; ++w) {
 #pragma unroll 1
-    for (int i = 0; i < 4; ++i) ed_dbl(acc, acc);
-    uint32_t sel[4][kLimbs];
-    entry_load(table + (nibbles[w] & (kEntries - 1)) * kPointLimbs, sel);
-    ed_add(acc, sel, acc);
+    for (int i = 0; i < 4; ++i) ged_dbl<G>(acc, acc);
+    uint32_t sel[4][K];
+    gentry_load<G>(table + (nibbles[w] & (kEntries - 1)) * kPointLimbs, sel);
+    ged_add<G>(acc, sel, acc);
   }
-  pt_store(acc, out);
+  if (out != nullptr) gpt_store<G>(acc, out);
 }
 
 // Element i of one tree level over n_in points: q[2i] + q[2i+1], or
@@ -167,18 +208,21 @@ __device__ __forceinline__ int32_t msm_final_verdict(const int64_t* root) {
 namespace {
 
 constexpr int kThreads = 32;
+constexpr int kWindowThreads = 128;  // 128 / MSM_GROUP lanes a block
 
-__global__ void __launch_bounds__(kThreads)
+// Groups past the last lane run lane lanes-1's arithmetic on a table of
+// their own (the table is padded to the grid's groups) and store nothing,
+// so every shuffle has the whole warp.
+__global__ void __launch_bounds__(kWindowThreads)
 msm_windows_kernel(const int64_t* __restrict__ points,
                    const int32_t* __restrict__ nibbles,
                    uint16_t* __restrict__ table, int64_t* __restrict__ out,
                    int lanes, int windows) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const size_t at = static_cast<size_t>(lane);
-  msm_lane_windows(points + at * kPointLimbs, nibbles + at * windows, windows,
-                   table + at * kEntries * kPointLimbs,
-                   out + at * kPointLimbs);
+  const int group = (blockIdx.x * blockDim.x + threadIdx.x) / MSM_GROUP;
+  const size_t at = static_cast<size_t>(group < lanes ? group : lanes - 1);
+  msm_group_windows<MSM_GROUP>(points + at * kPointLimbs, nibbles + at * windows,
+                               windows, table + static_cast<size_t>(group) * kEntries * kPointLimbs,
+                               group < lanes ? out + at * kPointLimbs : nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -202,17 +246,28 @@ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 // launch (0 = success).
 
 // out[n] = the window accumulator of lane n, for n < lanes; table is
-// uint16 [lanes, 16, 64] scratch.
+// uint16 [hg_msm_table_lanes(lanes), 16, 64] scratch.
 extern "C" int hg_msm_windows(const void* points, const void* nibbles,
                               void* table, void* out, int lanes, int windows,
                               void* stream) {
   if (lanes <= 0) return 0;
-  msm_windows_kernel<<<blocks_for(lanes), kThreads, 0,
+  const int blocks = (lanes * MSM_GROUP + kWindowThreads - 1) / kWindowThreads;
+  msm_windows_kernel<<<blocks, kWindowThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(points),
       static_cast<const int32_t*>(nibbles), static_cast<uint16_t*>(table),
       static_cast<int64_t*>(out), lanes, windows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Threads per lane of msm_windows in this build.
+extern "C" int hg_msm_group() { return MSM_GROUP; }
+
+// Lanes the window table must hold for `lanes` lanes: every group of the
+// launch grid, the surplus ones included.
+extern "C" int hg_msm_table_lanes(int lanes) {
+  const int blocks = (lanes * MSM_GROUP + kWindowThreads - 1) / kWindowThreads;
+  return blocks * kWindowThreads / MSM_GROUP;
 }
 
 // One tree level: out[i] = q[2i] + q[2i+1] for i < ceil(n_in / 2).

@@ -18,11 +18,15 @@ Division of labor:
   per-scope session registries with LRU eviction (src/service.rs:512-522),
   and the event bus.
 
-Not ported yet (the JAX engine has them): the host-spill substrate (the
-port raises :class:`PoolFullError` when the pool is full), session
-tiering, WAL and checkpoint, health/metrics/tracing/timelines, the verify
-cache, proposal ingest and chain validation, wire-columnar and multi-scope
-columnar ingest, multi-host pools and adaptive timeouts.
+A session the pool cannot hold (more expected voters than
+``voter_capacity``, or no free slot) is served on the host, as the JAX
+engine serves it: a scalar :class:`ConsensusSession` under a negative
+synthetic slot id, which every entry point routes to.
+
+Not ported yet (the JAX engine has them): session tiering, WAL and
+checkpoint, health/metrics/tracing/timelines, the verify cache, proposal
+ingest and chain validation, wire-columnar and multi-scope columnar ingest,
+multi-host pools and adaptive timeouts.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from ..protocol import (
     validate_vote,
 )
 from ..scope_config import ScopeConfig, ScopeConfigBuilder, NetworkType
-from ..session import ConsensusConfig
+from ..session import ConsensusConfig, ConsensusSession, ConsensusState
 from ..signing import ConsensusSignatureScheme
 from ..types import (
     ConsensusEvent,
@@ -69,7 +73,7 @@ from ..types import (
 )
 from ..wire import Proposal, Vote
 from .pool import PoolFullError, ProposalPool
-from .session_sync import allocate_slot
+from .session_sync import allocate_slot, state_code_of
 
 Scope = TypeVar("Scope", bound=Hashable)
 
@@ -98,9 +102,13 @@ class ConsensusStats:
 
 @dataclass(slots=True)
 class SessionRecord(Generic[Scope]):
-    """Host-side view of one pooled session: the scalar bookkeeping the
-    device does not need. Accepted votes are kept for chain linking and
-    proposal export (reference: src/utils.rs:62-77)."""
+    """Host-side view of one session: the scalar bookkeeping the device
+    does not need. Accepted votes are kept for chain linking and proposal
+    export (reference: src/utils.rs:62-77).
+
+    A pooled session has ``slot >= 0`` and its tallies on the device. A
+    host-spilled one has a negative synthetic ``slot`` and its whole state
+    in ``session``, whose ``votes`` dict and proposal the record shares."""
 
     scope: Scope
     slot: int
@@ -108,6 +116,7 @@ class SessionRecord(Generic[Scope]):
     config: ConsensusConfig
     created_at: int
     votes: dict[bytes, Vote] = field(default_factory=dict)  # accepted only
+    session: ConsensusSession | None = None  # set when host-spilled
     seq: int = 0  # per-scope registration order (LRU tie order)
 
     def bump_round(self, accepted: int) -> None:
@@ -156,6 +165,7 @@ class TorchConsensusEngine(Generic[Scope]):
         self._scopes: dict[Scope, list[int]] = {}  # scope -> slots (insertion order)
         self._scope_configs: dict[Scope, ScopeConfig] = {}
         self._scope_seq: dict[Scope, int] = {}
+        self._next_host_slot = -1  # synthetic ids for host-spilled sessions
         # Columnar-path cache: per-scope (pids, slots) arrays and their
         # pid -> slot hash; dropped on any membership change.
         self._pid_tables: dict[Scope, tuple[np.ndarray, np.ndarray]] = {}
@@ -265,21 +275,34 @@ class TorchConsensusEngine(Generic[Scope]):
         # gossipsub -> max_rounds; P2P -> explicit override, else the
         # dynamic ceil(n*t) cap, which equals the required votes.
         cap_arr = np.where(gossip, maxr, np.where(maxr == 0, req_arr, maxr))
+        # First fit against the free slots, in request order: a proposal
+        # wider than the lane grid, or past the last free slot, spills to
+        # the host (the JAX engine's _allocate_and_register).
+        fits = n_arr <= self._pool.voter_capacity
+        fits &= np.cumsum(fits) <= self._pool.free_slots
+        fit = np.nonzero(fits)[0]
+        placed = [proposals[i] for i in fit.tolist()]
         slots = self._pool.allocate_batch(
-            keys=[(scope, p.proposal_id) for p in proposals],
-            n=n_arr,
-            req=req_arr,
-            cap=cap_arr,
-            gossip=gossip,
-            liveness=np.asarray([p.liveness_criteria_yes for p in proposals], bool),
-            expiry=np.asarray([p.expiration_timestamp for p in proposals], np.int64),
-            created_at=np.full(len(proposals), now, np.int64),
+            keys=[(scope, p.proposal_id) for p in placed],
+            n=n_arr[fit],
+            req=req_arr[fit],
+            cap=cap_arr[fit],
+            gossip=gossip[fit],
+            liveness=np.asarray([p.liveness_criteria_yes for p in placed], bool),
+            expiry=np.asarray([p.expiration_timestamp for p in placed], np.int64),
+            created_at=np.full(len(placed), now, np.int64),
         )
+        slot_of = dict(zip(fit.tolist(), slots))
         # Batch-registered records keep seq 0 and leave the per-scope
         # sequence alone, as the JAX engine's batch registration does, so
         # later LRU evictions rank sessions identically.
-        for slot, proposal, cfg in zip(slots, proposals, configs):
-            self._track(SessionRecord(scope, slot, proposal, cfg, now))
+        for i, (proposal, cfg) in enumerate(zip(proposals, configs)):
+            slot = slot_of.get(i)
+            self._track(
+                SessionRecord(scope, slot, proposal, cfg, now)
+                if slot is not None
+                else self._spilled(scope, proposal, cfg, now)
+            )
         self._drop_pid_cache(scope)
         return [p.clone() for p in proposals]
 
@@ -291,20 +314,46 @@ class TorchConsensusEngine(Generic[Scope]):
         now: int,
     ) -> None:
         """Claim a pool slot for the proposal after the per-scope LRU
-        eviction. Raises PoolFullError when no slot is free and ValueError
-        when the proposal needs more voter lanes than the pool has."""
+        eviction — or, when the pool cannot hold it (more expected voters
+        than lanes, or no free slot), serve it on the host. Registration
+        never fails on capacity, as in the JAX engine (reference service:
+        no capacity limits, src/service.rs:86-97)."""
         if self._evict_for(scope, now):
             # The incoming session itself loses the LRU ranking (created_at
             # tie): never tracked, nothing allocated — the same observable
             # result as insert-then-trim.
             return
-        slot = allocate_slot(
-            self._pool, (scope, proposal.proposal_id), proposal, config, now
-        )
+        if (
+            proposal.expected_voters_count <= self._pool.voter_capacity
+            and self._pool.free_slots > 0
+        ):
+            slot = allocate_slot(
+                self._pool, (scope, proposal.proposal_id), proposal, config, now
+            )
+            record = SessionRecord(scope, slot, proposal, config, now)
+        else:
+            record = self._spilled(scope, proposal, config, now)
         seq = self._scope_seq.get(scope, 0)
         self._scope_seq[scope] = seq + 1
-        self._track(SessionRecord(scope, slot, proposal, config, now, seq=seq))
+        record.seq = seq
+        self._track(record)
         self._drop_pid_cache(scope)
+
+    def _spilled(
+        self,
+        scope: Scope,
+        proposal: Proposal,
+        config: ConsensusConfig,
+        now: int,
+    ) -> SessionRecord[Scope]:
+        """A host-spilled record under the next negative synthetic slot;
+        its scalar session holds the tallies the device would."""
+        session = ConsensusSession._new(proposal, config, now)
+        record = SessionRecord(scope, self._next_host_slot, proposal, config, now,
+                               session=session)
+        record.votes = session.votes  # one dict: the session's
+        self._next_host_slot -= 1
+        return record
 
     def _track(self, record: SessionRecord[Scope]) -> None:
         scope = record.scope
@@ -319,7 +368,10 @@ class TorchConsensusEngine(Generic[Scope]):
         (reference: src/service.rs:216-237)."""
         record = self._get_record(scope, proposal_id)
         validate_proposal_timestamp(record.proposal.expiration_timestamp, now)
-        if self._signer.identity() in record.votes:
+        identity = self._signer.identity()
+        if identity in record.votes or (
+            record.session is not None and identity in record.session.tallies
+        ):
             raise UserAlreadyVoted()
         vote = build_vote(record.proposal, choice, self._signer, now)
         statuses = self.ingest_votes([(scope, vote)], now, pre_validated=True)
@@ -357,6 +409,10 @@ class TorchConsensusEngine(Generic[Scope]):
         slots = np.empty(batch, np.int64)
         lanes = np.empty(batch, np.int32)
         values = np.empty(batch, bool)
+        # Host-spilled sessions apply at once; their events queue as (batch
+        # index, scope, event) and interleave with the device path's, so
+        # events follow per-vote arrival order across both substrates.
+        events: list[tuple[int, Scope, ConsensusEvent]] = []
         # Same-batch chain tails per record: a chained run (v2 extends the
         # tail, v3 extends v2) must see v2 as the effective tail although
         # its host-side append happens after the dispatch.
@@ -403,7 +459,10 @@ class TorchConsensusEngine(Generic[Scope]):
             # names a vote this session never accepted is rejected instead
             # of appended (an empty chain has no tail, so a first vote
             # claiming a link is dangling by definition).
-            if vote.vote_owner not in record.votes:
+            if vote.vote_owner not in record.votes and (
+                record.session is None
+                or vote.vote_owner not in record.session.tallies
+            ):
                 if vote.received_hash:
                     tail = pending_tail.get(
                         slot,
@@ -415,6 +474,12 @@ class TorchConsensusEngine(Generic[Scope]):
                         statuses[i] = int(StatusCode.RECEIVED_HASH_MISMATCH)
                         continue
                 pending_tail[slot] = vote.vote_hash
+            if record.session is not None:
+                code, event = self._host_add_vote(record, vote, now)
+                statuses[i] = code
+                if event is not None:
+                    events.append((i, scope, event))
+                continue
             lane = self._pool.lane_for(slot, vote.vote_owner)
             if lane is None:
                 statuses[i] = int(StatusCode.VOTER_CAPACITY_EXCEEDED)
@@ -425,6 +490,8 @@ class TorchConsensusEngine(Generic[Scope]):
             dev_rows.append(i)
 
         if not dev_rows:
+            for _, ev_scope, event in events:
+                self._emit(ev_scope, event)
             return statuses
 
         k = len(dev_rows)
@@ -467,14 +534,18 @@ class TorchConsensusEngine(Generic[Scope]):
             ) or code == int(StatusCode.ALREADY_REACHED)
             if emit_reached:
                 record = self._records[slot]
-                self._emit(
+                events.append((
+                    i,
                     record.scope,
                     ConsensusReached(
                         proposal_id=record.proposal.proposal_id,
                         result=self._pool.state_of(slot) == STATE_REACHED_YES,
                         timestamp=now,
                     ),
-                )
+                ))
+        events.sort(key=lambda t: t[0])
+        for _, ev_scope, event in events:
+            self._emit(ev_scope, event)
         return statuses
 
     def voter_gid(self, owner: bytes) -> int:
@@ -500,9 +571,11 @@ class TorchConsensusEngine(Generic[Scope]):
         ``pre_validated=True``, except that no per-vote ``Vote`` objects are
         kept host-side and events are ordered per session, not across
         sessions. A batch of fresh slots with no repeated voter takes one
-        closed-form dispatch; any other batch runs the arrival-ordered scan
-        in segments of at most ``max_depth`` votes per slot. Returns int32
-        statuses in batch order.
+        closed-form dispatch; any other batch runs the arrival-ordered scan,
+        in one dispatch while the padded [slots, depth] grid stays within
+        the pool's cell budget and otherwise in segments of at most
+        ``max_depth`` votes per slot. Returns int32 statuses in batch
+        order.
         """
         proposal_ids = np.asarray(proposal_ids, np.int64)
         voter_gids = np.asarray(voter_gids, np.int64)
@@ -536,6 +609,20 @@ class TorchConsensusEngine(Generic[Scope]):
         if bad_gid.any():
             statuses[found & bad_gid] = int(StatusCode.EMPTY_VOTE_OWNER)
             found = found & ~bad_gid
+        # Host-spilled sessions (negative slots) take their rows tally-only,
+        # in arrival order: no Vote object is made up for them.
+        host_rows = found & (slots < 0)
+        if host_rows.any():
+            for i in np.nonzero(host_rows)[0].tolist():
+                record = self._records[int(slots[i])]
+                code, event = self._host_add_tally(
+                    record, self._pool.owner_of_gid(int(voter_gids[i])),
+                    bool(values[i]), now,
+                )
+                statuses[i] = code
+                if event is not None:
+                    self._emit(record.scope, event)
+            found = found & ~host_rows
         dev_rows = np.nonzero(found)[0]
         if dev_rows.size == 0:
             return statuses
@@ -600,14 +687,19 @@ class TorchConsensusEngine(Generic[Scope]):
         # Dispatch plan. Preferred: ONE closed-form (scan-free) dispatch —
         # valid when the fast lane path ran (fresh slots, no duplicate
         # voters) and every touched slot is still ACTIVE, within the padded
-        # cell budget. Otherwise: bounded-depth scan segments (segment k
-        # holds votes [k*D, (k+1)*D) of every slot, uniform depth D).
+        # cell budget. Next: ONE scan dispatch over the whole depth (the scan
+        # walks each row in arrival order however deep it is) while the
+        # padded [S, depth] grid stays within the same cell budget. Past it —
+        # one hot row far deeper than the rest — bounded-depth scan segments
+        # (segment k holds votes [k*D, (k+1)*D) of every slot, D=max_depth).
         segs: list[tuple] = []  # (uniq_k, rows_k, cols_k, depth_k, idx_k, fresh)
         depth = int(counts.max())
         everything = np.arange(len(order), dtype=np.int64)
         if fast_lanes and self._pool.fresh_ingest_viable(uniq, depth, len(order)):
             segs.append((uniq, grp_sorted, col_sorted, depth, everything, True))
-        elif depth > max_depth:
+        elif depth > max_depth and not self._pool.grid_within_budget(
+            len(uniq), depth, len(order)
+        ):
             d = max_depth
             for k in range(-(-depth // d)):
                 seg_mask = counts > k * d
@@ -659,6 +751,21 @@ class TorchConsensusEngine(Generic[Scope]):
             cnt = np.bincount(grp_sorted[ok_m], minlength=len(uniq))
             for g in np.nonzero(cnt)[0].tolist():
                 self._records[int(uniq[g])].bump_round(int(cnt[g]))
+
+        if not segs[0][5] and len(segs) == 1 and depth > max_depth and (
+            len(reached_transitions) > 1
+        ):
+            # One scan dispatch where segments of max_depth votes used to go:
+            # emit the deciding transitions in the order the segments made
+            # them (the JAX engine's order) — by the segment of each slot's
+            # deciding vote, its last accepted one — then by slot group.
+            ok_idx = np.nonzero(ok_m)[0]
+            ok_grp = grp_sorted[ok_idx]
+            last = np.append(ok_grp[1:] != ok_grp[:-1], True)
+            seg_of = np.zeros(len(uniq), np.int64)
+            seg_of[ok_grp[last]] = col_sorted[ok_idx[last]] // max_depth
+            group_of = dict(zip(uniq.tolist(), range(len(uniq))))
+            reached_transitions.sort(key=lambda t: seg_of[group_of[t[0]]])
 
         # Events: one ConsensusReached per deciding transition plus one per
         # late (ALREADY_REACHED) vote — the scalar path's per-session counts;
@@ -715,6 +822,63 @@ class TorchConsensusEngine(Generic[Scope]):
             self._pid_tables[scope] = table
         return table
 
+    # ── Host-spilled sessions ──────────────────────────────────────────
+
+    def _host_add_vote(
+        self, record: SessionRecord[Scope], vote: Vote, now: int
+    ) -> tuple[int, ConsensusEvent | None]:
+        """Apply one validated vote to a host-spilled session; returns the
+        device path's status code and the event to emit, if any."""
+        return self._host_apply(record, lambda s: s.add_vote(vote, now), now)
+
+    def _host_add_tally(
+        self, record: SessionRecord[Scope], owner: bytes, value: bool, now: int
+    ) -> tuple[int, ConsensusEvent | None]:
+        """Columnar counterpart of :meth:`_host_add_vote`: one tally, no
+        Vote object, so the session's exportable chain stays valid."""
+        return self._host_apply(record, lambda s: s.add_tally(owner, value, now), now)
+
+    def _host_apply(
+        self, record: SessionRecord[Scope], mutate, now: int
+    ) -> tuple[int, ConsensusEvent | None]:
+        """Run a session mutation and map its outcome to the status code
+        the device path gives, with the ConsensusReached event it implies
+        (for a vote on a decided session too, as the device path emits)."""
+        already = record.session.state.is_reached
+        try:
+            transition = mutate(record.session)
+        except ConsensusError as exc:
+            return int(exc.code), None
+        event = None
+        if transition.is_reached:
+            event = ConsensusReached(
+                proposal_id=record.proposal.proposal_id,
+                result=transition.reached,
+                timestamp=now,
+            )
+        return int(StatusCode.ALREADY_REACHED if already else StatusCode.OK), event
+
+    def _host_timeout(self, record: SessionRecord[Scope]) -> int:
+        """Timeout decision for a host-spilled session; returns the dense
+        state code, as pool.timeout does for a slot. Idempotent for decided
+        sessions; a failed one stays failed (src/service.rs:323-373)."""
+        session = record.session
+        if session.state.is_active:
+            result = session.decide_now(True)
+            session.state = (
+                ConsensusState.reached(result)
+                if result is not None
+                else ConsensusState.failed()
+            )
+        return state_code_of(session.state)
+
+    def _state_code(self, record: SessionRecord[Scope]) -> int:
+        """Lifecycle state on either substrate: the pool's host mirror for a
+        pooled record, the scalar session's state for a spilled one."""
+        if record.session is not None:
+            return state_code_of(record.session.state)
+        return self._pool.state_of(record.slot)
+
     # ── Timeouts ───────────────────────────────────────────────────────
 
     def handle_consensus_timeout(self, scope: Scope, proposal_id: int, now: int) -> bool:
@@ -725,7 +889,11 @@ class TorchConsensusEngine(Generic[Scope]):
         slot = self._index.get((scope, proposal_id))
         if slot is None:
             raise SessionNotFound()
-        [(_, new_state)] = self._pool.timeout([slot])
+        record = self._records[slot]
+        if record.session is not None:
+            new_state = self._host_timeout(record)
+        else:
+            [(_, new_state)] = self._pool.timeout([slot])
         if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
             result = new_state == STATE_REACHED_YES
             self._emit(
@@ -742,14 +910,27 @@ class TorchConsensusEngine(Generic[Scope]):
         (scope, proposal_id, result-or-None) per swept session and emits the
         same events as per-session timeouts. A FAILED session is not swept
         again (its tallies are frozen, so it would re-fail forever)."""
-        expired = [
-            slot
-            for slot in self._records
-            if self._pool.state_of(slot) == STATE_ACTIVE
-            and self._pool.meta(slot).expiry <= now
+        expired: list[int] = []
+        host_expired: list[int] = []
+        for slot, record in self._records.items():
+            if record.session is not None:
+                if (
+                    record.session.state.is_active
+                    and record.proposal.expiration_timestamp <= now
+                ):
+                    host_expired.append(slot)
+            elif (
+                self._pool.state_of(slot) == STATE_ACTIVE
+                and self._pool.meta(slot).expiry <= now
+            ):
+                expired.append(slot)
+        # Pooled sessions in one dispatch, then the host-spilled ones, in
+        # the JAX engine's order.
+        swept = self._pool.timeout(expired) + [
+            (slot, self._host_timeout(self._records[slot])) for slot in host_expired
         ]
         out: list[tuple[Scope, int, bool | None]] = []
-        for slot, new_state in self._pool.timeout(expired):
+        for slot, new_state in swept:
             record = self._records[slot]
             pid = record.proposal.proposal_id
             if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
@@ -774,7 +955,7 @@ class TorchConsensusEngine(Generic[Scope]):
     def get_consensus_result(self, scope: Scope, proposal_id: int) -> bool | None:
         """None while active; raises ConsensusFailed for a failed session
         (reference: src/storage.rs:112-126)."""
-        state = self._pool.state_of(self._get_record(scope, proposal_id).slot)
+        state = self._state_code(self._get_record(scope, proposal_id))
         if state == STATE_REACHED_YES:
             return True
         if state == STATE_REACHED_NO:
@@ -787,13 +968,13 @@ class TorchConsensusEngine(Generic[Scope]):
         return [
             r.proposal.clone()
             for r in self._scope_records(scope)
-            if self._pool.state_of(r.slot) == STATE_ACTIVE
+            if self._state_code(r) == STATE_ACTIVE
         ]
 
     def get_reached_proposals(self, scope: Scope) -> list[tuple[Proposal, bool]]:
         out = []
         for r in self._scope_records(scope):
-            state = self._pool.state_of(r.slot)
+            state = self._state_code(r)
             if state in (STATE_REACHED_YES, STATE_REACHED_NO):
                 out.append((r.proposal.clone(), state == STATE_REACHED_YES))
         return out
@@ -803,7 +984,7 @@ class TorchConsensusEngine(Generic[Scope]):
         stats = ConsensusStats()
         for r in self._scope_records(scope):
             stats.total_sessions += 1
-            state = self._pool.state_of(r.slot)
+            state = self._state_code(r)
             if state == STATE_ACTIVE:
                 stats.active_sessions += 1
             elif state == STATE_FAILED:
@@ -813,13 +994,16 @@ class TorchConsensusEngine(Generic[Scope]):
         return stats
 
     def occupancy(self) -> dict:
-        """Capacity snapshot: live sessions and device slots claimed vs the
-        pool's capacity."""
+        """Capacity snapshot: live sessions, device slots claimed vs the
+        pool's capacity, and host-spilled sessions (negative synthetic ids
+        hold no pool row)."""
         with self._lock:
-            live = len(self._records)
+            slots = list(self._records)
+        device_used = sum(1 for s in slots if s >= 0)
         return {
-            "live_sessions": live,
-            "device_slots_used": live,
+            "live_sessions": len(slots),
+            "device_slots_used": device_used,
+            "host_spilled": len(slots) - device_used,
             "capacity": self._pool.capacity,
             "voter_capacity": self._pool.voter_capacity,
         }
@@ -934,7 +1118,8 @@ class TorchConsensusEngine(Generic[Scope]):
                 record = self._records.pop(slot)
                 del self._index[(scope, record.proposal.proposal_id)]
             self._scopes[scope] = [s for s in slots if s not in gone]
-            self._pool.release(evicted)
+            # A host-spilled record holds no pool slot to release.
+            self._pool.release([s for s in evicted if s >= 0])
             self._drop_pid_cache(scope)
         return newcomer not in keep
 

@@ -34,6 +34,7 @@ from ..ops.ingest import (
     group_batch,
     pack_grid,
     pack_slots,
+    unpack_slots,
 )
 
 __all__ = ["ProposalPool", "SlotMeta", "PoolFullError", "PendingIngest"]
@@ -647,11 +648,18 @@ class ProposalPool:
         (fresh_lanes_grouped does both)."""
         if not self.supports_fresh_ingest:
             return False
-        cells = _bucket(len(uniq)) * _bucket(depth, floor=1)
-        return (
-            cells <= max(8 * n_items, 65_536)
-            and self.fresh_grid_within_budget(len(uniq), depth)
-            and bool((self._state_host[uniq] == STATE_ACTIVE).all())
+        return self.grid_within_budget(len(uniq), depth, n_items) and bool(
+            (self._state_host[uniq] == STATE_ACTIVE).all()
+        )
+
+    def grid_within_budget(self, s_count: int, depth: int, n_items: int) -> bool:
+        """Whether the padded [s_count, depth] grid of ``n_items`` votes may
+        go in one dispatch: the absolute cell budget, and at most 8 padded
+        cells a vote (or 65,536 cells) so that one hot row far deeper than
+        the rest does not pad every other row to its depth."""
+        cells = _bucket(s_count) * _bucket(depth, floor=1)
+        return cells <= max(8 * n_items, 65_536) and self.fresh_grid_within_budget(
+            s_count, depth
         )
 
     def ingest_async_grouped(
@@ -827,11 +835,14 @@ class ProposalPool:
 
     def _dispatch_ingest(self, slot_pack, grid_pack):
         """Launch the arrival-ordered scan on the packed batch; returns
-        (device out [S, L+1], row-select indexer). Does not block."""
+        (device out [S, L+1], row-select indexer). Does not block. The
+        host knows whether the batch holds pad rows (ids >= P), so the
+        kernel's pad-row phase is launched only when it does."""
         out = ingest_scan(
             *self._pool_tensors(),
             self._to_device(slot_pack, torch.int32),
             grid_tensor(grid_pack, self.device),
+            pad_rows=bool((unpack_slots(slot_pack)[0] >= self.capacity).any()),
         )
         return out, np.arange(len(slot_pack))
 

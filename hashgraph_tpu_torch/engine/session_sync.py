@@ -1,8 +1,8 @@
 """Scalar-session ↔ dense-row helpers for the pool's clients.
 
-Port of the part of ``hashgraph_tpu/engine/session_sync.py`` that the
-engine's vote path needs: projecting a proposal onto a pool slot with the
-same threshold math and round caps as the JAX package.
+Port of ``hashgraph_tpu/engine/session_sync.py``: projecting a proposal
+onto a pool slot with the same threshold math and round caps as the JAX
+package, and writing a scalar session's tallies into an allocated slot.
 """
 
 from __future__ import annotations
@@ -18,11 +18,11 @@ from ..ops.decide import (
     STATE_REACHED_YES,
     required_votes_np,
 )
-from ..session import ConsensusConfig, ConsensusState
+from ..session import ConsensusConfig, ConsensusSession, ConsensusState
 from ..wire import Proposal
 from .pool import ProposalPool
 
-__all__ = ["allocate_slot", "state_code_of"]
+__all__ = ["allocate_slot", "load_session_rows", "state_code_of"]
 
 
 def state_code_of(state: ConsensusState) -> int:
@@ -52,3 +52,40 @@ def allocate_slot(
         expiry=np.array([proposal.expiration_timestamp]),
         created_at=np.array([created_at]),
     )[0]
+
+
+def load_session_rows(
+    pool: ProposalPool, slot: int, session: ConsensusSession
+) -> bool:
+    """Write a session's tallies/masks/lifecycle into an allocated slot.
+
+    Returns False (without loading) when the session's distinct voters
+    exceed the pool's lane capacity — the caller decides whether that is an
+    error or a degrade-to-host condition."""
+    vcap = pool.voter_capacity
+    total = len(session.votes) + len(session.tallies)
+    if total > vcap:
+        return False
+    mask = np.zeros((1, vcap), bool)
+    vals = np.zeros((1, vcap), bool)
+    # Votes and columnar tallies (owner -> bool, no Vote object) project
+    # onto lanes identically — each owner holds exactly one of the two.
+    participants = [(o, v.vote) for o, v in session.votes.items()] + list(
+        session.tallies.items()
+    )
+    for owner, value in participants:
+        lane = pool.lane_for(slot, owner)
+        if lane is None:
+            return False
+        mask[0, lane] = True
+        vals[0, lane] = value
+    yes = sum(1 for _, value in participants if value)
+    pool.load_rows(
+        [slot],
+        state=np.array([state_code_of(session.state)]),
+        yes=np.array([yes]),
+        tot=np.array([total]),
+        mask_rows=mask,
+        val_rows=vals,
+    )
+    return True

@@ -6,7 +6,9 @@ packed batch, updates the pool in place and returns the int8 ``[S, L+1]``
 output (statuses, then each row's final state):
 
 - on CUDA tensors it launches ``csrc/ingest_scan.cu`` (built at first use
-  by :mod:`hashgraph_tpu_torch._build`) on PyTorch's current stream;
+  by :mod:`hashgraph_tpu_torch._build`) on PyTorch's current stream: one
+  launch over the real rows, after a launch over the pad rows when the
+  caller says the batch holds any;
 - on CPU tensors it runs the plain version,
   :func:`hashgraph_tpu_torch.ops.ingest.ingest_body`.
 
@@ -16,6 +18,7 @@ Nothing falls back: a CUDA call whose build or launch fails raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +26,10 @@ from .. import _build
 from .ingest import grid_layout, ingest_body
 
 KERNEL = "ingest_scan"
+
+# Device launches the wrapper made: one a call, two for a call with pad
+# rows. ``_build.launches[KERNEL]`` counts calls.
+grid_launches = 0
 
 _CELL_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
 _POOL_DTYPES = (
@@ -40,19 +47,26 @@ _POOL_DTYPES = (
 )
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.hg_ingest_scan
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+@functools.cache
+def _bound():
+    """The kernel's C entry point, built at first use and bound once."""
+    fn = _build.library(KERNEL).hg_ingest_scan
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def ingest_scan(
     state, yes, tot, vote_mask, vote_val, n, req, cap, gossipsub, liveness,
-    slot_pack, grid_pack,
+    slot_pack, grid_pack, pad_rows: bool = True,
 ) -> torch.Tensor:
     """Apply the packed vote batch to the pool in arrival order; returns
-    the int8 ``[S, L+1]`` output. Same contract as :func:`ingest_body`."""
+    the int8 ``[S, L+1]`` output. Same contract as :func:`ingest_body`.
+
+    ``pad_rows`` says whether ``slot_pack`` may hold pad rows (ids >= P);
+    when it is False the kernel's pad-row launch is skipped, and a pad row
+    in the batch would be left unwritten in the output."""
+    global grid_launches
     tensors = (state, yes, tot, vote_mask, vote_val, n, req, cap, gossipsub,
                liveness, slot_pack)
     if state.device.type == "cpu":
@@ -79,13 +93,13 @@ def ingest_scan(
     out = torch.empty((s_count, depth + 1), dtype=torch.int8, device=state.device)
     if s_count == 0:
         return out
-    fn = _bind(_build.library(KERNEL))
-    _build.launched(KERNEL, fn(
+    _build.launched(KERNEL, _bound()(
         *(t.data_ptr() for t in tensors),
         grid_pack.data_ptr(),
         out.data_ptr(),
         s_count, depth, p, v, _CELL_BYTES[grid_pack.dtype],
-        lane_mask, val_bit, valid_bit,
+        lane_mask, val_bit, valid_bit, int(pad_rows),
         torch.cuda.current_stream(state.device).cuda_stream,
     ))
+    grid_launches += 2 if pad_rows else 1
     return out

@@ -374,3 +374,150 @@ def test_cuda_source_status_codes_match_enum():
     assert consts["kStateFailed"] == decide.STATE_FAILED
     assert consts["kStateReachedNo"] == decide.STATE_REACHED_NO
     assert consts["kStateReachedYes"] == decide.STATE_REACHED_YES
+
+
+# ── the CUDA kernel's row walk, built for the host ─────────────────────
+
+SCAN_HARNESS = r"""
+#include "ingest_scan.cu"
+
+template <typename Cell>
+static void run(void** t, const void* grid, void* out, int s_count, int depth,
+                int p, int v, int lane_mask, int val_bit, int valid_bit,
+                int has_pad, int max_vec) {
+  int vec = vec_width(reinterpret_cast<uintptr_t>(grid),
+                      static_cast<size_t>(depth) * sizeof(Cell));
+  while (vec > max_vec) vec /= 2;
+  if (vec == 2) vec = 1;
+  // The launches' order: pad rows first, then the real rows.
+  for (int phase = has_pad ? 1 : 0; phase >= 0; --phase)
+    for (int r = 0; r < s_count; ++r)
+      (depth <= kShortChunk ? scan_row<Cell, kShortChunk> : scan_row<Cell, kLongChunk>)(
+                     r, static_cast<int32_t*>(t[0]), static_cast<int32_t*>(t[1]),
+                     static_cast<int32_t*>(t[2]), static_cast<uint8_t*>(t[3]),
+                     static_cast<uint8_t*>(t[4]), static_cast<const int32_t*>(t[5]),
+                     static_cast<const int32_t*>(t[6]), static_cast<const int32_t*>(t[7]),
+                     static_cast<const uint8_t*>(t[8]), static_cast<const uint8_t*>(t[9]),
+                     static_cast<const int32_t*>(t[10]), static_cast<const Cell*>(grid),
+                     static_cast<int8_t*>(out), depth, p, v,
+                     static_cast<uint32_t>(lane_mask), val_bit, valid_bit, vec,
+                     phase == 1);
+}
+
+extern "C" void h_scan(void** t, const void* grid, void* out, int s_count,
+                       int depth, int p, int v, int cell_bytes, int lane_mask,
+                       int val_bit, int valid_bit, int has_pad, int max_vec) {
+  if (cell_bytes == 1)
+    run<uint8_t>(t, grid, out, s_count, depth, p, v, lane_mask, val_bit, valid_bit, has_pad, max_vec);
+  else if (cell_bytes == 2)
+    run<uint16_t>(t, grid, out, s_count, depth, p, v, lane_mask, val_bit, valid_bit, has_pad, max_vec);
+  else
+    run<int32_t>(t, grid, out, s_count, depth, p, v, lane_mask, val_bit, valid_bit, has_pad, max_vec);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def scan_host(tmp_path_factory):
+    """The scan kernel's per-row walk built by a host C++ compiler."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel's walk")
+    tmp = tmp_path_factory.mktemp("scan_host")
+    (tmp / "harness.cpp").write_text(SCAN_HARNESS)
+    lib_path = tmp / "libscan_host.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(_build.CSRC),
+                    "-o", str(lib_path), str(tmp / "harness.cpp")],
+                   check=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.h_scan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+    lib.h_scan.restype = None
+    return lib
+
+
+def kernel_inputs(seed, p, v, s, depth, grid_dtype, pad_share=0.0):
+    """Pool arrays and one packed batch: random prior votes, decided and
+    failed rows, rows at their round cap, expired rows, repeated lanes
+    within a row (near and far apart) and, when ``pad_share`` > 0, pad
+    rows (id == P). Lanes stay below V, where the plain scan is defined."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(1, v + 1, p).astype(np.int32)
+    gossip = rng.random(p) < 0.5
+    req = required_votes_np(n, rng.choice([2 / 3, 0.9, 1.0], p)).astype(np.int32)
+    cap = np.where(gossip, 2, req).astype(np.int32)
+    prior = np.minimum(rng.integers(0, 4, p), n)
+    mask = np.arange(v)[None, :] < prior[:, None]
+    vals = mask & (rng.random((p, v)) < 0.5)
+    tot = prior.astype(np.int32)
+    at_cap = (~gossip) & (rng.random(p) < 0.1)
+    cap[at_cap] = tot[at_cap]
+    pool = dict(
+        state=np.array([1, 1, 1, 1, 2, 3, 4], np.int32)[rng.integers(0, 7, p)],
+        yes=vals.sum(axis=1).astype(np.int32), tot=tot, vote_mask=mask,
+        vote_val=vals, n=n, req=req, cap=cap, gossip=gossip,
+        liveness=rng.random(p) < 0.5,
+    )
+    slots = rng.permutation(p)[:s].astype(np.int32)
+    slots[rng.random(s) < pad_share] = p
+    lane_mask, val_bit, valid_bit = port.grid_layout(grid_dtype)
+    hi = min(v, lane_mask + 1)
+    lanes = rng.integers(0, min(hi, 12), (s, depth))  # small range: repeats
+    lanes[:, depth // 2:] = rng.integers(0, hi, (s, depth - depth // 2))
+    cells = (lanes | ((rng.random((s, depth)) < 0.6).astype(np.int64) << val_bit)
+             | ((rng.random((s, depth)) < 0.9).astype(np.int64) << valid_bit))
+    slot_pack = port.pack_slots(slots, rng.random(s) < 0.1)
+    return pool, slot_pack, cells.astype(grid_dtype)
+
+
+def run_scan_host(lib, pool, slot_pack, grid, max_vec=16):
+    import ctypes
+
+    arrays = [np.ascontiguousarray(pool[k]).copy() for k in POOL_KEYS]
+    arrays = [a.view(np.uint8) if a.dtype == bool else a for a in arrays]
+    arrays.append(np.ascontiguousarray(slot_pack, np.int32))
+    grid = np.ascontiguousarray(grid)
+    s, depth = grid.shape
+    out = np.zeros((s, depth + 1), np.int8)
+    ptrs = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
+    lane_mask, val_bit, valid_bit = port.grid_layout(grid.dtype)
+    p, v = pool["vote_mask"].shape
+    has_pad = bool(((slot_pack & ((1 << 30) - 1)) >= p).any())
+    lib.h_scan(ptrs, grid.ctypes.data, out.ctypes.data, s, depth, p, v,
+               grid.dtype.itemsize, lane_mask, val_bit, valid_bit, int(has_pad), max_vec)
+    got = {k: (a.view(bool) if pool[k].dtype == bool else a)
+           for k, a in zip(POOL_KEYS, arrays)}
+    got["out"] = out
+    return got
+
+
+@pytest.mark.parametrize("max_vec", [16, 8, 4, 1])
+@pytest.mark.parametrize("depth", [8, 3, 6, 40, 128])
+@pytest.mark.parametrize("grid_dtype", [np.uint8, np.uint16, np.int32])
+def test_scan_kernel_walk_matches_plain(scan_host, grid_dtype, depth, max_vec):
+    """The kernel's row walk (vector cell loads, the mask bytes gathered up
+    front, duplicates found against the chunk's own accepts, the write-back
+    at each chunk's end) gives the plain scan's statuses and pool, bit for
+    bit, on every layout, at depths below, across and many times the
+    32-vote chunk, with every vector width the row allows."""
+    v = {np.uint8: 48, np.uint16: 300, np.int32: 70}[grid_dtype]
+    pool, slot_pack, grid = kernel_inputs(depth * 7 + max_vec, 64, v, 40, depth, grid_dtype)
+    want = run_port(port.ingest_body, pool, slot_pack, grid)
+    assert_same(run_scan_host(scan_host, pool, slot_pack, grid, max_vec), want)
+    statuses = set(want["out"][:, :-1].ravel().tolist())
+    assert {0, int(StatusCode.DUPLICATE_VOTE)} <= statuses
+
+
+@pytest.mark.parametrize("depth", [3, 8, 70])
+def test_scan_kernel_walk_pad_rows(scan_host, depth):
+    """Pad rows in the batch (the pad launch first), also deeper than one
+    chunk, where a pad row finds its earlier chunks' accepts from its own
+    statuses; the plain scan's outputs bit for bit."""
+    pool, slot_pack, grid = kernel_inputs(900 + depth, 16, 40, 12, depth, np.uint8,
+                                          pad_share=0.3)
+    assert ((slot_pack & ((1 << 30) - 1)) == 16).any()
+    want = run_port(port.ingest_body, pool, slot_pack, grid)
+    assert_same(run_scan_host(scan_host, pool, slot_pack, grid), want)
