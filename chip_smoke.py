@@ -67,6 +67,8 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import json
 import random
 import re
@@ -182,6 +184,27 @@ def event_ms(fn, setup, reps):
     return total / reps
 
 
+def restored_ms(fn, restore, reps):
+    """Device time per call of ``fn`` on inputs put back as they were
+    before every call: the stream is held by a sleep while the host
+    enqueues ``reps`` rounds of ``restore`` then ``fn``, with CUDA events
+    around ``fn`` alone, so every call meets the inputs the first met and
+    neither the restore nor the host's enqueue is in the reading."""
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
+        restore()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
 def scan_bytes(pool, slot_pack, grid):
     """Bytes the scan must move for these inputs: slot ids and grid read
     once; per real row its scalars read (state, yes, tot, n, req, cap as
@@ -263,20 +286,19 @@ def phase_kernel(dev):
             for w, b0 in zip(work, base):
                 w.copy_(b0)
 
-        # call_ms: CUDA events around one wrapper call on restored inputs, the
-        # host's enqueue included (how earlier runs timed it). ms: device time
-        # alone, the stream held while 20 calls on the same batch are
-        # enqueued (calls after the first meet the rows the first voted: the
-        # same loads, fewer accepted votes to write).
-        call_ms = event_ms(lambda: cuda_ingest.ingest_scan(*work, sp, g, pad_rows=has_pad),
-                           restore, 20)
-        restore()
-        ms = device_ms(lambda: cuda_ingest.ingest_scan(*work, sp, g, pad_rows=has_pad), 20)
+        # Both on inputs put back before every call. ms: the kernel's device
+        # time alone; call_ms: CUDA events around one wrapper call, the host's
+        # enqueue included (how the scan was first timed).
+        def call():
+            return cuda_ingest.ingest_scan(*work, sp, g, pad_rows=has_pad)
+
+        ms = restored_ms(call, restore, 20)
+        call_ms = event_ms(call, restore, 20)
         plain_ms = event_ms(lambda: ingest_body(*work, sp, g), restore, 5)
         parts = scan_bytes(pool, slot_pack, grid)
         bound = sum(parts.values()) / HBM_BYTES_PER_S * 1e3
         log(f"[kernel] {label}: {ms:.6f} ms device time a call, {call_ms:.6f} ms with the "
-            f"host's enqueue (plain {plain_ms:.6f} ms, byte bound {bound:.6f} ms = "
+            f"host's enqueue, inputs put back before every call (plain {plain_ms:.6f} ms, byte bound {bound:.6f} ms = "
             f"{sum(parts.values())} B / 3.35 TB/s: {parts})")
         timing[label] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound)
     return timing
@@ -686,38 +708,37 @@ def call_body(rows, entry) -> int:
 def sass_counts(variants):
     """Instructions of the compiled routines, counted in this build's SASS:
     the one-thread ed_add and ed_dbl (what msm_reduce and msm_final call,
-    each from its entry to its RET); the msm_windows kernel of each build
-    of ``variants`` (threads per lane -> defines); the chain's squaring
-    (the body of each of fe_pow22523's loops, its loop control included);
-    and fe_mul's kernel, loads and stores included. Logged beside the counts
-    that the bounds use."""
+    each from its entry to its RET); the msm_windows kernel at each group
+    size of ``variants`` (threads per lane -> (library, nvcc output)); the
+    chain's squaring (the body of each of fe_pow22523's loops, its loop
+    control included); and fe_mul's kernel, loads and stores included.
+    Logged beside the counts that the bounds use."""
     from hashgraph_tpu_torch import _build
 
-    def kernel(source, word, defines=()):
-        funcs = sass_functions(_build._target(source, defines))
-        return next(rows for name, rows in funcs.items() if word in name)
+    def kernel(word, lib):
+        return next(rows for name, rows in sass_functions(lib).items() if word in name)
 
     body = {}
     for name, word in (("ed_add", "msm_reduce"), ("ed_dbl", "msm_final")):
-        rows = kernel("ed_msm", word)
+        rows = kernel(word, _build._target("ed_msm"))
         calls = list(dict.fromkeys(int(m, 16) for _, ins in rows
                                    for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
         if len(calls) != 1:
             raise AssertionError(f"{word} calls {len(calls)} subroutines, not {name} alone")
         body[name] = call_body(rows, calls[0])
     windows = {}
-    for group, defines in variants.items():
-        rows = kernel("ed_msm", "msm_windows", defines)
+    for group, (lib, _) in variants.items():
+        rows = kernel("msm_windows", lib)
         windows[group] = len(rows)
         log(f"[sass] msm_windows, {group} threads a lane: {len(rows)} instructions in the "
             f"kernel, {sum(1 for _, ins in rows if ins.startswith('SHFL'))} of them shuffles, "
             f"{len(sass_loops(rows))} backward branches, "
             f"{sum(1 for _, ins in rows if ins.startswith('CALL'))} calls")
     loops = [(last - first) // 16 + 1
-             for first, last in sass_loops(kernel("fe_pow22523", "pow22523"))]
+             for first, last in sass_loops(kernel("pow22523", _build._target("fe_pow22523")))]
     if len(set(loops)) != 1:
         raise AssertionError(f"fe_pow22523's loops differ in length: {loops}")
-    fe_mul_n = len(kernel("fe_mul", "fe_mul"))
+    fe_mul_n = len(kernel("fe_mul", _build._target("fe_mul")))
     log(f"[sass] ed_add {body['ed_add']} instructions (the bound counts {ED_ADD_OPS}), "
         f"ed_dbl {body['ed_dbl']} ({ED_DBL_OPS}), a squaring of the chain {loops[0]} "
         f"with its loop control ({FE_SQR_OPS_PER_LANE}), fe_mul's kernel {fe_mul_n} with "
@@ -889,18 +910,71 @@ def msm_inputs(seed, lanes, dev):
     return pts, torch.from_numpy(nib).to(dev), last
 
 
-# Threads per lane timed for msm_windows: 4, 8 and 16 are the sizes the
-# kernel is written for; 2 is timed beside them for reference.
-MSM_GROUPS = (2, 4, 8, 16)
+# Threads per lane timed for msm_windows. The kernel keeps one size
+# (``kGroup`` in csrc/ed_msm.cu); the group routines are written for all
+# three, and the others are built here from a copy of ed_msm.cu with its
+# kGroup changed, for phase 6b to hold and time beside the kept one.
+MSM_GROUPS = (4, 8, 16)
+KGROUP_LINE = re.compile(r"^constexpr int kGroup = (\d+);$", re.M)
 
 
-def msm_variants():
-    """Threads per lane -> defines of the ed_msm build: the port's own build
-    (no defines) for the size it keeps, a variant build for the others."""
-    text = (Path(__file__).resolve().parent / "hashgraph_tpu_torch" / "csrc"
-            / "ed_msm.cu").read_text()
-    kept = int(re.search(r"#define MSM_GROUP (\d+)", text).group(1))
-    return {g: () if g == kept else (f"MSM_GROUP={g}",) for g in MSM_GROUPS}
+def msm_group_kept() -> int:
+    from hashgraph_tpu_torch import _build
+
+    return int(KGROUP_LINE.search((_build.CSRC / "ed_msm.cu").read_text()).group(1))
+
+
+def start_msm_variants():
+    """Start one ``nvcc`` for each group size the kernel does not keep;
+    returns group -> (process, library path)."""
+    from hashgraph_tpu_torch import _build
+
+    text = (_build.CSRC / "ed_msm.cu").read_text()
+    out_dir = _build.BUILD_DIR / "msm_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for group in MSM_GROUPS:
+        if group == msm_group_kept():
+            continue
+        source = out_dir / f"ed_msm_g{group}.cu"
+        source.write_text(KGROUP_LINE.sub(f"constexpr int kGroup = {group};", text, count=1))
+        lib = out_dir / f"libed_msm_g{group}.so"
+        procs[group] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+             str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def finish_msm_variants(procs):
+    """Wait for the variant builds; returns group -> (library path, nvcc's
+    output), the kept size included (the port's own build)."""
+    from hashgraph_tpu_torch import _build
+
+    built = {msm_group_kept(): (_build._target("ed_msm"), _build.build_log("ed_msm"))}
+    for group, (proc, lib) in procs.items():
+        output, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"ed_msm.cu with kGroup = {group} (nvcc exit "
+                                 f"{proc.returncode}):\n{output}")
+        built[group] = (lib, output)
+    return dict(sorted(built.items()))
+
+
+def variant_windows(lib, pts, nib):
+    """msm_windows through a variant build's C entry point, as
+    ``cuda_msm.msm_windows`` calls the port's build (it counts no launch:
+    a variant is not on the main path)."""
+    lanes = pts.shape[0]
+    table = torch.empty((lib.hg_msm_table_lanes(lanes), 16, 64), dtype=torch.int16,
+                        device=pts.device)
+    out = torch.empty_like(pts)
+    err = lib.hg_msm_windows(ctypes.c_void_p(pts.data_ptr()), ctypes.c_void_p(nib.data_ptr()),
+                             ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                             lanes, nib.shape[1],
+                             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise AssertionError(f"msm_windows variant: launch failed (cudaError {err})")
+    return out
 
 
 def phase_msm(dev, variants):
@@ -963,17 +1037,17 @@ def phase_msm(dev, variants):
 
     # Every group size tried, each against the plain window stage, timed in
     # this call; the port's build is the one kept.
+    kept = msm_group_kept()
     group_ms = {}
-    for group, defines in variants.items():
-        if cuda_msm.threads_per_lane(defines) != group:
-            raise AssertionError(f"the build for {group} threads a lane reports "
-                                 f"{cuda_msm.threads_per_lane(defines)}")
-        got = cuda_msm.msm_windows(pts, nib, _defines=defines)
-        if not torch.equal(got, acc_plain):
+    for group, (lib_path, _) in variants.items():
+        if group == kept:
+            windows = functools.partial(cuda_msm.msm_windows, pts, nib)
+        else:
+            windows = functools.partial(variant_windows, ctypes.CDLL(str(lib_path)), pts, nib)
+        if not torch.equal(windows(), acc_plain):
             raise AssertionError(f"msm_windows with {group} threads a lane differs from "
                                  "_windows_plain")
-        group_ms[group] = device_ms(lambda: cuda_msm.msm_windows(pts, nib, _defines=defines), 3)
-    kept = cuda_msm.threads_per_lane()
+        group_ms[group] = device_ms(windows, 3)
     log(f"[msm] msm_windows at {MSM_LANES} lanes, bit-exact at every group size; ms by "
         f"threads a lane {json.dumps(group_ms)}; kept {kept}")
 
@@ -1237,17 +1311,23 @@ def main() -> int:
     log(f"[build] device {props.name}: {props.multi_processor_count} SMs, "
         f"{props.total_memory / 2**30:.1f} GiB; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    variants = msm_variants()
-    _build.build_jobs([(name, ()) for name in _build.sources()]
-                      + [("ed_msm", d) for d in variants.values() if d])
+    variant_builds = start_msm_variants()
+    try:
+        _build.build()
+    except BaseException:
+        for proc, _ in variant_builds.values():
+            proc.kill()
+        raise
+    variants = finish_msm_variants(variant_builds)
     log(f"[build] kernels {_build.sources()} and msm_windows at "
         f"{sorted(variants)} threads a lane built in {time.perf_counter() - t0:.3f} s")
-    builds = [(name, ()) for name in _build.sources()]
-    builds += [("ed_msm", d) for d in variants.values() if d]
-    for name, defines in builds:
-        for line in _build.build_log(name, defines).splitlines():
+    builds = [(name, _build.build_log(name)) for name in _build.sources()]
+    builds += [(f"ed_msm with kGroup = {group}", output)
+               for group, (_, output) in variants.items() if group != msm_group_kept()]
+    for name, output in builds:
+        for line in output.splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
-                log(f"[build] {name}{' ' + ' '.join(defines) if defines else ''}: {line.strip()}")
+                log(f"[build] {name}: {line.strip()}")
     sass_counts(variants)
 
     timing = phase_kernel(dev) if run("2") else None

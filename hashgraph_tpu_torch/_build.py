@@ -40,8 +40,8 @@ NVCC_FLAGS = (
 # its kernel, so a caller can show that a path really ran through it.
 launches: collections.Counter = collections.Counter()
 
-_libs: dict[tuple, ctypes.CDLL] = {}  # (name, defines) -> library
-_logs: dict[tuple, str] = {}
+_libs: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -66,54 +66,35 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
+def _target(name: str) -> Path:
     """The library's path, named by a hash of the source, every shared
-    header under ``csrc/`` (so an edited header rebuilds what includes it),
-    the flags and the ``-D`` defines."""
+    header under ``csrc/`` (so an edited header rebuilds what includes it)
+    and the flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update("\0".join(NVCC_FLAGS + _flags(defines)).encode())
+    digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
-    return tuple(f"-D{d}" for d in defines)
-
-
-def build(
-    names: list[str] | None = None, defines: tuple[str, ...] = ()
-) -> dict[str, ctypes.CDLL]:
+def build(names: list[str] | None = None) -> dict[str, ctypes.CDLL]:
     """Compile (one ``nvcc`` per source, all started together) and load the
-    named sources, default all; returns name -> loaded library. ``defines``
-    (``NAME=VALUE`` strings) build a variant of each source beside its
-    default build: a measurement compares variants, the port loads the
-    default."""
+    named sources, default all; returns name -> loaded library."""
     names = sources() if names is None else list(names)
-    defines = tuple(defines)
-    libs = build_jobs([(name, defines) for name in names])
-    return {name: libs[(name, defines)] for name in names}
-
-
-def build_jobs(jobs: "list[tuple[str, tuple[str, ...]]]") -> dict[tuple, ctypes.CDLL]:
-    """Compile every (source, defines) job, one ``nvcc`` each, all started
-    together, and load them; returns (source, defines) -> loaded library."""
-    jobs = [(name, tuple(defines)) for name, defines in jobs]
     with _lock:
-        todo = [job for job in dict.fromkeys(jobs) if job not in _libs]
+        todo = [name for name in names if name not in _libs]
         if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             compiler = nvcc()
             procs = {}
-            for name, defines in todo:
-                target = _target(name, defines)
+            for name in todo:
+                target = _target(name)
                 if target.exists():
                     continue
                 tmp = target.with_suffix(f".{os.getpid()}.tmp")
-                procs[(name, defines)] = (
+                procs[name] = (
                     subprocess.Popen(
-                        [compiler, *NVCC_FLAGS, *_flags(defines), "-o", str(tmp),
-                         str(CSRC / f"{name}.cu")],
+                        [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
                         stdout=subprocess.PIPE,
                         stderr=subprocess.STDOUT,
                         text=True,
@@ -122,22 +103,21 @@ def build_jobs(jobs: "list[tuple[str, tuple[str, ...]]]") -> dict[tuple, ctypes.
                     target,
                 )
             failed = []
-            for (name, defines), (proc, tmp, target) in procs.items():
+            for name, (proc, tmp, target) in procs.items():
                 output, _ = proc.communicate()
-                _logs[(name, defines)] = output
+                _logs[name] = output
                 if proc.returncode != 0:
-                    failed.append(f"{name}.cu {' '.join(_flags(defines))} "
-                                  f"(nvcc exit {proc.returncode}):\n{output}")
+                    failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{output}")
                 else:
                     tmp.replace(target)
             if failed:
                 raise BuildError("CUDA build failed:\n" + "\n".join(failed))
-            for name, defines in todo:
+            for name in todo:
                 try:
-                    _libs[(name, defines)] = ctypes.CDLL(str(_target(name, defines)))
+                    _libs[name] = ctypes.CDLL(str(_target(name)))
                 except OSError as exc:
                     raise BuildError(f"cannot load {name}: {exc}") from exc
-        return {job: _libs[job] for job in jobs}
+        return {name: _libs[name] for name in names}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -164,7 +144,7 @@ def launched(kernel: str, err: int) -> None:
     launches[kernel] += 1
 
 
-def build_log(name: str, defines: tuple[str, ...] = ()) -> str:
+def build_log(name: str) -> str:
     """What ``nvcc`` printed for a source built by this process (registers,
     shared memory and spills per kernel); empty if it was not rebuilt."""
-    return _logs.get((name, tuple(defines)), "")
+    return _logs.get(name, "")

@@ -7,8 +7,8 @@ the point formulas run around the field product inside the kernels of
 launched on PyTorch's current stream:
 
 - :func:`msm_windows` — one launch: per lane the window table and the 64
-  windows, a group of :func:`threads_per_lane` threads sharing each lane's
-  accumulator;
+  windows, a group of threads (``csrc/ed_msm.cu``'s ``kGroup``) sharing
+  each lane's accumulator;
 - :func:`msm_reduce` — one launch per tree level, ``ceil(log2 lanes)``
   levels, ping-ponging between two scratch buffers;
 - :func:`msm_final` — one launch: ``8 * root`` and the identity test, as an
@@ -41,14 +41,11 @@ _POINT = (4, 16)  # extended coordinates x limbs
 
 
 @functools.cache
-def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The bound C entry points, built at first use and bound once.
-    ``defines`` selects a variant build (``MSM_GROUP=8``) for measurements
-    that compare variants; the port itself uses the default."""
-    lib = _build.build([SOURCE], defines)[SOURCE]
+def _lib() -> ctypes.CDLL:
+    """The bound C entry points, built at first use and bound once."""
+    lib = _build.library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-        ("hg_msm_group", []),
         ("hg_msm_table_lanes", [i32]),
         ("hg_msm_windows", [ptr] * 4 + [i32, i32, ptr]),
         ("hg_msm_reduce", [ptr, ptr, i32, ptr]),
@@ -70,18 +67,10 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def threads_per_lane(defines: tuple[str, ...] = ()) -> int:
-    """Threads that share one lane in the built msm_windows kernel."""
-    return _lib(defines).hg_msm_group()
-
-
-def msm_windows(
-    points: torch.Tensor, nibbles: torch.Tensor, _defines: tuple[str, ...] = ()
-) -> torch.Tensor:
+def msm_windows(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
     """Per-lane window accumulators, int64[Lanes, 4, 16], of points
     int64[Lanes, 4, 16] under MSB-first nibbles in [0, 16), int32[Lanes, W]
-    (the kernel reads their low 4 bits). ``_defines`` launches a variant
-    build instead of the default (measurement only)."""
+    (the kernel reads their low 4 bits)."""
     dev = _device(WINDOWS_KERNEL, points)
     lanes = points.shape[0]
     _build.check_operand(WINDOWS_KERNEL, "points", points, torch.int64, (lanes, *_POINT), dev)
@@ -97,7 +86,7 @@ def msm_windows(
     # entry as 64 uint16 limbs (int16 bits).
     # Dropping it on return is safe: the caching allocator hands the block
     # out again only to work ordered after this launch on the stream.
-    lib = _lib(tuple(_defines))
+    lib = _lib()
     table = torch.empty((lib.hg_msm_table_lanes(lanes), _ENTRIES, 4 * 16),
                         dtype=torch.int16, device=dev)
     _build.launched(WINDOWS_KERNEL, lib.hg_msm_windows(

@@ -25,24 +25,24 @@
 // outside a lane's table). The wrapper (crypto_device/cuda_msm.py) allocates
 // every output and the table scratch; no kernel allocates.
 //
-// Design. The window loop gives a group of MSM_GROUP threads (G = 4, 8 or
-// 16) to each lane, with fe25519_group.cuh's routines: thread t of a group
-// holds limbs [t*16/G, (t+1)*16/G) of the accumulator, the base point and
-// the selected entry, sums the product columns of its own limbs and gets
-// the operand limbs it lacks by shuffles within the group. A thread needs
-// about G times fewer registers than a whole lane, and at the 16,384 lanes
-// of a 4,096-signature batch the card holds G times the warps: with one
-// thread a lane, four warps an SM were too few to hide the integer
-// pipeline's latency. The table stays in device memory: 16 entries x 4
+// Design. The window loop gives a group of G = kGroup = 4 threads to each
+// lane, with fe25519_group.cuh's routines (written for G = 4, 8 or 16):
+// thread t of a group holds limbs [t*16/G, (t+1)*16/G) of the accumulator,
+// the base point and the selected entry, sums the product columns of its
+// own limbs and gets the operand limbs it lacks by shuffles within the
+// group. A thread needs about G times fewer registers than a whole lane,
+// and at the 16,384 lanes of a 4,096-signature batch the card holds G times
+// the warps: with one thread a lane, four warps an SM were too few to hide
+// the integer pipeline's latency. The table stays in device memory: 16 entries x 4
 // coordinates x 16 limbs, exact in uint16 (carried limbs are < 2^16), 128
 // bytes an entry, lane-major ([lane][entry][64 limbs]), 32 MB at 16,384
 // lanes, resident in the 50 MB L2 (in uint32 it would take 64 MB). Each
 // thread stores and loads only its own limbs of an entry, so a group's
 // gather of one entry is one 128-byte line. The tree and the final test
-// keep one thread a point (fe25519.cuh). Four threads a lane is the build's
-// default: of 4, 8 and 16 it was the fastest at 16,384 lanes, the larger
-// groups paying more in shuffles than they gain in warps (chip_smoke.py
-// phase 6b times every size; PERF.md keeps the times).
+// keep one thread a point (fe25519.cuh). Of 4, 8 and 16 threads a lane, 4
+// was the fastest at 16,384 lanes, the larger groups paying more in
+// shuffles than they gain in warps (chip_smoke.py phase 6b builds the other
+// sizes from a copy of this file and times them; PERF.md keeps the times).
 //
 // Bound. Per lane the window kernel does 15 + 64 point additions and 256
 // doublings, 2,891,416 needed integer instructions (chip_smoke.py counts
@@ -54,10 +54,9 @@
 #include "fe25519.cuh"
 #include "fe25519_group.cuh"
 
-// Threads per lane of the window kernel (4, 8 or 16).
-#ifndef MSM_GROUP
-#define MSM_GROUP 4
-#endif
+// Threads per lane of the window kernel (the group routines take 4, 8 or
+// 16; 4 was the fastest at 16,384 lanes).
+constexpr int kGroup = 4;
 
 constexpr int kEntries = 16;              // table entries: 0 * P .. 15 * P
 constexpr int kPointLimbs = 4 * kLimbs;   // X, Y, Z, T
@@ -208,7 +207,7 @@ __device__ __forceinline__ int32_t msm_final_verdict(const int64_t* root) {
 namespace {
 
 constexpr int kThreads = 32;
-constexpr int kWindowThreads = 128;  // 128 / MSM_GROUP lanes a block
+constexpr int kWindowThreads = 128;  // 128 / kGroup lanes a block
 
 // Groups past the last lane run lane lanes-1's arithmetic on a table of
 // their own (the table is padded to the grid's groups) and store nothing,
@@ -218,9 +217,9 @@ msm_windows_kernel(const int64_t* __restrict__ points,
                    const int32_t* __restrict__ nibbles,
                    uint16_t* __restrict__ table, int64_t* __restrict__ out,
                    int lanes, int windows) {
-  const int group = (blockIdx.x * blockDim.x + threadIdx.x) / MSM_GROUP;
+  const int group = (blockIdx.x * blockDim.x + threadIdx.x) / kGroup;
   const size_t at = static_cast<size_t>(group < lanes ? group : lanes - 1);
-  msm_group_windows<MSM_GROUP>(points + at * kPointLimbs, nibbles + at * windows,
+  msm_group_windows<kGroup>(points + at * kPointLimbs, nibbles + at * windows,
                                windows, table + static_cast<size_t>(group) * kEntries * kPointLimbs,
                                group < lanes ? out + at * kPointLimbs : nullptr);
 }
@@ -251,7 +250,7 @@ extern "C" int hg_msm_windows(const void* points, const void* nibbles,
                               void* table, void* out, int lanes, int windows,
                               void* stream) {
   if (lanes <= 0) return 0;
-  const int blocks = (lanes * MSM_GROUP + kWindowThreads - 1) / kWindowThreads;
+  const int blocks = (lanes * kGroup + kWindowThreads - 1) / kWindowThreads;
   msm_windows_kernel<<<blocks, kWindowThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(points),
@@ -260,14 +259,11 @@ extern "C" int hg_msm_windows(const void* points, const void* nibbles,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Threads per lane of msm_windows in this build.
-extern "C" int hg_msm_group() { return MSM_GROUP; }
-
 // Lanes the window table must hold for `lanes` lanes: every group of the
 // launch grid, the surplus ones included.
 extern "C" int hg_msm_table_lanes(int lanes) {
-  const int blocks = (lanes * MSM_GROUP + kWindowThreads - 1) / kWindowThreads;
-  return blocks * kWindowThreads / MSM_GROUP;
+  const int blocks = (lanes * kGroup + kWindowThreads - 1) / kWindowThreads;
+  return blocks * kWindowThreads / kGroup;
 }
 
 // One tree level: out[i] = q[2i] + q[2i+1] for i < ceil(n_in / 2).

@@ -312,7 +312,8 @@ int launch(void* state, void* yes, void* tot, void* vote_mask, void* vote_val,
            const void* n, const void* req, const void* cap, const void* gossip,
            const void* liveness, const void* slot_pack, const void* grid,
            void* out, int s_count, int depth, int p, int v, int lane_mask,
-           int val_bit, int valid_bit, bool has_pad, cudaStream_t stream) {
+           int val_bit, int valid_bit, bool has_pad, int* launched,
+           cudaStream_t stream) {
   // One warp a block: the main path's 10,000 rows then spread over every
   // SM (313 blocks) instead of 79 blocks of 128 threads.
   constexpr int kThreads = 32;
@@ -336,6 +337,7 @@ int launch(void* state, void* yes, void* tot, void* vote_mask, void* vote_val,
         vec, phase == 1);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
   }
   return 0;
 }
@@ -344,8 +346,9 @@ int launch(void* state, void* yes, void* tot, void* vote_mask, void* vote_val,
 
 // C interface, loaded with ctypes. cell_bytes selects the packed-grid
 // layout: 1 = uint8, 2 = uint16 (sent as int16 bits), 4 = int32. has_pad
-// non-zero adds the pad-row launch before the real rows'. Returns the
-// cudaError_t of the launches (0 = success); s_count == 0 launches nothing.
+// non-zero adds the pad-row launch before the real rows'. Sets *launched
+// to the number of kernels launched and returns the cudaError_t of the
+// launches (0 = success); s_count == 0 launches nothing.
 extern "C" int hg_ingest_scan(void* state, void* yes, void* tot,
                               void* vote_mask, void* vote_val, const void* n,
                               const void* req, const void* cap,
@@ -353,7 +356,9 @@ extern "C" int hg_ingest_scan(void* state, void* yes, void* tot,
                               const void* slot_pack, const void* grid,
                               void* out, int s_count, int depth, int p, int v,
                               int cell_bytes, int lane_mask, int val_bit,
-                              int valid_bit, int has_pad, void* stream) {
+                              int valid_bit, int has_pad, int* launched,
+                              void* stream) {
+  *launched = 0;
   if (s_count == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pad = has_pad != 0;
@@ -361,16 +366,18 @@ extern "C" int hg_ingest_scan(void* state, void* yes, void* tot,
     case 1:
       return launch<uint8_t>(state, yes, tot, vote_mask, vote_val, n, req, cap,
                              gossip, liveness, slot_pack, grid, out, s_count,
-                             depth, p, v, lane_mask, val_bit, valid_bit, pad, s);
+                             depth, p, v, lane_mask, val_bit, valid_bit, pad,
+                             launched, s);
     case 2:
       return launch<uint16_t>(state, yes, tot, vote_mask, vote_val, n, req,
                               cap, gossip, liveness, slot_pack, grid, out,
                               s_count, depth, p, v, lane_mask, val_bit,
-                              valid_bit, pad, s);
+                              valid_bit, pad, launched, s);
     case 4:
       return launch<int32_t>(state, yes, tot, vote_mask, vote_val, n, req, cap,
                              gossip, liveness, slot_pack, grid, out, s_count,
-                             depth, p, v, lane_mask, val_bit, valid_bit, pad, s);
+                             depth, p, v, lane_mask, val_bit, valid_bit, pad,
+                             launched, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

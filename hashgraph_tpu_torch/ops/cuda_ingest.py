@@ -27,8 +27,9 @@ from .ingest import grid_layout, ingest_body
 
 KERNEL = "ingest_scan"
 
-# Device launches the wrapper made: one a call, two for a call with pad
-# rows. ``_build.launches[KERNEL]`` counts calls.
+# Device launches the wrapper's calls made, as the C entry point reports
+# them: one a call, two for a call with pad rows. ``_build.launches[KERNEL]``
+# counts calls.
 grid_launches = 0
 
 _CELL_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
@@ -51,7 +52,8 @@ _POOL_DTYPES = (
 def _bound():
     """The kernel's C entry point, built at first use and bound once."""
     fn = _build.library(KERNEL).hg_ingest_scan
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,13 +95,15 @@ def ingest_scan(
     out = torch.empty((s_count, depth + 1), dtype=torch.int8, device=state.device)
     if s_count == 0:
         return out
-    _build.launched(KERNEL, _bound()(
+    launched = ctypes.c_int(0)
+    err = _bound()(
         *(t.data_ptr() for t in tensors),
         grid_pack.data_ptr(),
         out.data_ptr(),
         s_count, depth, p, v, _CELL_BYTES[grid_pack.dtype],
-        lane_mask, val_bit, valid_bit, int(pad_rows),
+        lane_mask, val_bit, valid_bit, int(pad_rows), ctypes.byref(launched),
         torch.cuda.current_stream(state.device).cuda_stream,
-    ))
-    grid_launches += 2 if pad_rows else 1
+    )
+    grid_launches += launched.value
+    _build.launched(KERNEL, err)
     return out

@@ -3,7 +3,8 @@
 The run-time check happens in a fresh interpreter with ``jax`` and
 ``hashgraph_tpu`` blocked in ``sys.modules``, so this test process keeps
 its own modules untouched. A static scan covers every import statement of
-the package and of ``chip_smoke.py``, including imports inside functions.
+the package, of ``chip_smoke.py`` and of ``compare_trees.py``, including
+imports inside functions.
 """
 
 import ast
@@ -63,7 +64,7 @@ def _imports(path: Path):
             yield node.module, node.lineno
 
 
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "compare_trees.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))

@@ -8,8 +8,8 @@ against its plain PyTorch version: ``curve.add``, ``curve.dbl``,
 ``curve.is_identity``, ``field._mul_plain``, ``msm._windows_plain``,
 ``msm._reduce_plain``, ``msm._final_plain`` and ``field._pow22523_plain``.
 The group routines that the window kernel runs with G threads a lane are
-built for G = 4, 8 and 16; the harness runs a group's threads as fibers on
-one host thread, stepping them in turn at every ``grp_get`` exchange, so
+built for G = 4, 8 and 16; the harness runs a group's threads as fibers
+(POSIX ``ucontext``) on one host thread, stepping them in turn at every ``grp_get`` exchange, so
 the exact arithmetic of the card's code runs here. The plain window stage is held against the JAX
 package's own ``curve.add`` and ``curve.dbl`` composed in the same order;
 the CPU dispatch of the MSM and the chain is checked to run the plain
@@ -52,27 +52,16 @@ HARNESS = r"""
 #include "ed_msm.cu"
 #include "fe_pow22523.cu"
 
-// The G threads of a group as fibers on one host thread, stepped in turn:
-// each exchange (grp_get) publishes the caller's value and passes control
-// to the next thread; when every thread has published, each reads the
-// value it asked for (two slot buffers, so a thread's next publish never
-// overwrites a value another thread has still to read).
-extern "C" void hg_fiber_switch(void** save_sp, void* to_sp);
-#if defined(__x86_64__)
-__asm__(
-    ".text\n.globl hg_fiber_switch\n.type hg_fiber_switch,@function\n"
-    "hg_fiber_switch:\n"
-    "  pushq %rbp\n  pushq %rbx\n  pushq %r12\n  pushq %r13\n  pushq %r14\n  pushq %r15\n"
-    "  movq %rsp, (%rdi)\n  movq %rsi, %rsp\n"
-    "  popq %r15\n  popq %r14\n  popq %r13\n  popq %r12\n  popq %rbx\n  popq %rbp\n"
-    "  ret\n");
-#else
-#error "the fiber harness switches stacks with x86-64 code"
-#endif
+// The G threads of a group as fibers (POSIX ucontext) on one host thread,
+// stepped in turn: each exchange (grp_get) publishes the caller's value and
+// passes control to the next thread; when every thread has published, each
+// reads the value it asked for (two slot buffers, so a thread's next publish
+// never overwrites a value another thread has still to read).
+#include <ucontext.h>
 
 static const int kMain = 16;
-static void* g_sp[17];
-alignas(16) static char g_stacks[16][1 << 17];
+static ucontext_t g_ctx[17];
+static char g_stacks[16][1 << 17];
 static int g_n, g_cur;
 static uint32_t g_slot[2][16];
 static int g_phase[16];
@@ -81,7 +70,7 @@ static void (*g_body)(int);
 static void switch_to(int next) {
   const int me = g_cur;
   g_cur = next;
-  hg_fiber_switch(&g_sp[me], g_sp[next]);
+  swapcontext(&g_ctx[me], &g_ctx[next]);
 }
 
 int host_grp_rank() { return g_cur; }
@@ -94,6 +83,7 @@ uint32_t host_grp_get(uint32_t v, int from) {
   return g_slot[b][from];
 }
 
+// A fiber ends by passing control on, so it never returns from its entry.
 static void fiber_main() {
   g_body(g_cur);
   const int me = g_cur;
@@ -105,15 +95,14 @@ static void run_group(int n, void (*body)(int)) {
   g_body = body;
   for (int r = 0; r < n; ++r) {
     g_phase[r] = 0;
-    void** sp = reinterpret_cast<void**>(
-        reinterpret_cast<uintptr_t>(g_stacks[r] + sizeof g_stacks[r]) & ~uintptr_t(15));
-    *--sp = nullptr;                                 // keeps the entry's rsp % 16 == 8
-    *--sp = reinterpret_cast<void*>(&fiber_main);    // where the first switch returns
-    for (int k = 0; k < 6; ++k) *--sp = nullptr;     // rbp rbx r12 r13 r14 r15
-    g_sp[r] = sp;
+    getcontext(&g_ctx[r]);
+    g_ctx[r].uc_stack.ss_sp = g_stacks[r];
+    g_ctx[r].uc_stack.ss_size = sizeof g_stacks[r];
+    g_ctx[r].uc_link = nullptr;
+    makecontext(&g_ctx[r], fiber_main, 0);
   }
   g_cur = 0;
-  hg_fiber_switch(&g_sp[kMain], g_sp[0]);
+  swapcontext(&g_ctx[kMain], &g_ctx[0]);
 }
 
 // Arguments of the group bodies.
@@ -231,7 +220,7 @@ void h_reduce_level(const int64_t* q, int n_in, int64_t* out) {
   for (int i = 0; i < (n_in + 1) / 2; ++i) msm_pair(q, n_in, i, out);
 }
 int h_final(const int64_t* root) { return msm_final_verdict(root); }
-int h_group() { return MSM_GROUP; }
+int h_group() { return kGroup; }
 void h_pow22523(const int64_t* z, int64_t* out, int n) {
   for (int k = 0; k < n; ++k) pow22523_lane(z + k * kLimbs, out + k * kLimbs);
 }
@@ -285,7 +274,7 @@ def host_ed_add(host, p, q, group=1):
 
 def host_windows(host, points, nibbles, group=None):
     """The window stage as msm_windows runs it, with ``group`` threads a
-    lane (default: the kernel's build, MSM_GROUP)."""
+    lane (default: the kernel's, kGroup)."""
     lanes, windows = nibbles.shape
     table = np.zeros((lanes, 16, 64), np.uint16)
     out = np.empty_like(points)
