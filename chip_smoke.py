@@ -8,7 +8,9 @@ the README's single-chip engine (``capacity=100_000``,
 ``voter_capacity=1024``), and fails unless every phase holds:
 
 1. build and device: build every CUDA kernel from ``hashgraph_tpu_torch/
-   csrc`` (and ``msm_windows`` at each group size tried), print the
+   csrc`` (and, each from a copy of its source with one constant changed,
+   ``msm_windows``, ``msm_reduce`` and ``fe_pow22523`` at each group size
+   tried: ``VARIANTS``), print the
    toolchain, the card and each kernel's registers and stack, and count the
    instructions of the compiled crypto routines in the build's SASS
    (``cuobjdump``) beside the counts that the operation bounds use;
@@ -33,15 +35,20 @@ the README's single-chip engine (``capacity=100_000``,
    ``field._mul_plain`` bit-exact at 16,384 lanes on seeded carried inputs
    plus the boundary and carry-ripple rows, and ``fe_pow22523`` (what
    ``field.pow22523`` launches on the card) against ``field.
-   _pow22523_plain`` at decompression's 8,192 lanes, with times and bounds;
+   _pow22523_plain`` at decompression's 8,192 lanes with the boundary rows,
+   at every group size tried (1, 2, 4, 8 and 16 threads a lane), each timed,
+   with times and bounds;
 6b. the MSM kernels against their plain versions at a batch's 16,384 lanes
    of real curve points (seeded multiples of the base point, identity lanes
    and the order-4 point) and seeded nibbles (with all-0 and all-15 rows):
    ``msm_windows`` against ``msm._windows_plain`` limb for limb at every
-   group size tried (4, 8 and 16 threads a lane), each timed, the root of
-   ``msm_reduce`` against ``msm._reduce_plain``, the ``msm_final`` verdict
-   for an accepting and a rejecting combination, and the fold of 1, 5 and
-   1,000 lanes, with times and bounds;
+   group size tried (4, 8 and 16 threads a lane), each timed; the root
+   limbs and verdict of ``msm_reduce`` (the tree and the cofactored
+   identity test) against ``msm._reduce_plain`` and ``msm._final_plain``
+   for an accepting and a rejecting combination and at the counts of
+   ``tree_counts`` (odd folds, around the block's span, past span^2), at
+   every group size tried (1, 4, 8 and 16 threads a point), each timed;
+   with times and bounds;
 7. validated ingest through device verification (the main path of slices 2
    and 3): a
    GPU engine signed by an ``Ed25519DeviceConsensusSigner`` takes 256
@@ -54,8 +61,9 @@ the README's single-chip engine (``capacity=100_000``,
 Phases 3-5b and 7 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
 stats. Launch counts are reset just before each phase and read just after
-it; phase 7 fails unless the batch launched every verification kernel, with
-at most 20 launches for the MSM and 20 for ``fe_mul``. The plain versions
+it; phase 7 fails unless the batch launched every verification kernel, the
+MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
+20 times. The plain versions
 that the kernels are held against run with ``field.mul`` routed to
 ``field._mul_plain``, so they touch no kernel. The last lines are the
 kernel table as JSON, the card's name and power limit, and ``{"ok": true,
@@ -706,44 +714,66 @@ def call_body(rows, entry) -> int:
 
 
 def sass_counts(variants):
-    """Instructions of the compiled routines, counted in this build's SASS:
-    the one-thread ed_add and ed_dbl (what msm_reduce and msm_final call,
-    each from its entry to its RET); the msm_windows kernel at each group
-    size of ``variants`` (threads per lane -> (library, nvcc output)); the
-    chain's squaring (the body of each of fe_pow22523's loops, its loop
-    control included); and fe_mul's kernel, loads and stores included.
-    Logged beside the counts that the bounds use."""
+    """Instructions of the compiled routines, counted in this build's SASS
+    and logged beside the counts that the bounds use: the one-thread ed_add
+    and ed_dbl (the calls of msm_reduce's kernels built one thread a point,
+    each from its entry to its RET); msm_windows and msm_reduce's two
+    kernels at each size built (``variants``: (source, constant) -> value ->
+    (library, nvcc output)); a squaring of the chain at each size (the body
+    of fe_pow22523's loops, its loop control included); and fe_mul's
+    kernel, loads and stores included."""
     from hashgraph_tpu_torch import _build
 
     def kernel(word, lib):
         return next(rows for name, rows in sass_functions(lib).items() if word in name)
 
-    body = {}
-    for name, word in (("ed_add", "msm_reduce"), ("ed_dbl", "msm_final")):
-        rows = kernel(word, _build._target("ed_msm"))
-        calls = list(dict.fromkeys(int(m, 16) for _, ins in rows
-                                   for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
-        if len(calls) != 1:
-            raise AssertionError(f"{word} calls {len(calls)} subroutines, not {name} alone")
-        body[name] = call_body(rows, calls[0])
-    windows = {}
-    for group, (lib, _) in variants.items():
-        rows = kernel("msm_windows", lib)
-        windows[group] = len(rows)
-        log(f"[sass] msm_windows, {group} threads a lane: {len(rows)} instructions in the "
-            f"kernel, {sum(1 for _, ins in rows if ins.startswith('SHFL'))} of them shuffles, "
-            f"{len(sass_loops(rows))} backward branches, "
-            f"{sum(1 for _, ins in rows if ins.startswith('CALL'))} calls")
-    loops = [(last - first) // 16 + 1
-             for first, last in sass_loops(kernel("pow22523", _build._target("fe_pow22523")))]
-    if len(set(loops)) != 1:
-        raise AssertionError(f"fe_pow22523's loops differ in length: {loops}")
-    fe_mul_n = len(kernel("fe_mul", _build._target("fe_mul")))
-    log(f"[sass] ed_add {body['ed_add']} instructions (the bound counts {ED_ADD_OPS}), "
-        f"ed_dbl {body['ed_dbl']} ({ED_DBL_OPS}), a squaring of the chain {loops[0]} "
-        f"with its loop control ({FE_SQR_OPS_PER_LANE}), fe_mul's kernel {fe_mul_n} with "
-        f"its loads and stores ({FE_MUL_OPS_PER_LANE})")
-    return dict(body, pow_squaring=loops[0], fe_mul_kernel=fe_mul_n, windows_per_lane=windows)
+    def called(rows):
+        return list(dict.fromkeys(int(m, 16) for _, ins in rows
+                                  for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
+
+    def describe(rows):
+        return (f"{len(rows)} instructions, {sum(1 for _, ins in rows if ins.startswith('SHFL'))} "
+                f"shuffles, {len(sass_loops(rows))} backward branches, "
+                f"{sum(1 for _, ins in rows if ins.startswith('CALL'))} calls")
+
+    # Built one thread a point, the span kernel calls ed_add alone and the
+    # root kernel ed_add and ed_dbl (addresses count from each kernel's
+    # start, so ed_dbl is the root kernel's callee of another length).
+    one_thread = variants[("ed_msm", "kTreeGroup")][1][0]
+    span_rows, root_rows = kernel("tree_span", one_thread), kernel("tree_root", one_thread)
+    add_calls = called(span_rows)
+    if len(add_calls) != 1:
+        raise AssertionError(f"the one-thread span kernel calls {add_calls}, not ed_add alone")
+    body = {"ed_add": call_body(span_rows, add_calls[0])}
+    others = [n for n in (call_body(root_rows, e) for e in called(root_rows)) if n != body["ed_add"]]
+    if len(others) != 1:
+        raise AssertionError(f"the one-thread root kernel's callees are {others} besides ed_add")
+    body["ed_dbl"] = others[0]
+    out = dict(body, windows={}, tree={}, pow_squaring={})
+    for (source, name), built in variants.items():
+        for value, (lib, _) in built.items():
+            if source == "ed_msm" and name == "kGroup":
+                rows = kernel("msm_windows", lib)
+                out["windows"][value] = len(rows)
+                log(f"[sass] msm_windows, {value} threads a lane: {describe(rows)}")
+            elif source == "ed_msm":
+                rows = kernel("tree_span", lib) + kernel("tree_root", lib)
+                out["tree"][value] = len(rows)
+                log(f"[sass] msm_reduce's two kernels, {value} threads a point: {describe(rows)}")
+            else:
+                # The squaring loops are the kernel's shortest: a group's rare
+                # carry pass, laid out after the chain, branches back from afar.
+                rows = kernel("pow22523", lib)
+                loop = min((last - first) // 16 + 1 for first, last in sass_loops(rows))
+                out["pow_squaring"][value] = loop
+                log(f"[sass] fe_pow22523, {value} threads a lane: {describe(rows)}; a squaring "
+                    f"of the chain {loop} instructions a thread with its loop control, "
+                    f"{value * loop} a lane (one thread needs {FE_SQR_OPS_PER_LANE})")
+    out["fe_mul_kernel"] = len(kernel("fe_mul", _build._target("fe_mul")))
+    log(f"[sass] one thread: ed_add {body['ed_add']} instructions (the bound counts "
+        f"{ED_ADD_OPS}), ed_dbl {body['ed_dbl']} ({ED_DBL_OPS}); fe_mul's kernel "
+        f"{out['fe_mul_kernel']} with its loads and stores ({FE_MUL_OPS_PER_LANE})")
+    return out
 
 
 def field_rows(seed, lanes):
@@ -796,7 +826,7 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_field(dev):
+def phase_field(dev, variants):
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.crypto_device import cuda_field, field
 
@@ -840,6 +870,22 @@ def phase_field(dev):
         "(plain multiply; boundary and ripple rows included), and so is the chain "
         f"through the fe_mul kernel; max_abs_err {pow_err}")
 
+    # Every group size of the chain, each bit-exact and timed; the port's
+    # build is the one kept.
+    pow_kept = kept_value("fe_pow22523", "kPowGroup")
+    pow_group_ms = {}
+    for group, (lib_path, _) in variants[("fe_pow22523", "kPowGroup")].items():
+        if group == pow_kept:
+            chain = functools.partial(cuda_field.fe_pow22523, z)
+        else:
+            chain = functools.partial(variant_pow, variant_lib(lib_path), z)
+        if not torch.equal(chain(), chain_plain):
+            raise AssertionError(f"fe_pow22523 with {group} threads a lane differs from "
+                                 "_pow22523_plain")
+        pow_group_ms[group] = device_ms(chain, 20)
+    log(f"[field] fe_pow22523 at {DECOMPRESS_LANES} lanes, bit-exact at every group size; ms "
+        f"by threads a lane {json.dumps(pow_group_ms)}; kept {pow_kept}")
+
     ms = device_ms(lambda: cuda_field.fe_mul(a, b), 20)
     plain_ms = device_ms(lambda: field._mul_plain(a, b), 5)
     fe_mul_row = kernel_row("fe_mul", ms, plain_ms, MSM_LANES * FE_MUL_BYTES_PER_LANE,
@@ -849,6 +895,8 @@ def phase_field(dev):
         pow_plain_ms = device_ms(lambda: field._pow22523_plain(z), 1)
     pow_row = kernel_row("fe_pow22523", pow_ms, pow_plain_ms, DECOMPRESS_LANES * 2 * 16 * 8,
                          DECOMPRESS_LANES * POW22523_OPS_PER_LANE, pow_err)
+    pow_row["threads_per_lane"] = pow_kept
+    pow_row["ms_by_threads_per_lane"] = pow_group_ms
     return fe_mul_row, pow_row
 
 
@@ -910,54 +958,87 @@ def msm_inputs(seed, lanes, dev):
     return pts, torch.from_numpy(nib).to(dev), last
 
 
-# Threads per lane timed for msm_windows. The kernel keeps one size
-# (``kGroup`` in csrc/ed_msm.cu); the group routines are written for all
-# three, and the others are built here from a copy of ed_msm.cu with its
-# kGroup changed, for phase 6b to hold and time beside the kept one.
-MSM_GROUPS = (4, 8, 16)
-KGROUP_LINE = re.compile(r"^constexpr int kGroup = (\d+);$", re.M)
+# Sizes timed for the kernels that build at more than one: (source,
+# constant) -> the values tried. The port's build keeps one (the constant's
+# line in the source); the others are built here, each from a copy of the
+# source with that line changed, for phases 6 and 6b to hold and time
+# beside the kept one.
+VARIANTS = {
+    ("ed_msm", "kGroup"): (4, 8, 16),  # msm_windows: threads a lane
+    ("ed_msm", "kTreeGroup"): (1, 4, 8, 16),  # msm_reduce: threads a point
+    ("fe_pow22523", "kPowGroup"): (1, 2, 4, 8, 16),  # fe_pow22523: threads a lane
+}
 
 
-def msm_group_kept() -> int:
+def constant_line(name):
+    return re.compile(rf"^constexpr int {name} = (\d+);$", re.M)
+
+
+def kept_value(source, name) -> int:
     from hashgraph_tpu_torch import _build
 
-    return int(KGROUP_LINE.search((_build.CSRC / "ed_msm.cu").read_text()).group(1))
+    return int(constant_line(name).search((_build.CSRC / f"{source}.cu").read_text()).group(1))
 
 
-def start_msm_variants():
-    """Start one ``nvcc`` for each group size the kernel does not keep;
-    returns group -> (process, library path)."""
+def start_variants():
+    """Start one ``nvcc`` for each variant that the port's build does not
+    keep; returns (source, constant, value) -> (process, library path)."""
     from hashgraph_tpu_torch import _build
 
-    text = (_build.CSRC / "ed_msm.cu").read_text()
-    out_dir = _build.BUILD_DIR / "msm_variants"
+    out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for group in MSM_GROUPS:
-        if group == msm_group_kept():
-            continue
-        source = out_dir / f"ed_msm_g{group}.cu"
-        source.write_text(KGROUP_LINE.sub(f"constexpr int kGroup = {group};", text, count=1))
-        lib = out_dir / f"libed_msm_g{group}.so"
-        procs[group] = (subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
-             str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    for (source, name), values in VARIANTS.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        for value in values:
+            if value == kept_value(source, name):
+                continue
+            copy = out_dir / f"{source}_{name}_{value}.cu"
+            copy.write_text(constant_line(name).sub(f"constexpr int {name} = {value};", text,
+                                                    count=1))
+            lib = out_dir / f"lib{source}_{name}_{value}.so"
+            procs[(source, name, value)] = (subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+                 str(copy)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     return procs
 
 
-def finish_msm_variants(procs):
-    """Wait for the variant builds; returns group -> (library path, nvcc's
-    output), the kept size included (the port's own build)."""
+def finish_variants(procs):
+    """Wait for the variant builds; returns (source, constant) -> value ->
+    (library path, nvcc's output), the kept value included (the port's own
+    build)."""
     from hashgraph_tpu_torch import _build
 
-    built = {msm_group_kept(): (_build._target("ed_msm"), _build.build_log("ed_msm"))}
-    for group, (proc, lib) in procs.items():
+    built = {key: {kept_value(*key): (_build._target(key[0]), _build.build_log(key[0]))}
+             for key in VARIANTS}
+    for (source, name, value), (proc, lib) in procs.items():
         output, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            raise AssertionError(f"ed_msm.cu with kGroup = {group} (nvcc exit "
+            raise AssertionError(f"{source}.cu with {name} = {value} (nvcc exit "
                                  f"{proc.returncode}):\n{output}")
-        built[group] = (lib, output)
-    return dict(sorted(built.items()))
+        built[(source, name)][value] = (lib, output)
+    return {key: dict(sorted(v.items())) for key, v in built.items()}
+
+
+def variant_lib(path):
+    """A variant build's C entry points, bound as the port's wrappers bind
+    them."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("hg_msm_table_lanes", [i32]),
+                       ("hg_msm_windows", [ptr] * 4 + [i32, i32, ptr]),
+                       ("hg_msm_tree_span", []),
+                       ("hg_msm_tree_partials", [ptr, ptr, i32, ptr]),
+                       ("hg_msm_tree_root", [ptr, i32, ptr, ptr, ptr]),
+                       ("hg_fe_pow22523", [ptr, ptr, i32, ptr])):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def variant_windows(lib, pts, nib):
@@ -968,13 +1049,52 @@ def variant_windows(lib, pts, nib):
     table = torch.empty((lib.hg_msm_table_lanes(lanes), 16, 64), dtype=torch.int16,
                         device=pts.device)
     out = torch.empty_like(pts)
-    err = lib.hg_msm_windows(ctypes.c_void_p(pts.data_ptr()), ctypes.c_void_p(nib.data_ptr()),
-                             ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                             lanes, nib.shape[1],
-                             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    err = lib.hg_msm_windows(pts.data_ptr(), nib.data_ptr(), table.data_ptr(), out.data_ptr(),
+                             lanes, nib.shape[1], _stream())
     if err != 0:
         raise AssertionError(f"msm_windows variant: launch failed (cudaError {err})")
     return out
+
+
+def variant_reduce(lib, acc):
+    """msm_reduce through a variant build's C entry points, in the wrapper's
+    schedule (``cuda_msm._tree``); counts no launch. Returns (root,
+    verdict)."""
+    from hashgraph_tpu_torch.crypto_device import cuda_msm
+
+    def launched(err):
+        if err != 0:
+            raise AssertionError(f"msm_reduce variant: launch failed (cudaError {err})")
+
+    return cuda_msm._tree(lib, acc, launched)
+
+
+def variant_pow(lib, z):
+    """fe_pow22523 through a variant build's C entry point; counts no
+    launch."""
+    out = torch.empty_like(z)
+    err = lib.hg_fe_pow22523(z.data_ptr(), out.data_ptr(), z.shape[0], _stream())
+    if err != 0:
+        raise AssertionError(f"fe_pow22523 variant: launch failed (cudaError {err})")
+    return out
+
+
+def tree_counts(span):
+    """Lane counts the tree is held at beside the batch's: the odd folds,
+    below, at and across the block's span and its odd folds, and one past
+    span^2, which takes a second pass of spans."""
+    return sorted({*MSM_ODD_FOLDS, span - 1, span, span + 1, 2 * span + 1, span * span + 1})
+
+
+def tree_bound_counts(lanes):
+    """Bytes and integer instructions the tree and its test need at
+    ``lanes`` lanes: every point read once, the root and verdict written
+    once; one ed_add per element of every level (pads with the identity
+    included: they change limbs), then the final test."""
+    from hashgraph_tpu_torch.crypto_device import msm
+
+    adds = sum((n + 1) // 2 for n in msm.reduce_levels(lanes))
+    return lanes * POINT_BYTES + POINT_BYTES + 4, adds * ED_ADD_OPS + MSM_FINAL_OPS
 
 
 def phase_msm(dev, variants):
@@ -994,18 +1114,6 @@ def phase_msm(dev, variants):
     log(f"[msm] msm_windows [{MSM_LANES}, 4, 16] x {msm.WINDOWS} windows bit-exact against "
         "_windows_plain (plain multiply; identity, order-4, all-0 and all-15 rows included)")
 
-    root = cuda_msm.msm_reduce(acc, msm.reduce_levels(MSM_LANES))
-    with plain_field_mul():
-        root_plain = msm._reduce_plain(acc_plain)
-        verdict_plain = int(msm._final_plain(root_plain))
-    verdict = int(cuda_msm.msm_final(root))
-    reduce_err = int((root - root_plain).abs().max())
-    if not torch.equal(root, root_plain) or verdict != verdict_plain or verdict != 1:
-        raise AssertionError(f"accepting case: root equal {torch.equal(root, root_plain)}, "
-                             f"verdict {verdict} against plain {verdict_plain}")
-    if not bool(msm.msm_is_identity(pts, nib)):
-        raise AssertionError("msm.msm_is_identity rejected the accepting combination")
-
     # Rejecting: flip the last window of the solved lane. Windows are per
     # lane, so the plain accumulators change in that lane only.
     bad_nib = nib.clone()
@@ -1014,36 +1122,63 @@ def phase_msm(dev, variants):
     bad_plain = acc_plain.clone()
     with plain_field_mul():
         bad_plain[last] = msm._windows_plain(pts[last:], bad_nib[last:])[0]
-        bad_verdict_plain = int(msm._final_plain(msm._reduce_plain(bad_plain)))
-    bad_verdict = int(cuda_msm.msm_final(cuda_msm.msm_reduce(
-        bad_acc, msm.reduce_levels(MSM_LANES))))
-    if not torch.equal(bad_acc, bad_plain) or bad_verdict != bad_verdict_plain or bad_verdict != 0:
-        raise AssertionError(f"rejecting case: windows equal {torch.equal(bad_acc, bad_plain)}, "
-                             f"verdict {bad_verdict} against plain {bad_verdict_plain}")
-    if bool(msm.msm_is_identity(pts, bad_nib)):
-        raise AssertionError("msm.msm_is_identity accepted the rejecting combination")
-    log(f"[msm] root and verdict equal to the plain versions: accepting {verdict}, "
-        f"rejecting {bad_verdict}; max_abs_err {reduce_err}")
+    if not torch.equal(bad_acc, bad_plain):
+        raise AssertionError("rejecting case: msm_windows differs from _windows_plain")
 
-    for n in MSM_ODD_FOLDS:
-        part = acc[:n].contiguous()
-        with plain_field_mul():
-            want = msm._reduce_plain(acc_plain[:n])
-            want_verdict = int(msm._final_plain(want))
-        got = cuda_msm.msm_reduce(part, msm.reduce_levels(n))
-        if not torch.equal(got, want) or int(cuda_msm.msm_final(got)) != want_verdict:
-            raise AssertionError(f"msm_reduce differs from _reduce_plain at {n} lanes")
-    log(f"[msm] the tree folds lane counts {MSM_ODD_FOLDS} as _reduce_plain does")
+    # The tree's inputs: the batch, accepting and rejecting, and its first
+    # lanes at the other counts (one past span^2 repeats lane 0).
+    span = cuda_msm._lib().hg_msm_tree_span()
+    cases = {"accepting": (acc, acc_plain), "rejecting": (bad_acc, bad_plain)}
+    for n in tree_counts(span):
+        if n <= MSM_LANES:
+            cases[n] = (acc[:n].contiguous(), acc_plain[:n])
+        else:
+            extra = torch.arange(n - MSM_LANES, device=dev) % MSM_LANES
+            cases[n] = (torch.cat([acc, acc[extra]]), torch.cat([acc_plain, acc_plain[extra]]))
+    want = {}
+    with plain_field_mul():
+        for label, (_, plain_in) in cases.items():
+            root = msm._reduce_plain(plain_in)
+            want[label] = (root, int(msm._final_plain(root)))
+    if want["accepting"][1] != 1 or want["rejecting"][1] != 0:
+        raise AssertionError(f"plain verdicts: accepting {want['accepting'][1]}, rejecting "
+                             f"{want['rejecting'][1]}")
+    if not bool(msm.msm_is_identity(pts, nib)) or bool(msm.msm_is_identity(pts, bad_nib)):
+        raise AssertionError("msm.msm_is_identity gave the wrong verdict")
 
-    # Every group size tried, each against the plain window stage, timed in
+    # Every tree group size, each held at every case and timed at the batch;
+    # the port's build is the one kept.
+    tree_kept = kept_value("ed_msm", "kTreeGroup")
+    tree_ms, reduce_err = {}, 0
+    for group, (lib_path, _) in variants[("ed_msm", "kTreeGroup")].items():
+        if group == tree_kept:
+            reduce = cuda_msm.msm_reduce
+        else:
+            reduce = functools.partial(variant_reduce, variant_lib(lib_path))
+        for label, (kernel_in, _) in cases.items():
+            root, verdict = reduce(kernel_in)
+            want_root, want_verdict = want[label]
+            if not torch.equal(root, want_root) or int(verdict) != want_verdict:
+                raise AssertionError(
+                    f"msm_reduce with {group} threads a point, {label} "
+                    f"({kernel_in.shape[0]} lanes): root equal {torch.equal(root, want_root)}, "
+                    f"verdict {int(verdict)} against plain {want_verdict}")
+            reduce_err = max(reduce_err, int((root - want_root).abs().max()))
+        tree_ms[group] = device_ms(lambda: reduce(acc), 20)
+    log(f"[msm] msm_reduce root limbs and verdict equal to _reduce_plain and _final_plain at "
+        f"every group size, accepting and rejecting at {MSM_LANES} lanes and at "
+        f"{tree_counts(span)} lanes (span {span}); ms at {MSM_LANES} lanes by threads a point "
+        f"{json.dumps(tree_ms)}; kept {tree_kept}")
+
+    # Every window group size, each against the plain window stage, timed in
     # this call; the port's build is the one kept.
-    kept = msm_group_kept()
+    kept = kept_value("ed_msm", "kGroup")
     group_ms = {}
-    for group, (lib_path, _) in variants.items():
+    for group, (lib_path, _) in variants[("ed_msm", "kGroup")].items():
         if group == kept:
             windows = functools.partial(cuda_msm.msm_windows, pts, nib)
         else:
-            windows = functools.partial(variant_windows, ctypes.CDLL(str(lib_path)), pts, nib)
+            windows = functools.partial(variant_windows, variant_lib(lib_path), pts, nib)
         if not torch.equal(windows(), acc_plain):
             raise AssertionError(f"msm_windows with {group} threads a lane differs from "
                                  "_windows_plain")
@@ -1051,29 +1186,37 @@ def phase_msm(dev, variants):
     log(f"[msm] msm_windows at {MSM_LANES} lanes, bit-exact at every group size; ms by "
         f"threads a lane {json.dumps(group_ms)}; kept {kept}")
 
-    levels = msm.reduce_levels(MSM_LANES)
     windows_ms = device_ms(lambda: cuda_msm.msm_windows(pts, nib), 3)
-    reduce_ms = device_ms(lambda: cuda_msm.msm_reduce(acc, levels), 20)
-    final_ms = device_ms(lambda: cuda_msm.msm_final(root), 20)
+    reduce_ms = device_ms(lambda: cuda_msm.msm_reduce(acc), 20)
     with plain_field_mul():
         windows_plain_ms = device_ms(lambda: msm._windows_plain(pts, nib), 1)
-        reduce_plain_ms = device_ms(lambda: msm._reduce_plain(acc_plain), 2)
-        final_plain_ms = device_ms(lambda: msm._final_plain(root_plain), 2)
+        reduce_plain_ms = device_ms(lambda: msm._final_plain(msm._reduce_plain(acc_plain)), 2)
     windows_row = kernel_row(
         "msm_windows", windows_ms, windows_plain_ms,
         MSM_LANES * (2 * POINT_BYTES + 4 * msm.WINDOWS), MSM_LANES * MSM_WINDOWS_OPS_PER_LANE,
         windows_err)
-    reduce_row = kernel_row(
-        "msm_reduce", reduce_ms, reduce_plain_ms,
-        sum(n + (n + 1) // 2 for n in levels) * POINT_BYTES,
-        sum((n + 1) // 2 for n in levels) * ED_ADD_OPS, reduce_err)
+    reduce_row = kernel_row("msm_reduce", reduce_ms, reduce_plain_ms,
+                            *tree_bound_counts(MSM_LANES), reduce_err)
     windows_row["threads_per_lane"] = kept
     windows_row["ms_by_threads_per_lane"] = group_ms
-    reduce_row["levels"] = len(levels)
-    final_row = kernel_row("msm_final", final_ms, final_plain_ms, POINT_BYTES + 4,
-                           MSM_FINAL_OPS, 0)
-    log(f"[msm] msm_reduce times are for the whole tree: {len(levels)} launches, one per level")
-    return windows_row, reduce_row, final_row
+    reduce_row["threads_per_point"] = tree_kept
+    reduce_row["points_per_block"] = span
+    reduce_row["ms_by_threads_per_point"] = tree_ms
+    reduce_row["launches_per_call"] = len(cuda_msm.tree_passes(MSM_LANES, span))
+    # The call's two launches apart: the span pass, then the root block.
+    lib, stream = cuda_msm._lib(), _stream()
+    partials = torch.empty((MSM_LANES // span, 4, 16), dtype=torch.int64, device=dev)
+    root = torch.empty((4, 16), dtype=torch.int64, device=dev)
+    verdict = torch.empty((), dtype=torch.int32, device=dev)
+    reduce_row["span_pass_ms"] = device_ms(lambda: lib.hg_msm_tree_partials(
+        acc.data_ptr(), partials.data_ptr(), MSM_LANES, stream), 20)
+    reduce_row["root_pass_ms"] = device_ms(lambda: lib.hg_msm_tree_root(
+        partials.data_ptr(), partials.shape[0], root.data_ptr(), verdict.data_ptr(), stream), 20)
+    log(f"[msm] msm_reduce times are for the whole tree and the final test: "
+        f"{reduce_row['launches_per_call']} launches at {MSM_LANES} lanes, the span pass "
+        f"{reduce_row['span_pass_ms']:.6f} ms and the root block {reduce_row['root_pass_ms']:.6f} "
+        "ms alone")
+    return windows_row, reduce_row
 
 
 # ── Phase 7: validated ingest through device verification ──────────────
@@ -1082,7 +1225,7 @@ VERIFY_PROPOSALS = 256
 VERIFY_VOTERS = 16
 VERIFY_KEYS = 64
 # Every kernel a device-verified batch launches.
-VERIFY_KERNELS = ("fe_mul", "fe_pow22523", "msm_windows", "msm_reduce", "msm_final")
+VERIFY_KERNELS = ("fe_mul", "fe_pow22523", "msm_windows", "msm_reduce")
 
 
 def verify_engine(dev, signer):
@@ -1238,12 +1381,16 @@ def phase_verify(dev):
     st_blame, wall_blame = ingest(gpu, blame_bytes, NOW + 3)
     phases_blame = Ed25519DeviceConsensusSigner.device_phase_seconds()
     blame_launches = dict(_build.launches)
-    for label, counts in (("main", main_launches), ("blame", blame_launches)):
+    # One MSM a batch: one window launch and the tree's, exactly (the main
+    # call's batch has MSM_LANES lanes; the blame call's at most one span).
+    tree_launches = len(cuda_msm.tree_passes(MSM_LANES, cuda_msm._lib().hg_msm_tree_span()))
+    for label, counts, tree in (("main", main_launches, tree_launches),
+                                ("blame", blame_launches, 1)):
         missing = [k for k in VERIFY_KERNELS if not counts.get(k)]
-        msm_total = sum(counts.get(k, 0) for k in cuda_msm.KERNELS)
-        if missing or msm_total > 20 or counts[cuda_field.KERNEL] > 20:
+        msm_counts = [counts.get(k, 0) for k in cuda_msm.KERNELS]
+        if missing or msm_counts != [1, tree] or counts[cuda_field.KERNEL] > 20:
             raise AssertionError(f"{label} call: launches {counts}; kernels never launched "
-                                 f"{missing}; MSM launches {msm_total} (at most 20)")
+                                 f"{missing}; MSM launches {msm_counts} (want [1, {tree}])")
     if phases_main["fallback"] != 0.0 or not phases_blame["fallback"] > 0.0:
         raise AssertionError(f"blame fallback: main {phases_main}, second call {phases_blame}")
 
@@ -1311,19 +1458,21 @@ def main() -> int:
     log(f"[build] device {props.name}: {props.multi_processor_count} SMs, "
         f"{props.total_memory / 2**30:.1f} GiB; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    variant_builds = start_msm_variants()
+    variant_builds = start_variants()
     try:
         _build.build()
     except BaseException:
         for proc, _ in variant_builds.values():
             proc.kill()
         raise
-    variants = finish_msm_variants(variant_builds)
-    log(f"[build] kernels {_build.sources()} and msm_windows at "
-        f"{sorted(variants)} threads a lane built in {time.perf_counter() - t0:.3f} s")
+    variants = finish_variants(variant_builds)
+    log(f"[build] kernels {_build.sources()} and the variants "
+        f"{ {f'{src}.{name}': sorted(v) for (src, name), v in variants.items()} } built in "
+        f"{time.perf_counter() - t0:.3f} s")
     builds = [(name, _build.build_log(name)) for name in _build.sources()]
-    builds += [(f"ed_msm with kGroup = {group}", output)
-               for group, (_, output) in variants.items() if group != msm_group_kept()]
+    builds += [(f"{src} with {name} = {value}", output)
+               for (src, name), built in variants.items()
+               for value, (_, output) in built.items() if value != kept_value(src, name)]
     for name, output in builds:
         for line in output.splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
@@ -1401,7 +1550,7 @@ def main() -> int:
         spill = phase_spill(dev)
         spill["scan_launches"] = _build.launches[cuda_ingest.KERNEL]
 
-    fe_mul_timing, pow_timing = phase_field(dev) if run("6") else (None, None)
+    fe_mul_timing, pow_timing = phase_field(dev, variants) if run("6") else (None, None)
     msm_timings = phase_msm(dev, variants) if run("6b") else None
     verify = phase_verify(dev) if run("7") else None
 
@@ -1441,8 +1590,10 @@ def main() -> int:
          "outside the chain",
          "bit-exact against field._mul_plain at [16384, 16] (boundary and ripple rows)"),
         ("fe_pow22523", "fe_pow22523.cu", pow_timing,
-         "one thread per lane, the 262-product chain in registers",
-         "bit-exact against field._pow22523_plain at [8192, 16] (boundary and ripple rows)"),
+         f"a group of {pow_timing['threads_per_lane']} threads per lane running the "
+         "262-product chain in registers, each holding its limbs of every element",
+         "bit-exact against field._pow22523_plain at [8192, 16] (boundary and ripple rows) "
+         "for 1, 2, 4, 8 and 16 threads a lane"),
         ("msm_windows", "ed_msm.cu", msm_timings[0],
          f"a group of {msm_timings[0]['threads_per_lane']} threads per lane, each holding "
          "its limbs of the accumulator and exchanging operand limbs by shuffles; the "
@@ -1450,11 +1601,13 @@ def main() -> int:
          "bit-exact against msm._windows_plain at [16384, 4, 16] for 4, 8 and 16 threads "
          "a lane"),
         ("msm_reduce", "ed_msm.cu", msm_timings[1],
-         "one launch per tree level, one thread per output point; ms is the whole tree",
-         "root bit-exact against msm._reduce_plain at 16384, 1000, 5 and 1 lanes"),
-        ("msm_final", "ed_msm.cu", msm_timings[2],
-         "one thread: 8 * root and the identity test, an int32 verdict on the device",
-         "verdict equal to msm._final_plain, accepting and rejecting"),
+         f"the tree and the cofactored identity test: blocks of "
+         f"{msm_timings[1]['points_per_block']} points run their levels in shared memory, "
+         f"a group of {msm_timings[1]['threads_per_point']} threads a point, and one "
+         "single-block launch runs the rest, 8 * root and the test; ms is the whole call",
+         "root limbs and verdict equal to msm._reduce_plain and msm._final_plain at 16384 "
+         "lanes (accepting and rejecting) and at odd and block-crossing counts, for 1, 4, 8 "
+         "and 16 threads a point"),
     ]
     for name, source, t, design, parity in crypto:
         kernels.append({

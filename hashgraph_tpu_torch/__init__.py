@@ -4,13 +4,13 @@ Binary yes/no consensus among n peers via signed hashgraph vote chains,
 ceil(2n/3) quorum math, Gossipsub/P2P round semantics and silent-peer
 liveness at timeout, with the per-proposal tallies held as dense tensors on
 an NVIDIA GPU. Ed25519 batch verification can run on the GPU too
-(``Ed25519DeviceConsensusSigner``, :mod:`.crypto_device`). Six kernels are
+(``Ed25519DeviceConsensusSigner``, :mod:`.crypto_device`). Five kernels are
 hand-written CUDA, built at first use for ``sm_90a``: the arrival-ordered
 vote scan ``ingest_scan`` (``csrc/ingest_scan.cu``); the GF(2^255-19)
 product ``fe_mul`` (``csrc/fe_mul.cu``) and the inverse-square-root chain
 ``fe_pow22523`` (``csrc/fe_pow22523.cu``) of decompression; and the MSM's
-window loop ``msm_windows``, tree level ``msm_reduce`` and final identity
-test ``msm_final`` (``csrc/ed_msm.cu``). Every other device step is
+window loop ``msm_windows`` and its tree with the cofactored identity test
+``msm_reduce`` (``csrc/ed_msm.cu``). Every other device step is
 PyTorch. Sessions the pool cannot hold are served on the host, as in the
 JAX package.
 

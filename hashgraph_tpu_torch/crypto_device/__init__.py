@@ -3,10 +3,11 @@
 Port of ``hashgraph_tpu/crypto_device``: the randomized-linear-combination
 check — batched point decompression, vectorized SHA-512 challenge hashes
 and one Straus multi-scalar multiply across every signature lane — runs on
-the GPU: the MSM as three hand-written CUDA kernels (``csrc/ed_msm.cu``),
+the GPU: the MSM as two hand-written CUDA kernels (``csrc/ed_msm.cu``),
 decompression's inverse-square-root chain as one (``csrc/fe_pow22523.cu``)
 and its remaining field products as another (``csrc/fe_mul.cu``), all over
-the shared arithmetic of ``csrc/fe25519.cuh``; the rest is PyTorch.
+the shared arithmetic of ``csrc/fe25519.cuh`` and ``csrc/
+fe25519_group.cuh``; the rest is PyTorch.
 
 Layering:
 

@@ -17,10 +17,11 @@ the other operand's shape (``field.mul`` broadcasts and makes operands
 contiguous before it calls here).
 
 :func:`fe_pow22523` is ``field.pow22523``'s chain, z^((p-5)/8), as one
-launch of ``csrc/fe_pow22523.cu`` (one thread per lane running the 262
-products of ``csrc/fe25519.cuh`` in registers) on CUDA tensors, and the
-plain version :func:`hashgraph_tpu_torch.crypto_device.field.
-_pow22523_plain` on CPU tensors, with the same checks.
+launch of ``csrc/fe_pow22523.cu`` (a group of threads per lane,
+``kPowGroup``, running the 262 products of ``csrc/fe25519_group.cuh`` in
+registers, each thread holding its share of every element's limbs) on
+CUDA tensors, and the plain version :func:`hashgraph_tpu_torch.
+crypto_device.field._pow22523_plain` on CPU tensors, with the same checks.
 """
 
 from __future__ import annotations

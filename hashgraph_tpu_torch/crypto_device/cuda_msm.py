@@ -1,4 +1,4 @@
-"""The Straus MSM's three CUDA kernels and their dispatch.
+"""The Straus MSM's two CUDA kernels and their dispatch.
 
 They replace, for the MSM, ``hashgraph_tpu/crypto_device/pallas_msm.py::
 _mul_kernel`` as the JAX package's jitted MSM (``msm.py:59``) fused it:
@@ -9,10 +9,14 @@ launched on PyTorch's current stream:
 - :func:`msm_windows` — one launch: per lane the window table and the 64
   windows, a group of threads (``csrc/ed_msm.cu``'s ``kGroup``) sharing
   each lane's accumulator;
-- :func:`msm_reduce` — one launch per tree level, ``ceil(log2 lanes)``
-  levels, ping-ponging between two scratch buffers;
-- :func:`msm_final` — one launch: ``8 * root`` and the identity test, as an
-  int32 verdict on the device.
+- :func:`msm_reduce` — the tree over the lane accumulators and the
+  cofactored identity test of its root: blocks of ``span`` points
+  (``kTreeSpan``) each run their levels of the tree in shared memory, a
+  group of threads (``kTreeGroup``) a point, and one single-block launch
+  runs the rest of the tree, ``8 * root`` and the test. That is
+  ``len(tree_passes(lanes, span))`` launches: two at 16,384 lanes, one
+  where the lanes fit one block. The root and the int32 verdict stay on the
+  device.
 
 They take CUDA tensors only: :func:`.msm.msm_is_identity` runs the plain
 versions on CPU tensors and calls here for CUDA ones. Nothing falls back:
@@ -33,8 +37,7 @@ from .. import _build
 SOURCE = "ed_msm"
 WINDOWS_KERNEL = "msm_windows"
 REDUCE_KERNEL = "msm_reduce"
-FINAL_KERNEL = "msm_final"
-KERNELS = (WINDOWS_KERNEL, REDUCE_KERNEL, FINAL_KERNEL)
+KERNELS = (WINDOWS_KERNEL, REDUCE_KERNEL)
 
 _ENTRIES = 16  # window table entries per lane
 _POINT = (4, 16)  # extended coordinates x limbs
@@ -48,8 +51,9 @@ def _lib() -> ctypes.CDLL:
     for name, args in (
         ("hg_msm_table_lanes", [i32]),
         ("hg_msm_windows", [ptr] * 4 + [i32, i32, ptr]),
-        ("hg_msm_reduce", [ptr, ptr, i32, ptr]),
-        ("hg_msm_final", [ptr, ptr, ptr]),
+        ("hg_msm_tree_span", []),
+        ("hg_msm_tree_partials", [ptr, ptr, i32, ptr]),
+        ("hg_msm_tree_root", [ptr, i32, ptr, ptr, ptr]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -95,33 +99,41 @@ def msm_windows(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def msm_reduce(acc: torch.Tensor, levels: "list[int]") -> torch.Tensor:
+def tree_passes(lanes: int, span: int) -> "list[int]":
+    """Point counts entering each launch of :func:`msm_reduce` over
+    ``lanes`` points: a pass of ``span``-point blocks while the count is
+    above ``span`` (each block's partial is its span's subtree, so the
+    count becomes ``ceil(count / span)``), then the root launch."""
+    counts = [lanes]
+    while counts[-1] > span:
+        counts.append(-(-counts[-1] // span))
+    return counts
+
+
+def msm_reduce(acc: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
     """The root of the tree reduction over int64[Lanes, 4, 16], the sum of
-    every lane, int64[4, 16]: one launch per entry of ``levels``, the point
-    count entering that level (``msm.reduce_levels``)."""
+    every lane as int64[4, 16], and int32[] 1 iff 8 * root is the identity:
+    one launch per entry of :func:`tree_passes`."""
     dev = _device(REDUCE_KERNEL, acc)
     lanes = acc.shape[0]
     _build.check_operand(REDUCE_KERNEL, "acc", acc, torch.int64, (lanes, *_POINT), dev)
-    if lanes == 0 or not levels or levels[0] != lanes:
-        raise ValueError(f"{REDUCE_KERNEL}: levels {levels} do not start at "
-                         f"{lanes} lanes")
-    half = (lanes + 1) // 2
-    bufs = [torch.empty((half, *_POINT), dtype=torch.int64, device=dev)
-            for _ in range(2 if lanes > 2 else 1)]
-    src = acc
-    for level, n_in in enumerate(levels):
-        dst = bufs[level % len(bufs)]
-        _build.launched(REDUCE_KERNEL, _lib().hg_msm_reduce(
-            src.data_ptr(), dst.data_ptr(), n_in, _stream(dev)))
-        src = dst
-    return src[0]
+    if lanes == 0:
+        raise ValueError(f"{REDUCE_KERNEL}: no lanes to reduce")
+    return _tree(_lib(), acc, lambda err: _build.launched(REDUCE_KERNEL, err))
 
 
-def msm_final(root: torch.Tensor) -> torch.Tensor:
-    """int32[] 1 iff 8 * root is the identity, for root int64[4, 16]."""
-    dev = _device(FINAL_KERNEL, root)
-    _build.check_operand(FINAL_KERNEL, "root", root, torch.int64, _POINT, dev)
-    verdict = torch.empty((), dtype=torch.int32, device=dev)
-    _build.launched(FINAL_KERNEL, _lib().hg_msm_final(
-        root.data_ptr(), verdict.data_ptr(), _stream(dev)))
-    return verdict
+def _tree(lib: ctypes.CDLL, acc: torch.Tensor, launched) -> "tuple[torch.Tensor, torch.Tensor]":
+    """:func:`msm_reduce`'s launches through ``lib``'s entry points (a
+    build of ``csrc/ed_msm.cu``) on a checked ``acc``; ``launched`` takes
+    each launch's cudaError."""
+    span, src = lib.hg_msm_tree_span(), acc
+    for count in tree_passes(acc.shape[0], span)[:-1]:
+        partials = torch.empty((-(-count // span), *_POINT), dtype=torch.int64, device=acc.device)
+        launched(lib.hg_msm_tree_partials(
+            src.data_ptr(), partials.data_ptr(), count, _stream(acc.device)))
+        src = partials
+    root = torch.empty(_POINT, dtype=torch.int64, device=acc.device)
+    verdict = torch.empty((), dtype=torch.int32, device=acc.device)
+    launched(lib.hg_msm_tree_root(src.data_ptr(), src.shape[0], root.data_ptr(),
+                                  verdict.data_ptr(), _stream(acc.device)))
+    return root, verdict

@@ -23,11 +23,12 @@ Shape of the computation (Straus, interleaved 4-bit windows):
   limbs of the JAX package's fixed-shape reduction;
 - 3 doublings (the *8) and the projective identity test.
 
-On the card each stage is a hand-written kernel (``csrc/ed_msm.cu``): the
-JAX package ran the MSM as one jitted program, and an eager loop of point
-formulas would enqueue some 200,000 PyTorch operator calls. The verdict
-stays on the device until :func:`msm_accepts` reads it: one read per
-batch.
+On the card the stages are two hand-written kernels (``csrc/ed_msm.cu``):
+the window loop, and the tree with the ×8 and the identity test folded in
+(:mod:`.cuda_msm`). The JAX package ran the MSM as one jitted program, and
+an eager loop of point formulas would enqueue some 200,000 PyTorch
+operator calls. The verdict stays on the device until :func:`msm_accepts`
+reads it: one read per batch.
 """
 
 from __future__ import annotations
@@ -58,18 +59,18 @@ def msm_is_identity(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor
     the points' device (True iff 8 * sum_i scalar_i * point_i ==
     identity).
 
-    On CUDA tensors the three stages are the kernels of ``csrc/ed_msm.cu``
-    (:mod:`.cuda_msm`): one window launch, one launch per tree level and
-    one final launch. On CPU tensors they are the plain versions below."""
+    On CUDA tensors the stages are the kernels of ``csrc/ed_msm.cu``
+    (:mod:`.cuda_msm`): one window launch, then the tree and the final test
+    in ``len(cuda_msm.tree_passes(...))`` launches (two at 16,384 lanes).
+    On CPU tensors they are the plain versions below."""
     if points.device.type == "cpu":
         root = _reduce_plain(_windows_plain(points, nibbles))
         return _final_plain(root) != 0
     if points.device.type != "cuda":
         raise ValueError(f"msm_is_identity: unsupported device {points.device}")
     nibbles = nibbles.to(device=points.device, dtype=torch.int32).contiguous()
-    acc = cuda_msm.msm_windows(points, nibbles)
-    root = cuda_msm.msm_reduce(acc, reduce_levels(acc.shape[0]))
-    return cuda_msm.msm_final(root) != 0
+    _, verdict = cuda_msm.msm_reduce(cuda_msm.msm_windows(points, nibbles))
+    return verdict != 0
 
 
 def _windows_plain(points: torch.Tensor, nibbles: torch.Tensor) -> torch.Tensor:

@@ -8,10 +8,10 @@
 // canon, parity and the sign flip of decompression see limbs, so a value
 // that is only congruent would change a verdict.
 //
-//   fe_mul, fe_sqr   field._mul_plain (the product; sqr is mul(a, a))
+//   fe_mul, fe_sqr   field._mul_plain (the product; sqr is mul(a, a),
+//                    from 136 limb products: the same column integers)
 //   fe_add           field.add: carry(a + b)
 //   fe_sub           field.sub: carry(a + (PAD4P - b))
-//   fe_pow22523      field._pow22523_plain: z^((p-5)/8)
 //   fe_canon         field.canon, fe_is_zero field.is_zero
 //   ed_add           curve.add (unified add-2008-hwcd-3, a = -1)
 //   ed_dbl           curve.dbl (dbl-2008-hwcd, a = -1)
@@ -44,9 +44,10 @@
 #endif
 #endif
 
-// The point formulas are real calls on the card: one copy of each keeps a
-// kernel's code small, and inlining them into a loop crashes the CUDA 12.8
-// front end (cicc, exit 139). Their operands pass through the caller's
+// The one-thread point formulas (what fe25519_group.cuh runs for a group of
+// one) are real calls on the card: one copy of each keeps a kernel's code
+// small, and inlining them into a loop crashes the CUDA 12.8 front end
+// (cicc, exit 139). Their operands pass through the caller's
 // stack frame (at most 512 bytes, L1-resident), against some 15,000 integer
 // operations a call.
 #ifdef __CUDACC__
@@ -117,15 +118,32 @@ __device__ __forceinline__ void fe_mul(const uint32_t a[kLimbs],
   fe_carry(out);
 }
 
+// fe_mul(a, a) from 136 limb products: the 16 squares, each alone in its
+// two columns, and the 120 cross products a_i * a_j (i < j), whose halves
+// are summed in columns of their own and added twice. Each column is the
+// integer fe_mul sums, so the limbs are the same. out may alias a.
 __device__ __forceinline__ void fe_sqr(const uint32_t a[kLimbs],
                                        uint32_t out[kLimbs]) {
-  fe_mul(a, a, out);
-}
-
-// a^(2^k): k squarings, in place.
-__device__ __forceinline__ void fe_pow2k(uint32_t a[kLimbs], int k) {
-#pragma unroll 1
-  for (int i = 0; i < k; ++i) fe_sqr(a, a);
+  uint32_t col[2 * kLimbs], cross[2 * kLimbs];
+#pragma unroll
+  for (int k = 0; k < 2 * kLimbs; ++k) cross[k] = 0;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const uint32_t p = a[i] * a[i];
+    col[2 * i] = p & kMask;
+    col[2 * i + 1] = p >> 16;
+#pragma unroll
+    for (int j = i + 1; j < kLimbs; ++j) {
+      const uint32_t q = a[i] * a[j];
+      cross[i + j] += q & kMask;
+      cross[i + j + 1] += q >> 16;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2 * kLimbs; ++k) col[k] += 2 * cross[k];
+#pragma unroll
+  for (int k = 0; k < kLimbs; ++k) out[k] = col[k] + col[k + kLimbs] * kFold;
+  fe_carry(out);
 }
 
 __device__ __forceinline__ void fe_add(const uint32_t a[kLimbs],
@@ -159,42 +177,6 @@ __device__ __forceinline__ void fe_copy(const uint32_t a[kLimbs],
 __device__ __forceinline__ void fe_set_small(uint32_t out[kLimbs], uint32_t v) {
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) out[i] = i == 0 ? v : 0u;
-}
-
-// z^((p-5)/8) = z^(2^252 - 3), the chain of field.pow22523 step for step:
-// 251 squarings and 11 products.
-__device__ __forceinline__ void fe_pow22523(const uint32_t z[kLimbs],
-                                            uint32_t out[kLimbs]) {
-  uint32_t z2[kLimbs], z9[kLimbs], t[kLimbs];
-  uint32_t z2_5_0[kLimbs], z2_10_0[kLimbs], z2_50_0[kLimbs], z2_x[kLimbs];
-  fe_sqr(z, z2);
-  fe_copy(z2, t);
-  fe_pow2k(t, 2);
-  fe_mul(t, z, z9);              // z^9
-  fe_mul(z9, z2, t);             // z^11
-  fe_sqr(t, t);
-  fe_mul(t, z9, z2_5_0);         // z^(2^5 - 1)
-  fe_copy(z2_5_0, t);
-  fe_pow2k(t, 5);
-  fe_mul(t, z2_5_0, z2_10_0);    // z^(2^10 - 1)
-  fe_copy(z2_10_0, t);
-  fe_pow2k(t, 10);
-  fe_mul(t, z2_10_0, z2_x);      // z^(2^20 - 1)
-  fe_copy(z2_x, t);
-  fe_pow2k(t, 20);
-  fe_mul(t, z2_x, t);            // z^(2^40 - 1)
-  fe_pow2k(t, 10);
-  fe_mul(t, z2_10_0, z2_50_0);   // z^(2^50 - 1)
-  fe_copy(z2_50_0, t);
-  fe_pow2k(t, 50);
-  fe_mul(t, z2_50_0, z2_x);      // z^(2^100 - 1)
-  fe_copy(z2_x, t);
-  fe_pow2k(t, 100);
-  fe_mul(t, z2_x, t);            // z^(2^200 - 1)
-  fe_pow2k(t, 50);
-  fe_mul(t, z2_50_0, t);         // z^(2^250 - 1)
-  fe_pow2k(t, 2);
-  fe_mul(t, z, out);             // z^(2^252 - 3)
 }
 
 // Limb i of p.

@@ -1,6 +1,9 @@
 // GF(2^255-19) arithmetic and edwards25519 point formulas split across a
-// group of G threads (G in {4, 8, 16}) that share one lane: thread t of the
+// group of G threads (G in {2, 4, 8, 16}) that share one lane: thread t of the
 // group owns limbs [t*K, (t+1)*K), K = 16 / G, of every field element.
+// G = 1 is the one-thread code of fe25519.cuh: each routine hands a group
+// of one to its counterpart there, so a kernel written over G builds at
+// every size, one thread a lane included.
 //
 // Every routine gives the limbs its one-thread counterpart in fe25519.cuh
 // gives (and so those of the plain PyTorch versions), limb for limb:
@@ -22,6 +25,10 @@
 //            depends on the thread's rank, so the one-thread code's
 //            136-product shape would need a branch per product; the group
 //            computes all 256.
+//   ged_is_identity  curve.is_identity by limb equality: a carried value
+//            is below 2^256 < 3p, so it is 0 mod p exactly when its limbs
+//            are those of 0, p or 2p; each thread compares its limbs, and
+//            the mismatches are ORed across the group.
 //   carry    carry_vec is one exchange: each thread's top carry goes to its
 //            neighbour, the group's top carry times 38 to thread 0.
 //            carry_seq, the exact ripple, is a carry lookahead: each thread
@@ -65,7 +72,7 @@ int host_grp_rank();
 uint32_t host_grp_get(uint32_t v, int from);
 template <int G>
 inline int grp_rank() {
-  return host_grp_rank();
+  return G == 1 ? 0 : host_grp_rank();
 }
 template <int G, bool Whole = true>
 inline uint32_t grp_get(uint32_t v, int from) {
@@ -124,6 +131,10 @@ __device__ __forceinline__ void gcarry_seq(uint32_t t[16 / G]) {
 
 template <int G>
 __device__ __forceinline__ void gfe_carry(uint32_t t[16 / G]) {
+  if constexpr (G == 1) {
+    fe_carry(t);
+    return;
+  }
   gcarry_vec<G>(t);
   gcarry_vec<G>(t);
   gcarry_seq<G>(t);
@@ -142,6 +153,10 @@ template <int G>
 __device__ __forceinline__ void gfe_mul(const uint32_t a[16 / G],
                                         const uint32_t b[16 / G],
                                         uint32_t out[16 / G]) {
+  if constexpr (G == 1) {
+    fe_mul(a, b, out);
+    return;
+  }
   constexpr int K = 16 / G;
   const int r = grp_rank<G>();
   uint32_t A[kLimbs], B[kLimbs];
@@ -191,6 +206,10 @@ __device__ __forceinline__ void gfe_mul(const uint32_t a[16 / G],
 template <int G>
 __device__ __forceinline__ void gfe_sqr(const uint32_t a[16 / G],
                                         uint32_t out[16 / G]) {
+  if constexpr (G == 1) {
+    fe_sqr(a, out);
+    return;
+  }
   gfe_mul<G>(a, a, out);
 }
 
@@ -222,6 +241,55 @@ __device__ __forceinline__ void gfe_set_small(uint32_t out[16 / G], uint32_t v) 
   for (int i = 0; i < 16 / G; ++i) out[i] = r == 0 && i == 0 ? v : 0u;
 }
 
+template <int G>
+__device__ __forceinline__ void gfe_copy(const uint32_t a[16 / G], uint32_t out[16 / G]) {
+#pragma unroll
+  for (int i = 0; i < 16 / G; ++i) out[i] = a[i];
+}
+
+// a^(2^k): k squarings, in place.
+template <int G>
+__device__ __forceinline__ void gfe_pow2k(uint32_t a[16 / G], int k) {
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) gfe_sqr<G>(a, a);
+}
+
+// z^((p-5)/8) = z^(2^252 - 3), the chain of field.pow22523 step for step:
+// 251 squarings and 11 products.
+template <int G>
+__device__ __forceinline__ void gfe_pow22523(const uint32_t z[16 / G], uint32_t out[16 / G]) {
+  constexpr int K = 16 / G;
+  uint32_t z2[K], z9[K], t[K], z2_5_0[K], z2_10_0[K], z2_50_0[K], z2_x[K];
+  gfe_sqr<G>(z, z2);
+  gfe_copy<G>(z2, t);
+  gfe_pow2k<G>(t, 2);
+  gfe_mul<G>(t, z, z9);              // z^9
+  gfe_mul<G>(z9, z2, t);             // z^11
+  gfe_sqr<G>(t, t);
+  gfe_mul<G>(t, z9, z2_5_0);         // z^(2^5 - 1)
+  gfe_copy<G>(z2_5_0, t);
+  gfe_pow2k<G>(t, 5);
+  gfe_mul<G>(t, z2_5_0, z2_10_0);    // z^(2^10 - 1)
+  gfe_copy<G>(z2_10_0, t);
+  gfe_pow2k<G>(t, 10);
+  gfe_mul<G>(t, z2_10_0, z2_x);      // z^(2^20 - 1)
+  gfe_copy<G>(z2_x, t);
+  gfe_pow2k<G>(t, 20);
+  gfe_mul<G>(t, z2_x, t);            // z^(2^40 - 1)
+  gfe_pow2k<G>(t, 10);
+  gfe_mul<G>(t, z2_10_0, z2_50_0);   // z^(2^50 - 1)
+  gfe_copy<G>(z2_50_0, t);
+  gfe_pow2k<G>(t, 50);
+  gfe_mul<G>(t, z2_50_0, z2_x);      // z^(2^100 - 1)
+  gfe_copy<G>(z2_x, t);
+  gfe_pow2k<G>(t, 100);
+  gfe_mul<G>(t, z2_x, t);            // z^(2^200 - 1)
+  gfe_pow2k<G>(t, 50);
+  gfe_mul<G>(t, z2_50_0, t);         // z^(2^250 - 1)
+  gfe_pow2k<G>(t, 2);
+  gfe_mul<G>(t, z, out);             // z^(2^252 - 3)
+}
+
 // ── points ──────────────────────────────────────────────────────────────
 
 template <int G>
@@ -237,6 +305,10 @@ template <int G>
 __device__ __forceinline__ void ged_add(const uint32_t p[4][16 / G],
                                    const uint32_t q[4][16 / G],
                                    uint32_t out[4][16 / G]) {
+  if constexpr (G == 1) {
+    ed_add(p, q, out);
+    return;
+  }
   constexpr int K = 16 / G;
   const int r = grp_rank<G>();
   uint32_t a[K], b[K], c[K], d[K], s[K], t[K];
@@ -267,6 +339,10 @@ __device__ __forceinline__ void ged_add(const uint32_t p[4][16 / G],
 template <int G>
 __device__ __forceinline__ void ged_dbl(const uint32_t p[4][16 / G],
                                    uint32_t out[4][16 / G]) {
+  if constexpr (G == 1) {
+    ed_dbl(p, out);
+    return;
+  }
   constexpr int K = 16 / G;
   uint32_t a[K], b[K], c[K], s[K];
   gfe_sqr<G>(p[0], a);
@@ -287,4 +363,28 @@ __device__ __forceinline__ void ged_dbl(const uint32_t p[4][16 / G],
   gfe_mul<G>(g, h, out[1]);
   gfe_mul<G>(f, g, out[2]);
   gfe_mul<G>(e, h, out[3]);
+}
+
+// curve.is_identity, as ed_is_identity, on a carried point (every limb
+// below 2^16): X == 0 and Y == Z mod p. True on every thread of the group.
+template <int G>
+__device__ __forceinline__ bool ged_is_identity(const uint32_t p[4][16 / G]) {
+  if constexpr (G == 1) return ed_is_identity(p);
+  constexpr int K = 16 / G;
+  const int r = grp_rank<G>();
+  uint32_t diff[K];
+  gfe_sub<G>(p[1], p[2], diff);
+  // Bits 0-2: X differs from 0, p, 2p; bits 3-5: Y - Z does.
+  uint32_t miss = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int j = r * K + i;
+    const uint32_t pj = p_limb(j), p2j = j == 0 ? 0xFFDAu : 0xFFFFu;  // 2p = 2^256 - 38
+    miss |= static_cast<uint32_t>(p[0][i] != 0u) | static_cast<uint32_t>(p[0][i] != pj) << 1 |
+            static_cast<uint32_t>(p[0][i] != p2j) << 2 | static_cast<uint32_t>(diff[i] != 0u) << 3 |
+            static_cast<uint32_t>(diff[i] != pj) << 4 | static_cast<uint32_t>(diff[i] != p2j) << 5;
+  }
+#pragma unroll
+  for (int d = 1; d < G; d <<= 1) miss |= grp_get<G>(miss, r ^ d);
+  return (miss & 7u) != 7u && (miss >> 3) != 7u;
 }

@@ -28,9 +28,9 @@
 // against 24.7 M integer operations: the bytes bound it, narrowly.
 //
 // The arithmetic is fe25519.cuh's __device__ fe_mul, which the MSM and the
-// inverse-square-root chain run inside their own kernels (ed_msm.cu,
-// fe_pow22523.cu). This standalone launch serves decompression's products
-// outside the chain.
+// inverse-square-root chain run split across a group of threads inside
+// their own kernels (fe25519_group.cuh; ed_msm.cu, fe_pow22523.cu). This
+// standalone launch serves decompression's products outside the chain.
 
 #include "fe25519.cuh"
 

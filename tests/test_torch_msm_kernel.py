@@ -1,25 +1,30 @@
 """The MSM and inverse-square-root kernels' arithmetic, on the CPU.
 
-A host C++ compiler builds the lane routines of ``csrc/ed_msm.cu`` and
-``csrc/fe_pow22523.cu`` (everything outside their ``__CUDACC__`` launch
+A host C++ compiler builds the lane and group routines of ``csrc/ed_msm.cu``
+and ``csrc/fe_pow22523.cu`` (everything outside their ``__CUDACC__`` launch
 blocks, over the shared ``csrc/fe25519.cuh`` and ``csrc/fe25519_group.cuh``)
 into a small library that ctypes loads, and each is held limb for limb
 against its plain PyTorch version: ``curve.add``, ``curve.dbl``,
 ``curve.is_identity``, ``field._mul_plain``, ``msm._windows_plain``,
 ``msm._reduce_plain``, ``msm._final_plain`` and ``field._pow22523_plain``.
-The group routines that the window kernel runs with G threads a lane are
-built for G = 4, 8 and 16; the harness runs a group's threads as fibers
-(POSIX ``ucontext``) on one host thread, stepping them in turn at every ``grp_get`` exchange, so
-the exact arithmetic of the card's code runs here. The plain window stage is held against the JAX
-package's own ``curve.add`` and ``curve.dbl`` composed in the same order;
-the CPU dispatch of the MSM and the chain is checked to run the plain
-versions and launch nothing; and a kernel's build target is checked to
-follow the shared header. Inputs are made from seeds; tolerance: exact
-equality (integer arithmetic).
+The routines that the kernels run with G threads a point are built for
+G = 1 (the one-thread code), 4, 8 and 16; the harness runs a group's
+threads as fibers (POSIX ``ucontext``) on one host thread, stepping them in
+turn at every ``grp_get`` exchange, so the exact arithmetic of the card's
+code runs here. The tree of ``msm_reduce`` is stepped as its blocks run it:
+one group's ``tree_pair`` per element, level by level (the host loop
+standing in for ``__syncthreads()``), in the wrapper's schedule of passes.
+The plain window stage is held against the JAX package's own ``curve.add``
+and ``curve.dbl`` composed in the same order; the CPU dispatch of the MSM
+and the chain is checked to run the plain versions and launch nothing; and
+a kernel's build target is checked to follow the shared header. Inputs are
+made from seeds; tolerance: exact equality (integer arithmetic).
 """
 
 import ctypes
+import functools
 import random
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -110,7 +115,9 @@ static const int64_t *g_p, *g_q;
 static const int32_t* g_nib;
 static int64_t* g_out;
 static uint16_t* g_table;
-static int g_windows;
+static const uint16_t* g_q16;
+static uint16_t* g_out16;
+static int g_windows, g_count, g_i, g_verdict;
 
 template <int G> static void body_add(int) {
   uint32_t a[4][16 / G], b[4][16 / G];
@@ -124,6 +131,12 @@ template <int G> static void body_dbl(int) {
   gpt_load<G>(g_p, a);
   ged_dbl<G>(a, a);
   gpt_store<G>(a, g_out);
+}
+template <int G> static void body_identity(int r) {
+  uint32_t a[4][16 / G];
+  gpt_load<G>(g_p, a);
+  const int v = ged_is_identity<G>(a) ? 1 : 0;
+  if (r == 0) g_verdict = v;
 }
 template <int G> static void body_mul(int) {  // coordinate 0 of p times that of q
   uint32_t a[4][16 / G], b[4][16 / G];
@@ -142,41 +155,40 @@ template <int G> static void body_carry(int) {  // fe_carry of raw limbs
 template <int G> static void body_windows(int) {
   msm_group_windows<G>(g_p, g_nib, g_windows, g_table, g_out);
 }
+template <int G> static void body_pair64(int) { tree_pair<G>(g_p, g_count, g_i, g_out16); }
+template <int G> static void body_pair16(int) { tree_pair<G>(g_q16, g_count, g_i, g_out16); }
+template <int G> static void body_verdict(int r) {
+  const int v = tree_verdict<G>(g_q16, g_out);
+  if (r == 0) g_verdict = v;
+}
+template <int G> static void body_pow(int) { pow22523_group<G>(g_p, g_out); }
 
 typedef void (*Body)(int);
-static Body pick(int G, Body b4, Body b8, Body b16) {
-  return G == 4 ? b4 : G == 8 ? b8 : b16;
+static Body pick(int G, Body b1, Body b2, Body b4, Body b8, Body b16) {
+  return G == 1 ? b1 : G == 2 ? b2 : G == 4 ? b4 : G == 8 ? b8 : b16;
 }
-#define BODIES(name) pick(G, name<4>, name<8>, name<16>)
+#define BODIES(name) pick(G, name<1>, name<2>, name<4>, name<8>, name<16>)
 
 extern "C" {
-// G == 1 runs the one-thread routines of fe25519.cuh (the tree's and the
-// final test's); 4, 8 and 16 the group routines.
+// G == 1 runs the one-thread code of fe25519.cuh (a group of one hands
+// every routine to it); 2, 4, 8 and 16 the group routines.
 void h_ed_add(int G, const int64_t* p, const int64_t* q, int64_t* out, int n) {
   for (int k = 0; k < n; ++k) {
-    if (G == 1) {
-      uint32_t a[4][kLimbs], b[4][kLimbs];
-      pt_load(p + k * kPointLimbs, a);
-      pt_load(q + k * kPointLimbs, b);
-      ed_add(a, b, a);
-      pt_store(a, out + k * kPointLimbs);
-      continue;
-    }
     g_p = p + k * kPointLimbs; g_q = q + k * kPointLimbs; g_out = out + k * kPointLimbs;
     run_group(G, BODIES(body_add));
   }
 }
 void h_ed_dbl(int G, const int64_t* p, int64_t* out, int n) {
   for (int k = 0; k < n; ++k) {
-    if (G == 1) {
-      uint32_t a[4][kLimbs];
-      pt_load(p + k * kPointLimbs, a);
-      ed_dbl(a, a);
-      pt_store(a, out + k * kPointLimbs);
-      continue;
-    }
     g_p = p + k * kPointLimbs; g_out = out + k * kPointLimbs;
     run_group(G, BODIES(body_dbl));
+  }
+}
+void h_is_identity(int G, const int64_t* p, int32_t* out, int n) {
+  for (int k = 0; k < n; ++k) {
+    g_p = p + k * kPointLimbs;
+    run_group(G, BODIES(body_identity));
+    out[k] = g_verdict;
   }
 }
 void h_mul_sqr(int G, const int64_t* p, const int64_t* q, int64_t* out, int n) {
@@ -187,24 +199,8 @@ void h_mul_sqr(int G, const int64_t* p, const int64_t* q, int64_t* out, int n) {
 }
 void h_carry(int G, const int64_t* p, int64_t* out, int n) {
   for (int k = 0; k < n; ++k) {
-    if (G == 1) {
-      for (int c = 0; c < 4; ++c) {
-        uint32_t t[kLimbs];
-        for (int i = 0; i < kLimbs; ++i) t[i] = static_cast<uint32_t>(p[k * kPointLimbs + c * kLimbs + i]);
-        fe_carry(t);
-        for (int i = 0; i < kLimbs; ++i) out[k * kPointLimbs + c * kLimbs + i] = t[i];
-      }
-      continue;
-    }
     g_p = p + k * kPointLimbs; g_out = out + k * kPointLimbs;
     run_group(G, BODIES(body_carry));
-  }
-}
-void h_is_identity(const int64_t* p, int32_t* out, int n) {
-  for (int k = 0; k < n; ++k) {
-    uint32_t a[4][kLimbs];
-    pt_load(p + k * kPointLimbs, a);
-    out[k] = ed_is_identity(a) ? 1 : 0;
   }
 }
 void h_windows(int G, const int64_t* points, const int32_t* nibbles, int lanes,
@@ -216,14 +212,39 @@ void h_windows(int G, const int64_t* points, const int32_t* nibbles, int lanes,
     run_group(G, BODIES(body_windows));
   }
 }
-void h_reduce_level(const int64_t* q, int n_in, int64_t* out) {
-  for (int i = 0; i < (n_in + 1) / 2; ++i) msm_pair(q, n_in, i, out);
-}
-int h_final(const int64_t* root) { return msm_final_verdict(root); }
 int h_group() { return kGroup; }
-void h_pow22523(const int64_t* z, int64_t* out, int n) {
-  for (int k = 0; k < n; ++k) pow22523_lane(z + k * kLimbs, out + k * kLimbs);
+// One tree level of msm_reduce's block over `count` points: every group's
+// tree_pair in turn (the host loop stands in for __syncthreads()), level 0
+// from int64 points, later levels from uint16 entries.
+void h_tree_level64(int G, const int64_t* q, int count, uint16_t* out) {
+  g_p = q; g_count = count;
+  for (g_i = 0; g_i < (count + 1) / 2; ++g_i) {
+    g_out16 = out + g_i * kPointLimbs;
+    run_group(G, BODIES(body_pair64));
+  }
 }
+void h_tree_level16(int G, const uint16_t* q, int count, uint16_t* out) {
+  g_q16 = q; g_count = count;
+  for (g_i = 0; g_i < (count + 1) / 2; ++g_i) {
+    g_out16 = out + g_i * kPointLimbs;
+    run_group(G, BODIES(body_pair16));
+  }
+}
+int h_tree_verdict(int G, const uint16_t* root, int64_t* root_out) {
+  g_q16 = root; g_out = root_out;
+  run_group(G, BODIES(body_verdict));
+  return g_verdict;
+}
+int h_tree_levels(int count) { return tree_levels(count); }
+int h_tree_span() { return kTreeSpan; }
+int h_tree_group() { return kTreeGroup; }
+void h_pow22523(int G, const int64_t* z, int64_t* out, int n) {
+  for (int k = 0; k < n; ++k) {
+    g_p = z + k * kLimbs; g_out = out + k * kLimbs;
+    run_group(G, BODIES(body_pow));
+  }
+}
+int h_pow_group() { return kPowGroup; }
 }
 """
 
@@ -245,14 +266,19 @@ def host(tmp_path_factory):
     for name, args, res in (
         ("h_ed_add", [i32, ptr, ptr, ptr, i32], None),
         ("h_ed_dbl", [i32, ptr, ptr, i32], None),
+        ("h_is_identity", [i32, ptr, ptr, i32], None),
         ("h_mul_sqr", [i32, ptr, ptr, ptr, i32], None),
         ("h_carry", [i32, ptr, ptr, i32], None),
-        ("h_is_identity", [ptr, ptr, i32], None),
         ("h_windows", [i32, ptr, ptr, i32, i32, ptr, ptr], None),
         ("h_group", [], i32),
-        ("h_reduce_level", [ptr, i32, ptr], None),
-        ("h_final", [ptr], i32),
-        ("h_pow22523", [ptr, ptr, i32], None),
+        ("h_tree_level64", [i32, ptr, i32, ptr], None),
+        ("h_tree_level16", [i32, ptr, i32, ptr], None),
+        ("h_tree_verdict", [i32, ptr, ptr], i32),
+        ("h_tree_levels", [i32], i32),
+        ("h_tree_span", [], i32),
+        ("h_tree_group", [], i32),
+        ("h_pow22523", [i32, ptr, ptr, i32], None),
+        ("h_pow_group", [], i32),
     ):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, res
@@ -283,20 +309,42 @@ def host_windows(host, points, nibbles, group=None):
     return out
 
 
-def host_reduce(host, acc):
-    """The wrapper's schedule: one level per entry of msm.reduce_levels,
-    each into a fresh buffer."""
-    q = acc
-    for n_in in msm.reduce_levels(len(acc)):
-        out = np.empty(((n_in + 1) // 2, 4, 16), np.int64)
-        host.h_reduce_level(_p(np.ascontiguousarray(q[:n_in])), n_in, _p(out))
-        q = out
-    return q[0]
+def host_tree_block(host, group, q, levels):
+    """One block of msm_reduce: ``levels`` levels over the int64 points q,
+    each level one group's ``tree_pair`` per element in turn (the host loop
+    standing in for ``__syncthreads()``), level 0 from q and later levels
+    from the uint16 entries of the level before. Returns the last level's
+    element 0, a uint16 entry."""
+    count = len(q)
+    entries = np.empty(((count + 1) // 2, 64), np.uint16)
+    host.h_tree_level64(group, _p(np.ascontiguousarray(q)), count, _p(entries))
+    for _ in range(levels - 1):
+        count = len(entries)
+        nxt = np.empty(((count + 1) // 2, 64), np.uint16)
+        host.h_tree_level16(group, _p(entries), count, _p(nxt))
+        entries = nxt
+    return entries[0]
+
+
+def host_reduce(host, acc, group=None, span=None):
+    """msm_reduce as the wrapper schedules it (``cuda_msm.tree_passes``):
+    passes of ``span``-point blocks into int64 partials, then the root
+    block and the epilogue. Returns (root, verdict); ``group`` and ``span``
+    default to the kernel's kTreeGroup and kTreeSpan."""
+    group = group or host.h_tree_group()
+    span = span or host.h_tree_span()
+    q = np.ascontiguousarray(acc, dtype=np.int64)
+    for count in cuda_msm.tree_passes(len(q), span)[:-1]:
+        q = np.stack([host_tree_block(host, group, q[b:b + span], span.bit_length() - 1)
+                      .astype(np.int64).reshape(4, 16) for b in range(0, count, span)])
+    entry = host_tree_block(host, group, q, host.h_tree_levels(len(q)))
+    root = np.empty((4, 16), np.int64)
+    verdict = host.h_tree_verdict(group, _p(entry), _p(root))
+    return root, verdict
 
 
 def host_msm(host, points, nibbles) -> int:
-    root = host_reduce(host, host_windows(host, points, nibbles))
-    return host.h_final(_p(np.ascontiguousarray(root)))
+    return host_reduce(host, host_windows(host, points, nibbles))[1]
 
 
 def curve_points(seed, n):
@@ -334,8 +382,8 @@ def port(arr) -> torch.Tensor:
 @pytest.mark.parametrize("group", [1] + GROUPS)
 @pytest.mark.parametrize("kind", ["curve points", "carried limbs"])
 def test_ed_add_dbl_is_identity_match_plain(host, kind, group):
-    """ed_add and ed_dbl of one thread (group 1: the tree's and the final
-    test's) and of G threads a lane (the window loop's)."""
+    """ed_add, ed_dbl and the identity test of one thread (group 1) and of G
+    threads a point (the window loop's and the tree's)."""
     pts = curve_points(1, 6) if kind == "curve points" else carried_rows(2, 12)
     other = np.ascontiguousarray(pts[::-1])
     np.testing.assert_array_equal(host_ed_add(host, pts, other, group),
@@ -346,10 +394,39 @@ def test_ed_add_dbl_is_identity_match_plain(host, kind, group):
     host.h_ed_dbl(group, _p(pts), _p(dbl), len(pts))
     np.testing.assert_array_equal(dbl, curve.dbl(port(pts)).numpy())
     ident = np.empty(len(pts), np.int32)
-    host.h_is_identity(_p(pts), _p(ident), len(pts))
+    host.h_is_identity(group, _p(pts), _p(ident), len(pts))
     np.testing.assert_array_equal(ident.astype(bool), curve.is_identity(port(pts)).numpy())
     if kind == "curve points":
         assert ident.tolist() == [0] * 6 + [1, 0]
+
+
+def identity_rows(seed):
+    """Carried points on either side of the identity test's limb equality:
+    X in {0, p, 2p} with Y - Z in {0, p} (identities whose limbs are not
+    the identity's), then X or Y - Z one off those values (not identities),
+    with random Z and T."""
+    rng = random.Random(seed)
+    p = fe.P
+    rows = []
+    for x in (0, p, 2 * p, 1, p - 1, p + 1, 2 * p + 1, 2**256 - 1):
+        for dy in (0, p, 1, p - 1):
+            z = rng.randrange(p)
+            rows.append([x, z + dy, z, rng.getrandbits(256)])
+    return np.stack([limbs(r) for r in rows]).astype(np.int64)
+
+
+@pytest.mark.parametrize("group", [1] + GROUPS)
+def test_group_identity_test_matches_plain(host, group):
+    """The identity test (the tree's epilogue) against curve.is_identity on
+    the identity, the order-4 point, random multiples of B, carried rows,
+    and identities in limbs other than the identity's."""
+    pts = np.concatenate([curve_points(5, 6), carried_rows(6, 8), identity_rows(7)])
+    ident = np.empty(len(pts), np.int32)
+    host.h_is_identity(group, _p(pts), _p(ident), len(pts))
+    want = curve.is_identity(port(pts)).numpy()
+    np.testing.assert_array_equal(ident.astype(bool), want)
+    assert ident[6] == 1 and ident[7] == 0  # the identity; the order-4 point
+    assert int(want[14:].sum()) == 6  # X in {0, p, 2p}, Y - Z in {0, p}
 
 
 # ── the window loop, the tree and the verdict ──────────────────────────
@@ -435,14 +512,86 @@ def test_group_product_matches_plain(host, group):
     np.testing.assert_array_equal(got[:, 1], fe._mul_plain(port(a[:, 1]), port(a[:, 1])).numpy())
 
 
+def tree_input(lanes):
+    """Lane accumulators for the tree. Up to 16 lanes: seeded carried rows,
+    the last two the identity and the order-4 point from 6 lanes on. Past
+    16: consecutive multiples Q, Q + B, ... (extended coordinates, Z != 1)
+    then their negations, each behind its own point, so the sum is the
+    identity and the verdict 1 (0 at an odd count, whose middle lane is B
+    alone)."""
+    if lanes <= 16:
+        acc = carried_rows(10 + lanes, max(lanes, 4))[:lanes].copy()
+        if lanes >= 6:
+            acc[-2:] = curve_points(lanes, 0)  # identity and order-4 lanes
+        return acc
+    pts = [ref_py._mul(ref_py._BASE, random.Random(lanes).getrandbits(252))]
+    while len(pts) < lanes // 2:
+        pts.append(ref_py._add(pts[-1], ref_py._BASE))
+    neg = [((-x) % fe.P, y, z, (-t) % fe.P) for x, y, z, t in pts]
+    mid = [ref_py._BASE] if lanes % 2 else []
+    return np.stack([pt_limbs(q) for q in pts + mid + neg[::-1]]).astype(np.int64)
+
+
+@functools.cache
+def plain_tree(lanes):
+    """The input, _reduce_plain's root and _final_plain's verdict."""
+    acc = tree_input(lanes)
+    root = msm._reduce_plain(port(acc))
+    return acc, root.numpy(), int(msm._final_plain(root))
+
+
 @pytest.mark.parametrize("lanes", [1, 5, 6, 8, 16])
 def test_tree_matches_plain(host, lanes):
-    acc = carried_rows(10 + lanes, max(lanes, 4))[:lanes].copy()
-    if lanes >= 6:
-        acc[-2:] = curve_points(lanes, 0)  # identity and order-4 lanes
-    got = host_reduce(host, acc)
-    np.testing.assert_array_equal(got, msm._reduce_plain(port(acc)).numpy())
+    """msm_reduce's tree and verdict at the kernel's kTreeGroup and
+    kTreeSpan."""
+    acc, want_root, want_verdict = plain_tree(lanes)
+    root, verdict = host_reduce(host, acc)
+    np.testing.assert_array_equal(root, want_root)
+    assert verdict == want_verdict
     assert len(msm.reduce_levels(lanes)) == max(1, int(np.ceil(np.log2(max(lanes, 2)))))
+
+
+TREE_SPAN = int(re.search(r"^constexpr int kTreeSpan = (\d+);$",
+                          (CSRC / "ed_msm.cu").read_text(), re.M).group(1))
+TREE_LANES = [1, 5, 6, 8, 16, TREE_SPAN - 1, TREE_SPAN, TREE_SPAN + 1, 2 * TREE_SPAN + 1, 1000]
+
+
+@pytest.mark.parametrize("lanes", TREE_LANES)
+@pytest.mark.parametrize("group", [1] + GROUPS)
+def test_tree_at_every_group_matches_plain(host, group, lanes):
+    """Root limbs and verdict at every group size the tree builds for, at
+    lane counts below, at and across the block's span and its odd folds."""
+    acc, want_root, want_verdict = plain_tree(lanes)
+    root, verdict = host_reduce(host, acc, group)
+    np.testing.assert_array_equal(root, want_root)
+    assert verdict == want_verdict
+    if lanes > 16:
+        assert want_verdict == (lanes % 2 == 0)
+
+
+@pytest.mark.parametrize("span", [2, 4, 8])
+def test_tree_schedule_over_small_spans(host, span):
+    """The wrapper's schedule of passes (cuda_msm.tree_passes) is the global
+    tree at any power-of-two span: with spans far below the kernel's, 100
+    and 77 lanes take three to seven launches."""
+    for lanes in (100, 77):
+        acc, want_root, want_verdict = plain_tree(lanes)
+        passes = cuda_msm.tree_passes(lanes, span)
+        assert passes[0] == lanes and passes[-1] <= span
+        assert len(passes) == max(1, int(np.ceil(np.log(lanes) / np.log(span) - 1e-9)))
+        root, verdict = host_reduce(host, acc, 1, span)
+        np.testing.assert_array_equal(root, want_root)
+        assert verdict == want_verdict
+    root, verdict = host_reduce(host, plain_tree(16)[0], 4, span)
+    np.testing.assert_array_equal(root, plain_tree(16)[1])
+
+
+def test_tree_levels_match_reduce_levels(host):
+    for lanes in range(1, 600):
+        assert host.h_tree_levels(lanes) == len(msm.reduce_levels(lanes))
+    assert cuda_msm.tree_passes(16_384, TREE_SPAN) == [16_384, 16_384 // TREE_SPAN]
+    assert cuda_msm.tree_passes(TREE_SPAN, TREE_SPAN) == [TREE_SPAN]
+    assert host.h_tree_span() == TREE_SPAN
 
 
 @pytest.mark.parametrize("case", range(5))
@@ -450,19 +599,49 @@ def test_final_verdict_on_msm_cases(host, case):
     pts, nib, want = msm_cases()[case]
     pts = pts.astype(np.int64)
     assert host_msm(host, pts, nib) == int(want)
-    root = host_reduce(host, host_windows(host, pts, nib))
+    root, _ = host_reduce(host, host_windows(host, pts, nib))
     assert int(msm._final_plain(port(root))) == int(want)
 
 
-def test_pow22523_matches_plain(host):
+def pow_rows(n_random=24):
     rng = random.Random(0x22523)
-    vals = [rng.getrandbits(256) for _ in range(24)] + EDGE_A + [2, 2**255 - 1]
-    z = limbs(vals).astype(np.int64)
+    vals = [rng.getrandbits(256) for _ in range(n_random)] + EDGE_A + [2, 2**255 - 1]
+    return vals, limbs(vals).astype(np.int64)
+
+
+def test_pow22523_matches_plain(host):
+    """The chain at the kernel's kPowGroup threads a lane."""
+    vals, z = pow_rows()
     out = np.empty_like(z)
-    host.h_pow22523(_p(z), _p(out), len(z))
+    host.h_pow22523(host.h_pow_group(), _p(z), _p(out), len(z))
     np.testing.assert_array_equal(out, fe._pow22523_plain(port(z)).numpy())
     for i, v in enumerate(vals):
         assert fe.limbs_to_int(out[i]) % fe.P == pow(v % fe.P, (fe.P - 5) // 8, fe.P)
+
+
+@pytest.mark.parametrize("group", [1, 2] + GROUPS)
+def test_pow22523_at_every_group_matches_plain(host, group):
+    """The chain at every group size the kernel builds for (1: one thread,
+    its squarings of 136 products), on the edge rows and a few random
+    ones."""
+    _, z = pow_rows(6)
+    out = np.empty_like(z)
+    host.h_pow22523(group, _p(z), _p(out), len(z))
+    np.testing.assert_array_equal(out, fe._pow22523_plain(port(z)).numpy())
+
+
+def test_square_of_136_products_matches_plain(host):
+    """The one-thread squaring (fe_sqr: 16 squares and 120 cross products
+    added twice) against field._mul_plain(a, a), with the one-thread product
+    beside it, on random rows, all-0xFFFF rows and the field battery's edge
+    values."""
+    a = np.concatenate([carried_rows(90, 24), limbs(EDGE_A + EDGE_A[::-1]).astype(np.int64)
+                        .reshape(-1, 4, 16)])
+    b = carried_rows(91, len(a))
+    got = np.empty_like(a)
+    host.h_mul_sqr(1, _p(a), _p(b), _p(got), len(a))
+    np.testing.assert_array_equal(got[:, 0], fe._mul_plain(port(a[:, 0]), port(b[:, 0])).numpy())
+    np.testing.assert_array_equal(got[:, 1], fe._mul_plain(port(a[:, 1]), port(a[:, 1])).numpy())
 
 
 # ── the plain window stage against the JAX package ─────────────────────
@@ -520,9 +699,7 @@ def test_wrappers_raise_on_a_device_they_cannot_serve():
         with pytest.raises(ValueError):
             cuda_msm.msm_windows(pts, nib)
         with pytest.raises(ValueError):
-            cuda_msm.msm_reduce(pts, msm.reduce_levels(4))
-        with pytest.raises(ValueError):
-            cuda_msm.msm_final(pts[0])
+            cuda_msm.msm_reduce(pts)
     with pytest.raises(ValueError):
         msm.msm_is_identity(pts.to("meta"), nib.to("meta"))
     with pytest.raises(ValueError):
