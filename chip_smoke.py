@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--only 1,2,6b]
 
-Drives the port's vote path through its public entry points at the size of
-the README's single-chip engine (``capacity=100_000``,
-``voter_capacity=1024``), and fails unless every phase holds:
+Drives the port's vote and proposal paths through their public entry
+points at the size of the README's single-chip engine
+(``capacity=100_000``, ``voter_capacity=1024``), and fails unless every
+phase holds:
 
 1. build and device: build every CUDA kernel from ``hashgraph_tpu_torch/
    csrc`` (and, each from a copy of its source with one constant changed,
@@ -56,14 +57,39 @@ the README's single-chip engine (``capacity=100_000``,
    4,096 Ed25519-signed votes — one device batch — then a call of 64 votes
    holding a corrupted scalar, an s >= L, an undecodable key and an R with
    its sign bit flipped, which forces the host blame pass. A CPU engine
-   with the host signer (the pure-Python twin) takes the same vote bytes.
+   with the host signer (the pure-Python twin) takes the same vote bytes;
+8. proposals from peers, at config 3's width (the main path of slice 6):
+   senders (a CPU engine taking pre-validated votes, 64 Ed25519 keys,
+   seeded ids) hold 64 proposals of 64 voters, half gossipsub and half
+   P2P, whose chains grow only by the votes the sender accepts; the
+   receivers take them as wire bytes. (a) One ``ingest_proposals`` call of
+   the 64 proposals with 32-vote chains — two with a broken received link,
+   two with a parent mismatch (one the last-occurrence shadowing case), two
+   with a damaged signature (s >= L, an R that is no point) — plus two
+   expired, two redelivered pids, one of 2,000 voters (served on the host)
+   and one of 16 voters decided when it arrives: one device batch of
+   signatures and one chain check on the card. (b) Two ``deliver_proposals``
+   waves of the grown chains (watermark extensions, up to 16 votes each;
+   one verify batch a wave). (c) The final chains redelivered: all
+   PROPOSAL_ALREADY_EXIST with no verification launch. (d) The same traffic
+   on a GPU engine with the cache off. (e) The chain check alone at (a)'s
+   chains, at [1,024, 64] and at [1, 1,024], timed. Each verification
+   kernel is then held against its plain version on the inputs its wrapper
+   was given in (a) and (b) on both GPU engines: the field kernels at every
+   shape, the MSM kernels at the fewest lanes (a cache-off run of one whole
+   chain) and the most ((a)'s batch), also on a rejecting combination made
+   from them. A CPU engine whose host twin
+   verifies across 8 worker processes takes the same bytes.
 
-Phases 3-5b and 7 run the same traffic on a ``device="cpu"`` port engine
+Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
-stats. Launch counts are reset just before each phase and read just after
+stats; phases 1-7 build their engines with ``verify_cache=None``. Launch counts are reset just before each phase and read just after
 it; phase 7 fails unless the batch launched every verification kernel, the
 MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
-20 times. The plain versions
+20 times; phase 8 fails unless (a) launched every verification kernel in
+one batch, every batch of (a) and (b) ran its MSM without falling back to
+the host blame, (c) launched none, and the cache-on engine verified each
+unique vote once. The plain versions
 that the kernels are held against run with ``field.mul`` routed to
 ``field._mul_plain``, so they touch no kernel. The last lines are the
 kernel table as JSON, the card's name and power limit, and ``{"ok": true,
@@ -322,7 +348,7 @@ def make_engine(dev):
     return TorchConsensusEngine(
         StubConsensusSigner(b"chip-smoke"), CAPACITY, VOTER_CAPACITY,
         event_bus=BroadcastEventBus(max_queued_events=10_000_000),
-        max_sessions_per_scope=CAPACITY, device=dev,
+        max_sessions_per_scope=CAPACITY, device=dev, verify_cache=None,
     )
 
 
@@ -604,7 +630,7 @@ def overflow_engine(dev):
     return TorchConsensusEngine(
         StubConsensusSigner(b"chip-smoke"), 64, VOTER_CAPACITY,
         event_bus=BroadcastEventBus(max_queued_events=1_000_000),
-        max_sessions_per_scope=1_000, device=dev,
+        max_sessions_per_scope=1_000, device=dev, verify_cache=None,
     )
 
 
@@ -1235,7 +1261,7 @@ def verify_engine(dev, signer):
     return TorchConsensusEngine(
         signer, CAPACITY, VOTER_CAPACITY,
         event_bus=BroadcastEventBus(max_queued_events=1_000_000),
-        max_sessions_per_scope=CAPACITY, device=dev,
+        max_sessions_per_scope=CAPACITY, device=dev, verify_cache=None,
     )
 
 
@@ -1432,7 +1458,683 @@ def phase_verify(dev):
                 twin_rate=twin_rate, phases=phases_main, phases_blame=phases_blame)
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7")
+# ── Phase 8: proposals from peers (ingest, delivery, redelivery) ───────
+
+PROP_KEYS = 64
+PROP_MAIN = 64  # proposals of PROP_VOTERS expected voters, half gossipsub, half P2P
+PROP_VOTERS = 64
+PROP_FIRST = 32  # votes each chain carries in (a)
+PROP_WAVE = 16  # votes each wave of (b) tries to add to every chain
+PROP_SCOPES = ("gossip", "p2p")
+# Proposal-path kernels: the verification batch's and the scan's.
+PROPOSAL_KERNELS = VERIFY_KERNELS + ("ingest_scan",)
+
+
+def _twin_sign(job):
+    """Pool worker: the host twin's Ed25519 signature of one payload."""
+    from hashgraph_tpu_torch.signing import _ed25519
+
+    seed, payload = job
+    return _ed25519.sign(seed, payload)
+
+
+def _twin_verify(job):
+    """Pool worker: the host twin's verdict on one signature."""
+    from hashgraph_tpu_torch.signing import _ed25519
+
+    return _ed25519.verify(*job)
+
+
+def twin_pool():
+    """Worker processes for the pure-Python twin (spawned: this process has
+    CUDA and threads)."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(8)
+
+
+def pooled_twin_signer(pool):
+    """The host Ed25519 scheme whose batch verification runs the twin item
+    by item, as ``Ed25519ConsensusSigner.verify_batch`` does, across
+    ``pool``'s processes: the CPU engine's reference verdicts."""
+    from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
+
+    class PooledTwinSigner(Ed25519ConsensusSigner):
+        @classmethod
+        def verify_batch(cls, identities, payloads, signatures):
+            out, well_formed = cls._precheck(identities, payloads, signatures)
+            jobs = [(bytes(identities[i]), payloads[i], bytes(signatures[i]))
+                    for i in well_formed]
+            for i, verdict in zip(well_formed, pool.map(_twin_verify, jobs, chunksize=32)):
+                out[i] = verdict
+            return out
+
+    return PooledTwinSigner
+
+
+def counting_device_signer():
+    """The device Ed25519 scheme, counting each (payload, signature) it is
+    asked to verify and keeping every batch's phase seconds (with its item
+    count) as the batch is collected."""
+    from collections import Counter
+
+    from hashgraph_tpu_torch.signing import Ed25519DeviceConsensusSigner, PendingVerdicts
+
+    class CountingDeviceSigner(Ed25519DeviceConsensusSigner):
+        submitted: Counter = Counter()
+        batches: list = []
+
+        @classmethod
+        def verify_batch_submit(cls, identities, payloads, signatures):
+            cls.submitted.update(p + s for p, s in zip(payloads, signatures))
+            pending = super().verify_batch_submit(identities, payloads, signatures)
+
+            def collect():
+                out = pending.collect()
+                cls.batches.append(dict(cls.device_phase_seconds(), items=len(payloads)))
+                return out
+
+            return PendingVerdicts(collect)
+
+    return CountingDeviceSigner
+
+
+class KernelInputs:
+    """While :meth:`active`, keeps the first inputs (cloned) that each
+    verification kernel's wrapper is given at each shape, so that every
+    kernel can be held against its plain version at the shapes the path
+    gave it. The callers look the wrappers up on their modules at every
+    call (``field.mul`` calls ``cuda_field.fe_mul``, ``msm.msm_is_identity``
+    ``cuda_msm.msm_windows`` and ``cuda_msm.msm_reduce``), so every launch
+    passes here; the spy itself launches nothing."""
+
+    def __init__(self):
+        from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm
+
+        self.wrappers = [(cuda_field, "fe_mul"), (cuda_field, "fe_pow22523"),
+                         (cuda_msm, "msm_windows"), (cuda_msm, "msm_reduce")]
+        self.seen = {}
+
+    @contextlib.contextmanager
+    def active(self):
+        saved = [getattr(module, name) for module, name in self.wrappers]
+        for (module, name), fn in zip(self.wrappers, saved):
+            setattr(module, name, self._spy(name, fn))
+        try:
+            yield self
+        finally:
+            for (module, name), fn in zip(self.wrappers, saved):
+                setattr(module, name, fn)
+
+    def _spy(self, name, fn):
+        def spy(*args):
+            key = (name, tuple(args[0].shape))
+            if key not in self.seen:
+                self.seen[key] = tuple(a.clone() for a in args)
+            return fn(*args)
+
+        return spy
+
+
+def hold_captured(captured):
+    """Each kernel on the inputs the path gave it, against its plain
+    version: fe_mul and fe_pow22523 limb for limb at every shape;
+    msm_windows limb for limb, then with the last window of lane 0 changed
+    (a rejecting combination), and msm_reduce's root and verdict on both
+    (accepting on the path's input, rejecting on the changed one), at the
+    fewest and the most lanes (the plain window pass takes seconds a call,
+    whatever the lanes). Returns the shapes held per kernel."""
+    from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm, field, msm
+
+    msm_lanes = sorted(shape[0] for name, shape in captured.seen if name == "msm_windows")
+    held = {}
+    for (name, shape), args in sorted(captured.seen.items()):
+        if name.startswith("msm_") and shape[0] not in (msm_lanes[0], msm_lanes[-1]):
+            continue
+        if name == "fe_mul":
+            ok = torch.equal(cuda_field.fe_mul(*args), field._mul_plain(*args))
+        elif name == "fe_pow22523":
+            with plain_field_mul():
+                want = field._pow22523_plain(*args)
+            ok = torch.equal(cuda_field.fe_pow22523(*args), want)
+        elif name == "msm_windows":
+            pts, nib = args
+            bad_nib = nib.clone()
+            bad_nib[0, -1] ^= 1
+            with plain_field_mul():
+                # Both cases in one plain pass: lane 0 again, changed, last.
+                both = msm._windows_plain(torch.cat([pts, pts[:1]]),
+                                          torch.cat([nib, bad_nib[:1]]))
+                acc_plain = both[:-1]
+                bad_plain = acc_plain.clone()
+                bad_plain[0] = both[-1]
+                root_plain = msm._reduce_plain(bad_plain)
+                verdict_plain = int(msm._final_plain(root_plain))
+            bad = cuda_msm.msm_windows(pts, bad_nib)
+            root, verdict = cuda_msm.msm_reduce(bad)
+            ok = (torch.equal(cuda_msm.msm_windows(pts, nib), acc_plain)
+                  and torch.equal(bad, bad_plain) and torch.equal(root, root_plain)
+                  and int(verdict) == verdict_plain == 0)
+        else:
+            (acc,) = args
+            with plain_field_mul():
+                root_plain = msm._reduce_plain(acc)
+                verdict_plain = int(msm._final_plain(root_plain))
+            root, verdict = cuda_msm.msm_reduce(acc)
+            ok = torch.equal(root, root_plain) and int(verdict) == verdict_plain == 1
+        if not ok:
+            raise AssertionError(f"{name} at {list(shape)} on the proposal path's inputs "
+                                 "differs from its plain version")
+        held.setdefault(name, []).append(list(shape))
+    return held
+
+
+class _Unsigned:
+    """A key that builds votes with an empty signature; the signatures are
+    made afterwards, all at once, in the twin's worker pool."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def identity(self):
+        return self.key.identity()
+
+    def sign(self, payload):
+        return b""
+
+
+def proposal_engine(dev, signer, cache, capacity=CAPACITY, voter_capacity=VOTER_CAPACITY):
+    from hashgraph_tpu_torch import TorchConsensusEngine
+    from hashgraph_tpu_torch.events import BroadcastEventBus
+
+    engine = TorchConsensusEngine(
+        signer, capacity, voter_capacity,
+        event_bus=BroadcastEventBus(max_queued_events=1_000_000),
+        max_sessions_per_scope=capacity, device=dev, verify_cache=cache,
+    )
+    engine.scope("p2p").p2p_preset().initialize()
+    return engine
+
+
+def proposal_traffic_data(pool, n_main=PROP_MAIN, first=PROP_FIRST, wave=PROP_WAVE,
+                          wide_voters=2000):
+    """The senders' side of phase 8, as encoded wire bytes.
+
+    A sender engine on the CPU (pre-validated votes) holds ``n_main``
+    proposals of PROP_VOTERS expected voters with seeded ids, half in the
+    gossipsub scope and half in the P2P one. PROP_KEYS keys vote on each in
+    a rotating order; a vote joins a chain only where the sender accepts it,
+    so every gossiped chain is a chain its sender holds (a chain stops
+    growing at its decision). Stage (a) is ``first`` votes a chain, then two
+    waves of ``wave`` more. Returns the stages' items, the keys' seeds, the
+    expected (a) statuses, and the count of signatures made."""
+    from hashgraph_tpu_torch import (
+        CreateProposalRequest,
+        Ed25519ConsensusSigner,
+        StubConsensusSigner,
+        build_vote,
+        protocol,
+    )
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.signing._ed25519 import L
+
+    rng = random.Random(80)
+    keys = [Ed25519ConsensusSigner(rng.randbytes(32)) for _ in range(PROP_KEYS)]
+    unsigned = [_Unsigned(k) for k in keys]
+    seed_of = {k.identity(): k.private_key_bytes() for k in keys}
+    protocol.set_id_entropy(lambda: rng.getrandbits(128))
+    try:
+        sender = proposal_engine("cpu", StubConsensusSigner(b"sender"), None,
+                                 capacity=2 * n_main + 8, voter_capacity=PROP_VOTERS)
+
+        def create(scope, n, expiry, live, name):
+            return sender.create_proposal(scope, CreateProposalRequest(
+                name=name, payload=name.encode(), proposal_owner=b"phase8",
+                expected_voters_count=n, expiration_timestamp=expiry,
+                liveness_criteria_yes=live), NOW)
+
+        main = []  # (scope, base proposal, yes probability)
+        for k in range(n_main):
+            scope = PROP_SCOPES[k * 2 // n_main]
+            live = k % 2 == 0
+            # Gossipsub chains lean against their liveness side so that the
+            # silent peers do not decide them at the quorum; P2P chains
+            # (capped at 43 votes) lean with it and decide at the quorum.
+            p_yes = (0.3 if live else 0.7) if scope == "gossip" else (0.8 if live else 0.2)
+            main.append((scope, create(scope, PROP_VOTERS, 3600, live, f"m{k}"), p_yes))
+        chains = [[] for _ in main]
+
+        def extend(count, t0):
+            for i in range(count):
+                batch = []
+                for k, (scope, base, p_yes) in enumerate(main):
+                    shadow = base.clone()
+                    shadow.votes = chains[k]
+                    pos = len(chains[k])
+                    vote = build_vote(shadow, rng.random() < p_yes,
+                                      unsigned[(k + pos) % PROP_KEYS], t0 + i)
+                    batch.append((scope, vote))
+                statuses = sender.ingest_votes(batch, t0 + i, pre_validated=True)
+                for k, ((_, vote), st) in enumerate(zip(batch, statuses)):
+                    if st == int(StatusCode.OK):
+                        chains[k].append(vote)
+
+        extend(first, NOW + 1)
+        lengths = [[len(c) for c in chains]]
+        extend(wave, NOW + 1 + first)
+        lengths.append([len(c) for c in chains])
+        extend(wave, NOW + 1 + first + wave)
+        lengths.append([len(c) for c in chains])
+
+        def chain_of(base, votes):
+            p = base.clone()
+            p.votes = list(votes)
+            return p
+
+        def fresh_chain(scope, n, n_votes, expiry, name):
+            base = create(scope, n, expiry, True, name)
+            p = base.clone()
+            for i in range(n_votes):
+                p.votes.append(build_vote(p, True, unsigned[i], NOW + 1 + i))
+            return p
+
+        # Stage (a): the main chains at ``first`` votes, some damaged.
+        items_a = [(scope, chain_of(base, chains[k][:lengths[0][k]]))
+                   for k, (scope, base, _) in enumerate(main)]
+        expected = [int(StatusCode.OK)] * len(items_a)
+        extra_sign = []
+        damage = {1: "link", 3: "link", 5: "parent", 7: "shadow", 9: "s>=L", 11: "R"}
+        for k, kind in damage.items():
+            p = items_a[k][1]
+            p.votes = [v.clone() for v in p.votes]  # signed on their own below
+            if kind == "link":
+                p.votes[20].received_hash = b"\x13" * 32
+                p.votes[20].vote_hash = protocol.compute_vote_hash(p.votes[20])
+                extra_sign.append(p.votes[20])
+                expected[k] = int(StatusCode.RECEIVED_HASH_MISMATCH)
+            elif kind == "parent":
+                p.votes[20].parent_hash = p.votes[3].vote_hash  # another owner's vote
+                p.votes[20].vote_hash = protocol.compute_vote_hash(p.votes[20])
+                extra_sign.append(p.votes[20])
+                expected[k] = int(StatusCode.PARENT_HASH_MISMATCH)
+            elif kind == "shadow":
+                # Vote 5's owner votes again at 30 (parent link to vote 5),
+                # and a copy of vote 5 comes last: the hash index resolves
+                # to that last copy, after 30, so the link at 30 fails —
+                # under first-occurrence lookup it would pass, and the
+                # copy's received link would fail at 31 instead.
+                p.votes = p.votes[:30]
+                owner = next(u for u in unsigned if u.identity() == p.votes[5].vote_owner)
+                again = build_vote(p, True, owner, NOW + 40)
+                p.votes.append(again)
+                p.votes.append(p.votes[5].clone())
+                extra_sign.append(again)
+                expected[k] = int(StatusCode.PARENT_HASH_MISMATCH)
+            else:
+                expected[k] = int(StatusCode.INVALID_VOTE_SIGNATURE)
+        expired = [fresh_chain(PROP_SCOPES[j], PROP_VOTERS, first, 5, f"x{j}") for j in range(2)]
+        wide = fresh_chain("gossip", wide_voters, first, 3600, "wide")
+        decided = fresh_chain("gossip", 16, 16, 3600, "decided")
+        items_a += [(PROP_SCOPES[j], p) for j, p in enumerate(expired)]
+        expected += [int(StatusCode.PROPOSAL_EXPIRED)] * 2
+        items_a += [items_a[0], items_a[n_main // 2]]  # redelivered pids
+        expected += [int(StatusCode.PROPOSAL_ALREADY_EXIST)] * 2
+        items_a += [("gossip", wide), ("gossip", decided)]
+        expected += [int(StatusCode.OK)] * 2
+    finally:
+        protocol.set_id_entropy(None)
+    if lengths[0] != [first] * n_main:
+        raise AssertionError(f"the sender decided a chain before {first} votes: {lengths[0]}")
+
+    # Sign every vote at once, in the pool.
+    to_sign = {id(v): v for c in chains for v in c}
+    for p in expired + [wide, decided]:
+        to_sign.update((id(v), v) for v in p.votes)
+    for k in damage:
+        to_sign.update((id(v), v) for v in items_a[k][1].votes)
+    todo = list(to_sign.values())
+    sigs = pool.map(_twin_sign, [(seed_of[v.vote_owner], v.signing_payload()) for v in todo],
+                    chunksize=64)
+    for vote, sig in zip(todo, sigs):
+        vote.signature = sig
+    for k, kind in damage.items():
+        p = items_a[k][1]
+        if kind in ("s>=L", "R"):
+            v = p.votes[20]
+            s_int = int.from_bytes(v.signature[32:], "little")
+            v.signature = (v.signature[:32] + (s_int + L).to_bytes(32, "little")
+                           if kind == "s>=L" else b"\xff" * 32 + v.signature[32:])
+
+    def wire(items):
+        return [(scope, p.encode()) for scope, p in items]
+
+    stage_b = [wire((scope, chain_of(base, chains[k][:lengths[w][k]]))
+                    for k, (scope, base, _) in enumerate(main)) for w in (1, 2)]
+    return dict(
+        a=wire(items_a), b=stage_b, c=stage_b[1], expected_a=expected,
+        lengths=lengths, signed=len(todo),
+        chains=[[v.vote_hash for v in p.votes] for _, p in items_a],
+        chain_pids=[(scope, p.proposal_id) for scope, p in items_a],
+    )
+
+
+class ProposalRun:
+    """One receiving engine's results in phase 8."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.rx = engine.event_bus().subscribe()
+
+    def events(self):
+        out = []
+        while (item := self.rx.try_recv()) is not None:
+            scope, ev = item
+            out.append((scope, type(ev).__name__, ev.proposal_id,
+                        getattr(ev, "result", None), ev.timestamp))
+        return out
+
+    def state(self, keys):
+        """Per session: the result (or what raised) and the vote hashes;
+        then each scope's stats and the engine's spill count."""
+        out = []
+        for scope, pid in keys:
+            try:
+                result = self.engine.get_consensus_result(scope, pid)
+                votes = [v.vote_hash for v in self.engine.get_proposal(scope, pid).votes]
+            except Exception as exc:  # the exception type is the state compared
+                result, votes = type(exc).__name__, None
+            out.append((scope, pid, result, votes))
+        for scope in PROP_SCOPES:
+            st = self.engine.get_scope_stats(scope)
+            out.append((scope, st.total_sessions, st.active_sessions, st.failed_sessions,
+                        st.consensus_reached))
+        out.append(("host_spilled", self.engine.occupancy()["host_spilled"]))
+        return out
+
+
+def proposal_traffic(run, data):
+    """Phase 8's deliveries on one engine: (a) one ingest_proposals call,
+    (b) two deliver_proposals waves, (c) the final chains redelivered.
+    Returns the statuses and events of each stage, the final state, and
+    per stage its wall time, kernel launches, signatures submitted and
+    device batches (each batch's phase seconds)."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.wire import Proposal
+
+    engine = run.engine
+    scheme = type(engine.signer())
+    submitted = getattr(scheme, "submitted", None)
+    batches = getattr(scheme, "batches", None)
+    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
+    log, stages = [], []
+
+    def stage(fn, payload, now):
+        items = [(scope, Proposal.decode(b)) for scope, b in payload]
+        n0 = sum(submitted.values()) if submitted is not None else 0
+        b0 = len(batches) if batches is not None else 0
+        sync()
+        _build.launches.clear()
+        t = time.perf_counter()
+        out = fn(items, now)
+        sync()
+        stages.append(dict(
+            wall=time.perf_counter() - t, launches=dict(_build.launches),
+            verified=sum(submitted.values()) - n0 if submitted is not None else None,
+            batches=batches[b0:] if batches is not None else None,
+        ))
+        log.append(out)
+        log.append(run.events())
+
+    stage(engine.ingest_proposals, data["a"], NOW + 100)
+    for w, wave in enumerate(data["b"]):
+        stage(engine.deliver_proposals, wave, NOW + 101 + w)
+    stage(engine.deliver_proposals, data["c"], NOW + 103)
+    return log, run.state(data["chain_pids"]), stages
+
+
+def stub_chains(n_votes, distinct):
+    """``distinct`` stub-signed chains of ``n_votes`` votes, every signer
+    voting twice (the second time with a parent link), one in four with a
+    broken received link and one in four with an unknown parent."""
+    from hashgraph_tpu_torch import CreateProposalRequest, StubConsensusSigner, build_vote
+
+    rng = random.Random(85 + n_votes)
+    chains = []
+    for c in range(distinct):
+        p = CreateProposalRequest(f"c{c}", b"", b"o", n_votes, 3600, True).into_proposal(
+            NOW, pid=c + 1)
+        signers = [StubConsensusSigner(b"s%d" % (i % max(n_votes // 2, 1)))
+                   for i in range(n_votes)]
+        for i in range(n_votes):
+            p.votes.append(build_vote(p, rng.random() < 0.5, signers[i], NOW + 1 + i))
+        if c % 4 == 1:
+            p.votes[rng.randrange(1, n_votes)].received_hash = b"\x13" * 32
+        elif c % 4 == 2:
+            p.votes[rng.randrange(1, n_votes)].parent_hash = b"\x42" * 32
+        chains.append(p.votes)
+    return chains
+
+
+def chain_check_timing(dev, chains, n_chains):
+    """The chain check alone on ``chains``, tiled to ``n_chains`` and packed
+    on the card: statuses against the same function on the CPU and, chain
+    by chain, against the scalar oracle; device time by CUDA events, host
+    wall a call, PyTorch operator count, and the bytes its inputs and
+    output take over the memory rate."""
+    from hashgraph_tpu_torch.convert import chain_pack_from_numpy
+    from hashgraph_tpu_torch.errors import ConsensusError
+    from hashgraph_tpu_torch.ops.chain import (
+        CHAIN_FIELDS,
+        chain_kernel_batch,
+        first_chain_error,
+        pack_chains,
+    )
+    from hashgraph_tpu_torch.protocol import validate_vote_chain
+
+    codes = []
+    for votes in chains:
+        try:
+            validate_vote_chain(votes)
+            codes.append(0)
+        except ConsensusError as exc:
+            codes.append(int(exc.code))
+    packed = pack_chains(chains)
+    reps = -(-n_chains // len(chains))
+    gpu = chain_pack_from_numpy(
+        {k: np.concatenate([a] * reps)[:n_chains] for k, a in packed.items()}, dev)
+    args = [gpu[k] for k in CHAIN_FIELDS]
+    shape = list(args[0].shape[:2])
+    statuses = chain_kernel_batch(*args)
+    plain = chain_kernel_batch(*(a.cpu() for a in args))
+    if not torch.equal(statuses.cpu(), plain):
+        raise AssertionError(f"chain check at {shape}: the card differs from the CPU")
+    got = [first_chain_error(s) for s in plain[:len(chains)].numpy()]
+    if got != codes or (len(chains) >= 4 and (not any(codes) or all(codes))):
+        raise AssertionError(f"chain check at {shape}: {got}, oracle {codes}")
+    ms = device_ms(lambda: chain_kernel_batch(*args), 20)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        chain_kernel_batch(*args)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / 20 * 1e3
+    ops = torch_ops(lambda: chain_kernel_batch(*args))
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + statuses.numel() * 4
+    return dict(shape=shape, ms=ms, wall_ms=wall_ms, torch_ops=ops, bytes=n_bytes,
+                bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3, codes=got)
+
+
+def phase_proposals(dev):
+    from hashgraph_tpu_torch.convert import chain_pack_from_numpy
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.ops.chain import CHAIN_FIELDS, chain_kernel_batch, pack_chains
+    from hashgraph_tpu_torch.signing import Ed25519DeviceConsensusSigner
+    from hashgraph_tpu_torch.wire import Proposal
+
+    t_phase = time.perf_counter()
+    pool = twin_pool()
+    try:
+        t0 = time.perf_counter()
+        data = proposal_traffic_data(pool)
+        sign_s = time.perf_counter() - t0
+        rng = random.Random(86)
+        on = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)),
+                                         "default"))
+        off = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)),
+                                          None))
+        cpu = ProposalRun(proposal_engine("cpu", pooled_twin_signer(pool)(rng.randbytes(32)),
+                                          "default"))
+        # Warm the pipeline (allocator, first launches at (a)'s lane
+        # buckets) and the chain check outside the engines, which keep
+        # their caches cold.
+        t = time.perf_counter()
+        warm = [v for _, p in data["a"] for v in Proposal.decode(p).votes]
+        Ed25519DeviceConsensusSigner.verify_batch(
+            [v.vote_owner for v in warm], [v.signing_payload() for v in warm],
+            [v.signature for v in warm])
+        packed = chain_pack_from_numpy(pack_chains([warm[:PROP_FIRST]]), dev)
+        chain_kernel_batch(*(packed[k] for k in CHAIN_FIELDS)).cpu()
+        warm_s = time.perf_counter() - t
+        captured = KernelInputs()
+        t = time.perf_counter()
+        with captured.active():
+            on_log, on_state, on_stages = proposal_traffic(on, data)
+            on_s = time.perf_counter() - t
+            off_log, off_state, off_stages = proposal_traffic(off, data)
+            off_s = time.perf_counter() - t - on_s
+        t = time.perf_counter()
+        cpu_log, cpu_state, cpu_stages = proposal_traffic(cpu, data)
+        cpu_s = time.perf_counter() - t
+    finally:
+        pool.terminate()
+        pool.join()
+    compare("proposal statuses and events", on_log, cpu_log)
+    compare("proposal sessions, votes and stats", on_state, cpu_state)
+    compare("proposal statuses and events, cache off", off_log, on_log)
+    compare("proposal sessions, votes and stats, cache off", off_state, on_state)
+
+    a, b1, b2, c = on_stages
+    if on_log[0] != data["expected_a"]:
+        raise AssertionError(f"(a) statuses {on_log[0]}, expected {data['expected_a']}")
+    never = [k for k in VERIFY_KERNELS if not a["launches"].get(k)]
+    if never:
+        raise AssertionError(f"(a) launches {a['launches']}: kernels never launched {never}")
+    # (a) is one device batch. A wave of (b) is one with the cache on; with
+    # it off, one for the known chains' suffixes and one per run of chains
+    # the engine does not hold (those rejected in (a) arrive whole, between
+    # known ones). Every signature that reaches the MSM is valid (the
+    # damaged ones stop at the s < L check and at decompression), so no
+    # batch on either GPU engine may fall back to the host blame: the
+    # kernels' own verdict is the one the engines used, one MSM a batch.
+    for label, stages in (("cache on", on_stages), ("cache off", off_stages)):
+        for name, st in zip(("a", "b1", "b2"), stages):
+            n = len(st["batches"])
+            one = name == "a" or label == "cache on"
+            if not n or (one and n != 1) or st["launches"].get("msm_windows") != n:
+                raise AssertionError(f"({name}, {label}): {n} device batches, launches "
+                                     f"{st['launches']}")
+            for batch in st["batches"]:
+                if batch["fallback"] != 0.0 or not batch["msm"] > 0.0:
+                    raise AssertionError(f"({name}, {label}): batch {batch} fell back to the "
+                                         "host blame or ran no MSM")
+    t_hold = time.perf_counter()
+    held = hold_captured(captured)
+    hold_s = time.perf_counter() - t_hold
+    if set(held) != set(VERIFY_KERNELS) or min(x[0] for x in held["msm_windows"]) > 128:
+        raise AssertionError(f"kernel inputs captured on the path: {held}")
+    if set(on_log[6]) != {int(StatusCode.PROPOSAL_ALREADY_EXIST)}:
+        raise AssertionError(f"(c) statuses {set(on_log[6])}")
+    if any(c["launches"].get(k) for k in PROPOSAL_KERNELS) or c["verified"] or c["batches"]:
+        raise AssertionError(f"(c) launched {c['launches']}, verified {c['verified']}")
+    on_counts = type(on.engine.signer()).submitted
+    off_counts = type(off.engine.signer()).submitted
+    if max(on_counts.values()) != 1 or set(on_counts) != set(off_counts):
+        raise AssertionError("with the cache on a vote was verified twice, or the two "
+                             "engines verified different votes")
+    decided_pid = data["chain_pids"][-1][1]
+    if ("gossip", "ConsensusReached", decided_pid, True, NOW + 100) not in on_log[1]:
+        raise AssertionError("the proposal decided on arrival emitted no ConsensusReached")
+    results = [r for _, _, r, _ in on_state[:PROP_MAIN]]
+    decided = sum(r is True or r is False for r in results)
+    if decided < PROP_MAIN // 2 or on_state[-1] != ("host_spilled", 1):
+        raise AssertionError(f"{decided} of {PROP_MAIN} decided; {on_state[-1]}")
+
+    # (e): the chain check alone, at (a)'s chains (the items (a) does not
+    # leave out, as ingest_proposals packs them), at [1,024, 64] and at one
+    # 1,024-vote chain.
+    t_e = time.perf_counter()
+    a_items = [Proposal.decode(b) for _, b in data["a"]]
+    a_chains = [p.votes for p in a_items if NOW + 100 < p.expiration_timestamp and len(p.votes) > 1]
+    chains = {}
+    for label, chain_votes, n_chains in (("(a)'s chains", a_chains, len(a_chains)),
+                                         ("stub chains", stub_chains(64, 16), 1024),
+                                         ("one stub chain", stub_chains(1024, 1), 1)):
+        e = chain_check_timing(dev, chain_votes, n_chains)
+        chains[label] = e
+        log(f"[proposals] (e) chain check at {e['shape']} ({label}): {e['ms']:.6f} ms device "
+            f"(CUDA events), {e['wall_ms']:.6f} ms wall a call, {e['torch_ops']} PyTorch "
+            f"operator calls; inputs and output {e['bytes']} B / 3.35 TB/s = "
+            f"{e['bytes_ms']:.6f} ms; statuses equal to the CPU's and the oracle's "
+            f"{sorted(set(e['codes']))}")
+    e_s = time.perf_counter() - t_e
+
+    launches = {}
+    for s in on_stages:
+        for k, n in s["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    n_items = len(data["a"])
+    b_votes = [sum(data["lengths"][w][k] - data["lengths"][w - 1][k] for k in range(PROP_MAIN))
+               for w in (1, 2)]
+    codes_a = {StatusCode(x).name: on_log[0].count(x) for x in sorted(set(on_log[0]))}
+    codes_b = [{StatusCode(x).name: st.count(x) for x in sorted(set(st))}
+               for st in (on_log[2], on_log[4])]
+    verify_a = a["batches"][0]
+    chain_a = chains["(a)'s chains"]
+    log(f"[proposals] senders: {PROP_MAIN} proposals x {PROP_VOTERS} voters ({PROP_KEYS} "
+        f"Ed25519 keys), {data['signed']} votes built and signed with the twin in 8 processes "
+        f"in {sign_s:.3f} s (outside the timed windows); chain lengths after (a), (b1), (b2): "
+        f"{[sum(x) for x in data['lengths']]} votes in all")
+    log(f"[proposals] (a) one ingest_proposals call of {n_items} proposals: "
+        f"{a['wall']:.6f} s = {n_items / a['wall']:.1f} proposals/s; device verify "
+        f"{verify_a['total']:.6f} s ({a['verified']} signatures, one batch, phases "
+        f"{json.dumps(verify_a)}); chain check {chain_a['wall_ms'] / 1e3:.6f} s (wall a call "
+        f"at {chain_a['shape']}, from (e)); the rest (vote hashes, packing, replay and "
+        f"registration) {a['wall'] - verify_a['total'] - chain_a['wall_ms'] / 1e3:.6f} s; "
+        f"launches {json.dumps(a['launches'])}; statuses {codes_a}")
+    for w, (s, votes, codes) in enumerate(zip((b1, b2), b_votes, codes_b)):
+        log(f"[proposals] (b{w + 1}) deliver_proposals of {PROP_MAIN} chains adding "
+            f"{votes} votes: {s['wall']:.6f} s = {votes / s['wall']:.1f} votes/s; "
+            f"{s['verified']} signatures verified in one batch, phases "
+            f"{json.dumps(s['batches'][0])}; launches {json.dumps(s['launches'])}; "
+            f"statuses {codes}")
+    log(f"[proposals] (c) {len(data['c'])} full chains redelivered: {c['wall']:.6f} s = "
+        f"{len(data['c']) / c['wall']:.1f} deliveries/s settled, all PROPOSAL_ALREADY_EXIST, "
+        f"launches {json.dumps(c['launches'])}, signatures verified {c['verified']}")
+    log(f"[proposals] (d) cache off: the same statuses, events, sessions and votes; "
+        f"{sum(off_counts.values())} signatures verified against {sum(on_counts.values())} "
+        f"unique with the cache on (each once); walls a/b1/b2/c "
+        f"{[round(s['wall'], 6) for s in off_stages]} s against "
+        f"{[round(s['wall'], 6) for s in on_stages]}; batches of (b1) and (b2) "
+        f"{[[x['items'] for x in s['batches']] for s in off_stages[1:3]]}")
+    log(f"[proposals] every device batch of (a) and (b) on both GPU engines "
+        f"({len(a['batches']) + len(b1['batches']) + len(b2['batches'])} and "
+        f"{sum(len(st['batches']) for st in off_stages)}) ran the MSM "
+        f"and none fell back to the host blame; each kernel held against its plain version "
+        f"on the inputs the path gave it (both GPU engines), at {json.dumps(held)}; the MSM kernels "
+        f"also rejecting with lane 0's last window changed; {hold_s:.3f} s")
+    log(f"[proposals] CPU engine (host twin in 8 processes): {cpu_s:.3f} s, walls "
+        f"{[round(s['wall'], 6) for s in cpu_stages]} s; identical statuses, events, "
+        f"results, votes, scope stats and spill count; {decided} of {PROP_MAIN} main "
+        f"sessions decided")
+    log(f"[proposals] the phase took {time.perf_counter() - t_phase:.3f} s: senders and "
+        f"signing {sign_s:.3f}, warming {warm_s:.3f}, the cache-on engine {on_s:.3f}, "
+        f"the cache-off engine "
+        f"{off_s:.3f}, the CPU engine {cpu_s:.3f}, (e) {e_s:.3f}; "
+        f"launches over (a)-(c) {json.dumps(launches)}")
+    return dict(launches=launches, stages=on_stages, chains=chains)
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8")
 
 
 def main() -> int:
@@ -1553,6 +2255,8 @@ def main() -> int:
     fe_mul_timing, pow_timing = phase_field(dev, variants) if run("6") else (None, None)
     msm_timings = phase_msm(dev, variants) if run("6b") else None
     verify = phase_verify(dev) if run("7") else None
+    proposals = phase_proposals(dev) if run("8") else None
+    stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
         f"{time.perf_counter() - t_start:.3f} s")
@@ -1573,6 +2277,7 @@ def main() -> int:
         "launches_config2": launches2,
         "launches_timeouts": launches5,
         "launches_spill": spill["scan_launches"],
+        "launches_proposals": proposals["launches"].get("ingest_scan", 0),
         "parity": "bit-exact against the plain PyTorch scan (uint8, uint16, int32 grids; "
                   "pad rows; depths 8, 70 and 128)",
         "max_abs_err": 0,
@@ -1618,6 +2323,7 @@ def main() -> int:
             "implementation": f"hand-written CUDA C++ for sm_90a, {design}",
             "launches": verify["launches"].get(name, 0),
             "launches_blame_call": verify["launches_blame"].get(name, 0),
+            "launches_proposals": proposals["launches"].get(name, 0),
             "parity": parity,
             "library_ms": None,
             **t,
@@ -1630,5 +2336,38 @@ def main() -> int:
     return 0
 
 
+def stop_children() -> None:
+    """Stop every process this one started that still runs. A spawned
+    ``multiprocessing`` pool leaves its resource tracker behind, which would
+    otherwise live on until this process has exited: it is stopped once the
+    pools it served are collected. Any other child still running is killed
+    and named on stderr."""
+    import gc
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    resource_tracker._resource_tracker._stop()
+    me = os.getpid()
+    left = [int(pid) for task in os.listdir(f"/proc/{me}/task")
+            for pid in Path(f"/proc/{me}/task/{task}/children").read_text().split()]
+    for pid in left:
+        os.kill(pid, signal.SIGKILL)
+        os.waitpid(pid, 0)
+    if left:
+        print(f"chip_smoke: killed child processes still running: {left}", file=sys.stderr)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        code = 1
+    # Outside the handler, so that the failed frames (and any pool they
+    # hold) can be collected before the children are stopped.
+    stop_children()
+    sys.exit(code)

@@ -11,8 +11,13 @@ product ``fe_mul`` (``csrc/fe_mul.cu``) and the inverse-square-root chain
 ``fe_pow22523`` (``csrc/fe_pow22523.cu``) of decompression; and the MSM's
 window loop ``msm_windows`` and its tree with the cofactored identity test
 ``msm_reduce`` (``csrc/ed_msm.cu``). Every other device step is
-PyTorch. Sessions the pool cannot hold are served on the host, as in the
-JAX package.
+PyTorch, among it the batched vote-chain check of proposals from peers
+(:mod:`.ops.chain`), which runs on the engine's device. Sessions the pool
+cannot hold are served on the host, as in the JAX package. Proposals from
+peers enter through ``process_incoming_proposal``, ``ingest_proposals`` and
+``deliver_proposal(s)``, and signature checks go through the admission
+cache (:class:`VerifiedVoteCache`) unless an engine is built with
+``verify_cache=None``.
 
 The port imports nothing of the JAX package: the modules that carry no
 device code (errors, wire, protocol, types, events, scope config, session,
@@ -24,13 +29,20 @@ CPU, which callers ask for with ``device="cpu"``.
 
 from .engine import (
     ConsensusStats,
+    PendingVoteVerdicts,
     PoolFullError,
     ProposalPool,
     TorchConsensusEngine,
+    VerifiedVoteCache,
 )
 from .errors import ConsensusError, StatusCode
 from .events import BroadcastEventBus, ConsensusEventBus, EventReceiver
-from .protocol import build_vote, calculate_consensus_result, compute_vote_hash
+from .protocol import (
+    build_vote,
+    calculate_consensus_result,
+    compute_vote_hash,
+    validate_vote_chain,
+)
 from .scope_config import NetworkType, ScopeConfig, ScopeConfigBuilder
 from .session import ConsensusConfig, ConsensusSession, ConsensusState
 from .signing import (
@@ -62,6 +74,7 @@ __all__ = [
     "Ed25519DeviceConsensusSigner",
     "EventReceiver",
     "NetworkType",
+    "PendingVoteVerdicts",
     "PoolFullError",
     "Proposal",
     "ProposalPool",
@@ -70,8 +83,10 @@ __all__ = [
     "StatusCode",
     "StubConsensusSigner",
     "TorchConsensusEngine",
+    "VerifiedVoteCache",
     "Vote",
     "build_vote",
     "calculate_consensus_result",
     "compute_vote_hash",
+    "validate_vote_chain",
 ]

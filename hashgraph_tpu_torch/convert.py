@@ -6,7 +6,10 @@ mirrors), so traffic that started there can continue on the port.
 :func:`pool_to_numpy` is its inverse. :func:`field_from_numpy` and
 :func:`points_from_numpy` carry field elements and curve points of the
 device verifier across (the JAX package's uint32 limbs to the port's
-int64), with their inverses. This module takes and gives numpy only:
+int64), with their inverses. :func:`chain_pack_from_numpy` takes the
+arrays of the JAX package's ``ops.chain.pack_chain`` (one chain, or a
+batch stacked on a leading axis) to the tensors of the port's chain check,
+and :func:`chain_pack_to_numpy` gives them back. This module takes and gives numpy only:
 extracting the arrays from JAX is the caller's business.
 """
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from .engine.pool import ProposalPool, SlotMeta, resolve_device
+from .ops.chain import CHAIN_FIELDS
 
 # Device arrays: name -> (pool attribute, dtype).
 DEVICE_ARRAYS = {
@@ -126,3 +130,33 @@ def points_from_numpy(points, device="cuda") -> torch.Tensor:
 def points_to_numpy(points: torch.Tensor) -> np.ndarray:
     """The inverse of :func:`points_from_numpy`: ``uint32[..., 4, 16]``."""
     return field_to_numpy(points)
+
+
+def chain_pack_from_numpy(pack: dict, device="cuda") -> "dict[str, torch.Tensor]":
+    """A ``pack_chain`` dict (``vote_hash``, ``received_hash``,
+    ``parent_hash`` ``[..., V, 9]``, ``owner`` ``[..., V]``, ``ts``
+    ``[..., V, 2]``, ``valid`` ``[..., V]``) as tensors on ``device``, in the
+    dtypes ``ops.chain`` takes (int32, ``valid`` bool)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, dtype in CHAIN_FIELDS.items():
+        arr = np.asarray(pack[name])
+        if name != "valid" and arr.dtype != np.int32:
+            raise ValueError(f"{name}: dtype {arr.dtype}, expected int32")
+        out[name] = torch.tensor(arr, dtype=dtype, device=dev)
+    shape = tuple(out["owner"].shape)
+    for name in ("vote_hash", "received_hash", "parent_hash"):
+        if tuple(out[name].shape) != shape + (9,):
+            raise ValueError(f"{name}: shape {tuple(out[name].shape)}, expected {shape + (9,)}")
+    if tuple(out["ts"].shape) != shape + (2,) or tuple(out["valid"].shape) != shape:
+        raise ValueError("ts and valid must match owner's shape")
+    return out
+
+
+def chain_pack_to_numpy(tensors: dict) -> "dict[str, np.ndarray]":
+    """The inverse of :func:`chain_pack_from_numpy`: int32 arrays and a
+    bool ``valid``, as ``pack_chain`` makes them."""
+    return {
+        name: tensors[name].cpu().numpy().astype(bool if name == "valid" else np.int32)
+        for name in CHAIN_FIELDS
+    }

@@ -1,13 +1,19 @@
-"""TorchConsensusEngine: the vote path of the batch consensus engine.
+"""TorchConsensusEngine: the vote and proposal paths of the batch engine.
 
-Port of the vote-path subset of ``hashgraph_tpu/engine/engine.py``
-(``TpuConsensusEngine``) to PyTorch. Same observable semantics as the JAX
-engine built with ``verify_cache=None`` (the uncached admission flow):
-proposals claim pool slots, votes arrive through the scalar
-(:meth:`cast_vote`, :meth:`process_incoming_vote`), batch
-(:meth:`ingest_votes`) and columnar (:meth:`ingest_columnar`) entry points,
-tallies and decisions run on the device, and transitions come back as
-events.
+Port of the vote path and the proposal-ingest path of
+``hashgraph_tpu/engine/engine.py`` (``TpuConsensusEngine``) to PyTorch, with
+the same observable semantics: proposals claim pool slots, votes arrive
+through the scalar (:meth:`cast_vote`, :meth:`process_incoming_vote`),
+batch (:meth:`ingest_votes`, :meth:`ingest_votes_pipelined`) and columnar
+(:meth:`ingest_columnar`) entry points, vote-carrying proposals from peers
+through :meth:`process_incoming_proposal`, :meth:`ingest_proposals` and
+:meth:`deliver_proposals` (create, or extend along the validated-chain
+watermark), tallies and decisions run on the device, and transitions come
+back as events. Signature checks go through the admission cache
+(:mod:`.verify_cache`, ``verify_cache="default"`` as in the JAX engine;
+``None`` restores the uncached flow with identical statuses), and a batch
+of proposals' chains is checked in one dispatch on the engine's device
+(:mod:`..ops.chain`).
 
 Division of labor:
 - device (:class:`ProposalPool`): tallies, vote masks, round-cap
@@ -24,14 +30,16 @@ engine serves it: a scalar :class:`ConsensusSession` under a negative
 synthetic slot id, which every entry point routes to.
 
 Not ported yet (the JAX engine has them): session tiering, WAL and
-checkpoint, health/metrics/tracing/timelines, the verify cache, proposal
-ingest and chain validation, wire-columnar and multi-scope columnar ingest,
-multi-host pools and adaptive timeouts.
+checkpoint, health/metrics/tracing/timelines (and so the proposal path's
+health, tracer and trace-binding hooks), wire-columnar and multi-scope
+columnar ingest, multi-host pools (and so ``deliver_proposals``'
+SESSION_NOT_FOUND misroute branch) and adaptive timeouts.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import os
 import threading
 from dataclasses import dataclass, field
@@ -43,6 +51,7 @@ from ..errors import (
     ConsensusError,
     ConsensusFailed,
     InsufficientVotesAtTimeout,
+    ProposalAlreadyExist,
     SessionNotFound,
     StatusCode,
     UserAlreadyVoted,
@@ -57,14 +66,17 @@ from ..ops.decide import (
     required_votes_np,
 )
 from ..protocol import (
+    COMPUTE_CHAIN,
     build_vote,
+    compute_vote_hash,
     regenerate_until_unique,
     validate_proposal_timestamp,
     validate_vote,
+    validate_vote_chain,
 )
 from ..scope_config import ScopeConfig, ScopeConfigBuilder, NetworkType
 from ..session import ConsensusConfig, ConsensusSession, ConsensusState
-from ..signing import ConsensusSignatureScheme
+from ..signing import ConsensusSignatureScheme, PendingVerdicts
 from ..types import (
     ConsensusEvent,
     ConsensusFailedEvent,
@@ -73,7 +85,8 @@ from ..types import (
 )
 from ..wire import Proposal, Vote
 from .pool import PoolFullError, ProposalPool
-from .session_sync import allocate_slot, state_code_of
+from .session_sync import allocate_slot, load_session_rows, state_code_of
+from .verify_cache import MISS, VerifiedVoteCache
 
 Scope = TypeVar("Scope", bound=Hashable)
 
@@ -84,10 +97,22 @@ DEFAULT_MAX_SESSIONS_PER_SCOPE = 10  # reference: src/service.rs:89-90
 __all__ = [
     "ConsensusStats",
     "DEFAULT_MAX_SESSIONS_PER_SCOPE",
+    "PendingVoteVerdicts",
     "PoolFullError",
     "SessionRecord",
     "TorchConsensusEngine",
 ]
+
+# Sentinel: "compute the signature prepass inside ingest_votes" (the
+# non-pipelined default) as opposed to an explicit None / prepass handle
+# handed in by ingest_votes_pipelined.
+_PREPASS_INLINE = object()
+
+
+def _scheme_tag(scheme: type) -> bytes:
+    """First 8 bytes of SHA-256 over the scheme's module path: the
+    admission-cache namespace of a signature scheme."""
+    return hashlib.sha256(f"{scheme.__module__}.{scheme.__qualname__}".encode()).digest()[:8]
 
 
 @dataclass
@@ -131,6 +156,15 @@ class SessionRecord(Generic[Scope]):
             self.proposal.round = min(self.proposal.round + accepted, _U32_MAX)
 
 
+class PendingVoteVerdicts(PendingVerdicts):
+    """Handle for an in-flight admission-verify prepass
+    (:meth:`TorchConsensusEngine.verify_votes_async`): ``collect()`` blocks
+    until the signature batch resolves and returns ``(verdicts,
+    computed_hashes)`` aligned with the submitted votes. Idempotent — the
+    first collect does the waiting. While uncollected, a device signer's
+    batch is in flight on the GPU."""
+
+
 class TorchConsensusEngine(Generic[Scope]):
     """Batch consensus engine with the ConsensusService API surface, its
     state on one device.
@@ -139,7 +173,9 @@ class TorchConsensusEngine(Generic[Scope]):
     across all scopes, ``voter_capacity`` voter lanes per proposal.
     ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``device="cpu"`` to run on the CPU, where the scan runs its plain
-    PyTorch version.
+    PyTorch version. ``verify_cache`` is ``"default"`` (a cache of this
+    engine's own), a :class:`VerifiedVoteCache` to share between engines,
+    or ``None`` for the uncached admission flow.
     """
 
     def __init__(
@@ -150,8 +186,21 @@ class TorchConsensusEngine(Generic[Scope]):
         event_bus: ConsensusEventBus[Scope] | None = None,
         max_sessions_per_scope: int = DEFAULT_MAX_SESSIONS_PER_SCOPE,
         device="cuda",
+        verify_cache: "VerifiedVoteCache | None | str" = "default",
     ):
         self._signer = signer
+        # Memoized vote-admission verdicts (each unique vote verified once).
+        # Any string but "default" would be stored as the cache object and
+        # fail at the first ingest: refuse it here instead.
+        if isinstance(verify_cache, str) and verify_cache != "default":
+            raise ValueError(
+                'verify_cache must be "default", a VerifiedVoteCache, or None'
+            )
+        self._verify_cache: VerifiedVoteCache | None = (
+            VerifiedVoteCache() if verify_cache == "default" else verify_cache
+        )
+        # A shared cache must never serve one scheme's verdict to another.
+        self._verify_scheme_tag = _scheme_tag(type(signer))
         self._event_bus: ConsensusEventBus[Scope] = (
             event_bus if event_bus is not None else BroadcastEventBus()
         )
@@ -181,6 +230,10 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def pool(self) -> ProposalPool:
         return self._pool
+
+    def verify_cache(self) -> VerifiedVoteCache | None:
+        """The memoized-admission cache (None when disabled)."""
+        return self._verify_cache
 
     @property
     def device(self):
@@ -312,32 +365,48 @@ class TorchConsensusEngine(Generic[Scope]):
         proposal: Proposal,
         config: ConsensusConfig,
         now: int,
-    ) -> None:
+        session: ConsensusSession | None = None,
+    ) -> SessionRecord[Scope] | None:
         """Claim a pool slot for the proposal after the per-scope LRU
         eviction — or, when the pool cannot hold it (more expected voters
         than lanes, or no free slot), serve it on the host. Registration
         never fails on capacity, as in the JAX engine (reference service:
-        no capacity limits, src/service.rs:86-97)."""
+        no capacity limits, src/service.rs:86-97). A replayed ``session``
+        (a validated network proposal) is pooled only when its voters fit
+        the lanes and it carries no columnar tallies; otherwise it stays a
+        host session. Returns the record, or None when the incoming
+        session itself lost the LRU ranking."""
         if self._evict_for(scope, now):
             # The incoming session itself loses the LRU ranking (created_at
             # tie): never tracked, nothing allocated — the same observable
             # result as insert-then-trim.
-            return
-        if (
+            return None
+        fits = (
             proposal.expected_voters_count <= self._pool.voter_capacity
+            and (
+                session is None
+                or (
+                    len(session.votes) <= self._pool.voter_capacity
+                    # Tally-carrying sessions stay host-backed: a dense row
+                    # would hold tallies the exportable session drops.
+                    and not session.tallies
+                )
+            )
             and self._pool.free_slots > 0
-        ):
+        )
+        if fits:
             slot = allocate_slot(
                 self._pool, (scope, proposal.proposal_id), proposal, config, now
             )
             record = SessionRecord(scope, slot, proposal, config, now)
         else:
-            record = self._spilled(scope, proposal, config, now)
+            record = self._spilled(scope, proposal, config, now, session)
         seq = self._scope_seq.get(scope, 0)
         self._scope_seq[scope] = seq + 1
         record.seq = seq
         self._track(record)
         self._drop_pid_cache(scope)
+        return record
 
     def _spilled(
         self,
@@ -345,21 +414,422 @@ class TorchConsensusEngine(Generic[Scope]):
         proposal: Proposal,
         config: ConsensusConfig,
         now: int,
+        session: ConsensusSession | None = None,
     ) -> SessionRecord[Scope]:
         """A host-spilled record under the next negative synthetic slot;
-        its scalar session holds the tallies the device would."""
-        session = ConsensusSession._new(proposal, config, now)
-        record = SessionRecord(scope, self._next_host_slot, proposal, config, now,
-                               session=session)
+        its scalar session (``session``, or a fresh one) holds the tallies
+        the device would."""
+        if session is None:
+            session = ConsensusSession._new(proposal, config, now)
+        record = SessionRecord(scope, self._next_host_slot, session.proposal,
+                               config, now, session=session)
         record.votes = session.votes  # one dict: the session's
         self._next_host_slot -= 1
         return record
+
+    def _register_session(
+        self, scope: Scope, session: ConsensusSession, created_at: int
+    ) -> None:
+        """Load a scalar session (possibly already decided) into a fresh
+        slot: the path of validated network proposals. A session the pool
+        cannot hold stays host-backed (see :meth:`_register`)."""
+        record = self._register(
+            scope, session.proposal, session.config, created_at, session=session
+        )
+        if record is None or record.session is not None:
+            return  # evicted at once, or host-backed: the session IS the state
+        record.votes = {k: v.clone() for k, v in session.votes.items()}
+        if session.votes or not session.state.is_active:
+            if not load_session_rows(self._pool, record.slot, session):
+                raise RuntimeError("a session that fits the lanes did not load")
 
     def _track(self, record: SessionRecord[Scope]) -> None:
         scope = record.scope
         self._records[record.slot] = record
         self._index[(scope, record.proposal.proposal_id)] = record.slot
         self._scopes.setdefault(scope, []).append(record.slot)
+
+    # ── Proposals from peers ───────────────────────────────────────────
+
+    def process_incoming_proposal(
+        self,
+        scope: Scope,
+        proposal: Proposal,
+        now: int,
+        config: ConsensusConfig | None = None,
+    ) -> None:
+        """Validate a network proposal (signatures, chain, expiry — the full
+        scalar gauntlet, reference: src/session.rs:198-221) and load the
+        replayed session into the pool as a dense row. ``config``
+        optionally overrides the scope-config resolution with the same
+        precedence create_proposal gives its explicit override."""
+        if (scope, proposal.proposal_id) in self._index:
+            raise ProposalAlreadyExist()
+        config = self._resolve_config(scope, config, proposal)
+        # Fail fast BEFORE the signature prepass: expired gossip buys no
+        # signature work and does not churn the cache.
+        validate_proposal_timestamp(proposal.expiration_timestamp, now)
+        # Verdicts for the embedded chain through the admission cache
+        # (None: from_proposal verifies each vote inline, the scalar flow).
+        sv = ch = None
+        if proposal.votes and self._verify_cache is not None:
+            sv, ch = self._cached_verify(proposal.votes)
+        session, transition = ConsensusSession.from_proposal(
+            proposal.clone(),
+            self._scheme,
+            config,
+            now,
+            sig_verdicts=sv,
+            computed_hashes=ch,
+        )
+        # Event before save, as in the reference (src/service.rs:275-277).
+        if transition.is_reached:
+            self._emit(
+                scope,
+                ConsensusReached(
+                    proposal_id=proposal.proposal_id,
+                    result=transition.reached,
+                    timestamp=now,
+                ),
+            )
+        self._register_session(scope, session, now)
+
+    def ingest_proposals(
+        self,
+        items: list[tuple[Scope, Proposal]],
+        now: int,
+        configs: "list[ConsensusConfig | None] | None" = None,
+    ) -> list[int]:
+        """Batch counterpart of :meth:`process_incoming_proposal`: validate
+        and load many (possibly vote-carrying) proposals in bulk.
+
+        All embedded signatures go through one admission-verify submit (a
+        device signer runs them as one GPU batch), and all chains of more
+        than one vote through one chain-check dispatch on the engine's
+        device while that batch is in flight; then each proposal replays
+        the exact scalar check sequence with the precomputed verdicts,
+        hashes and chain result injected, so error precedence is the scalar
+        path's. Returns one StatusCode per item (OK = registered; events
+        emitted exactly as the scalar path would). ``configs`` optionally
+        supplies a per-item explicit config override.
+        """
+        from ..convert import chain_pack_from_numpy
+        from ..ops.chain import (
+            CHAIN_FIELDS,
+            chain_kernel_batch,
+            first_chain_error,
+            pack_chains,
+        )
+
+        if configs is not None and len(configs) != len(items):
+            raise ValueError("configs must supply one entry per item")
+        statuses = [int(StatusCode.OK)] * len(items)
+
+        # Items that cannot pass — registered or expired at entry — stay
+        # out of the verify batch and the chain check: redelivered and
+        # expired chains buy no signature work. The final loop's inline
+        # gauntlet gives their statuses (PROPOSAL_ALREADY_EXIST, or
+        # ProposalExpired before any signature work).
+        skip = [
+            (scope, proposal.proposal_id) in self._index
+            or now >= proposal.expiration_timestamp
+            for scope, proposal in items
+        ]
+        flat_votes: list[Vote] = []
+        spans: list[tuple[int, int] | None] = []  # (start, count) per item
+        for i, (_, proposal) in enumerate(items):
+            if skip[i]:
+                spans.append(None)
+                continue
+            spans.append((len(flat_votes), len(proposal.votes)))
+            flat_votes.extend(proposal.votes)
+        # The signature batch is submitted now, the chain check dispatches
+        # while it runs, and the verdicts are collected when both are due.
+        pending_verify = (
+            self._cached_verify_begin(flat_votes) if flat_votes else None
+        )
+
+        chain_errors: dict[int, ConsensusError | None] = {}
+        chain_idx = [
+            i for i, (_, p) in enumerate(items) if not skip[i] and len(p.votes) > 1
+        ]
+        if chain_idx:
+            packed = chain_pack_from_numpy(
+                pack_chains([items[i][1].votes for i in chain_idx]), self.device
+            )
+            chain_statuses = chain_kernel_batch(
+                *(packed[k] for k in CHAIN_FIELDS)
+            ).cpu().numpy()
+            for j, i in enumerate(chain_idx):
+                code = first_chain_error(chain_statuses[j])
+                exc_cls = error_for_code(code) if code else None
+                chain_errors[i] = exc_cls() if exc_cls is not None else None
+
+        verdicts: list = []
+        vote_hashes: list = []
+        if pending_verify is not None:
+            verdicts, vote_hashes = pending_verify.collect()
+
+        for i, (scope, proposal) in enumerate(items):
+            # Re-checked: an earlier item may have registered this pid.
+            if (scope, proposal.proposal_id) in self._index:
+                statuses[i] = int(StatusCode.PROPOSAL_ALREADY_EXIST)
+                continue
+            if spans[i] is None:
+                # Nothing precomputed: expired at entry, or registered at
+                # entry and evicted by an earlier item's per-scope cap —
+                # the full scalar gauntlet, as a sequential call would run.
+                sv = ch = None
+                chain_error = COMPUTE_CHAIN
+            else:
+                start, count = spans[i]
+                sv = verdicts[start:start + count] if count else None
+                ch = vote_hashes[start:start + count] if count else None
+                chain_error = chain_errors.get(i)
+            try:
+                config = self._resolve_config(
+                    scope, configs[i] if configs is not None else None, proposal
+                )
+                session, transition = ConsensusSession.from_proposal(
+                    proposal.clone(),
+                    self._scheme,
+                    config,
+                    now,
+                    sig_verdicts=sv,
+                    chain_error=chain_error,
+                    computed_hashes=ch,
+                )
+                if transition.is_reached:
+                    self._emit(
+                        scope,
+                        ConsensusReached(
+                            proposal_id=proposal.proposal_id,
+                            result=transition.reached,
+                            timestamp=now,
+                        ),
+                    )
+                self._register_session(scope, session, now)
+            except ConsensusError as exc:
+                statuses[i] = int(exc.code)
+        return statuses
+
+    def deliver_proposal(
+        self,
+        scope: Scope,
+        proposal: Proposal,
+        now: int,
+        config: ConsensusConfig | None = None,
+    ) -> int:
+        """Scalar :meth:`deliver_proposals` (one StatusCode int)."""
+        return self.deliver_proposals(
+            [(scope, proposal)], now,
+            configs=[config] if config is not None else None,
+        )[0]
+
+    def deliver_proposals(
+        self,
+        items: "list[tuple[Scope, Proposal]]",
+        now: int,
+        configs: "list[ConsensusConfig | None] | None" = None,
+    ) -> "list[int]":
+        """Gossip-facing delivery of (possibly vote-carrying) proposals:
+        create unknown sessions, EXTEND known ones along the validated-chain
+        watermark, and absorb pure redeliveries for free. Per item:
+
+        - unknown ``(scope, proposal_id)``: the full :meth:`ingest_proposals`
+          gauntlet; status as that path reports it;
+        - known, and the incoming chain strictly extends the accepted one
+          (every accepted vote's hash matches positionally): ONLY the
+          suffix is hash/signature/chain-checked and applied through the
+          batch vote path. OK when every suffix vote landed (duplicates and
+          post-decision extras are absorbed), else the first hard per-vote
+          error. Admission failures apply nothing; apply-stage rejections
+          leave earlier suffix votes applied, as the per-vote gossip path
+          would;
+        - known otherwise — identical, shorter or forked chain:
+          PROPOSAL_ALREADY_EXIST with zero crypto.
+
+        Items run STRICTLY in order, each against the state the previous
+        ones left, so a batch equals the same deliveries made one by one.
+        Consecutive unknown items with distinct pids still go as one
+        :meth:`ingest_proposals` call (one verify batch, one chain check),
+        and the suffixes of the first item of every key known at entry go
+        through one verify batch before any item applies, with the chains
+        of the unknown ones too when the cache is on
+        (:meth:`_suffix_prepass`).
+        """
+        if configs is not None and len(configs) != len(items):
+            raise ValueError("configs must supply one entry per item")
+        statuses: list[int] = [0] * len(items)
+        run: list[int] = []  # consecutive unknown items, distinct pids
+        run_keys: set = set()
+        verified = self._suffix_prepass(items, now)
+
+        def flush_run() -> None:
+            if not run:
+                return
+            sub = self.ingest_proposals(
+                [items[j] for j in run],
+                now,
+                configs=[configs[j] for j in run] if configs is not None else None,
+            )
+            for j, code in zip(run, sub):
+                statuses[j] = int(code)
+            run.clear()
+            run_keys.clear()
+
+        for k, (scope, proposal) in enumerate(items):
+            key = (scope, proposal.proposal_id)
+            # A known pid — or one this run is about to register — must see
+            # the state all earlier items produced: flush first.
+            if key in self._index or key in run_keys:
+                flush_run()
+            slot = self._index.get(key)
+            if slot is None:
+                run.append(k)
+                run_keys.add(key)
+                continue
+            record = self._records[slot]
+            if k in verified:
+                suffix, verdicts = verified[k]
+            else:
+                suffix, verdicts = self._extension_suffix(record, proposal), None
+            if suffix:
+                statuses[k] = self._apply_chain_suffix(record, suffix, now, verdicts)
+            else:
+                statuses[k] = int(StatusCode.PROPOSAL_ALREADY_EXIST)
+        flush_run()
+        return statuses
+
+    def _suffix_prepass(
+        self, items: "list[tuple[Scope, Proposal]]", now: int
+    ) -> dict:
+        """Signature verdicts for the extension suffixes of a
+        :meth:`deliver_proposals` call, as ONE admission-verify batch:
+        ``{item index: (suffix, (verdicts, computed_hashes))}``.
+
+        Only the first item of each key that is known and unexpired at entry
+        takes part. Earlier items of a call never touch another key's
+        accepted chain (an extension applies votes of its own proposal id
+        only), so that item's suffix is the one it meets when its turn
+        comes. If an earlier ``ingest_proposals`` run evicted the session,
+        the key is unknown by then and the entry goes unused. A verdict
+        depends only on the vote's bytes, so verifying the suffixes
+        together gives every item the verdicts it would get in turn; later
+        items of a repeated key verify when they apply.
+
+        With the cache on, the same batch also takes the chains of the
+        first, unexpired items of keys unknown at entry: their
+        ``ingest_proposals`` runs then find every verdict in the cache and
+        submit nothing."""
+        plan = []  # (item index, suffix)
+        warm: list[Vote] = []  # unknown items' chains, for the cache
+        seen: set = set()
+        for k, (scope, proposal) in enumerate(items):
+            key = (scope, proposal.proposal_id)
+            if key in seen:
+                continue
+            seen.add(key)
+            slot = self._index.get(key)
+            if slot is None:
+                if self._verify_cache is not None and now < proposal.expiration_timestamp:
+                    warm.extend(proposal.votes)
+                continue
+            record = self._records[slot]
+            if now >= record.proposal.expiration_timestamp:
+                continue  # expired: no signature work
+            suffix = self._extension_suffix(record, proposal)
+            if suffix:
+                plan.append((k, suffix))
+        if not plan and not warm:
+            return {}
+        verdicts, hashes = self._cached_verify([v for _, s in plan for v in s] + warm)
+        out, start = {}, 0
+        for k, suffix in plan:
+            end = start + len(suffix)
+            out[k] = (suffix, (verdicts[start:end], hashes[start:end]))
+            start = end
+        return out
+
+    def _extension_suffix(
+        self, record: SessionRecord[Scope], proposal: Proposal
+    ) -> "list[Vote] | None":
+        """Suffix of ``proposal.votes`` beyond the session's accepted chain,
+        or None when the incoming chain is not a strict extension of it
+        (shorter, equal-length, or forked before the watermark). The
+        prefix compare is bytes equality over validated hashes — no
+        crypto."""
+        accepted = record.proposal.votes
+        incoming = proposal.votes
+        if len(incoming) <= len(accepted):
+            return None
+        for ours, theirs in zip(accepted, incoming):
+            if ours.vote_hash != theirs.vote_hash:
+                return None
+        return [v.clone() for v in incoming[len(accepted):]]
+
+    def _apply_chain_suffix(
+        self,
+        record: SessionRecord[Scope],
+        suffix: "list[Vote]",
+        now: int,
+        verified: "tuple[list, list[bytes]] | None" = None,
+    ) -> int:
+        """Validate and apply a watermark extension: hash, signature
+        (admission cache, or ``verified``: the suffix's verdicts and
+        computed hashes from :meth:`_suffix_prepass`) and chain-link checks
+        cover ONLY the suffix.
+        Admission is all-or-nothing (the first bad suffix vote rejects the
+        delivery before anything mutates); apply-stage rejections leave
+        earlier suffix votes applied and return the first hard code. The
+        expiry fail-fast uses the proposal-level ``now >= expiration``
+        check of every proposal entry point (the per-vote path expires
+        strictly after)."""
+        proposal = record.proposal
+        # Fail fast BEFORE the signature prepass: an expired session's
+        # extensions buy no signature work and do not churn the cache.
+        try:
+            validate_proposal_timestamp(proposal.expiration_timestamp, now)
+        except ConsensusError as exc:
+            return int(exc.code)
+        verdicts, hashes = verified if verified is not None else self._cached_verify(suffix)
+        for i, vote in enumerate(suffix):
+            if vote.proposal_id != proposal.proposal_id:
+                return int(StatusCode.VOTE_PROPOSAL_ID_MISMATCH)
+            try:
+                validate_vote(
+                    vote,
+                    self._scheme,
+                    proposal.expiration_timestamp,
+                    proposal.timestamp,
+                    now,
+                    sig_verdict=verdicts[i],
+                    computed_hash=hashes[i],
+                )
+            except ConsensusError as exc:
+                return int(exc.code)
+        # The chain rule from the watermark on (the prefix's links were
+        # checked at acceptance).
+        try:
+            validate_vote_chain(proposal.votes + suffix, start=len(proposal.votes))
+        except ConsensusError as exc:
+            return int(exc.code)
+        sub = self.ingest_votes(
+            [(record.scope, vote) for vote in suffix], now, pre_validated=True
+        )
+        # Soft codes a live session legitimately gives chain votes that
+        # raced concurrent gossip: the owner already voted, or the session
+        # decided mid-suffix. Anything else is a hard error.
+        soft = (
+            int(StatusCode.OK),
+            int(StatusCode.ALREADY_REACHED),
+            int(StatusCode.DUPLICATE_VOTE),
+            int(StatusCode.USER_ALREADY_VOTED),
+        )
+        for code in sub:
+            if int(code) not in soft:
+                return int(code)
+        return int(StatusCode.OK)
 
     # ── Voting ─────────────────────────────────────────────────────────
 
@@ -380,6 +850,13 @@ class TorchConsensusEngine(Generic[Scope]):
             raise exc()
         return vote
 
+    def cast_vote_and_get_proposal(
+        self, scope: Scope, proposal_id: int, choice: bool, now: int
+    ) -> Proposal:
+        """reference: src/service.rs:243-253"""
+        self.cast_vote(scope, proposal_id, choice, now)
+        return self._get_record(scope, proposal_id).proposal.clone()
+
     def process_incoming_vote(self, scope: Scope, vote: Vote, now: int) -> None:
         """Scalar network-vote entry point (reference: src/service.rs:286-305):
         full host validation, then the batched device path."""
@@ -388,11 +865,141 @@ class TorchConsensusEngine(Generic[Scope]):
         if exc is not None:
             raise exc()
 
+    def _cached_verify(
+        self, votes: "list[Vote]"
+    ) -> "tuple[list, list[bytes]]":
+        """Synchronous admission-verify prepass:
+        ``_cached_verify_begin(votes).collect()``."""
+        return self._cached_verify_begin(votes).collect()
+
+    def verify_votes_async(self, votes: "list[Vote]") -> PendingVoteVerdicts:
+        """Public admission-verify prepass for pipelining embedders: starts
+        the vote-hash recompute, structural prechecks, cache consult and
+        the signature batch NOW and returns a handle whose ``collect()``
+        yields ``(verdicts, computed_hashes)`` aligned with ``votes``.
+        Before rows may be ingested as validated, every verdict must be
+        True and each computed hash equal to the vote's ``vote_hash``."""
+        return self._cached_verify_begin(votes)
+
+    def _cached_verify_begin(self, votes: "list[Vote]") -> PendingVoteVerdicts:
+        """Signature verdicts for ``votes`` through the admission cache, in
+        two halves. This half: in-batch dedup (identical votes across many
+        chains collapse to one verify item), the cache consult, and ONE
+        ``verify_batch_submit`` over the surviving misses. The ``collect()``
+        half: await the verdicts, fan them out, fill the cache, and return
+        ``(verdicts, computed_hashes)`` aligned with ``votes``.
+
+        With the cache disabled this is a plain batched verify of every
+        vote. Rows whose embedded ``vote_hash`` differs from the recomputed
+        one, or with an empty owner or signature, are neither verified nor
+        cached: validate_vote rejects them before it reads the verdict."""
+        hashes = [compute_vote_hash(v) for v in votes]
+        if self._verify_cache is None:
+            if not votes:
+                return PendingVoteVerdicts(lambda: ([], hashes))
+            pending = self._scheme.verify_batch_submit(
+                [v.vote_owner for v in votes],
+                [v.signing_payload() for v in votes],
+                [v.signature for v in votes],
+            )
+            return PendingVoteVerdicts(lambda: (list(pending.collect()), hashes))
+        cache = self._verify_cache
+        verdicts: list = [False] * len(votes)
+        rows: list[int] = []
+        keys: list[bytes] = []
+        payloads: list[bytes] = []
+        for i, (vote, digest) in enumerate(zip(votes, hashes)):
+            if not vote.vote_owner or not vote.signature or vote.vote_hash != digest:
+                continue  # verdict unreachable in validate_vote's ordering
+            payload = vote.signing_payload()
+            rows.append(i)
+            payloads.append(payload)
+            keys.append(VerifiedVoteCache.key(payload, vote.signature, self._verify_scheme_tag))
+        miss_rows: dict[bytes, list[int]] = {}
+        miss_payloads: dict[bytes, bytes] = {}
+        for i, key, payload, hit in zip(rows, keys, payloads, cache.get_many(keys)):
+            if hit is not MISS:
+                verdicts[i] = hit
+            else:
+                miss_rows.setdefault(key, []).append(i)
+                miss_payloads.setdefault(key, payload)
+        if not miss_rows:
+            return PendingVoteVerdicts(lambda: (verdicts, hashes))
+        rep = [r[0] for r in miss_rows.values()]
+        pending = self._scheme.verify_batch_submit(
+            [votes[i].vote_owner for i in rep],
+            list(miss_payloads.values()),
+            [votes[i].signature for i in rep],
+        )
+
+        def _finish():
+            fresh = pending.collect()
+            for miss, verdict in zip(miss_rows.values(), fresh):
+                for i in miss:
+                    verdicts[i] = verdict
+            cache.put_many(list(zip(miss_rows, fresh)))
+            return verdicts, hashes
+
+        return PendingVoteVerdicts(_finish)
+
+    def _vote_prepass_begin(
+        self, items: "list[tuple[Scope, Vote]]", pre_validated: bool
+    ) -> "tuple[list[int], PendingVoteVerdicts] | None":
+        """Start the signature prepass of an ingest_votes batch: the rows
+        that have a session, submitted through the admission cache. Returns
+        (row indices, pending handle), or None when the batch takes no
+        prepass (pre-validated, or a single vote without the cache, which
+        verifies inline).
+
+        Safe to call for batch k+1 BEFORE batch k applies — the
+        double-buffered pipeline — because ingest_votes never registers or
+        evicts sessions: every row the prepass resolved stays resolved."""
+        batch = len(items)
+        if pre_validated or not (
+            batch > 1 or (batch == 1 and self._verify_cache is not None)
+        ):
+            return None
+        idxs = [
+            i for i, (scope, vote) in enumerate(items)
+            if (scope, vote.proposal_id) in self._index
+        ]
+        if not idxs:
+            return None
+        return idxs, self._cached_verify_begin([items[i][1] for i in idxs])
+
+    def ingest_votes_pipelined(
+        self,
+        batches: "list[list[tuple[Scope, Vote]]]",
+        now: int,
+        pre_validated: bool = False,
+    ) -> "list[np.ndarray]":
+        """Double-buffered :meth:`ingest_votes` over consecutive batches:
+        batch k+1's signature prepass is submitted BEFORE batch k applies,
+        so a device signer's batch overlaps the previous batch's dispatch
+        and host bookkeeping. Result-identical to ``[ingest_votes(b, now,
+        pre_validated) for b in batches]``."""
+        results: "list[np.ndarray]" = []
+        prev = None
+        for items in batches:
+            items = list(items)
+            prepass = self._vote_prepass_begin(items, pre_validated)
+            if prev is not None:
+                results.append(
+                    self.ingest_votes(prev[0], now, pre_validated, _prepass=prev[1])
+                )
+            prev = (items, prepass)
+        if prev is not None:
+            results.append(
+                self.ingest_votes(prev[0], now, pre_validated, _prepass=prev[1])
+            )
+        return results
+
     def ingest_votes(
         self,
         items: list[tuple[Scope, Vote]],
         now: int,
         pre_validated: bool = False,
+        _prepass=_PREPASS_INLINE,
     ) -> np.ndarray:
         """The batch path: apply many votes across many sessions and scopes
         in one device dispatch.
@@ -402,6 +1009,10 @@ class TorchConsensusEngine(Generic[Scope]):
         then run the arrival-ordered ingest scan. Emits ConsensusReached
         for every session the batch decides. Returns int32 status codes in
         batch order (StatusCode.OK / ALREADY_REACHED are successes).
+
+        ``_prepass`` (private) lets :meth:`ingest_votes_pipelined` hand in
+        the signature prepass it already started for this batch; the
+        default starts it here.
         """
         batch = len(items)
         statuses = np.zeros(batch, np.int32)
@@ -418,23 +1029,19 @@ class TorchConsensusEngine(Generic[Scope]):
         # its host-side append happens after the dispatch.
         pending_tail: dict[int, bytes] = {}
 
-        # Batched signature verification: one scheme call for the batch,
-        # verdicts injected into the per-vote check sequence (exact scalar
-        # error precedence). A single unvalidated vote verifies inline.
+        # Batched signature verification through the admission cache:
+        # verdicts and recomputed hashes injected into the per-vote check
+        # sequence (exact scalar error precedence). Without the cache a
+        # single unvalidated vote verifies inline.
         sig_verdicts: dict[int, object] = {}
-        if not pre_validated and batch > 1:
-            idxs = [
-                i for i, (scope, vote) in enumerate(items)
-                if (scope, vote.proposal_id) in self._index
-            ]
-            if idxs:
-                sub = [items[i][1] for i in idxs]
-                verdicts = self._scheme.verify_batch_submit(
-                    [v.vote_owner for v in sub],
-                    [v.signing_payload() for v in sub],
-                    [v.signature for v in sub],
-                ).collect()
-                sig_verdicts = dict(zip(idxs, verdicts))
+        vote_hashes: dict[int, bytes] = {}
+        if _prepass is _PREPASS_INLINE:
+            _prepass = self._vote_prepass_begin(items, pre_validated)
+        if _prepass is not None:
+            idxs, pending = _prepass
+            verdicts, hashes = pending.collect()
+            sig_verdicts = dict(zip(idxs, verdicts))
+            vote_hashes = dict(zip(idxs, hashes))
 
         for i, (scope, vote) in enumerate(items):
             slot = self._index.get((scope, vote.proposal_id))
@@ -451,6 +1058,7 @@ class TorchConsensusEngine(Generic[Scope]):
                         record.proposal.timestamp,
                         now,
                         sig_verdict=sig_verdicts.get(i),
+                        computed_hash=vote_hashes.get(i),
                     )
                 except ConsensusError as exc:
                     statuses[i] = int(exc.code)
@@ -1286,10 +1894,17 @@ def _synchronized(fn):
 for _name in (
     "create_proposal",
     "create_proposals",
+    "process_incoming_proposal",
+    "ingest_proposals",
+    "deliver_proposal",
+    "deliver_proposals",
     "ingest_columnar",
     "voter_gid",
     "cast_vote",
+    "cast_vote_and_get_proposal",
     "process_incoming_vote",
+    "verify_votes_async",
+    "ingest_votes_pipelined",
     "ingest_votes",
     "handle_consensus_timeout",
     "sweep_timeouts",
