@@ -57,7 +57,8 @@ phase holds:
    4,096 Ed25519-signed votes — one device batch — then a call of 64 votes
    holding a corrupted scalar, an s >= L, an undecodable key and an R with
    its sign bit flipped, which forces the host blame pass. A CPU engine
-   with the host signer (the pure-Python twin) takes the same vote bytes;
+   with the host signer (the native runtime's batch verification) takes
+   the same vote bytes;
 8. proposals from peers, at config 3's width (the main path of slice 6):
    senders (a CPU engine taking pre-validated votes, 64 Ed25519 keys,
    seeded ids) hold 64 proposals of 64 voters, half gossipsub and half
@@ -78,12 +79,35 @@ phase holds:
    was given in (a) and (b) on both GPU engines: the field kernels at every
    shape, the MSM kernels at the fewest lanes (a cache-off run of one whole
    chain) and the most ((a)'s batch), also on a rejecting combination made
-   from them. A CPU engine whose host twin
-   verifies across 8 worker processes takes the same bytes.
+   from them. A CPU engine whose host signer verifies with the native
+   runtime takes the same bytes;
+9. the service layer (slice 7), BASELINE config 1 and then a node's
+   session backlog. (a) The README quick-start: three peers'
+   ``ConsensusService``s with Ethereum signers share one
+   ``TorchBackedStorage`` on the card and one event bus. (b) 48 scopes,
+   half on the Gossipsub preset and half on the P2P one, thresholds 2/3,
+   0.75 and 1.0, both liveness settings; 11 proposals of 64 voters a scope
+   (the 11th evicts the oldest under the default retention of 10) and 8
+   proposals of 100 voters (host-only); 48 votes a proposal (70 on the wide
+   ones) from 70 Ethereum keys, signed once by the native runtime on 8
+   threads and delivered through ``process_incoming_vote`` in one
+   seeded shuffle across scopes with 1% duplicates and 2% after their
+   session's expiry, then ``handle_consensus_timeout`` on every active
+   session. A service over ``TorchBackedStorage(capacity=4096,
+   voter_capacity=64)`` on the card and one over
+   ``InMemoryConsensusStorage`` take the same calls: every outcome, the
+   events and stats per scope and every result must be equal, and every
+   pooled row read back from the card must equal the row built from the
+   in-memory session in a fresh CPU pool. It prints each service's votes/s,
+   the p50 and p99 of one call, and a call's split into ``eth_verify``, the
+   storage write (and within it the row reload on the card) and the rest.
+   The path launches no hand kernel.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
-stats; phases 1-7 build their engines with ``verify_cache=None``. Launch counts are reset just before each phase and read just after
+stats; phases 1-7 build their engines with ``verify_cache=None``. The
+script fails unless the native host runtime builds: the CPU engines and
+the services verify with it, as the JAX package does. Launch counts are reset just before each phase and read just after
 it; phase 7 fails unless the batch launched every verification kernel, the
 MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
 20 times; phase 8 fails unless (a) launched every verification kernel in
@@ -108,6 +132,7 @@ import random
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1351,7 +1376,7 @@ def stage_ops(dev):
 
 
 def phase_verify(dev):
-    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch import _build, native
     from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
@@ -1379,8 +1404,8 @@ def phase_verify(dev):
     main_bytes = signed_votes(gpu.engine, scope, pids[:n_main], keys, 72)
     blame_bytes = signed_votes(gpu.engine, scope, pids[n_main:], keys, 73,
                                corrupt={0: "scalar", 1: "s>=L", 2: "bad-A", 3: "R-sign"})
-    log(f"[verify] signed {len(main_bytes) + len(blame_bytes)} votes with the "
-        f"pure-Python twin in {time.perf_counter() - t0:.3f} s (outside the timed window)")
+    log(f"[verify] signed {len(main_bytes) + len(blame_bytes)} votes with the native "
+        f"runtime in {time.perf_counter() - t0:.3f} s (outside the timed window)")
 
     def ingest(run, data, now):
         items = [(scope, Vote.decode(b)) for b in data]
@@ -1433,13 +1458,22 @@ def phase_verify(dev):
         raise AssertionError(f"the damaged votes were not all rejected: {blame_codes}")
     results, stats = gpu.outcome(scope)
 
-    # The host twin's rate on this machine, on a slice of the same batch.
+    # The host verifiers' rates on this machine: the twin on a slice of the
+    # same batch, the native runtime's batch verification on all of it.
     sample = [Vote.decode(b) for b in main_bytes[:256]]
     t = time.perf_counter()
     twin_ok = [twin.verify(v.vote_owner, v.signing_payload(), v.signature) for v in sample]
     twin_rate = len(sample) / (time.perf_counter() - t)
     if not all(twin_ok):
         raise AssertionError("the twin rejected a valid signature")
+    everything = [Vote.decode(b) for b in main_bytes]
+    batch = ([v.vote_owner for v in everything], [v.signing_payload() for v in everything],
+             [v.signature for v in everything])
+    t = time.perf_counter()
+    native_ok = native.ed25519_verify_batch(*batch)
+    native_rate = len(everything) / (time.perf_counter() - t)
+    if native_ok is None or not native_ok.all():
+        raise AssertionError("the native batch verification rejected a valid signature")
 
     ops = stage_ops(dev)
     rate = len(main_bytes) / phases_main["total"]
@@ -1450,12 +1484,15 @@ def phase_verify(dev):
     log(f"[verify] second call, 64 votes with 4 damaged: {wall_blame:.6f} s wall; phases "
         f"{json.dumps(phases_blame)}; launches per kernel {json.dumps(blame_launches)}; "
         f"statuses {blame_codes}")
-    log(f"[verify] host twin: {twin_rate:.1f} signatures/s on this machine's CPU; the CPU "
-        f"engine took {cpu_wall_main:.6f} s for the {len(main_bytes)}-vote call; stats (total, active, "
-        f"failed, reached) {stats}; identical statuses, results and events")
+    log(f"[verify] host verifiers on this machine's CPU: the native runtime's batch "
+        f"verification {native_rate:.1f} signatures/s, the pure-Python twin {twin_rate:.1f}; "
+        f"the CPU engine (native batch verification) took {cpu_wall_main:.6f} s for the "
+        f"{len(main_bytes)}-vote call against the GPU engine's {wall_main:.6f} s; stats "
+        f"(total, active, failed, reached) {stats}; identical statuses, results and events")
     log(f"[verify] PyTorch operator calls per stage at 16 lanes: {ops}")
     return dict(launches=main_launches, launches_blame=blame_launches, rate=rate,
-                twin_rate=twin_rate, phases=phases_main, phases_blame=phases_blame)
+                twin_rate=twin_rate, native_rate=native_rate, phases=phases_main,
+                phases_blame=phases_blame)
 
 
 # ── Phase 8: proposals from peers (ingest, delivery, redelivery) ───────
@@ -1468,48 +1505,6 @@ PROP_WAVE = 16  # votes each wave of (b) tries to add to every chain
 PROP_SCOPES = ("gossip", "p2p")
 # Proposal-path kernels: the verification batch's and the scan's.
 PROPOSAL_KERNELS = VERIFY_KERNELS + ("ingest_scan",)
-
-
-def _twin_sign(job):
-    """Pool worker: the host twin's Ed25519 signature of one payload."""
-    from hashgraph_tpu_torch.signing import _ed25519
-
-    seed, payload = job
-    return _ed25519.sign(seed, payload)
-
-
-def _twin_verify(job):
-    """Pool worker: the host twin's verdict on one signature."""
-    from hashgraph_tpu_torch.signing import _ed25519
-
-    return _ed25519.verify(*job)
-
-
-def twin_pool():
-    """Worker processes for the pure-Python twin (spawned: this process has
-    CUDA and threads)."""
-    import multiprocessing
-
-    return multiprocessing.get_context("spawn").Pool(8)
-
-
-def pooled_twin_signer(pool):
-    """The host Ed25519 scheme whose batch verification runs the twin item
-    by item, as ``Ed25519ConsensusSigner.verify_batch`` does, across
-    ``pool``'s processes: the CPU engine's reference verdicts."""
-    from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
-
-    class PooledTwinSigner(Ed25519ConsensusSigner):
-        @classmethod
-        def verify_batch(cls, identities, payloads, signatures):
-            out, well_formed = cls._precheck(identities, payloads, signatures)
-            jobs = [(bytes(identities[i]), payloads[i], bytes(signatures[i]))
-                    for i in well_formed]
-            for i, verdict in zip(well_formed, pool.map(_twin_verify, jobs, chunksize=32)):
-                out[i] = verdict
-            return out
-
-    return PooledTwinSigner
 
 
 def counting_device_signer():
@@ -1631,7 +1626,7 @@ def hold_captured(captured):
 
 class _Unsigned:
     """A key that builds votes with an empty signature; the signatures are
-    made afterwards, all at once, in the twin's worker pool."""
+    made afterwards, all at once, by the native runtime."""
 
     def __init__(self, key):
         self.key = key
@@ -1656,7 +1651,7 @@ def proposal_engine(dev, signer, cache, capacity=CAPACITY, voter_capacity=VOTER_
     return engine
 
 
-def proposal_traffic_data(pool, n_main=PROP_MAIN, first=PROP_FIRST, wave=PROP_WAVE,
+def proposal_traffic_data(n_main=PROP_MAIN, first=PROP_FIRST, wave=PROP_WAVE,
                           wide_voters=2000):
     """The senders' side of phase 8, as encoded wire bytes.
 
@@ -1673,6 +1668,7 @@ def proposal_traffic_data(pool, n_main=PROP_MAIN, first=PROP_FIRST, wave=PROP_WA
         Ed25519ConsensusSigner,
         StubConsensusSigner,
         build_vote,
+        native,
         protocol,
     )
     from hashgraph_tpu_torch.errors import StatusCode
@@ -1786,17 +1782,17 @@ def proposal_traffic_data(pool, n_main=PROP_MAIN, first=PROP_FIRST, wave=PROP_WA
     if lengths[0] != [first] * n_main:
         raise AssertionError(f"the sender decided a chain before {first} votes: {lengths[0]}")
 
-    # Sign every vote at once, in the pool.
+    # Sign every vote at once, with the native runtime.
     to_sign = {id(v): v for c in chains for v in c}
     for p in expired + [wide, decided]:
         to_sign.update((id(v), v) for v in p.votes)
     for k in damage:
         to_sign.update((id(v), v) for v in items_a[k][1].votes)
     todo = list(to_sign.values())
-    sigs = pool.map(_twin_sign, [(seed_of[v.vote_owner], v.signing_payload()) for v in todo],
-                    chunksize=64)
-    for vote, sig in zip(todo, sigs):
-        vote.signature = sig
+    for vote in todo:
+        vote.signature = native.ed25519_sign(seed_of[vote.vote_owner], vote.signing_payload())
+        if vote.signature is None:
+            raise AssertionError("the native runtime did not sign")
     for k, kind in damage.items():
         p = items_a[k][1]
         if kind in ("s>=L", "R"):
@@ -1968,46 +1964,42 @@ def phase_proposals(dev):
     from hashgraph_tpu_torch.convert import chain_pack_from_numpy
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops.chain import CHAIN_FIELDS, chain_kernel_batch, pack_chains
-    from hashgraph_tpu_torch.signing import Ed25519DeviceConsensusSigner
+    from hashgraph_tpu_torch.signing import (
+        Ed25519ConsensusSigner,
+        Ed25519DeviceConsensusSigner,
+    )
     from hashgraph_tpu_torch.wire import Proposal
 
     t_phase = time.perf_counter()
-    pool = twin_pool()
-    try:
-        t0 = time.perf_counter()
-        data = proposal_traffic_data(pool)
-        sign_s = time.perf_counter() - t0
-        rng = random.Random(86)
-        on = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)),
-                                         "default"))
-        off = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)),
-                                          None))
-        cpu = ProposalRun(proposal_engine("cpu", pooled_twin_signer(pool)(rng.randbytes(32)),
-                                          "default"))
-        # Warm the pipeline (allocator, first launches at (a)'s lane
-        # buckets) and the chain check outside the engines, which keep
-        # their caches cold.
-        t = time.perf_counter()
-        warm = [v for _, p in data["a"] for v in Proposal.decode(p).votes]
-        Ed25519DeviceConsensusSigner.verify_batch(
-            [v.vote_owner for v in warm], [v.signing_payload() for v in warm],
-            [v.signature for v in warm])
-        packed = chain_pack_from_numpy(pack_chains([warm[:PROP_FIRST]]), dev)
-        chain_kernel_batch(*(packed[k] for k in CHAIN_FIELDS)).cpu()
-        warm_s = time.perf_counter() - t
-        captured = KernelInputs()
-        t = time.perf_counter()
-        with captured.active():
-            on_log, on_state, on_stages = proposal_traffic(on, data)
-            on_s = time.perf_counter() - t
-            off_log, off_state, off_stages = proposal_traffic(off, data)
-            off_s = time.perf_counter() - t - on_s
-        t = time.perf_counter()
-        cpu_log, cpu_state, cpu_stages = proposal_traffic(cpu, data)
-        cpu_s = time.perf_counter() - t
-    finally:
-        pool.terminate()
-        pool.join()
+    t0 = time.perf_counter()
+    data = proposal_traffic_data()
+    sign_s = time.perf_counter() - t0
+    rng = random.Random(86)
+    on = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)),
+                                     "default"))
+    off = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)), None))
+    cpu = ProposalRun(proposal_engine("cpu", Ed25519ConsensusSigner(rng.randbytes(32)),
+                                      "default"))
+    # Warm the pipeline (allocator, first launches at (a)'s lane buckets)
+    # and the chain check outside the engines, which keep their caches cold.
+    t = time.perf_counter()
+    warm = [v for _, p in data["a"] for v in Proposal.decode(p).votes]
+    Ed25519DeviceConsensusSigner.verify_batch(
+        [v.vote_owner for v in warm], [v.signing_payload() for v in warm],
+        [v.signature for v in warm])
+    packed = chain_pack_from_numpy(pack_chains([warm[:PROP_FIRST]]), dev)
+    chain_kernel_batch(*(packed[k] for k in CHAIN_FIELDS)).cpu()
+    warm_s = time.perf_counter() - t
+    captured = KernelInputs()
+    t = time.perf_counter()
+    with captured.active():
+        on_log, on_state, on_stages = proposal_traffic(on, data)
+        on_s = time.perf_counter() - t
+        off_log, off_state, off_stages = proposal_traffic(off, data)
+        off_s = time.perf_counter() - t - on_s
+    t = time.perf_counter()
+    cpu_log, cpu_state, cpu_stages = proposal_traffic(cpu, data)
+    cpu_s = time.perf_counter() - t
     compare("proposal statuses and events", on_log, cpu_log)
     compare("proposal sessions, votes and stats", on_state, cpu_state)
     compare("proposal statuses and events, cache off", off_log, on_log)
@@ -2091,7 +2083,7 @@ def phase_proposals(dev):
     verify_a = a["batches"][0]
     chain_a = chains["(a)'s chains"]
     log(f"[proposals] senders: {PROP_MAIN} proposals x {PROP_VOTERS} voters ({PROP_KEYS} "
-        f"Ed25519 keys), {data['signed']} votes built and signed with the twin in 8 processes "
+        f"Ed25519 keys), {data['signed']} votes built and signed with the native runtime "
         f"in {sign_s:.3f} s (outside the timed windows); chain lengths after (a), (b1), (b2): "
         f"{[sum(x) for x in data['lengths']]} votes in all")
     log(f"[proposals] (a) one ingest_proposals call of {n_items} proposals: "
@@ -2122,7 +2114,7 @@ def phase_proposals(dev):
         f"and none fell back to the host blame; each kernel held against its plain version "
         f"on the inputs the path gave it (both GPU engines), at {json.dumps(held)}; the MSM kernels "
         f"also rejecting with lane 0's last window changed; {hold_s:.3f} s")
-    log(f"[proposals] CPU engine (host twin in 8 processes): {cpu_s:.3f} s, walls "
+    log(f"[proposals] CPU engine (native batch verification): {cpu_s:.3f} s, walls "
         f"{[round(s['wall'], 6) for s in cpu_stages]} s; identical statuses, events, "
         f"results, votes, scope stats and spill count; {decided} of {PROP_MAIN} main "
         f"sessions decided")
@@ -2134,7 +2126,408 @@ def phase_proposals(dev):
     return dict(launches=launches, stages=on_stages, chains=chains)
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8")
+# ── Phase 9: the service layer (ConsensusService over TorchBackedStorage) ──
+
+# BASELINE config 1's backlog, cut from the README's 1,000 scopes so that two
+# services' host ECDSA checks fit the run (on the H100 machine the phase took
+# 155 s at 128 scopes and 61-64 s at 64; it is held under 60 s); the voters
+# and the retention are the README's.
+SERVICE_SCOPES = 48
+SERVICE_PROPOSALS = 11  # per scope; the 11th evicts the oldest (retention 10)
+SERVICE_VOTERS = 64
+SERVICE_VOTES = 48  # votes a proposal, 70% YES
+SERVICE_WIDE = 8  # scopes that also take one proposal wider than voter_capacity
+SERVICE_WIDE_VOTERS = 100
+SERVICE_WIDE_VOTES = 70
+SERVICE_KEYS = 70  # the first 64 vote on the pooled proposals, all 70 on the wide
+SERVICE_EXPIRY = 600  # seconds from a proposal's creation
+SERVICE_CAPACITY = 4096
+SERVICE_VOTER_CAPACITY = 64
+
+
+def backlog_plan(seed, scopes=SERVICE_SCOPES, proposals=SERVICE_PROPOSALS,
+                 voters=SERVICE_VOTERS, votes=SERVICE_VOTES, wide=SERVICE_WIDE,
+                 wide_voters=SERVICE_WIDE_VOTERS, wide_votes=SERVICE_WIDE_VOTES,
+                 keys=SERVICE_KEYS):
+    """Phase 9's traffic as plain data, the same for any package.
+
+    Half the scopes take the Gossipsub preset and half the P2P one, with
+    thresholds 2/3, 0.75 and 1.0 and both liveness settings in turn. Each
+    scope takes ``proposals`` proposals of ``voters`` expected voters, one a
+    second, and ``wide`` scopes spread over the range one more of
+    ``wide_voters``. A proposal takes ``votes`` (``wide_votes``) votes from
+    distinct keys, 70% YES. The stream: half of the first proposals' votes
+    in one seeded shuffle across scopes; then the last proposal of every
+    scope and the wide ones are created (each evicting its scope's oldest);
+    then the rest, shuffled. 1% of the votes are delivered again later and
+    2% arrive one second after their session's expiry. Then every session
+    still active times out at its expiry + 1."""
+    rng = random.Random(seed)
+    scope_list = [dict(name=f"scope{j:04d}", p2p=j >= scopes // 2,
+                       threshold=(2 / 3, 0.75, 1.0)[j % 3], liveness=(j // 3) % 2 == 0)
+                  for j in range(scopes)]
+    # (scope index, expected voters, created_at, created mid-stream)
+    props = [(j, voters, NOW + i, i == proposals - 1)
+             for j in range(scopes) for i in range(proposals)]
+    props += [(j * scopes // wide, wide_voters, NOW + proposals, True) for j in range(wide)]
+    vote_list = []  # (proposal index, key index, choice, timestamp)
+    for p, (_, n, created, _) in enumerate(props):
+        count = votes if n == voters else wide_votes
+        for k in rng.sample(range(min(keys, n)), count):
+            vote_list.append((p, k, rng.random() < 0.7, created + 1 + rng.randrange(60)))
+    early = [i for i, v in enumerate(vote_list) if not props[v[0]][3]]
+    rng.shuffle(early)
+    half = len(early) // 2
+    rest = early[half:] + [i for i, v in enumerate(vote_list) if props[v[0]][3]]
+    rng.shuffle(rest)
+    late = set(rng.sample(range(len(vote_list)), len(vote_list) * 2 // 100))
+    stream = [("vote", i) for i in early[:half]]
+    stream += [("create", p) for p, prop in enumerate(props) if prop[3]]
+    stream += [("vote", i) for i in rest]
+    # A redelivery goes at a seeded place after the vote's first delivery.
+    at = {item: k for k, item in enumerate(stream)}
+    keyed = [((k, 0), item) for k, item in enumerate(stream)]
+    for i in rng.sample(range(len(vote_list)), len(vote_list) // 100):
+        keyed.append(((rng.randrange(at[("vote", i)], len(stream)), 1), ("vote", i)))
+    stream = [item for _, item in sorted(keyed)]
+    deliveries = []
+    for kind, i in stream:
+        if kind == "create":
+            deliveries.append((kind, i, props[i][2]))
+        else:
+            p, _, _, ts = vote_list[i]
+            now = props[p][2] + SERVICE_EXPIRY + 1 if i in late else ts
+            deliveries.append((kind, i, now))
+    return dict(scopes=scope_list, props=props, votes=vote_list, stream=deliveries,
+                first=[p for p, prop in enumerate(props) if not prop[3]])
+
+
+def backlog_request(ht, plan, p):
+    scope = plan["scopes"][plan["props"][p][0]]
+    return ht.CreateProposalRequest(
+        name=f"{scope['name']}-p{p}", payload=p.to_bytes(4, "little"),
+        proposal_owner=b"backlog", expected_voters_count=plan["props"][p][1],
+        expiration_timestamp=SERVICE_EXPIRY, liveness_criteria_yes=scope["liveness"])
+
+
+def backlog_service(ht, storage, signer):
+    """A service over ``storage`` whose event bus keeps a whole run's events."""
+    return ht.ConsensusService(storage, ht.BroadcastEventBus(max_queued_events=1_000_000),
+                               signer)
+
+
+def configure_scopes(service, plan):
+    for scope in plan["scopes"]:
+        builder = service.scope(scope["name"])
+        builder = builder.p2p_preset() if scope["p2p"] else builder.gossipsub_preset()
+        builder.with_threshold(scope["threshold"]).initialize()
+
+
+class BacklogIds:
+    """Proposal ids minted from the plan's seed, the same in every run."""
+
+    def __init__(self, ht, seed):
+        self.ht, self.rng = ht, random.Random(seed)
+
+    def __enter__(self):
+        self.ht.protocol.set_id_entropy(lambda: self.rng.getrandbits(128))
+
+    def __exit__(self, *exc):
+        self.ht.protocol.set_id_entropy(None)
+
+
+def backlog_proposals(ht, plan, seed):
+    """The proposals the plan's creations give under its seed (a dry run on
+    an in-memory service): what the voters build their votes on."""
+    service = backlog_service(ht, ht.InMemoryConsensusStorage(), ht.StubConsensusSigner(b"dry"))
+    configure_scopes(service, plan)
+    out = {}
+    with BacklogIds(ht, seed):
+        order = plan["first"] + [i for kind, i, _ in plan["stream"] if kind == "create"]
+        for p in order:
+            scope = plan["scopes"][plan["props"][p][0]]["name"]
+            out[p] = service.create_proposal(scope, backlog_request(ht, plan, p),
+                                             plan["props"][p][2])
+    return out
+
+
+def backlog_votes(ht, plan, proposals, keys, sign):
+    """Every vote of the plan as wire bytes: built unsigned on its
+    proposal (no chain: the service checks none), then signed by
+    ``sign([(key index, payload), ...])`` all at once."""
+    built = [ht.build_vote(proposals[p], choice, _Unsigned(keys[k]), ts)
+             for p, k, choice, ts in plan["votes"]]
+    sigs = sign([(k, v.signing_payload()) for (_, k, _, _), v in zip(plan["votes"], built)])
+    for vote, sig in zip(built, sigs):
+        vote.signature = sig
+    return [v.encode() for v in built]
+
+
+def outcome_of(fn):
+    """A call's return value, or its exception's type name."""
+    try:
+        return fn()
+    except Exception as exc:  # noqa: BLE001 - compared across services
+        return type(exc).__name__
+
+
+def drive_backlog(ht, service, plan, wire, seed, clock=time.perf_counter):
+    """Drive the plan through ``service``: the first proposals, the stream,
+    then the timeouts. Returns the outcome of every call in order, each
+    ``process_incoming_vote`` call's seconds, and each proposal's id."""
+    configure_scopes(service, plan)
+    votes = [ht.Vote.decode(b) for b in wire]
+    outcomes, seconds, pids = [], [], {}
+    with BacklogIds(ht, seed):
+        for p in plan["first"]:
+            scope = plan["scopes"][plan["props"][p][0]]["name"]
+            pids[p] = service.create_proposal(scope, backlog_request(ht, plan, p),
+                                              plan["props"][p][2]).proposal_id
+        for kind, i, now in plan["stream"]:
+            if kind == "create":
+                scope = plan["scopes"][plan["props"][i][0]]["name"]
+                pids[i] = service.create_proposal(scope, backlog_request(ht, plan, i),
+                                                  now).proposal_id
+                outcomes.append(("create", pids[i]))
+                continue
+            scope = plan["scopes"][plan["props"][plan["votes"][i][0]][0]]["name"]
+            vote = votes[i]
+            t = clock()
+            result = outcome_of(lambda: service.process_incoming_vote(scope, vote, now))
+            seconds.append(clock() - t)
+            outcomes.append(("vote", i, result))
+    for p in sorted(pids, key=lambda p: (plan["props"][p][0], p)):
+        scope = plan["scopes"][plan["props"][p][0]]["name"]
+        session = service.storage().get_session(scope, pids[p])
+        if session is not None and session.is_active():
+            outcomes.append(("timeout", p, outcome_of(lambda: service.handle_consensus_timeout(
+                scope, pids[p], session.proposal.expiration_timestamp + 1))))
+    return outcomes, seconds, pids
+
+
+def backlog_state(service, plan, pids, events):
+    """What a run leaves: the events per scope (from a receiver subscribed
+    before it), each scope's stats and each proposal's result."""
+    by_scope = {}
+    while (item := events.try_recv()) is not None:
+        scope, ev = item
+        by_scope.setdefault(scope, []).append(
+            (type(ev).__name__, ev.proposal_id, getattr(ev, "result", None), ev.timestamp))
+    stats = {}
+    for scope in plan["scopes"]:
+        st = service.get_scope_stats(scope["name"])
+        stats[scope["name"]] = (st.total_sessions, st.active_sessions, st.failed_sessions,
+                                st.consensus_reached)
+    results = [(p, outcome_of(lambda: service.storage().get_consensus_result(
+        plan["scopes"][plan["props"][p][0]]["name"], pids[p]))) for p in sorted(pids)]
+    return by_scope, stats, results
+
+
+def native_eth_sign(jobs):
+    """Ethereum signatures of ``[(private key, payload), ...]`` from the
+    native runtime, on 8 threads: its calls release the GIL (8 spawned
+    processes spent most of 15 s starting up for 68,144 signatures)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hashgraph_tpu_torch import native
+
+    with ThreadPoolExecutor(8) as pool:
+        sigs = list(pool.map(lambda job: native.eth_sign(*job), jobs, chunksize=256))
+    if any(sig is None for sig in sigs):
+        raise AssertionError("the native runtime did not sign")
+    return sigs
+
+
+def expected_rows(storage, memory_storage):
+    """For each pooled session of ``storage``: its row read back from the
+    card, and the row ``allocate_slot`` + ``load_session_rows`` build from
+    the in-memory service's session in a fresh CPU pool."""
+    from hashgraph_tpu_torch.convert import DEVICE_ARRAYS, pool_to_numpy
+    from hashgraph_tpu_torch.engine import ProposalPool
+    from hashgraph_tpu_torch.engine.session_sync import allocate_slot, load_session_rows
+
+    arrays, _ = pool_to_numpy(storage.pool())
+    for (scope, pid), slot in sorted(storage._slots.items()):
+        session = memory_storage.get_session(scope, pid)
+        fresh = ProposalPool(1, storage.pool().voter_capacity, device="cpu")
+        row = allocate_slot(fresh, (scope, pid), session.proposal, session.config,
+                            session.created_at)
+        if not load_session_rows(fresh, row, session):
+            raise AssertionError(f"session {(scope, pid)} is pooled but too wide to load")
+        want, _ = pool_to_numpy(fresh)
+        for name in DEVICE_ARRAYS:
+            yield (scope, pid), name, arrays[name][slot], want[name][row]
+
+
+def percentile(values, q):
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def phase_service(dev):
+    import hashgraph_tpu_torch as ht
+    from hashgraph_tpu_torch import _build, native
+    from hashgraph_tpu_torch.convert import DEVICE_ARRAYS
+    from hashgraph_tpu_torch.ops.decide import STATE_REACHED_YES
+
+    t_phase = time.perf_counter()
+
+    # (a) The README quick-start through the port: three peers share one
+    # storage on the card and one event bus.
+    storage = ht.TorchBackedStorage(device=dev)
+    bus = ht.BroadcastEventBus()
+    rng = random.Random(90)
+    peers = [ht.ConsensusService(storage, bus, ht.EthereumConsensusSigner(rng.randbytes(32)))
+             for _ in range(3)]
+    rx = bus.subscribe()
+    proposal = peers[0].create_proposal("deployments", ht.CreateProposalRequest(
+        name="ship-v2", payload=b"git:abc123", proposal_owner=peers[0].signer().identity(),
+        expected_voters_count=3, expiration_timestamp=60, liveness_criteria_yes=True), NOW)
+    pid = proposal.proposal_id
+    peers[0].cast_vote("deployments", pid, True, NOW)
+    if rx.try_recv() is not None:
+        raise AssertionError("quick-start: an event after the first vote")
+    peers[1].cast_vote("deployments", pid, True, NOW)
+    reached = rx.try_recv()
+    if reached is None or reached[1] != ht.ConsensusReached(pid, True, NOW):
+        raise AssertionError(f"quick-start: {reached} after the second YES")
+    late = ht.build_vote(storage.get_proposal("deployments", pid), False, peers[2].signer(), NOW)
+    peers[0].process_incoming_vote("deployments", late, NOW)
+    if (storage.get_consensus_result("deployments", pid) is not True
+            or storage.device_state_of("deployments", pid) != STATE_REACHED_YES
+            or storage.pool().device.type != torch.device(dev).type):
+        raise AssertionError("quick-start: the late NO changed the result, or the card's "
+                             "row is not REACHED_YES")
+    log("[service] (a) quick-start: 3 Ethereum-signed peers over one TorchBackedStorage on "
+        f"the card: ConsensusReached(result=True) after the second YES, the late NO a no-op, "
+        f"device state REACHED_YES")
+
+    # (b) The backlog.
+    plan = backlog_plan(91)
+    keys = [ht.EthereumConsensusSigner(rng.randbytes(32)) for _ in range(SERVICE_KEYS)]
+    t = time.perf_counter()
+    proposals = backlog_proposals(ht, plan, 92)
+    wire = backlog_votes(ht, plan, proposals, keys, lambda jobs: native_eth_sign(
+        [(keys[k].private_key_bytes(), payload) for k, payload in jobs]))
+    sign_s = time.perf_counter() - t
+    signer_seed = rng.randbytes(32)
+
+    def run(storage):
+        """One service over ``storage`` takes the plan; the storage's writes
+        and row reloads are timed on the host clock."""
+        service = backlog_service(ht, storage, ht.EthereumConsensusSigner(signer_seed))
+        events = service.event_bus().subscribe()
+        spent = {"write": 0.0, "writes": 0, "reload": 0.0, "reloads": 0}
+
+        def timed(fn, key):
+            def wrapper(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent[key] += time.perf_counter() - t
+                    spent[key + "s"] += 1
+            return wrapper
+
+        storage.update_session = timed(storage.update_session, "write")
+        if hasattr(storage, "_sync_slot"):
+            storage._sync_slot = timed(storage._sync_slot, "reload")
+        on_card = hasattr(storage, "pool") and storage.pool().device.type == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        sync()
+        t = time.perf_counter()
+        outcomes, seconds, pids = drive_backlog(ht, service, plan, wire, 92)
+        sync()
+        wall = time.perf_counter() - t
+        del storage.update_session
+        if hasattr(storage, "_sync_slot"):
+            del storage._sync_slot
+        return dict(outcomes=outcomes, seconds=seconds, pids=pids, wall=wall, spent=spent,
+                    state=backlog_state(service, plan, pids, events))
+
+    card_storage = ht.TorchBackedStorage(SERVICE_CAPACITY, SERVICE_VOTER_CAPACITY, device=dev)
+    if any(getattr(card_storage.pool(), attr).device.type != torch.device(dev).type
+           for attr, _ in DEVICE_ARRAYS.values()):
+        raise AssertionError("the storage's pool tensors are not on the card")
+    memory_storage = ht.InMemoryConsensusStorage()
+    _build.launches.clear()
+    card = run(card_storage)
+    card_launches = dict(_build.launches)
+    memory = run(memory_storage)
+    compare("service outcomes", card["outcomes"], memory["outcomes"])
+    compare("service events per scope", card["state"][0], memory["state"][0])
+    compare("service scope stats", card["state"][1], memory["state"][1])
+    compare("service results", card["state"][2], memory["state"][2])
+    if card["pids"] != memory["pids"]:
+        raise AssertionError("the two services minted different proposal ids")
+    if card_launches:
+        raise AssertionError(f"the service path launched hand kernels: {card_launches}")
+    rows = 0
+    for key, name, got, want in expected_rows(card_storage, memory_storage):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"session {key}: the card's {name} row {got} differs from "
+                                 f"the row built from the in-memory session {want}")
+        rows += name == "state"
+    # A row reload's PyTorch operator calls, on one pooled session (it
+    # reloads the same row into the same slot).
+    key = next(iter(card_storage._slots))
+    reload_ops = torch_ops(lambda: card_storage._sync_slot(
+        key[0], card_storage._sessions[key[0]][key[1]]))
+    wide_keys = [(plan["scopes"][plan["props"][p][0]]["name"], card["pids"][p])
+                 for p, prop in enumerate(plan["props"]) if prop[1] > SERVICE_VOTER_CAPACITY]
+    wide_live = [k for k in wide_keys if card_storage.get_session(*k) is not None]
+    if not wide_live or any(card_storage.device_state_of(*k) is not None for k in wide_live):
+        raise AssertionError(f"host-only sessions: {len(wide_live)} live, some pooled")
+
+    # The split of a call: the native eth_verify alone over the votes the
+    # services verified (all but those for evicted sessions).
+    decoded = [ht.Vote.decode(b) for b in wire]
+    verified = [decoded[o[1]] for o in card["outcomes"]
+                if o[0] == "vote" and o[2] != "SessionNotFound"]
+    t = time.perf_counter()
+    codes = [native.eth_verify(v.vote_owner, v.signing_payload(), v.signature) for v in verified]
+    verify_s = time.perf_counter() - t
+    if set(codes) != {1}:
+        raise AssertionError(f"eth_verify rejected a signed vote: {sorted(set(codes))}")
+
+    kinds = {}
+    for o in card["outcomes"]:
+        label = o[0] if o[0] == "create" else f"{o[0]}:{o[2]}"
+        kinds[label] = kinds.get(label, 0) + 1
+    n_calls = len(card["seconds"])
+    report = {}
+    for label, r in (("card", card), ("memory", memory)):
+        s = r["spent"]
+        report[label] = dict(
+            votes_per_s=n_calls / r["wall"], wall=r["wall"], reload_ops=reload_ops,
+            p50_ms=percentile(r["seconds"], 0.5) * 1e3, p99_ms=percentile(r["seconds"], 0.99) * 1e3,
+            call_us=sum(r["seconds"]) / n_calls * 1e6, verify_us=verify_s / n_calls * 1e6,
+            write_us=s["write"] / max(s["writes"], 1) * 1e6, writes=s["writes"],
+            reload_us=s["reload"] / max(s["reloads"], 1) * 1e6, reloads=s["reloads"])
+        rep = report[label]
+        rest = rep["call_us"] - rep["verify_us"] - rep["write_us"] * s["writes"] / n_calls
+        log(f"[service] (b) {label} service: {n_calls} process_incoming_vote calls in "
+            f"{r['wall']:.6f} s (with the creations and timeouts) = {rep['votes_per_s']:.1f} "
+            f"votes/s; one call p50 {rep['p50_ms']:.6f} ms, p99 {rep['p99_ms']:.6f} ms, mean "
+            f"{rep['call_us']:.3f} us = eth_verify {rep['verify_us']:.3f} us (timed alone) + "
+            f"storage write {rep['write_us']:.3f} us x {s['writes']} writes / {n_calls} calls"
+            + (f" (row reload on the card {rep['reload_us']:.3f} us x {s['reloads']} reloads, "
+               f"creations' trims included; {reload_ops} PyTorch operator calls a reload)"
+               if label == "card" else "")
+            + f" + the rest {rest:.3f} us")
+    log(f"[service] (b) {SERVICE_SCOPES} scopes x {SERVICE_PROPOSALS} proposals x "
+        f"{SERVICE_VOTERS} voters ({SERVICE_VOTES} votes each) + {SERVICE_WIDE} of "
+        f"{SERVICE_WIDE_VOTERS} voters ({SERVICE_WIDE_VOTES} votes, host-only), "
+        f"{SERVICE_KEYS} Ethereum keys: {len(wire)} votes signed by the native runtime on 8 "
+        f"threads in {sign_s:.3f} s; outcomes {json.dumps(kinds, sort_keys=True)}; "
+        f"identical outcomes, events, stats and results on both services; {rows} pooled rows "
+        f"equal to the rows built from the in-memory sessions; {len(wide_live)} host-only "
+        f"sessions; hand-kernel launches {card_launches}")
+    log(f"[service] the phase took {time.perf_counter() - t_phase:.3f} s")
+    return report
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9")
 
 
 def main() -> int:
@@ -2144,7 +2537,7 @@ def main() -> int:
     # ``--only 1,2,6b`` runs the named phases and prints no result lines.
     only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
     # The package sits beside this script; without it this import fails.
-    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch import _build, native
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
 
@@ -2160,6 +2553,11 @@ def main() -> int:
     log(f"[build] device {props.name}: {props.multi_processor_count} SMs, "
         f"{props.total_memory / 2**30:.1f} GiB; nvidia-smi: {smi}")
     t0 = time.perf_counter()
+    # The native host runtime builds with g++ beside the nvcc builds.
+    native_s = []
+    native_build = threading.Thread(target=lambda: native_s.append(
+        (native.available(), time.perf_counter() - t0)))
+    native_build.start()
     variant_builds = start_variants()
     try:
         _build.build()
@@ -2167,10 +2565,16 @@ def main() -> int:
         for proc, _ in variant_builds.values():
             proc.kill()
         raise
+    finally:
+        native_build.join()
     variants = finish_variants(variant_builds)
+    if not native_s or not native_s[0][0]:
+        raise AssertionError("the native host runtime did not build: the CPU engines and "
+                             "the services would measure the pure-Python path")
     log(f"[build] kernels {_build.sources()} and the variants "
         f"{ {f'{src}.{name}': sorted(v) for (src, name), v in variants.items()} } built in "
-        f"{time.perf_counter() - t0:.3f} s")
+        f"{time.perf_counter() - t0:.3f} s; the native host runtime "
+        f"({native._load()._name}) in {native_s[0][1]:.3f} s")
     builds = [(name, _build.build_log(name)) for name in _build.sources()]
     builds += [(f"{src} with {name} = {value}", output)
                for (src, name), built in variants.items()
@@ -2256,6 +2660,8 @@ def main() -> int:
     msm_timings = phase_msm(dev, variants) if run("6b") else None
     verify = phase_verify(dev) if run("7") else None
     proposals = phase_proposals(dev) if run("8") else None
+    if run("9"):
+        phase_service(dev)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -2337,18 +2743,11 @@ def main() -> int:
 
 
 def stop_children() -> None:
-    """Stop every process this one started that still runs. A spawned
-    ``multiprocessing`` pool leaves its resource tracker behind, which would
-    otherwise live on until this process has exited: it is stopped once the
-    pools it served are collected. Any other child still running is killed
-    and named on stderr."""
-    import gc
+    """Stop every process this one started that still runs (a compiler left
+    by a failed build): each is killed and named on stderr."""
     import os
     import signal
-    from multiprocessing import resource_tracker
 
-    gc.collect()
-    resource_tracker._resource_tracker._stop()
     me = os.getpid()
     left = [int(pid) for task in os.listdir(f"/proc/{me}/task")
             for pid in Path(f"/proc/{me}/task/{task}/children").read_text().split()]
@@ -2367,7 +2766,5 @@ if __name__ == "__main__":
 
         traceback.print_exc()
         code = 1
-    # Outside the handler, so that the failed frames (and any pool they
-    # hold) can be collected before the children are stopped.
     stop_children()
     sys.exit(code)

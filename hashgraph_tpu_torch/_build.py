@@ -10,14 +10,19 @@ unchanged source is not compiled again.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises
 :class:`BuildError` carrying the compiler's output.
+
+:func:`host_library` builds the native host runtime (a C++ source with a C
+interface) the same way with ``g++``, into the same directory.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -35,6 +40,16 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
+
+# The host runtime's flags: the JAX package's, plus two that keep the
+# library's process-wide state (its verify pool is a function-local static)
+# its own when the JAX package's copy is loaded in the same process: no GNU
+# unique symbols, which the dynamic linker would merge across both
+# libraries, and references bound inside the library. ``-march=native`` is
+# tried first and dropped if the compiler refuses it.
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+              "-fno-gnu-unique", "-Wl,-Bsymbolic")
+HOST_NATIVE_FLAGS = ("-march=native",)
 
 # Kernel launches per kernel name: each wrapper adds one where it launches
 # its kernel, so a caller can show that a path really ran through it.
@@ -123,6 +138,64 @@ def build(names: list[str] | None = None) -> dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built at first use."""
     return build([name])[name]
+
+
+def cpu_tag() -> str:
+    """Fingerprint of this host's instruction-set extensions (the ``flags``
+    line of ``/proc/cpuinfo``): a ``-march=native`` library built on another
+    host could stop at its first AVX or ADX instruction."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith("flags"):
+                    return hashlib.sha256(line.encode()).hexdigest()[:16]
+    except OSError:
+        pass
+    return platform.machine()
+
+
+def host_library(source: Path) -> Path:
+    """Path of the shared library ``g++`` builds from a C++ ``source``,
+    building it if needed: ``-march=native`` first, then portable. Named by
+    a hash of the source, the flags and :func:`cpu_tag`; written to a
+    temporary file and renamed, under a file lock, so that processes
+    building at once neither race nor build twice. Raises
+    :class:`BuildError` if the compiler is missing or fails, and
+    ``OSError`` if the source cannot be read."""
+    digest = hashlib.sha256(Path(source).read_bytes())
+    digest.update("\0".join(HOST_FLAGS + HOST_NATIVE_FLAGS).encode())
+    digest.update(cpu_tag().encode())
+    stem = Path(source).stem
+    target = BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    compiler = shutil.which("g++")
+    if compiler is None:
+        raise BuildError(f"g++ not found: cannot build {source}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"lib{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():
+            return target
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        failures = []
+        for extra in (HOST_NATIVE_FLAGS, ()):
+            try:
+                proc = subprocess.run(
+                    [compiler, *HOST_FLAGS, *extra, "-o", str(tmp), str(source)],
+                    capture_output=True, text=True, timeout=600,
+                )
+            except subprocess.TimeoutExpired as exc:
+                failures.append(f"{' '.join(extra) or 'portable'}: timed out after "
+                                f"{exc.timeout} s")
+                continue
+            if proc.returncode == 0:
+                tmp.replace(target)
+                return target
+            failures.append(f"{' '.join(extra) or 'portable'} (g++ exit "
+                            f"{proc.returncode}):\n{proc.stderr}")
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"cannot build {source}:\n" + "\n".join(failures))
 
 
 def check_operand(kernel: str, label: str, t, dtype, shape, device) -> None:

@@ -16,9 +16,10 @@ as in the JAX package.
 
 Failure semantics: the combination accepting proves every lane verifies
 under the cofactored criterion; it failing says only "at least one lane is
-bad", so the batch drops to the host twin (``signing/_ed25519.py``) for
-exact per-item blame. Verdicts are therefore decision-identical to the twin
-on every input.
+bad", so the batch drops to the host verifiers for exact per-item blame:
+the native runtime's batch verification, or the pure-Python twin
+(``signing/_ed25519.py``) where the library is absent. Verdicts are
+therefore decision-identical to the twin on every input.
 
 The pipeline runs on the device it is given, ``"cuda"`` by default; it
 raises when that is a GPU and none is present. :func:`last_phase_seconds`
@@ -196,10 +197,19 @@ def _finish_phases(phases: "dict[str, float]") -> None:
 
 
 def _host_blame(identities, payloads, signatures) -> "list[bool]":
-    """Exact per-item verdicts from the host twin: the blame pass after a
-    failed linear combination."""
+    """Exact per-item verdicts from the host verifiers (the native pool's
+    batch if the library is present, else the pure-Python twin): the blame
+    pass after a failed linear combination."""
+    from .. import native
     from ..signing import _ed25519 as _py
 
+    results = native.ed25519_verify_batch(
+        [bytes(i) for i in identities],
+        list(payloads),
+        [bytes(s) for s in signatures],
+    )
+    if results is not None:
+        return [code == 1 for code in results]
     return [
         _py.verify(bytes(i), p, bytes(s))
         for i, p, s in zip(identities, payloads, signatures)

@@ -1,6 +1,8 @@
 """The engine of the PyTorch port: a device-resident proposal pool
-(:mod:`.pool`), the batch-first consensus engine over it (:mod:`.engine`)
-and its memoized vote-admission verdicts (:mod:`.verify_cache`).
+(:mod:`.pool`), the batch-first consensus engine over it (:mod:`.engine`),
+its memoized vote-admission verdicts (:mod:`.verify_cache`) and the
+``ConsensusStorage`` over the pool that the service runs on
+(:mod:`.storage`).
 """
 
 from .engine import (
@@ -10,6 +12,7 @@ from .engine import (
     TorchConsensusEngine,
 )
 from .pool import PendingIngest, PoolFullError, ProposalPool, SlotMeta
+from .storage import TorchBackedStorage
 from .verify_cache import VerifiedVoteCache
 
 __all__ = [
@@ -20,6 +23,7 @@ __all__ = [
     "ProposalPool",
     "SessionRecord",
     "SlotMeta",
+    "TorchBackedStorage",
     "TorchConsensusEngine",
     "VerifiedVoteCache",
 ]

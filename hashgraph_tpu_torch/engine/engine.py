@@ -74,7 +74,12 @@ from ..protocol import (
     validate_vote,
     validate_vote_chain,
 )
-from ..scope_config import ScopeConfig, ScopeConfigBuilder, NetworkType
+from ..scope_config import ScopeConfig, ScopeConfigBuilder
+from ..service import (
+    DEFAULT_MAX_SESSIONS_PER_SCOPE,
+    ConsensusStats,
+    ScopeConfigBuilderWrapper,
+)
 from ..session import ConsensusConfig, ConsensusSession, ConsensusState
 from ..signing import ConsensusSignatureScheme, PendingVerdicts
 from ..types import (
@@ -91,8 +96,6 @@ from .verify_cache import MISS, VerifiedVoteCache
 Scope = TypeVar("Scope", bound=Hashable)
 
 _U32_MAX = 0xFFFFFFFF
-
-DEFAULT_MAX_SESSIONS_PER_SCOPE = 10  # reference: src/service.rs:89-90
 
 __all__ = [
     "ConsensusStats",
@@ -113,16 +116,6 @@ def _scheme_tag(scheme: type) -> bytes:
     """First 8 bytes of SHA-256 over the scheme's module path: the
     admission-cache namespace of a signature scheme."""
     return hashlib.sha256(f"{scheme.__module__}.{scheme.__qualname__}".encode()).digest()[:8]
-
-
-@dataclass
-class ConsensusStats:
-    """Aggregate per-scope counters (reference: src/service_stats.rs:10-19)."""
-
-    total_sessions: int = 0
-    active_sessions: int = 0
-    failed_sessions: int = 0
-    consensus_reached: int = 0
 
 
 @dataclass(slots=True)
@@ -1778,6 +1771,14 @@ class _PidLookup:
     def lookup(self, q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Returns (found bool[B], slot int64[B]; 0 where not found)."""
         q = np.asarray(q, np.int64)
+        if len(q) >= 512:
+            # Fused native probe (one C pass per query, GIL released); the
+            # numpy loop below pays about 12 array passes a probe round.
+            from .. import native
+
+            res = native.pid_lookup(self.keys, self.vals, int(self._shift), q)
+            if res is not None:
+                return res
         found = np.zeros(len(q), bool)
         out = np.zeros(len(q), np.int64)
         # -1 is the empty-bucket sentinel and is never stored.
@@ -1794,90 +1795,6 @@ class _PidLookup:
             active = active[cont]
             h = (h[cont] + 1) & self._mask
         return found, out
-
-
-class ScopeConfigBuilderWrapper(Generic[Scope]):
-    """Builder bound to a service+scope with terminal ``initialize``/``update``
-    (reference: src/service.rs:558-668)."""
-
-    def __init__(
-        self,
-        service: "TorchConsensusEngine[Scope]",
-        scope: Scope,
-        builder: ScopeConfigBuilder,
-    ):
-        self._service = service
-        self._scope = scope
-        self._builder = builder
-
-    def with_network_type(self, network_type: NetworkType) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_network_type(network_type)
-        return self
-
-    def with_threshold(self, threshold: float) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_threshold(threshold)
-        return self
-
-    def with_timeout(self, timeout_seconds: float) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_timeout(timeout_seconds)
-        return self
-
-    def with_liveness_criteria(self, liveness_criteria_yes: bool) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_liveness_criteria(liveness_criteria_yes)
-        return self
-
-    def with_max_rounds(self, max_rounds: int | None) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_max_rounds(max_rounds)
-        return self
-
-    def with_demote_after(self, seconds: float | None) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_demote_after(seconds)
-        return self
-
-    def with_evict_decided_after(self, seconds: float | None) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_evict_decided_after(seconds)
-        return self
-
-    def with_decide_p99_ms(self, ms: float | None) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_decide_p99_ms(ms)
-        return self
-
-    def with_timeout_bounds(
-        self, timeout_min: float | None, timeout_max: float | None
-    ) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_timeout_bounds(timeout_min, timeout_max)
-        return self
-
-    def p2p_preset(self) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.p2p_preset()
-        return self
-
-    def gossipsub_preset(self) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.gossipsub_preset()
-        return self
-
-    def strict_consensus(self) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.strict_consensus()
-        return self
-
-    def fast_consensus(self) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.fast_consensus()
-        return self
-
-    def with_network_defaults(self, network_type: NetworkType) -> "ScopeConfigBuilderWrapper[Scope]":
-        self._builder.with_network_defaults(network_type)
-        return self
-
-    def initialize(self) -> None:
-        """Persist as the scope's configuration (validated)."""
-        self._service._initialize_scope(self._scope, self._builder.build())
-
-    def update(self) -> None:
-        """Overwrite the existing scope configuration (validated)."""
-        self._service._update_scope_config(self._scope, self._builder.build())
-
-    def get_config(self) -> ScopeConfig:
-        return self._builder.get_config()
 
 
 def _synchronized(fn):

@@ -8,10 +8,12 @@ a scheme instance carries private state and produces signatures via
 ``identity()`` / ``sign()``; the scheme *type* verifies incoming signatures via
 the class-level ``verify()``. All peers on a network must use the same scheme.
 
-Verification runs on the host, except the batch verification of
-:class:`Ed25519DeviceConsensusSigner`, which runs the whole batch equation on
-the GPU (:mod:`hashgraph_tpu_torch.crypto_device`); the vote tally and
-decision state live on the device in every case.
+Verification runs on the host (the native runtime,
+:mod:`hashgraph_tpu_torch.native`, where it is built, else pure Python),
+except the batch verification of :class:`Ed25519DeviceConsensusSigner`,
+which runs the whole batch equation on the GPU
+(:mod:`hashgraph_tpu_torch.crypto_device`); the vote tally and decision
+state live on the device in every case.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ __all__ = [
     "ConsensusSchemeError",
     "Ed25519ConsensusSigner",
     "Ed25519DeviceConsensusSigner",
+    "EthereumConsensusSigner",
     "PendingVerdicts",
     "StubConsensusSigner",
 ]
@@ -117,4 +120,5 @@ from .ed25519 import (  # noqa: E402
     Ed25519ConsensusSigner,
     Ed25519DeviceConsensusSigner,
 )
+from .ethereum import EthereumConsensusSigner  # noqa: E402
 from .stub import StubConsensusSigner  # noqa: E402

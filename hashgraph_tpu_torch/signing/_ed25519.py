@@ -2,8 +2,8 @@
 imports nothing of the JAX package.
 
 Pure-Python Ed25519 (RFC 8032): the port's signer, its scalar ``verify`` and
-the host blame pass behind device batch verification. The port has no
-native runtime yet, so this is its only host verifier.
+the host blame pass behind device batch verification wherever the native
+runtime (:mod:`hashgraph_tpu_torch.native`) is absent.
 
 Same key derivation and signatures as the native core and the JAX package,
 and the same *cofactored* verification criterion — accept iff

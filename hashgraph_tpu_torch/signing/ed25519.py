@@ -10,9 +10,11 @@ combination verifies a whole batch with one multi-scalar multiply, which
 
 Verification is *cofactored* (accept iff ``8·(s·B - h·A - R)`` is the
 identity) with RFC 8032 canonical-encoding rejections — the only criterion
-under which scalar and batch verdicts provably agree on every input. The
-port has no native runtime yet, so the host path is the pure-Python twin
-(:mod:`._ed25519`).
+under which scalar and batch verdicts provably agree on every input. The host
+path is the native runtime (:mod:`hashgraph_tpu_torch.native`: signing,
+scalar verification, and batch verification as one randomized linear
+combination a chunk across its worker pool), as in the JAX package, and the
+pure-Python twin (:mod:`._ed25519`) where the library is absent.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import os
 import secrets
 
+from .. import native
 from ..errors import ConsensusSchemeError
 from . import ConsensusSignatureScheme, PendingVerdicts
 from . import _ed25519 as _py
@@ -72,7 +75,8 @@ class Ed25519ConsensusSigner(ConsensusSignatureScheme):
         if len(seed) != 32:
             raise ValueError("ed25519 seed must be 32 bytes")
         self._seed = bytes(seed)
-        self._public = _py.public_key(self._seed)
+        pub = native.ed25519_public(self._seed)
+        self._public = pub if pub is not None else _py.public_key(self._seed)
 
     @classmethod
     def random(cls) -> "Ed25519ConsensusSigner":
@@ -86,6 +90,9 @@ class Ed25519ConsensusSigner(ConsensusSignatureScheme):
         return self._seed
 
     def sign(self, payload: bytes) -> bytes:
+        signature = native.ed25519_sign(self._seed, payload)
+        if signature is not None:
+            return signature
         return _py.sign(self._seed, payload)
 
     @classmethod
@@ -108,6 +115,11 @@ class Ed25519ConsensusSigner(ConsensusSignatureScheme):
         # are False — on the wire they are indistinguishable from forged
         # signatures, and the batch path reports them the same way.
         cls._check_lengths(identity, signature)
+        verdict = native.ed25519_verify(
+            bytes(identity), payload, bytes(signature)
+        )
+        if verdict is not None:
+            return verdict == 1
         return _py.verify(bytes(identity), payload, bytes(signature))
 
     @classmethod
@@ -141,13 +153,58 @@ class Ed25519ConsensusSigner(ConsensusSignatureScheme):
         payloads: list[bytes],
         signatures: list[bytes],
     ) -> list:
-        """Host batch verification: the twin, item by item."""
+        """Native batched verification: chunks verify as ONE randomized
+        linear combination (a single multi-scalar multiply) on the
+        persistent worker pool; falls back to the twin, item by item,
+        without the native runtime."""
         out, well_formed = cls._precheck(identities, payloads, signatures)
-        for i in well_formed:
-            out[i] = _py.verify(
-                bytes(identities[i]), payloads[i], bytes(signatures[i])
-            )
+        if not well_formed:
+            return out
+        results = native.ed25519_verify_batch(
+            [bytes(identities[i]) for i in well_formed],
+            [payloads[i] for i in well_formed],
+            [bytes(signatures[i]) for i in well_formed],
+        )
+        if results is None:
+            for i in well_formed:
+                out[i] = _py.verify(
+                    bytes(identities[i]), payloads[i], bytes(signatures[i])
+                )
+            return out
+        for i, code in zip(well_formed, results):
+            out[i] = bool(code == 1)
         return out
+
+    @classmethod
+    def verify_batch_submit(
+        cls,
+        identities: list[bytes],
+        payloads: list[bytes],
+        signatures: list[bytes],
+    ) -> PendingVerdicts:
+        """Start the batch on the native pool NOW; collect() fans the
+        codes out exactly as :meth:`verify_batch` would. Without the
+        native runtime this degrades to the deferred-sync default."""
+        out, well_formed = cls._precheck(identities, payloads, signatures)
+        job = (
+            native.ed25519_verify_batch_submit(
+                [bytes(identities[i]) for i in well_formed],
+                [payloads[i] for i in well_formed],
+                [bytes(signatures[i]) for i in well_formed],
+            )
+            if well_formed
+            else None
+        )
+        if well_formed and job is None:
+            return super().verify_batch_submit(identities, payloads, signatures)
+
+        def _collect():
+            if job is not None:
+                for i, code in zip(well_formed, job.collect()):
+                    out[i] = bool(code == 1)
+            return out
+
+        return PendingVerdicts(_collect)
 
 
 class Ed25519DeviceConsensusSigner(Ed25519ConsensusSigner):

@@ -2,7 +2,9 @@
 
 The run-time check happens in a fresh interpreter with ``jax`` and
 ``hashgraph_tpu`` blocked in ``sys.modules``, so this test process keeps
-its own modules untouched. A static scan covers every import statement of
+its own modules untouched: a vote cycle on the engine and the README
+quick-start on the service over the pool-backed storage, with Ethereum
+signers on the port's native runtime. A static scan covers every import statement of
 the package, of ``chip_smoke.py`` and of ``compare_trees.py``, including
 imports inside functions.
 """
@@ -38,6 +40,25 @@ eng.process_incoming_vote(
     "s", ht.build_vote(prop, True, ht.StubConsensusSigner(b"peer"), 1002), 1002)
 assert eng.get_consensus_result("s", p.proposal_id) is True
 assert type(rx.try_recv()[1]).__name__ == "ConsensusReached"
+# The README quick-start through the service layer: three Ethereum-signed
+# peers over one pool-backed storage, the native runtime signing.
+from hashgraph_tpu_torch import native
+from hashgraph_tpu_torch.ops.decide import STATE_REACHED_YES
+assert native.available()
+storage, bus = ht.TorchBackedStorage(device="cpu"), ht.BroadcastEventBus()
+peers = [ht.ConsensusService(storage, bus, ht.EthereumConsensusSigner(k)) for k in (1, 2, 3)]
+rx = bus.subscribe()
+p = peers[0].create_proposal("deployments", ht.CreateProposalRequest(
+    name="ship-v2", payload=b"git:abc123", proposal_owner=peers[0].signer().identity(),
+    expected_voters_count=3, expiration_timestamp=60, liveness_criteria_yes=True), 1000)
+peers[0].cast_vote("deployments", p.proposal_id, True, 1000)
+peers[1].cast_vote("deployments", p.proposal_id, True, 1000)
+assert rx.try_recv()[1] == ht.ConsensusReached(p.proposal_id, True, 1000)
+late = ht.build_vote(storage.get_proposal("deployments", p.proposal_id), False,
+                     peers[2].signer(), 1000)
+peers[0].process_incoming_vote("deployments", late, 1000)
+assert storage.get_consensus_result("deployments", p.proposal_id) is True
+assert storage.device_state_of("deployments", p.proposal_id) == STATE_REACHED_YES
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("jax", "jaxlib") or m.startswith("hashgraph_tpu.")))
 print("LOADED", loaded)
@@ -51,6 +72,16 @@ def test_full_cycle_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "LOADED []" in proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_native_paths(path):
+    """The port builds and loads its own native runtime: nothing names the
+    JAX package's build output or its loader."""
+    text = path.read_text()
+    for name in ("native/build", "hashgraph_tpu/native.py"):
+        assert name not in text, f"{path.relative_to(REPO)} names {name}"
 
 
 def _imports(path: Path):

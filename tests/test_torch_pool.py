@@ -207,3 +207,24 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a GPU is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProposalPool(4, 4)
+
+
+@pytest.mark.parametrize("v_cap", [3, 8, 64])
+def test_allocate_and_load_rows_match_reference(v_cap):
+    """Several slots allocated and loaded in one call each (the slot
+    dispatches send their columns in one copy): every array equal to the
+    JAX pool's, including tallies past one byte and odd lane counts."""
+    rng = np.random.default_rng(v_cap)
+    ref, port = RefPool(16, v_cap), ProposalPool(16, v_cap, device="cpu")
+    keys = [("s", i) for i in range(7)]
+    slots = both(ref, port, lambda p: allocate(p, np.random.default_rng(3), keys, v_cap))
+    k = len(slots)
+    rows = dict(
+        state=rng.integers(0, 4, k), yes=rng.integers(0, 70_000, k),
+        tot=rng.integers(0, 70_000, k), mask_rows=rng.random((k, v_cap)) < 0.5,
+        val_rows=rng.random((k, v_cap)) < 0.5,
+    )
+    for pool in (ref, port):
+        pool.load_rows(list(slots[::-1]), **{name: value[::-1] for name, value in rows.items()})
+        pool.release([slots[2]])
+    assert_pools_equal(ref, port)
