@@ -23,7 +23,10 @@ and prints one JSON line:
   votes (``chip_smoke.config2_traffic``) on a fresh GPU engine, after one
   warm-up run: scan wrapper calls and the wall seconds of each of 3 runs;
 - ``config3_votes_per_s``: ``chip_smoke.config3_traffic`` on a fresh GPU
-  engine.
+  engine;
+- ``config3_torch_ops``: the PyTorch operator calls of each of config 3's
+  five ``ingest_columnar`` calls (``chip_smoke.config3_ops``), on a fresh
+  GPU engine.
 
 Run it once for each tree on one machine, back to back in the order A, B,
 B, A, and compare only runs made together. It needs a CUDA device.
@@ -102,10 +105,12 @@ def main() -> int:
             calls.append(_build.launches[cuda_ingest.KERNEL] - before)
         del run
     _, wall3, n_votes = cs.config3_traffic(cs.Run(cs.make_engine(dev)), 3)
+    ops3 = cs.config3_ops(dev)
 
     print(json.dumps({"tree": str(tree), "device": cs.nvidia_smi(), "scan": scan,
                       "config2": {"scan_wrapper_calls": calls, "wall_s": walls},
-                      "config3_votes_per_s": n_votes / wall3}))
+                      "config3_votes_per_s": n_votes / wall3,
+                      "config3_torch_ops": ops3}))
     return 0
 
 

@@ -14,8 +14,13 @@ signer is :class:`EthereumConsensusSigner`. :class:`TorchConsensusEngine` is
 the batch-first engine over the same pool: batch, columnar and validated
 vote ingest, proposals from peers (``process_incoming_proposal``,
 ``ingest_proposals``, ``deliver_proposal(s)``) through the admission cache
-(:class:`VerifiedVoteCache`), timeouts, and sessions the pool cannot hold
-served on the host, as in the JAX package.
+(:class:`VerifiedVoteCache`), validated wire-columnar ingest of peers'
+vote frames (``ingest_wire_columnar``, with :mod:`.bridge.columnar`'s
+parser), multi-scope creation and ingest, checkpoint to and restore from
+a ``ConsensusStorage``, timeouts, and sessions the pool cannot hold served
+on the host, as in the JAX package. :class:`DurableEngine` (:mod:`.wal`)
+logs every mutating call before acknowledging it, in the JAX package's
+write-ahead-log format, and recovers an engine from the log.
 
 Host cryptography (Keccak, SHA-256, Ethereum ECDSA, Ed25519 signing and
 batch verification) runs in the native C++ runtime (:mod:`.native`), which
@@ -34,7 +39,8 @@ among it the batched vote-chain check of proposals from peers
 
 The port imports nothing of the JAX package: the modules that carry no
 device code (errors, wire, protocol, types, events, scope config, session,
-signing, storage, service, native) are copies of that package's, and the
+signing, storage, service, native, the bridge's columnar parser and the
+write-ahead log) are copies of that package's, and the
 JAX package stays the reference the tests hold the port against. Entry
 points that hold device state take ``device=`` and default to ``"cuda"``;
 they raise without a GPU rather than move to the CPU, which callers ask for
@@ -106,10 +112,13 @@ from .types import (
     CreateProposalRequest,
     SessionTransition,
 )
+from .wal import DurableEngine, WalWriter
 from .wire import Proposal, Vote
 
 __all__ = [
     "BroadcastEventBus",
+    "DurableEngine",
+    "WalWriter",
     "ConsensusConfig",
     "ConsensusError",
     "ConsensusEventBus",

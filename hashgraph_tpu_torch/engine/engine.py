@@ -1,19 +1,24 @@
-"""TorchConsensusEngine: the vote and proposal paths of the batch engine.
+"""TorchConsensusEngine: the vote, proposal and wire paths of the batch engine.
 
-Port of the vote path and the proposal-ingest path of
-``hashgraph_tpu/engine/engine.py`` (``TpuConsensusEngine``) to PyTorch, with
-the same observable semantics: proposals claim pool slots, votes arrive
-through the scalar (:meth:`cast_vote`, :meth:`process_incoming_vote`),
-batch (:meth:`ingest_votes`, :meth:`ingest_votes_pipelined`) and columnar
-(:meth:`ingest_columnar`) entry points, vote-carrying proposals from peers
-through :meth:`process_incoming_proposal`, :meth:`ingest_proposals` and
-:meth:`deliver_proposals` (create, or extend along the validated-chain
-watermark), tallies and decisions run on the device, and transitions come
-back as events. Signature checks go through the admission cache
-(:mod:`.verify_cache`, ``verify_cache="default"`` as in the JAX engine;
-``None`` restores the uncached flow with identical statuses), and a batch
-of proposals' chains is checked in one dispatch on the engine's device
-(:mod:`..ops.chain`).
+Port of ``hashgraph_tpu/engine/engine.py`` (``TpuConsensusEngine``) to
+PyTorch, with the same observable semantics: proposals claim pool slots
+(:meth:`create_proposal`, :meth:`create_proposals`,
+:meth:`create_proposals_multi`), votes arrive through the scalar
+(:meth:`cast_vote`, :meth:`process_incoming_vote`), batch
+(:meth:`ingest_votes`, :meth:`ingest_votes_pipelined`), columnar
+(:meth:`ingest_columnar`, :meth:`ingest_columnar_multi`, optionally
+retaining the accepted rows' wire bytes) and validated wire-columnar
+(:meth:`ingest_wire_columnar`, :meth:`wire_verify_begin`) entry points,
+vote-carrying proposals from peers through :meth:`process_incoming_proposal`,
+:meth:`ingest_proposals` and :meth:`deliver_proposals` (create, or extend
+along the validated-chain watermark), tallies and decisions run on the
+device, and transitions come back as events. Signature checks go through
+the admission cache (:mod:`.verify_cache`, ``verify_cache="default"`` as in
+the JAX engine; ``None`` restores the uncached flow with identical
+statuses), and a batch of proposals' chains is checked in one dispatch on
+the engine's device (:mod:`..ops.chain`). Sessions export to and load from
+a ``ConsensusStorage`` (:meth:`save_to_storage`, :meth:`load_from_storage`),
+which the write-ahead log (:mod:`..wal`) checkpoints through.
 
 Division of labor:
 - device (:class:`ProposalPool`): tallies, vote masks, round-cap
@@ -29,11 +34,12 @@ A session the pool cannot hold (more expected voters than
 engine serves it: a scalar :class:`ConsensusSession` under a negative
 synthetic slot id, which every entry point routes to.
 
-Not ported yet (the JAX engine has them): session tiering, WAL and
-checkpoint, health/metrics/tracing/timelines (and so the proposal path's
-health, tracer and trace-binding hooks), wire-columnar and multi-scope
-columnar ingest, multi-host pools (and so ``deliver_proposals``'
-SESSION_NOT_FOUND misroute branch) and adaptive timeouts.
+Not ported yet (the JAX engine has them): session tiering (and so
+``lifecycle_sweep``, ``gc_sessions`` and the tier branches of export, save
+and load), health/metrics/tracing/timelines (and so the proposal and wire
+paths' health notes and the replay mode's timelines and counters),
+multi-host pools (and so ``deliver_proposals``' SESSION_NOT_FOUND misroute
+branch and the wire path's non-local rows) and adaptive timeouts.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import functools
 import hashlib
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Generic, Hashable, TypeVar
 
@@ -88,7 +95,7 @@ from ..types import (
     ConsensusReached,
     CreateProposalRequest,
 )
-from ..wire import Proposal, Vote
+from ..wire import Proposal, Vote, normalize_wire_votes
 from .pool import PoolFullError, ProposalPool
 from .session_sync import allocate_slot, load_session_rows, state_code_of
 from .verify_cache import MISS, VerifiedVoteCache
@@ -104,6 +111,7 @@ __all__ = [
     "PoolFullError",
     "SessionRecord",
     "TorchConsensusEngine",
+    "WireVotePrepass",
 ]
 
 # Sentinel: "compute the signature prepass inside ingest_votes" (the
@@ -136,6 +144,34 @@ class SessionRecord(Generic[Scope]):
     votes: dict[bytes, Vote] = field(default_factory=dict)  # accepted only
     session: ConsensusSession | None = None  # set when host-spilled
     seq: int = 0  # per-scope registration order (LRU tie order)
+    # Columnar retention (``wire_votes``): the verbatim wire bytes of
+    # accepted rows as (arrival seq, packed blob, local offsets) chunks,
+    # decoded on export so the session re-gossips a chain-valid vote list;
+    # ``retained_cache`` memoizes the decode (keyed by the chunk count:
+    # chunks are only ever appended).
+    retained_wire: list[tuple[int, bytes, np.ndarray]] = field(default_factory=list)
+    retained_cache: tuple[int, list[tuple[int, list[Vote]]]] | None = None
+    # Per-record arrival clock: one tick per scalar accept and per retained
+    # chunk, so an export merges both paths back into arrival order.
+    arrival_seq: int = 0
+    scalar_seqs: list[int] = field(default_factory=list)
+    # Wire-path chain continuity: the effective tail hash and accepted
+    # owners as the validated wire path tracked them, stamped with
+    # (retained chunks, scalar accepts); a stale stamp rebuilds them from
+    # the merged chain, so the dangling-vote guard stays armed across
+    # frames.
+    wire_tail: bytes | None = None
+    wire_seen: "set[bytes] | None" = None
+    wire_sync: "tuple[int, int] | None" = None
+    # True while every retained chunk came from the validated wire path
+    # (its accepts are guard-ordered, so the merged chain stays
+    # positional); pre-validated columnar retention clears it.
+    wire_only: bool = True
+
+    def next_arrival_seq(self) -> int:
+        seq = self.arrival_seq
+        self.arrival_seq += 1
+        return seq
 
     def bump_round(self, accepted: int) -> None:
         """Host mirror of the device round update
@@ -156,6 +192,44 @@ class PendingVoteVerdicts(PendingVerdicts):
     computed_hashes)`` aligned with the submitted votes. Idempotent — the
     first collect does the waiting. While uncollected, a device signer's
     batch is in flight on the GPU."""
+
+
+class WireVotePrepass:
+    """Handle for an in-flight wire-columnar validation prepass
+    (:meth:`TorchConsensusEngine.wire_verify_begin`): ``pre_status`` holds
+    the structural and hash verdicts already decided (0 = still live),
+    ``crypto_rows`` the row indices whose signatures were submitted, and
+    ``collect()`` blocks for their verdicts (idempotent). While
+    uncollected, a device signer's batch is in flight on the GPU, so a
+    caller may start frame k+1's prepass while frame k applies.
+
+    ``buf`` caches the frame's vote region as ``bytes`` when the prepass
+    sliced it for crypto, so the apply stage (and a durable wrapper's WAL
+    record) reuse one copy."""
+
+    __slots__ = ("pre_status", "crypto_rows", "buf", "_collect_fn", "_result")
+
+    def __init__(self, pre_status, crypto_rows, collect_fn, buf=None):
+        self.pre_status = pre_status
+        self.crypto_rows = crypto_rows
+        self.buf = buf
+        self._collect_fn = collect_fn
+        self._result = None
+
+    def collect(self) -> list:
+        if self._collect_fn is not None:
+            self._result = self._collect_fn()
+            self._collect_fn = None
+        return self._result
+
+
+# Dense lifecycle code -> scalar state, for session export.
+_STATE_TO_SCALAR = {
+    STATE_ACTIVE: ConsensusState.active(),
+    STATE_FAILED: ConsensusState.failed(),
+    STATE_REACHED_YES: ConsensusState.reached(True),
+    STATE_REACHED_NO: ConsensusState.reached(False),
+}
 
 
 class TorchConsensusEngine(Generic[Scope]):
@@ -212,11 +286,25 @@ class TorchConsensusEngine(Generic[Scope]):
         # pid -> slot hash; dropped on any membership change.
         self._pid_tables: dict[Scope, tuple[np.ndarray, np.ndarray]] = {}
         self._pid_hashes: dict[Scope, _PidLookup] = {}
+        # Multi-scope resolution cache: one composite-key hash per distinct
+        # scope tuple of a multi-scope call; any membership change clears it.
+        self._fused_pid_cache: dict[tuple, _PidLookup] = {}
+        # Lifecycle gate (set_replay_mode): False during WAL replay.
+        self._lifecycle_live = True
 
     # ── Accessors ──────────────────────────────────────────────────────
 
     def signer(self) -> ConsensusSignatureScheme:
         return self._signer
+
+    def set_replay_mode(self, on: bool) -> None:
+        """Gate for WAL recovery (``DurableEngine.recover``): replayed
+        traffic drives the live ingest paths, but the tier lifecycle must
+        not re-derive its TTL decisions from restored clocks, so it pauses
+        while replay mode is on. (The JAX engine also gates its timelines,
+        health notes and decision counters here; the port has none of
+        them yet.)"""
+        self._lifecycle_live = not on
 
     def event_bus(self) -> ConsensusEventBus[Scope]:
         return self._event_bus
@@ -290,46 +378,92 @@ class TorchConsensusEngine(Generic[Scope]):
         invalid request raises before anything registers). A scope that
         would exceed its session cap takes the per-proposal path, whose
         LRU eviction interleaves with insertion as the reference's does."""
-        existing = len(self._scopes.get(scope, []))
-        if existing + len(requests) > self._max_sessions_per_scope:
-            return [self.create_proposal(scope, r, now, config) for r in requests]
-        if not requests:
-            return []
-        pids = self._draw_unique_pids(self._pid_table(scope)[0], len(requests))
-        proposals: list[Proposal] = []
-        configs: list[ConsensusConfig] = []
-        # Config resolution is identical for requests sharing (expiration,
-        # liveness) when no per-proposal override exists — memoize.
-        cfg_cache: dict = {}
-        for request, pid in zip(requests, pids.tolist()):
-            proposal = request.into_proposal(now, pid=pid)
-            validate_proposal_timestamp(proposal.expiration_timestamp, now)
-            key = (proposal.expiration_timestamp, proposal.liveness_criteria_yes)
-            resolved = cfg_cache.get(key)
-            if resolved is None:
-                resolved = self._resolve_config(scope, config, proposal)
-                cfg_cache[key] = resolved
-            proposals.append(proposal)
-            configs.append(resolved)
+        return self.create_proposals_multi([(scope, requests)], now, config)[0]
 
-        n_arr = np.asarray([r.expected_voters_count for r in requests], np.int64)
-        thr = np.asarray([c.consensus_threshold for c in configs], np.float64)
-        gossip = np.asarray([c.use_gossipsub_rounds for c in configs], bool)
-        maxr = np.asarray([c.max_rounds for c in configs], np.int64)
+    def create_proposals_multi(
+        self,
+        items: "list[tuple[Scope, list[CreateProposalRequest]]]",
+        now: int,
+        config: ConsensusConfig | None = None,
+    ) -> "list[list[Proposal]]":
+        """Multi-scope batch creation: one device dispatch claims slots for
+        every scope's proposals. Returns one Proposal list per item, in
+        order. Scopes must be distinct within a call. A scope near its
+        session cap takes the per-proposal path after the batched
+        allocation, so device slots go to the batched population first
+        when the pool is nearly full."""
+        seen: set = set()
+        for scope, _ in items:
+            if scope in seen:
+                raise ValueError("create_proposals_multi: duplicate scope")
+            seen.add(scope)
+        batched = [
+            i for i, (scope, requests) in enumerate(items)
+            if len(self._scopes.get(scope, [])) + len(requests)
+            <= self._max_sessions_per_scope
+        ]
+        # One id draw for the whole call, checked against the union of the
+        # batched scopes' live pids and sliced per scope.
+        total = sum(len(items[i][1]) for i in batched)
+        all_ids = (
+            self._draw_unique_pids(
+                np.concatenate([self._pid_table(items[i][0])[0] for i in batched]),
+                total,
+            )
+            if total
+            else np.zeros(0, np.int64)
+        )
+        entries: list[tuple[Scope, Proposal, ConsensusConfig]] = []
+        spans: dict[int, tuple[int, int]] = {}
+        for i in batched:
+            scope, requests = items[i]
+            ids = all_ids[len(entries):len(entries) + len(requests)]
+            spans[i] = (len(entries), len(requests))
+            # Config resolution is identical for requests sharing
+            # (expiration, liveness) when no per-proposal override exists.
+            cfg_cache: dict = {}
+            for request, pid in zip(requests, ids.tolist()):
+                proposal = request.into_proposal(now, pid=pid)
+                validate_proposal_timestamp(proposal.expiration_timestamp, now)
+                key = (proposal.expiration_timestamp, proposal.liveness_criteria_yes)
+                resolved = cfg_cache.get(key)
+                if resolved is None:
+                    resolved = self._resolve_config(scope, config, proposal)
+                    cfg_cache[key] = resolved
+                entries.append((scope, proposal, resolved))
+        self._allocate_and_register(entries, now)
+        out: list = [None] * len(items)
+        for i, (start, count) in spans.items():
+            out[i] = [p.clone() for _, p, _ in entries[start:start + count]]
+        for i, (scope, requests) in enumerate(items):
+            if i not in spans:
+                out[i] = [self.create_proposal(scope, r, now, config) for r in requests]
+        return out
+
+    def _allocate_and_register(
+        self, entries: "list[tuple[Scope, Proposal, ConsensusConfig]]", now: int
+    ) -> None:
+        """One ``pool.allocate_batch`` for every (scope, proposal, config)
+        entry, first fit in entry order, then host registration; an entry
+        wider than the lane grid, or past the last free slot, spills to the
+        host (the JAX engine's _allocate_and_register)."""
+        if not entries:
+            return
+        n_arr = np.asarray([p.expected_voters_count for _, p, _ in entries], np.int64)
+        thr = np.asarray([c.consensus_threshold for _, _, c in entries], np.float64)
+        gossip = np.asarray([c.use_gossipsub_rounds for _, _, c in entries], bool)
+        maxr = np.asarray([c.max_rounds for _, _, c in entries], np.int64)
         req_arr = required_votes_np(n_arr, thr)
         # max_round_limit semantics (reference: src/session.rs:120-128):
         # gossipsub -> max_rounds; P2P -> explicit override, else the
         # dynamic ceil(n*t) cap, which equals the required votes.
         cap_arr = np.where(gossip, maxr, np.where(maxr == 0, req_arr, maxr))
-        # First fit against the free slots, in request order: a proposal
-        # wider than the lane grid, or past the last free slot, spills to
-        # the host (the JAX engine's _allocate_and_register).
         fits = n_arr <= self._pool.voter_capacity
         fits &= np.cumsum(fits) <= self._pool.free_slots
         fit = np.nonzero(fits)[0]
-        placed = [proposals[i] for i in fit.tolist()]
+        placed = [entries[i][1] for i in fit.tolist()]
         slots = self._pool.allocate_batch(
-            keys=[(scope, p.proposal_id) for p in placed],
+            keys=[(entries[i][0], entries[i][1].proposal_id) for i in fit.tolist()],
             n=n_arr[fit],
             req=req_arr[fit],
             cap=cap_arr[fit],
@@ -337,20 +471,20 @@ class TorchConsensusEngine(Generic[Scope]):
             liveness=np.asarray([p.liveness_criteria_yes for p in placed], bool),
             expiry=np.asarray([p.expiration_timestamp for p in placed], np.int64),
             created_at=np.full(len(placed), now, np.int64),
-        )
+        ) if len(fit) else []
         slot_of = dict(zip(fit.tolist(), slots))
         # Batch-registered records keep seq 0 and leave the per-scope
         # sequence alone, as the JAX engine's batch registration does, so
         # later LRU evictions rank sessions identically.
-        for i, (proposal, cfg) in enumerate(zip(proposals, configs)):
+        for i, (scope, proposal, cfg) in enumerate(entries):
             slot = slot_of.get(i)
             self._track(
                 SessionRecord(scope, slot, proposal, cfg, now)
                 if slot is not None
                 else self._spilled(scope, proposal, cfg, now)
             )
-        self._drop_pid_cache(scope)
-        return [p.clone() for p in proposals]
+        for scope in {scope for scope, _, _ in entries}:
+            self._drop_pid_cache(scope)
 
     def _register(
         self,
@@ -749,10 +883,17 @@ class TorchConsensusEngine(Generic[Scope]):
     ) -> "list[Vote] | None":
         """Suffix of ``proposal.votes`` beyond the session's accepted chain,
         or None when the incoming chain is not a strict extension of it
-        (shorter, equal-length, or forked before the watermark). The
-        prefix compare is bytes equality over validated hashes — no
-        crypto."""
-        accepted = record.proposal.votes
+        (shorter, equal-length, forked before the watermark, or partly
+        pre-validated columnar retention, whose merged order is not
+        positional). Wire-validated retention stays comparable: its
+        accepts are guard-ordered. The prefix compare is bytes equality
+        over validated hashes — no crypto."""
+        if record.retained_wire:
+            if not record.wire_only:
+                return None
+            accepted = self._accepted_vote_chain(record)
+        else:
+            accepted = record.proposal.votes
         incoming = proposal.votes
         if len(incoming) <= len(accepted):
             return None
@@ -802,9 +943,16 @@ class TorchConsensusEngine(Generic[Scope]):
             except ConsensusError as exc:
                 return int(exc.code)
         # The chain rule from the watermark on (the prefix's links were
-        # checked at acceptance).
+        # checked at acceptance), over the merged accepted chain when wire
+        # bytes were retained: a correctly linked suffix names the
+        # retained tail.
+        accepted = (
+            self._accepted_vote_chain(record)
+            if record.retained_wire
+            else proposal.votes
+        )
         try:
-            validate_vote_chain(proposal.votes + suffix, start=len(proposal.votes))
+            validate_vote_chain(accepted + suffix, start=len(accepted))
         except ConsensusError as exc:
             return int(exc.code)
         sub = self.ingest_votes(
@@ -834,9 +982,23 @@ class TorchConsensusEngine(Generic[Scope]):
         identity = self._signer.identity()
         if identity in record.votes or (
             record.session is not None and identity in record.session.tallies
+        ) or (
+            record.retained_wire
+            and any(
+                identity == vote.vote_owner
+                for vote in self._accepted_vote_chain(record)
+            )
         ):
             raise UserAlreadyVoted()
-        vote = build_vote(record.proposal, choice, self._signer, now)
+        # Chain against the merged accepted chain: votes accepted through a
+        # columnar path live in retained wire chunks, not in
+        # record.proposal.votes.
+        link_source = (
+            self._materialized_proposal(record)
+            if record.retained_wire
+            else record.proposal
+        )
+        vote = build_vote(link_source, choice, self._signer, now)
         statuses = self.ingest_votes([(scope, vote)], now, pre_validated=True)
         exc = error_for_code(int(statuses[0]))
         if exc is not None:
@@ -848,7 +1010,7 @@ class TorchConsensusEngine(Generic[Scope]):
     ) -> Proposal:
         """reference: src/service.rs:243-253"""
         self.cast_vote(scope, proposal_id, choice, now)
-        return self._get_record(scope, proposal_id).proposal.clone()
+        return self._materialized_proposal(self._get_record(scope, proposal_id))
 
     def process_incoming_vote(self, scope: Scope, vote: Vote, now: int) -> None:
         """Scalar network-vote entry point (reference: src/service.rs:286-305):
@@ -1059,15 +1221,37 @@ class TorchConsensusEngine(Generic[Scope]):
             # Dangling-vote guard: a FIRST-TIME voter whose received_hash
             # names a vote this session never accepted is rejected instead
             # of appended (an empty chain has no tail, so a first vote
-            # claiming a link is dangling by definition).
-            if vote.vote_owner not in record.votes and (
-                record.session is None
-                or vote.vote_owner not in record.session.tallies
+            # claiming a link is dangling by definition). A session whose
+            # retained wire came from the validated wire path guards
+            # against the wire-tracked tail and owners; pre-validated
+            # columnar retention stays permissive.
+            wire_guarded = bool(record.retained_wire) and record.wire_only
+            if wire_guarded and (
+                record.wire_seen is None
+                or record.wire_sync
+                != (len(record.retained_wire), len(record.scalar_seqs))
             ):
+                self._resync_wire_chain(record)
+            first_time_voter = not (
+                record.retained_wire and not record.wire_only
+            ) and (
+                vote.vote_owner not in record.votes
+                and not (wire_guarded and vote.vote_owner in record.wire_seen)
+                and (
+                    record.session is None
+                    or (
+                        vote.vote_owner not in record.session.tallies
+                        and vote.vote_owner not in record.session.votes
+                    )
+                )
+            )
+            if first_time_voter:
                 if vote.received_hash:
                     tail = pending_tail.get(
                         slot,
-                        record.proposal.votes[-1].vote_hash
+                        (record.wire_tail or b"")
+                        if wire_guarded
+                        else record.proposal.votes[-1].vote_hash
                         if record.proposal.votes
                         else b"",
                     )
@@ -1112,6 +1296,7 @@ class TorchConsensusEngine(Generic[Scope]):
                 stored = vote.clone()  # as the scalar add_vote does
                 record.votes[stored.vote_owner] = stored
                 record.proposal.votes.append(stored)
+                record.scalar_seqs.append(record.next_arrival_seq())
                 record.bump_round(1)
                 last_ok[int(slots[j])] = j
 
@@ -1163,33 +1348,535 @@ class TorchConsensusEngine(Generic[Scope]):
         values: np.ndarray,
         now: int,
         max_depth: int = 8,
+        wire_votes: "list[bytes] | tuple[bytes, np.ndarray] | None" = None,
     ) -> np.ndarray:
         """The throughput path: apply an arrival-ordered vote batch given as
         dense columns — proposal ids, interned voter ids (:meth:`voter_gid`),
         yes/no values — with no per-vote Python.
 
         Same observable semantics as :meth:`ingest_votes` with
-        ``pre_validated=True``, except that no per-vote ``Vote`` objects are
-        kept host-side and events are ordered per session, not across
-        sessions. A batch of fresh slots with no repeated voter takes one
-        closed-form dispatch; any other batch runs the arrival-ordered scan,
-        in one dispatch while the padded [slots, depth] grid stays within
-        the pool's cell budget and otherwise in segments of at most
+        ``pre_validated=True``, except that events are ordered per session,
+        not across sessions, and that by default no per-vote ``Vote``
+        objects are kept host-side. ``wire_votes`` (the encoded Vote bytes
+        per row: a list, or a ``(packed, offsets)`` pair) retains the
+        accepted rows' verbatim bytes, so exports re-embed them in arrival
+        order and the session re-gossips a chain-valid vote list. A batch
+        of fresh slots with no repeated voter takes one closed-form
+        dispatch; any other batch runs the arrival-ordered scan, in one
+        dispatch while the padded [slots, depth] grid stays within the
+        pool's cell budget and otherwise in segments of at most
         ``max_depth`` votes per slot. Returns int32 statuses in batch
         order.
         """
         proposal_ids = np.asarray(proposal_ids, np.int64)
         voter_gids = np.asarray(voter_gids, np.int64)
         values = np.asarray(values, bool)
-        statuses = np.full(
-            len(proposal_ids), int(StatusCode.SESSION_NOT_FOUND), np.int32
-        )
+        wire_norm, statuses = self._columnar_preamble(len(proposal_ids), wire_votes)
         if len(proposal_ids) == 0:
             return statuses
         found, slots = self._pid_lookup(scope).lookup(proposal_ids)
-        return self._columnar_apply(
+        return self._columnar_finish(
+            slots, found, voter_gids, values, now, max_depth, statuses, wire_norm
+        )
+
+    def ingest_columnar_multi(
+        self,
+        scopes: list,
+        scope_idx: np.ndarray,
+        proposal_ids: np.ndarray,
+        voter_gids: np.ndarray,
+        values: np.ndarray,
+        now: int,
+        max_depth: int = 8,
+        wire_votes: "list[bytes] | tuple[bytes, np.ndarray] | None" = None,
+    ) -> np.ndarray:
+        """Mixed-scope :meth:`ingest_columnar`: one device pipeline across
+        many scopes. ``scopes`` lists the distinct scopes; ``scope_idx``
+        (one entry per row) indexes into it. Only the proposal-id
+        resolution is per scope; lanes, dispatches, statuses, events and
+        ``wire_votes`` retention are shared with :meth:`ingest_columnar`."""
+        proposal_ids = np.asarray(proposal_ids, np.int64)
+        scope_idx = np.asarray(scope_idx, np.int64)
+        voter_gids = np.asarray(voter_gids, np.int64)
+        values = np.asarray(values, bool)
+        wire_norm, statuses = self._columnar_preamble(len(proposal_ids), wire_votes)
+        if len(proposal_ids) == 0:
+            return statuses
+        found, slots = self._resolve_slots_multi(scopes, scope_idx, proposal_ids)
+        return self._columnar_finish(
+            slots, found, voter_gids, values, now, max_depth, statuses, wire_norm
+        )
+
+    def _columnar_preamble(
+        self, batch: int, wire_votes
+    ) -> "tuple[tuple[np.ndarray, np.ndarray] | None, np.ndarray]":
+        """The columnar paths' entry: ``wire_votes`` normalized before any
+        state mutates (a malformed argument fails the call instead of
+        stranding applied votes without their bytes), and the statuses."""
+        wire_norm = (
+            self._normalize_wire(wire_votes, batch) if wire_votes is not None else None
+        )
+        return wire_norm, np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
+
+    def _resolve_slots_multi(
+        self, scopes: list, scope_idx: np.ndarray, proposal_ids: np.ndarray
+    ) -> "tuple[np.ndarray, np.ndarray]":
+        """Mixed-scope proposal-id resolution of the columnar entry points:
+        (found bool[B], slots int64[B]). One composite-key probe
+        (``scope ordinal << 32 | pid``) resolves the whole batch; should a
+        scope hold a pid outside u32, each scope's rows probe its own
+        table."""
+        batch = len(proposal_ids)
+        found = np.zeros(batch, bool)
+        slots = np.zeros(batch, np.int64)
+        fused = self._fused_pid_lookup(scopes)
+        if fused is not None:
+            # Rows whose pid falls outside u32 can never match.
+            rows = np.nonzero(
+                (proposal_ids >= 0) & (proposal_ids >> np.int64(32) == 0)
+            )[0]
+            if rows.size:
+                comp = (scope_idx[rows] << np.int64(32)) | proposal_ids[rows]
+                found[rows], slots[rows] = fused.lookup(comp)
+            return found, slots
+        order = np.argsort(scope_idx, kind="stable")
+        bounds = np.searchsorted(scope_idx[order], np.arange(len(scopes) + 1))
+        for k, scope in enumerate(scopes):
+            rows = order[bounds[k]:bounds[k + 1]]
+            if rows.size:
+                found[rows], slots[rows] = self._pid_lookup(scope).lookup(
+                    proposal_ids[rows]
+                )
+        return found, slots
+
+    def _fused_pid_lookup(self, scopes: list) -> "_PidLookup | None":
+        """One composite-key hash for a multi-scope resolution (key =
+        scope ordinal << 32 | pid), cached per scope tuple; None when a
+        table holds a pid outside u32, which the composite cannot carry."""
+        cache_key = tuple(scopes)
+        cached = self._fused_pid_cache.get(cache_key)
+        if cached is not None:
+            return cached
+        key_parts: list[np.ndarray] = []
+        val_parts: list[np.ndarray] = []
+        for k, scope in enumerate(scopes):
+            pids, slot_arr = self._pid_table(scope)
+            if len(pids) and (int(pids.min()) < 0 or (int(pids.max()) >> 32) != 0):
+                return None
+            key_parts.append(pids | (np.int64(k) << np.int64(32)))
+            val_parts.append(slot_arr)
+        lookup = _PidLookup(
+            np.concatenate(key_parts) if key_parts else np.empty(0, np.int64),
+            np.concatenate(val_parts) if val_parts else np.empty(0, np.int64),
+        )
+        if len(self._fused_pid_cache) >= 8:  # bound the distinct tuples kept
+            self._fused_pid_cache.clear()
+        self._fused_pid_cache[cache_key] = lookup
+        return lookup
+
+    def _columnar_finish(
+        self,
+        slots: np.ndarray,
+        found: np.ndarray,
+        voter_gids: np.ndarray,
+        values: np.ndarray,
+        now: int,
+        max_depth: int,
+        statuses: np.ndarray,
+        wire_norm: "tuple[np.ndarray, np.ndarray] | None",
+        wire_validated: bool = False,
+    ) -> np.ndarray:
+        """Shared tail of the columnar paths: apply, then retain the
+        accepted rows' wire bytes under their resolved slots.
+        ``wire_validated`` marks retention by the guard-ordered wire path,
+        the only kind that keeps a record's chain positional."""
+        statuses = self._columnar_apply(
             slots, found, voter_gids, values, now, max_depth, statuses
         )
+        if wire_norm is not None:
+            self._retain_wire_slots(statuses, slots, wire_norm, wire_validated)
+        return statuses
+
+    @staticmethod
+    def _normalize_wire(wire_votes, batch: int) -> "tuple[np.ndarray, np.ndarray]":
+        """``wire_votes`` as (uint8 data, int64 offsets), validated."""
+        blob, offsets = normalize_wire_votes(wire_votes, batch)
+        return np.frombuffer(blob, np.uint8), offsets
+
+    def _retain_wire_slots(
+        self,
+        statuses: np.ndarray,
+        slots: np.ndarray,
+        wire_norm: "tuple[np.ndarray, np.ndarray]",
+        wire_validated: bool = False,
+    ) -> None:
+        """Attach the accepted rows' verbatim vote bytes to their session
+        records as one chunk a touched session (rows in arrival order)."""
+        ok_rows = np.nonzero(statuses == int(StatusCode.OK))[0]
+        if ok_rows.size == 0:
+            return
+        data_arr, offsets = wire_norm
+        ok_slots = slots[ok_rows]
+        order = np.argsort(ok_slots, kind="stable")  # arrival order per slot
+        rows = ok_rows[order]
+        s_sorted = ok_slots[order]
+        starts = offsets[rows]
+        lens = offsets[rows + 1] - starts
+        uniq, seg_start = np.unique(s_sorted, return_index=True)
+        seg_bounds = np.append(seg_start, len(rows))
+        # Gather every accepted row's bytes into one blob, slot-major.
+        out_off = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(lens, out=out_off[1:])
+        gather = (
+            np.arange(int(out_off[-1]), dtype=np.int64)
+            - np.repeat(out_off[:-1], lens)
+            + np.repeat(starts, lens)
+        )
+        blob = data_arr[gather].tobytes()
+        for k, slot in enumerate(uniq.tolist()):
+            lo, hi = int(seg_bounds[k]), int(seg_bounds[k + 1])
+            record = self._records[slot]
+            record.wire_only = record.wire_only and wire_validated
+            record.retained_wire.append((
+                record.next_arrival_seq(),
+                blob[int(out_off[lo]):int(out_off[hi])],
+                out_off[lo:hi + 1] - out_off[lo],
+            ))
+
+    # ── Validated wire ingest (OP_VOTE_BATCH columns) ──────────────────
+
+    def wire_verify_begin(
+        self,
+        data: np.ndarray,
+        cols: np.ndarray,
+        offsets: np.ndarray,
+        buf: "bytes | None" = None,
+    ) -> WireVotePrepass:
+        """Session-independent half of the wire-columnar validation: the
+        structural emptiness checks, the batched vote-hash pass and ONE
+        cache-aware signature batch over the survivors, all from parsed
+        columns (:mod:`..bridge.columnar`), no Vote objects. The batch is
+        in flight when this returns (on the card, for a device signer), so
+        a caller may start frame k+1's prepass while frame k applies:
+        nothing here reads session state.
+
+        Check precedence is ``validate_vote``'s: empty owner, empty hash,
+        empty signature, hash mismatch, then signature. The signing
+        payload of a canonical row is the prefix ``data[offsets[i] :
+        offsets[i] + sign_len]``, so nothing is re-encoded."""
+        from ..bridge import columnar as C
+
+        k = len(cols)
+        pre = np.zeros(k, np.int32)
+        owner_len = cols[:, C.COL_OWNER_LEN]
+        hash_len = cols[:, C.COL_HASH_LEN]
+        sig_len = cols[:, C.COL_SIG_LEN]
+        pre[owner_len == 0] = int(StatusCode.EMPTY_VOTE_OWNER)
+        pre[(pre == 0) & (hash_len == 0)] = int(StatusCode.EMPTY_VOTE_HASH)
+        pre[(pre == 0) & (sig_len == 0)] = int(StatusCode.EMPTY_SIGNATURE)
+        live = pre == 0
+        if live.any():
+            digests = C.vote_hash_columns(data, cols)
+            rows32 = np.nonzero(live & (hash_len == 32))[0]
+            if rows32.size:
+                gather = (
+                    cols[rows32, C.COL_HASH_OFF, None] + np.arange(32, dtype=np.int64)
+                )
+                mismatch = (data[gather] != digests[rows32]).any(axis=1)
+                pre[rows32[mismatch]] = int(StatusCode.INVALID_VOTE_HASH)
+            pre[live & (hash_len != 32)] = int(StatusCode.INVALID_VOTE_HASH)
+        crypto_rows = np.nonzero(pre == 0)[0]
+        if crypto_rows.size == 0:
+            return WireVotePrepass(pre, crypto_rows, lambda: [], buf=buf)
+        if buf is None:
+            buf = data.tobytes()
+        base = np.asarray(offsets, np.int64)[crypto_rows].tolist()
+        row_l = cols[crypto_rows].tolist()
+        owners: list[bytes] = []
+        payloads: list[bytes] = []
+        sigs: list[bytes] = []
+        for start, c in zip(base, row_l):
+            owners.append(buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]])
+            payloads.append(buf[start:start + c[C.COL_SIGN_LEN]])
+            sigs.append(buf[c[C.COL_SIG_OFF]:c[C.COL_SIG_OFF] + c[C.COL_SIG_LEN]])
+        return WireVotePrepass(
+            pre, crypto_rows, self._wire_crypto_begin(owners, payloads, sigs), buf=buf
+        )
+
+    def _wire_crypto_begin(self, owners, payloads, sigs):
+        """Cache-aware batched signature verification over byte triples
+        (:meth:`_cached_verify_begin` without Vote objects): identical
+        (payload, signature) items collapse to one, the cache answers what
+        it holds, ONE ``verify_batch_submit`` takes the misses, and the
+        returned zero-argument collect gives verdicts aligned with the
+        input."""
+        k = len(owners)
+        if self._verify_cache is None:
+            pending = self._scheme.verify_batch_submit(owners, payloads, sigs)
+            return lambda: list(pending.collect())
+        cache = self._verify_cache
+        verdicts: list = [False] * k
+        keys = [
+            VerifiedVoteCache.key(payload, sig, self._verify_scheme_tag)
+            for payload, sig in zip(payloads, sigs)
+        ]
+        miss_rows: dict[bytes, list[int]] = {}
+        for i, (key, hit) in enumerate(zip(keys, cache.get_many(keys))):
+            if hit is not MISS:
+                verdicts[i] = hit
+            else:
+                miss_rows.setdefault(key, []).append(i)
+        if not miss_rows:
+            return lambda: verdicts
+        rep = [rows[0] for rows in miss_rows.values()]
+        pending = self._scheme.verify_batch_submit(
+            [owners[i] for i in rep],
+            [payloads[i] for i in rep],
+            [sigs[i] for i in rep],
+        )
+
+        def _finish():
+            fresh = pending.collect()
+            for rows, verdict in zip(miss_rows.values(), fresh):
+                for i in rows:
+                    verdicts[i] = verdict
+            cache.put_many(list(zip(miss_rows, fresh)))
+            return verdicts
+
+        return _finish
+
+    def ingest_wire_columnar(
+        self,
+        scopes: list,
+        scope_idx: np.ndarray,
+        cols: np.ndarray,
+        data: np.ndarray,
+        offsets: np.ndarray,
+        now: int,
+        max_depth: int = 8,
+        stage_seconds: "dict | None" = None,
+        _prepass: "WireVotePrepass | None" = None,
+        _buf: "bytes | None" = None,
+    ) -> np.ndarray:
+        """The validated wire throughput path: mixed-scope ingest straight
+        from parsed ``OP_VOTE_BATCH`` columns. Hash, signature (batched,
+        through the admission cache), replay and expiry checks and the
+        dangling-vote guard run without a single ``Vote`` object; the rows
+        that pass land on the shared columnar apply with wire retention on.
+
+        Status-identical to ``ingest_votes(pre_validated=False)`` over the
+        same decoded rows. ``cols``/``data``/``offsets`` come from
+        :func:`..bridge.columnar.parse_vote_columns` over canonical rows
+        only. ``stage_seconds`` (optional dict) accumulates ``"crypto"``
+        and ``"apply"`` wall seconds. ``_prepass`` takes a
+        :meth:`wire_verify_begin` started earlier; ``_buf`` the vote
+        region already as bytes (a durable wrapper shares its WAL blob)."""
+        from ..bridge import columnar as C
+
+        scope_idx = np.asarray(scope_idx, np.int64)
+        offsets = np.asarray(offsets, np.int64)
+        batch = len(cols)
+        statuses = np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
+        if batch == 0:
+            return statuses
+        pids = np.ascontiguousarray(cols[:, C.COL_PID])
+        found, slots = self._resolve_slots_multi(scopes, scope_idx, pids)
+        t0 = time.monotonic()
+        prepass = (
+            _prepass
+            if _prepass is not None
+            else self.wire_verify_begin(data, cols, offsets, buf=_buf)
+        )
+        buf = _buf if _buf is not None else prepass.buf
+        if buf is None:
+            buf = data.tobytes()
+        prepass.buf = buf
+        verdicts = prepass.collect()
+        pre = prepass.pre_status
+        valid = found.copy()
+        fail = found & (pre != 0)
+        statuses[fail] = pre[fail]
+        valid &= pre == 0
+        # Signature verdicts, with validate_vote's injection semantics: an
+        # exception verdict carries its own status code.
+        for row, verdict in zip(prepass.crypto_rows.tolist(), verdicts):
+            if verdict is True or not valid[row]:
+                continue
+            if isinstance(verdict, Exception):
+                statuses[row] = int(getattr(verdict, "code", StatusCode.SIGNATURE_SCHEME))
+            else:
+                statuses[row] = int(StatusCode.INVALID_VOTE_SIGNATURE)
+            valid[row] = False
+        if stage_seconds is not None:
+            stage_seconds["crypto"] = stage_seconds.get("crypto", 0.0) + time.monotonic() - t0
+        t1 = time.monotonic()
+        # Replay and expiry need the session record: one timestamp lookup
+        # per unique slot, then one vectorized compare per rule.
+        ts_u64 = np.ascontiguousarray(cols[:, C.COL_TS]).view(np.uint64)
+        rows_v = np.nonzero(valid)[0]
+        if rows_v.size:
+            uniq = np.unique(slots[rows_v])
+            creation = np.empty(len(uniq), np.uint64)
+            expiry = np.empty(len(uniq), np.uint64)
+            for j, slot in enumerate(uniq.tolist()):
+                record = self._records[slot]
+                creation[j] = record.proposal.timestamp
+                expiry[j] = record.proposal.expiration_timestamp
+            pos = np.searchsorted(uniq, slots[rows_v])
+            ts_rows = ts_u64[rows_v]
+            old = ts_rows < creation[pos]
+            expired = ~old & ((ts_rows > expiry[pos]) | (np.uint64(now) > expiry[pos]))
+            statuses[rows_v[old]] = int(StatusCode.TIMESTAMP_OLDER_THAN_CREATION_TIME)
+            statuses[rows_v[expired]] = int(StatusCode.VOTE_EXPIRED)
+            valid[rows_v[old | expired]] = False
+        self._wire_dangling_guard(buf, cols, slots, valid, statuses)
+        # One gid per unique owner, then the shared columnar apply with
+        # wire retention on.
+        gids = self._wire_intern_gids(buf, cols, valid)
+        values = cols[:, C.COL_VALUE] != 0
+        statuses = self._columnar_finish(
+            slots, valid, gids, values, now, max_depth, statuses,
+            (data, offsets), wire_validated=True,
+        )
+        self._wire_track_chain(buf, cols, slots, statuses)
+        if stage_seconds is not None:
+            stage_seconds["apply"] = stage_seconds.get("apply", 0.0) + time.monotonic() - t1
+        return statuses
+
+    def _wire_dangling_guard(self, buf, cols, slots, valid, statuses) -> None:
+        """The ingest_votes dangling-vote guard over columns: a first-time
+        voter whose received_hash does not name the session's effective
+        tail is rejected (the in-batch tail walk included). The guard
+        stays armed across frames through the record's wire continuity
+        state (:meth:`_wire_track_chain`); a session whose retained wire
+        came from pre-validated columnar ingest stays permissive."""
+        from ..bridge import columnar as C
+
+        rows = np.nonzero(valid)[0]
+        if rows.size == 0:
+            return
+        order = np.argsort(slots[rows], kind="stable")
+        # -1 as "no slot yet", as the JAX engine has it: -1 is also the
+        # first host-spilled session's slot, so when that session holds
+        # the frame's lowest slot its rows go unguarded there too (kept
+        # for parity; ROADMAP queue 3 records it).
+        prev_slot = -1
+        guard = False
+        tail = b""
+        seen: set = set()
+        for i in rows[order].tolist():
+            slot = int(slots[i])
+            if slot != prev_slot:
+                prev_slot = slot
+                record = self._records[slot]
+                if not record.retained_wire:
+                    guard = True
+                    tail = (
+                        record.proposal.votes[-1].vote_hash
+                        if record.proposal.votes
+                        else b""
+                    )
+                    seen = set(record.votes)
+                elif record.wire_only:
+                    if record.wire_seen is None or record.wire_sync != (
+                        len(record.retained_wire), len(record.scalar_seqs)
+                    ):
+                        self._resync_wire_chain(record)
+                    guard = True
+                    tail = record.wire_tail or b""
+                    seen = set(record.wire_seen)
+                else:
+                    guard = False
+                if guard and record.session is not None:
+                    seen.update(record.session.tallies)
+                    seen.update(record.session.votes)
+            if not guard:
+                continue
+            c = cols[i]
+            owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+            if owner in seen:
+                continue
+            received = buf[c[C.COL_RECV_OFF]:c[C.COL_RECV_OFF] + c[C.COL_RECV_LEN]]
+            if received and received != tail:
+                statuses[i] = int(StatusCode.RECEIVED_HASH_MISMATCH)
+                valid[i] = False
+                continue
+            tail = buf[c[C.COL_HASH_OFF]:c[C.COL_HASH_OFF] + c[C.COL_HASH_LEN]]
+            seen.add(owner)
+
+    def _accepted_vote_chain(self, record: SessionRecord[Scope]) -> list[Vote]:
+        """The session's accepted votes in arrival order, retained wire
+        chunks and scalar accepts merged (not cloned: callers only read)."""
+        retained = self._decoded_retained(record)
+        scalar = record.proposal.votes
+        if not retained:
+            return scalar
+        n_pre = len(scalar) - len(record.scalar_seqs)
+        items: list[tuple[int, list[Vote]]] = [(-1, scalar[:n_pre])] if n_pre else []
+        items.extend((seq, [vote]) for seq, vote in zip(record.scalar_seqs, scalar[n_pre:]))
+        items.extend(retained)
+        items.sort(key=lambda t: t[0])
+        return [vote for _, votes in items for vote in votes]
+
+    def _resync_wire_chain(self, record: SessionRecord[Scope]) -> None:
+        """Rebuild the wire guard's continuity state from the merged
+        accepted chain (after scalar accepts touched a wire-fed record)."""
+        chain = self._accepted_vote_chain(record)
+        record.wire_seen = {vote.vote_owner for vote in chain}
+        record.wire_tail = chain[-1].vote_hash if chain else b""
+        record.wire_sync = (len(record.retained_wire), len(record.scalar_seqs))
+
+    def _wire_track_chain(self, buf, cols, slots, statuses) -> None:
+        """Fold each session's accepted rows (frame order) into its wire
+        continuity state: tail hash, accepted owners and the sync stamp
+        that shows no other path touched the record since."""
+        from ..bridge import columnar as C
+
+        ok_rows = np.nonzero(statuses == int(StatusCode.OK))[0]
+        if ok_rows.size == 0:
+            return
+        order = np.argsort(slots[ok_rows], kind="stable")
+        for i in ok_rows[order].tolist():
+            record = self._records[int(slots[i])]
+            if record.wire_seen is None:
+                record.wire_seen = set(record.votes)
+            c = cols[i]
+            record.wire_seen.add(
+                buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+            )
+            record.wire_tail = buf[c[C.COL_HASH_OFF]:c[C.COL_HASH_OFF] + c[C.COL_HASH_LEN]]
+            record.wire_sync = (len(record.retained_wire), len(record.scalar_seqs))
+
+    def _wire_intern_gids(self, buf, cols, valid) -> np.ndarray:
+        """The gid column of the apply stage: each unique owner interned
+        once. Fixed-width identities dedupe in one ``np.unique`` over an
+        [N, width] byte matrix; mixed widths go through a memo dict."""
+        from ..bridge import columnar as C
+
+        gids = np.zeros(len(cols), np.int64)
+        rows = np.nonzero(valid)[0]
+        if rows.size == 0:
+            return gids
+        lens = cols[rows, C.COL_OWNER_LEN]
+        width = int(lens[0])
+        if (lens == width).all():
+            gather = cols[rows, C.COL_OWNER_OFF, None] + np.arange(width, dtype=np.int64)
+            matrix = np.frombuffer(buf, np.uint8)[gather]
+            uniq, inverse = np.unique(matrix, axis=0, return_inverse=True)
+            uniq_gids = np.array(
+                [self._pool.voter_gid(row.tobytes()) for row in uniq], np.int64
+            )
+            gids[rows] = uniq_gids[inverse.reshape(-1)]
+        else:
+            memo: dict[bytes, int] = {}
+            for i in rows.tolist():
+                c = cols[i]
+                owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+                gid = memo.get(owner)
+                if gid is None:
+                    gid = memo[owner] = self._pool.voter_gid(owner)
+                gids[i] = gid
+        return gids
 
     def _columnar_apply(
         self,
@@ -1397,8 +2084,12 @@ class TorchConsensusEngine(Generic[Scope]):
         return statuses
 
     def _drop_pid_cache(self, scope: Scope) -> None:
+        """Invalidate the pid-resolution caches after a membership change
+        in ``scope``; the multi-scope cache's tuples may span any scope,
+        so it is cleared outright."""
         self._pid_tables.pop(scope, None)
         self._pid_hashes.pop(scope, None)
+        self._fused_pid_cache.clear()
 
     def _pid_lookup(self, scope: Scope) -> "_PidLookup":
         """Vectorized pid -> slot hash for one scope (lazily rebuilt)."""
@@ -1430,7 +2121,11 @@ class TorchConsensusEngine(Generic[Scope]):
     ) -> tuple[int, ConsensusEvent | None]:
         """Apply one validated vote to a host-spilled session; returns the
         device path's status code and the event to emit, if any."""
-        return self._host_apply(record, lambda s: s.add_vote(vote, now), now)
+        code, event = self._host_apply(record, lambda s: s.add_vote(vote, now), now)
+        if code == int(StatusCode.OK):
+            # add_vote appended to the shared proposal's vote list.
+            record.scalar_seqs.append(record.next_arrival_seq())
+        return code, event
 
     def _host_add_tally(
         self, record: SessionRecord[Scope], owner: bytes, value: bool, now: int
@@ -1505,12 +2200,19 @@ class TorchConsensusEngine(Generic[Scope]):
         self._emit(scope, ConsensusFailedEvent(proposal_id=proposal_id, timestamp=now))
         raise InsufficientVotesAtTimeout()
 
-    def sweep_timeouts(self, now: int) -> list[tuple[Scope, int, bool | None]]:
+    def sweep_timeouts(
+        self, now: int, _gc_sink: "list | None" = None
+    ) -> list[tuple[Scope, int, bool | None]]:
         """Fire the timeout decision for every still-ACTIVE session whose
         expiration has passed, in one device dispatch. Returns
         (scope, proposal_id, result-or-None) per swept session and emits the
         same events as per-session timeouts. A FAILED session is not swept
-        again (its tallies are frozen, so it would re-fail forever)."""
+        again (its tallies are frozen, so it would re-fail forever).
+
+        ``_gc_sink`` (private, the durable wrapper's) would collect the
+        (scope, proposal_id) keys the tier lifecycle garbage-collects
+        after the sweep; the port has no session tiering yet, so it stays
+        empty."""
         expired: list[int] = []
         host_expired: list[int] = []
         for slot, record in self._records.items():
@@ -1550,8 +2252,43 @@ class TorchConsensusEngine(Generic[Scope]):
 
     # ── Queries (reference: src/storage.rs:112-180 derived helpers) ────
 
+    def _decoded_retained(
+        self, record: SessionRecord[Scope]
+    ) -> list[tuple[int, list[Vote]]]:
+        """A record's retained wire chunks decoded as (arrival seq, votes),
+        once per growth; readers clone what they hand out."""
+        n = len(record.retained_wire)
+        if n == 0:
+            return []
+        if record.retained_cache is None or record.retained_cache[0] != n:
+            chunks = [
+                (seq, [Vote.decode(data[offs[k]:offs[k + 1]]) for k in range(len(offs) - 1)])
+                for seq, data, offs in record.retained_wire
+            ]
+            record.retained_cache = (n, chunks)
+        return record.retained_cache[1]
+
+    def _materialized_proposal(self, record: SessionRecord[Scope]) -> Proposal:
+        """Export view of a record's proposal: retained wire votes decoded
+        and merged with the scalar-ingested ones in arrival order (one
+        tick a scalar accept, one a retained chunk), so a session fed
+        through both paths re-gossips a chain-valid vote list."""
+        proposal = record.proposal.clone()
+        retained = self._decoded_retained(record)
+        if retained:
+            scalar = proposal.votes
+            # Votes embedded at registration predate the arrival clock and
+            # keep their leading position.
+            n_pre = len(scalar) - len(record.scalar_seqs)
+            items: list[tuple[int, list[Vote]]] = [(-1, scalar[:n_pre])] if n_pre else []
+            items.extend((seq, [vote]) for seq, vote in zip(record.scalar_seqs, scalar[n_pre:]))
+            items.extend((seq, [v.clone() for v in votes]) for seq, votes in retained)
+            items.sort(key=lambda t: t[0])
+            proposal.votes = [v for _, votes in items for v in votes]
+        return proposal
+
     def get_proposal(self, scope: Scope, proposal_id: int) -> Proposal:
-        return self._get_record(scope, proposal_id).proposal.clone()
+        return self._materialized_proposal(self._get_record(scope, proposal_id))
 
     def get_consensus_result(self, scope: Scope, proposal_id: int) -> bool | None:
         """None while active; raises ConsensusFailed for a failed session
@@ -1567,7 +2304,7 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def get_active_proposals(self, scope: Scope) -> list[Proposal]:
         return [
-            r.proposal.clone()
+            self._materialized_proposal(r)
             for r in self._scope_records(scope)
             if self._state_code(r) == STATE_ACTIVE
         ]
@@ -1577,7 +2314,7 @@ class TorchConsensusEngine(Generic[Scope]):
         for r in self._scope_records(scope):
             state = self._state_code(r)
             if state in (STATE_REACHED_YES, STATE_REACHED_NO):
-                out.append((r.proposal.clone(), state == STATE_REACHED_YES))
+                out.append((self._materialized_proposal(r), state == STATE_REACHED_YES))
         return out
 
     def get_scope_stats(self, scope: Scope) -> ConsensusStats:
@@ -1608,6 +2345,128 @@ class TorchConsensusEngine(Generic[Scope]):
             "capacity": self._pool.capacity,
             "voter_capacity": self._pool.voter_capacity,
         }
+
+    def session_keys(self) -> "list[tuple[Scope, int]]":
+        """Every tracked ``(scope, proposal_id)`` in one consistent read."""
+        with self._lock:
+            return list(self._index.keys())
+
+    # ── Checkpoint (host storage is the source of truth; the pool is a
+    #    cache rebuilt from it) ──────────────────────────────────────────
+
+    def export_session(self, scope: Scope, proposal_id: int) -> ConsensusSession:
+        """A scalar ConsensusSession of a tracked session, the bridge to
+        ``ConsensusStorage`` backends. A pooled session's tallies are read
+        back from the device (lane -> owner through the gid registry);
+        rows whose wire bytes were retained export as signed votes instead
+        of tallies, so the session can still be re-gossiped after a save
+        and load."""
+        return self._export_record(self._get_record(scope, proposal_id))
+
+    def _export_record(
+        self, record: SessionRecord[Scope], row: "dict | None" = None
+    ) -> ConsensusSession:
+        """Body of :meth:`export_session` over a resolved record. ``row``
+        optionally supplies the slot's device row (``vote_mask``,
+        ``vote_val``) from a batched ``pool.read_slots``."""
+        retained_votes = [
+            vote for _, votes in self._decoded_retained(record) for vote in votes
+        ]
+        if record.session is not None:
+            session = record.session.clone()
+            if retained_votes:
+                session.proposal = self._materialized_proposal(record)
+                for vote in retained_votes:
+                    # A retained signed vote supersedes its tally entry.
+                    session.tallies.pop(vote.vote_owner, None)
+                    if vote.vote_owner not in session.votes:
+                        session.votes[vote.vote_owner] = vote.clone()
+            return session
+        votes = {k: v.clone() for k, v in record.votes.items()}
+        tallies: dict[bytes, bool] = {}
+        if row is None:
+            row = self._pool.read_slot(record.slot)
+        lane_owners = self._pool.lane_owners(record.slot)
+        for lane in np.nonzero(row["vote_mask"])[0]:
+            owner = lane_owners.get(int(lane))
+            if owner is None or owner in votes:
+                continue  # a scalar vote already carries this participant
+            tallies[owner] = bool(row["vote_val"][lane])
+        for vote in retained_votes:
+            tallies.pop(vote.vote_owner, None)
+            votes.setdefault(vote.vote_owner, vote.clone())
+        return ConsensusSession(
+            proposal=self._materialized_proposal(record),
+            state=_STATE_TO_SCALAR[self._pool.state_of(record.slot)],
+            votes=votes,
+            created_at=record.created_at,
+            config=record.config,
+            tallies=tallies,
+        )
+
+    def save_to_storage(self, storage) -> int:
+        """Persist every tracked session and scope config into a
+        ``ConsensusStorage`` backend (reference: src/storage.rs:18-22).
+        Returns the number of sessions written. The pooled sessions' rows
+        come back from the device in one gather."""
+        records = [
+            self._records[slot]
+            for slots in self._scopes.values()
+            for slot in slots
+        ]
+        pooled = [r.slot for r in records if r.session is None]
+        rows = self._pool.read_slots(pooled) if pooled else None
+        row_of = {slot: k for k, slot in enumerate(pooled)}
+        for record in records:
+            row = None
+            if record.session is None:
+                k = row_of[record.slot]
+                row = {"vote_mask": rows["vote_mask"][k], "vote_val": rows["vote_val"][k]}
+            storage.save_session(record.scope, self._export_record(record, row))
+        for scope, config in self._scope_configs.items():
+            storage.set_scope_config(scope, config.clone())
+        return len(records)
+
+    def load_from_storage(self, storage) -> int:
+        """Rebuild pool state from a ``ConsensusStorage`` backend: every
+        stored session loads into a fresh slot (or the host, as
+        registration places it) with its created_at, tallies, lanes and
+        lifecycle state, unvalidated (storage is trusted, as the reference
+        trusts its own). Sessions already tracked are skipped. Returns the
+        number of sessions loaded."""
+        count = 0
+        for scope in storage.list_scopes() or []:
+            config = storage.get_scope_config(scope)
+            if config is not None:
+                self._scope_configs[scope] = config.clone()
+            sessions = storage.list_scope_sessions(scope) or []
+            for session in sorted(sessions, key=lambda s: s.created_at):
+                if (scope, session.proposal.proposal_id) in self._index:
+                    continue  # idempotent restore
+                self._register_session(scope, session.clone(), session.created_at)
+                count += 1
+        return count
+
+    def delete_scope(self, scope: Scope) -> None:
+        """Drop every session and the config of a scope
+        (reference: src/storage.rs:92 delete_scope semantics)."""
+        self.delete_scopes([scope])
+
+    def delete_scopes(self, scopes: "list[Scope]") -> None:
+        """Batched :meth:`delete_scope`: one pool release covers every
+        scope's sessions; observably the same as one call a scope."""
+        all_slots: list[int] = []
+        for scope in scopes:
+            slots = self._scopes.pop(scope, [])
+            for slot in slots:
+                record = self._records.pop(slot)
+                del self._index[(scope, record.proposal.proposal_id)]
+            # A host-spilled record holds no pool slot to release.
+            all_slots.extend(s for s in slots if s >= 0)
+            self._scope_configs.pop(scope, None)
+            self._drop_pid_cache(scope)
+            self._scope_seq.pop(scope, None)
+        self._pool.release(all_slots)
 
     # ── Scope config (reference: src/service.rs:375-484) ───────────────
 
@@ -1815,7 +2674,10 @@ for _name in (
     "ingest_proposals",
     "deliver_proposal",
     "deliver_proposals",
+    "create_proposals_multi",
     "ingest_columnar",
+    "ingest_columnar_multi",
+    "ingest_wire_columnar",
     "voter_gid",
     "cast_vote",
     "cast_vote_and_get_proposal",
@@ -1830,6 +2692,12 @@ for _name in (
     "get_active_proposals",
     "get_reached_proposals",
     "get_scope_stats",
+    "export_session",
+    "save_to_storage",
+    "load_from_storage",
+    "delete_scope",
+    "delete_scopes",
+    "set_replay_mode",
     "set_scope_config",
     "get_scope_config",
     "_initialize_scope",
