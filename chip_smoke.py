@@ -130,7 +130,29 @@ phase holds:
    blame names them), against a CPU engine on the native batch; the
    batch's kernels are held against their plain versions on the frame's
    inputs. (a) and (b) are cut in depth from config 3's 10,000 proposals
-   to fit the phase's 60 s.
+   to fit the phase's 60 s;
+11. session tiering (slice 9), at config 3's width: (a) one scope of
+   10,000 proposals x 64 voters, half gossipsub and half P2P, expiring at
+   NOW + 300; a tenth of them retain their rows' bytes (``wire_votes``).
+   Waves 1-2 on every proposal, waves 3-4 on 8,000; ``pin_scope`` must
+   stop a ``lifecycle_sweep`` from demoting anything; ``sweep_timeouts`` at
+   NOW + 120 demotes all 10,000 (``demote_after=60``); one
+   ``ingest_columnar`` call at NOW + 130 carries wave 3 to 1,000 active
+   sessions and wave 2 again to 1,000 decided ones, paging them back in
+   (the retaining ones into pool slots, which the scan then serves; the
+   others on the host, as in the JAX package); reads of 100 other demoted
+   sessions; sweeps at NOW + 400 (the tier's expired actives are paged in
+   and time out) and NOW + 1000 (``evict_decided_after=600`` collects live
+   and demoted sessions). An untiered GPU twin and a tiered CPU engine take
+   the same calls, and after every step the answers, events per session,
+   scope stats, session keys and ``state_fingerprint`` must be equal. (b)
+   The same traffic (2,000 proposals) on a tiered GPU engine under
+   ``DurableEngine(fsync_policy="batch")``, abandoned after the reads and
+   recovered on the card to the live fingerprint (two recovered votes
+   re-ingested are DUPLICATE_VOTE); the recovered engine sweeps at NOW +
+   400, runs a standalone ``lifecycle_sweep`` at NOW + 700 (KIND_LIFECYCLE
+   and KIND_GC), is abandoned again and recovered from the whole log to
+   the live fingerprint.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -141,7 +163,8 @@ it; phase 7 fails unless the batch launched every verification kernel, the
 MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
 20 times; phase 10 unless the waves and the replay of (a) and the calls of
 (b) launched the scan and (c)'s main frame every verification kernel, the
-MSM's window once; phase 8 fails unless (a) launched every verification kernel in
+MSM's window once; phase 11 unless its late call and (b)'s first replay
+launched the scan; phase 8 fails unless (a) launched every verification kernel in
 one batch, every batch of (a) and (b) ran its MSM without falling back to
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
@@ -2827,12 +2850,13 @@ def round_cap_failures(frames, statuses, scope=None, scopes=None):
     return out
 
 
-def compare_recovered(label, recovered, live, lost):
+def compare_recovered(label, recovered, live, lost, rows=True):
     """A recovered engine against the engine that took the calls live:
     snapshots equal session by session, except that the sessions in
     ``lost`` (failed live by a MAX_ROUNDS_EXCEEDED row the log does not
-    hold) are active after recovery with everything else equal; and the
-    pooled rows likewise. Returns (sessions, rows) compared."""
+    hold) are active after recovery with everything else equal; and, when
+    ``rows`` (neither engine holds demoted sessions), the pooled rows
+    likewise. Returns (sessions, rows) compared."""
     from hashgraph_tpu_torch.wal import format as F
 
     rec, _, _ = wal_snapshot(recovered)
@@ -2855,7 +2879,7 @@ def compare_recovered(label, recovered, live, lost):
                     pid in gone and state_b != (False, False, None)):
                 raise AssertionError(f"{label}: session {pid} of scope {scope!r} differs")
             n += 1
-    return n, compare_rows(label, recovered, live, lost)
+    return n, compare_rows(label, recovered, live, lost) if rows else 0
 
 
 def require_launches(label, counts, kernels, exact=None):
@@ -3215,7 +3239,438 @@ def phase_wal(dev):
     return dict(a=a, b=b, c=c)
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10")
+TIER_PROPOSALS = 10_000  # (a): config 3's scope, half gossipsub, half P2P
+TIER_DURABLE_PROPOSALS = 2_000  # (b), cut in depth as phase 10 (a) is
+TIER_VOTERS = 64
+TIER_EXPIRY = 300  # seconds after creation
+TIER_DEMOTE = 60.0  # the tiered scope's demote_after
+TIER_EVICT = 600.0  # evict_decided_after, on the tiered engines and the twin
+TIER_SCOPE = "tier"
+TIER_DIR = Path(__file__).resolve().parent / "_chip_smoke_tier"
+
+
+class TierPlan:
+    """Phase 11's traffic over proposal ids ``pids`` (a multiple of 20 of
+    them), by proposal index ``i``: ``i % 20`` in (0, 3) takes its waves
+    with ``wire_votes`` (the session retains its rows' bytes, so it pages
+    back into a pool slot), the rest as plain columns (tallies: such a
+    session pages back in on the host, as in the JAX package) — or every
+    proposal with ``wire_votes`` when ``all_wire`` (a durable engine logs
+    columnar rows by their bytes); ``i % 5 == 0`` (a fifth) takes waves 1-2
+    only and stays active, the rest all four waves. The late call at NOW +
+    130 carries wave 3 to ``i % 20`` in (0, 5) (half the active sessions)
+    and wave 2 again to ``i % 20`` in (3, 8) (as many decided ones); the
+    reads touch 50 other active sessions (``i % 20 == 10``) and 50 decided
+    ones (``i % 20 == 13``)."""
+
+    def __init__(self, pids, seed, all_wire=False):
+        n = len(pids)
+        self.pids = np.asarray(pids, np.int64)
+        m = np.arange(n) % 20
+        self.wire = np.ones(n, bool) if all_wire else np.isin(m, (0, 3))
+        active = np.arange(n) % 5 == 0
+        self.reads = np.concatenate([np.nonzero(m == 10)[0][:50], np.nonzero(m == 13)[0][:50]])
+        rng = np.random.default_rng(seed)
+        wire_idx = np.nonzero(self.wire)[0]
+        index_of = {int(self.pids[i]): int(i) for i in wire_idx}
+        waves = wire_waves(self.pids[wire_idx], seed + 1)[:4]
+        # Per wave: (proposal index, voter, value, row bytes or None) of
+        # every plain proposal, shuffled, and of every retaining one.
+        plain, wired = [], []
+        for w, (rows, _, row_pid, owner, values) in enumerate(waves):
+            p = np.repeat(np.arange(n), 16)
+            v = 16 * w + np.tile(np.arange(16), n)
+            order = rng.permutation(len(p))
+            val = rng.random(len(p)) < 0.6
+            keep = ~self.wire[p[order]]
+            plain.append((p[order][keep], v[order][keep], val[order][keep], None))
+            wired.append((np.asarray([index_of[int(x)] for x in row_pid], np.int64),
+                          owner, values, rows))
+        self.calls = []  # per wave: the plain call, the retaining call
+        for w in range(4):
+            self.calls.append(tuple(self._cut(part, (w < 2) | ~active[part[0]])
+                                    for part in (plain[w], wired[w])))
+        parts = []
+        for w, chosen in ((2, np.isin(m, (0, 5))), (1, np.isin(m, (3, 8)))):
+            for part in (plain[w], wired[w]):
+                parts.append(self._cut(part, chosen[part[0]]))
+        order = rng.permutation(sum(len(x[0]) for x in parts))
+        self.late = tuple(np.concatenate([x[k] for x in parts])[order] for k in range(3))
+        self.late_wire = None
+        if all_wire:
+            rows = [r for x in parts for r in x[3] or []]
+            self.late_wire = [rows[k] for k in order.tolist()]
+
+    @staticmethod
+    def _cut(part, keep):
+        p, v, val, rows = part
+        return (p[keep], v[keep], val[keep],
+                None if rows is None else [r for r, k in zip(rows, keep) if k])
+
+    def gids(self, engine):
+        """The voters' gids on ``engine``, interned now: a demotion that
+        releases every slot a voter holds frees its gid."""
+        return np.asarray([engine.voter_gid(b"voter-%d" % i) for i in range(TIER_VOTERS)])
+
+
+def tier_engine(dev, tiered, durable_root=None):
+    """A phase 11 engine: config 3's scope with ``evict_decided_after`` and,
+    when ``tiered``, ``demote_after``; under a durable wrapper at
+    ``batch`` when ``durable_root`` is given. Returns the Run."""
+    engine = wal_engine(dev)
+    if durable_root is not None:
+        from hashgraph_tpu_torch.wal import DurableEngine
+
+        engine = DurableEngine(engine, durable_root, fsync_policy="batch")
+    builder = engine.scope(TIER_SCOPE).with_evict_decided_after(TIER_EVICT)
+    if tiered:
+        builder = builder.with_demote_after(TIER_DEMOTE)
+    builder.initialize()
+    return Run(engine)
+
+
+def tier_create(run, n):
+    """``n`` proposals (seeded ids), half gossipsub and half P2P."""
+    from hashgraph_tpu_torch import ConsensusConfig
+
+    reqs = requests(n, TIER_VOTERS, TIER_EXPIRY, lambda i: i % 4 < 2)
+    with seeded_ids(121):
+        run.create(TIER_SCOPE, reqs[:n // 2], NOW, ConsensusConfig.gossipsub())
+        run.create(TIER_SCOPE, reqs[n // 2:], NOW, ConsensusConfig.p2p())
+    return run.pids[TIER_SCOPE]
+
+
+def tier_fingerprints(engine, skip=frozenset()):
+    """(``state_fingerprint``, the same digest over the session items
+    alone) from one ``save_to_storage``: the untiered twin's scope config
+    differs by its ``demote_after``, so the twin is held to the sessions'
+    digest and the tiered CPU engine to the whole one. Sessions keyed in
+    ``skip`` (scope, proposal id) are left out of both."""
+    import hashlib
+
+    from hashgraph_tpu_torch.sync.snapshot import (
+        ITEM_SCOPE_CONFIG, ITEM_SESSION, encode_frame, encode_scope_config_item,
+        encode_session_item)
+
+    class Sink:
+        sessions, configs = [], []
+
+        def save_session(self, scope, session):
+            if (scope, session.proposal.proposal_id) in skip:
+                return
+            self.sessions.append(hashlib.sha256(encode_frame(
+                ITEM_SESSION, encode_session_item(scope, session))).digest())
+
+        def set_scope_config(self, scope, config):
+            self.configs.append(hashlib.sha256(encode_frame(
+                ITEM_SCOPE_CONFIG, encode_scope_config_item(scope, config))).digest())
+
+    sink = Sink()
+    sink.sessions, sink.configs = [], []
+    engine.save_to_storage(sink)
+    digest = lambda items: hashlib.sha256(b"".join(sorted(items))).hexdigest()  # noqa: E731
+    return digest(sink.sessions + sink.configs), digest(sink.sessions)
+
+
+def tier_view(run):
+    """What the engines must agree on after a step: events per session,
+    scope stats, session keys and the fingerprints (see
+    :func:`tier_fingerprints`)."""
+    engine = run.engine
+    stats = engine.get_scope_stats(TIER_SCOPE)
+    keys = sorted(pid for _, pid in engine.session_keys())
+    return [run.events_by_session(), (stats.total_sessions, stats.active_sessions,
+                                      stats.failed_sessions, stats.consensus_reached),
+            keys, *tier_fingerprints(engine)]
+
+
+class TierClock:
+    """Wall seconds and calls of the tier's stages on one engine, by
+    wrapping the engine's and its pool's methods on the instance: the
+    demotion (``_demote_records``), its gather (``read_slots`` and
+    ``states_of``), the shared teardown and the promotion (``_promote_key``)."""
+
+    def __init__(self, engine):
+        self.seconds, self.calls = {}, {}
+        pool = engine.pool()
+        for owner, name, label in ((engine, "_demote_records", "demote"),
+                                   (pool, "read_slots", "gather"),
+                                   (pool, "states_of", "gather"),
+                                   (engine, "_drop_live_slots", "teardown"),
+                                   (engine, "_promote_key", "promote")):
+            setattr(owner, name, self._timed(getattr(owner, name), label))
+
+    def _timed(self, fn, label):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t
+                self.calls[label] = self.calls.get(label, 0) + 1
+        return timed
+
+    def take(self):
+        out = (dict(self.seconds), dict(self.calls))
+        self.seconds.clear()
+        self.calls.clear()
+        return out
+
+
+def tier_steps(run, plan, until=None):
+    """Phase 11's steps on one engine (bare or durable). Yields (label,
+    answer, wall seconds) after each step, before the next starts, so the
+    caller can read the engine between steps; stops after the step
+    ``until``."""
+    engine = run.engine
+    sync = sync_of(engine.pool().device)
+    pids = plan.pids
+
+    def timed(fn, *args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        return out, time.perf_counter() - t
+
+    gids = plan.gids(engine)
+    answers, walls = [], []
+    for w, call in enumerate(plan.calls):
+        for p, v, val, wire in call:
+            if len(p) == 0:
+                continue
+            st, wall = timed(engine.ingest_columnar, TIER_SCOPE, pids[p], gids[v], val,
+                             NOW + 1 + w, wire_votes=wire)
+            answers.append(st.tolist())
+            walls.append(wall)
+    yield "waves", answers, sum(walls)
+    # Pinned, the scope is left alone; unpinned, the sweep demotes.
+    engine.pin_scope(TIER_SCOPE)
+    pinned = engine.lifecycle_sweep(NOW + 120)
+    engine.unpin_scope(TIER_SCOPE)
+    yield "pinned", pinned, 0.0
+    swept, wall = timed(engine.sweep_timeouts, NOW + 120)
+    yield "sweep 120", sorted(swept), wall
+    p, v, val = plan.late
+    st, wall = timed(engine.ingest_columnar, TIER_SCOPE, pids[p], plan.gids(engine)[v], val,
+                     NOW + 130, wire_votes=plan.late_wire)
+    yield "late votes 130", st.tolist(), wall
+    t = time.perf_counter()
+    reads = []
+    for i in plan.reads.tolist():
+        reads.append(engine.get_proposal(TIER_SCOPE, int(pids[i])).encode())
+        try:
+            reads.append(engine.get_consensus_result(TIER_SCOPE, int(pids[i])))
+        except Exception as exc:  # the exception type is the answer compared
+            reads.append(type(exc).__name__)
+    yield "reads", reads, time.perf_counter() - t
+    if until == "reads":
+        return
+    swept, wall = timed(engine.sweep_timeouts, NOW + 400)
+    yield "sweep 400", sorted(swept), wall
+    swept, wall = timed(engine.sweep_timeouts, NOW + 1000)
+    yield "sweep 1000", sorted(swept), wall
+
+
+def phase_tier_compare(dev):
+    """(a): the tiered GPU engine against an untiered GPU twin and a tiered
+    CPU engine, step by step."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.ops import cuda_ingest
+
+    t_phase = time.perf_counter()
+    runs = {"tiered": tier_engine(dev, True), "twin": tier_engine(dev, False),
+            "cpu": tier_engine("cpu", True)}
+    pids = {name: tier_create(run, TIER_PROPOSALS) for name, run in runs.items()}
+    if not pids["tiered"] == pids["twin"] == pids["cpu"]:
+        raise AssertionError("(a) the engines minted different proposal ids")
+    t = time.perf_counter()
+    plan = TierPlan(pids["tiered"], 122)
+    build_s = time.perf_counter() - t
+    clock = TierClock(runs["tiered"].engine)
+    steps = {name: tier_steps(run, plan) for name, run in runs.items()}
+    report = {}
+    while True:
+        out = {}
+        for name, gen in steps.items():
+            if name == "tiered":
+                _build.launches.clear()
+            out[name] = next(gen, None)
+            if name == "tiered":
+                launches = dict(_build.launches)
+                stages, stage_calls = clock.take()
+        if out["tiered"] is None:
+            break
+        label, answer, wall = out["tiered"]
+        views = {name: tier_view(run) for name, run in runs.items()}
+        clock.take()  # the views' own gathers are no step's
+        for name in ("twin", "cpu"):
+            compare(f"(a) {label}: answers, {name}", out[name][1], answer)
+            # The twin's scope config differs: its sessions' digest only.
+            held = 3 if name == "twin" else 4
+            compare(f"(a) {label}: events, stats, keys and fingerprint, {name}",
+                    views[name][:held] + views[name][4:], views["tiered"][:held]
+                    + views["tiered"][4:])
+        occ = runs["tiered"].engine.occupancy()
+        report[label] = dict(answer=answer, wall=wall, twin_wall=out["twin"][2], occ=occ,
+                             launches=launches, stages=stages, stage_calls=stage_calls,
+                             stats=views["tiered"][1])
+        if label == "pinned" and (answer != {"demoted": 0, "gc_live": 0, "gc_tier": 0}
+                                  or occ["tier_sessions"] != 0):
+            raise AssertionError(f"(a) a pinned scope was swept: {answer}, {occ}")
+        if label == "sweep 120" and not (occ["tier_sessions"] == TIER_PROPOSALS
+                                         and occ["live_sessions"] == 0
+                                         and occ["device_slots_used"] == 0):
+            raise AssertionError(f"(a) the sweep at NOW + 120 left {occ}")
+    from hashgraph_tpu_torch.sync import state_fingerprint
+
+    if state_fingerprint(runs["tiered"].engine) != tier_fingerprints(runs["tiered"].engine)[0]:
+        raise AssertionError("(a) tier_fingerprints disagrees with state_fingerprint")
+    del runs, steps
+    demote, late = report["sweep 120"], report["late votes 130"]
+    require_launches("(a) the late votes", late["launches"], [cuda_ingest.KERNEL])
+    flat = np.asarray(late["answer"])
+    codes = {StatusCode(c).name: int((flat == c).sum()) for c in np.unique(flat)}
+    if not {"OK", "DUPLICATE_VOTE", "ALREADY_REACHED"} <= set(codes):
+        raise AssertionError(f"(a) the late call's statuses {codes}")
+    final = report["sweep 1000"]["occ"]
+    if final["tier_gc_total"] == 0 or report["sweep 400"]["occ"]["tier_promotions_total"] <= (
+            late["occ"]["tier_promotions_total"]):
+        raise AssertionError(f"(a) the sweeps neither promoted nor collected: {final}")
+    n_rows = len(plan.late[0])
+    gather = demote["stages"].get("gather", 0.0)
+    teardown = demote["stages"].get("teardown", 0.0)
+    encode = demote["stages"]["demote"] - gather - teardown
+    n_promoted = late["stage_calls"].get("promote", 0)
+    promote_s = late["stages"].get("promote", 0.0)
+    tier_bytes = demote["occ"]["tier_bytes"]
+    log(f"[tier] (a) {TIER_PROPOSALS} proposals x {TIER_VOTERS} voters (half gossipsub, half "
+        f"P2P; {int(plan.wire.sum())} retaining their rows' bytes), demote_after "
+        f"{TIER_DEMOTE:g} s, evict_decided_after {TIER_EVICT:g} s; the traffic built in "
+        f"{build_s:.3f} s; every step equal on the tiered GPU engine, the untiered GPU twin "
+        f"and the tiered CPU engine (answers, events per session, stats, session keys, "
+        f"state_fingerprint); pin_scope held the sweep, unpin_scope released it")
+    log(f"[tier] (a) the sweep at NOW + 120 demoted {TIER_PROPOSALS} sessions in "
+        f"{demote['wall']:.6f} s = {TIER_PROPOSALS / demote['wall']:.1f} demotions/s (the "
+        f"twin's sweep {demote['twin_wall']:.6f} s): lifecycle {demote['stages']['demote']:.6f} "
+        f"s = gather {gather:.6f} s ({demote['stage_calls'].get('gather', 0)} calls) + encode "
+        f"{encode:.6f} s + teardown {teardown:.6f} s; tier_bytes {tier_bytes} = "
+        f"{tier_bytes / TIER_PROPOSALS:.1f} B a session")
+    log(f"[tier] (a) the late call at NOW + 130: {n_rows} rows, statuses {codes}; {n_promoted} "
+        f"promotions in {promote_s:.6f} s = {n_promoted / promote_s:.1f} promotions/s "
+        f"({late['occ']['device_slots_used']} sessions back in pool slots, "
+        f"{late['occ']['host_spilled']} on the host); the call {late['wall']:.6f} s = "
+        f"{n_rows / late['wall']:.1f} votes/s against the twin's {late['twin_wall']:.6f} s = "
+        f"{n_rows / late['twin_wall']:.1f}; launches {json.dumps(late['launches'])}")
+    log(f"[tier] (a) reads of 100 demoted sessions {report['reads']['wall']:.6f} s; sweeps: "
+        f"NOW + 400 {report['sweep 400']['wall']:.6f} s (twin "
+        f"{report['sweep 400']['twin_wall']:.6f} s; occupancy "
+        f"{json.dumps(report['sweep 400']['occ'])}), NOW + 1000 "
+        f"{report['sweep 1000']['wall']:.6f} s (twin {report['sweep 1000']['twin_wall']:.6f} "
+        f"s; occupancy {json.dumps(final)}); stats after each step "
+        f"{[(k, report[k]['stats']) for k in report]}; the step took "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return dict(launches=late["launches"], demotions_per_s=TIER_PROPOSALS / demote["wall"],
+                promotions_per_s=n_promoted / promote_s,
+                bytes_per_session=tier_bytes / TIER_PROPOSALS,
+                late_rate=n_rows / late["wall"], twin_rate=n_rows / late["twin_wall"])
+
+
+def phase_tier_durable(dev, root):
+    """(b): the traffic on a tiered GPU engine under ``DurableEngine`` at
+    ``batch``, abandoned (a simulated crash) after the reads and recovered
+    on the card; the recovered engine takes the sweeps at NOW + 400 and a
+    standalone ``lifecycle_sweep`` at NOW + 700 (KIND_LIFECYCLE, and
+    KIND_GC for what it collects), is abandoned again and recovered from
+    the whole log."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.ops import cuda_ingest
+    from hashgraph_tpu_torch.sync import state_fingerprint
+    from hashgraph_tpu_torch.wal import format as F
+    from hashgraph_tpu_torch.wal import scan
+
+    t_phase = time.perf_counter()
+    path = root / "tier"
+    live = tier_engine(dev, True, path)
+    plan = TierPlan(tier_create(live, TIER_DURABLE_PROPOSALS), 123, all_wire=True)
+    calls = [part for call in plan.calls for part in call if len(part[0])] + [plan.late]
+    answers = []
+    for label, answer, _ in tier_steps(live, plan, until="reads"):
+        if label in ("waves", "late votes 130"):
+            answers += answer if label == "waves" else [answer]
+    late_st = answers[-1]
+    # The columnar records hold accepted rows only (the JAX package's log,
+    # ROADMAP queue 3): a session a MAX_ROUNDS_EXCEEDED row failed live
+    # comes back active. Everything else must be equal.
+    lost = round_cap_failures([(plan.pids[c[0]], None) for c in calls], answers, TIER_SCOPE)
+    live_fp = tier_fingerprints(live.engine.engine, skip=lost)
+    live.engine.abandon()
+    _build.launches.clear()
+    rec, stats1, replay1 = wal_recover(dev, path)
+    launches = dict(_build.launches)
+    compare_recovered("(b) the first recovery", rec.engine, live.engine.engine, lost,
+                      rows=False)
+    if stats1.errors or tier_fingerprints(rec.engine, skip=lost) != live_fp:
+        raise AssertionError(f"(b) the first recovery differs from the live engine: {stats1}")
+    require_launches("(b) the first replay", launches, [cuda_ingest.KERNEL])
+    # Two late votes accepted live, again, on sessions still active.
+    p, v, val = plan.late
+    active = {q.proposal_id for q in rec.get_active_proposals(TIER_SCOPE)}
+    again = []
+    for k in [k for k in range(len(p)) if late_st[k] == int(StatusCode.OK)
+              and int(plan.pids[p[k]]) in active
+              and (TIER_SCOPE, int(plan.pids[p[k]])) not in lost][:2]:
+        again += rec.engine.ingest_columnar(TIER_SCOPE, plan.pids[p[k:k + 1]],
+                                            plan.gids(rec.engine)[v[k:k + 1]], val[k:k + 1],
+                                            NOW + 131).tolist()
+    if again != [int(StatusCode.DUPLICATE_VOTE)] * 2:
+        raise AssertionError(f"(b) recovered votes re-ingested gave {again}")
+    rec.sweep_timeouts(NOW + 400)
+    swept = rec.lifecycle_sweep(NOW + 700)
+    kinds = [kind for _, kind, _ in scan(str(path)).records]
+    if kinds[-2:] != [F.KIND_LIFECYCLE, F.KIND_GC] or not swept["gc_live"] + swept["gc_tier"]:
+        raise AssertionError(f"(b) the standalone sweep {swept} logged {kinds[-2:]}")
+    live_fp = state_fingerprint(rec)
+    n_live = len(rec.session_keys())
+    rec.abandon()
+    rec2, stats2, replay2 = wal_recover(dev, path)
+    if stats2.errors or state_fingerprint(rec2) != live_fp:
+        raise AssertionError(f"(b) the second recovery differs from the live engine: {stats2}")
+    compare_recovered("(b) the second recovery", rec2.engine, rec.engine, set(), rows=False)
+    rec2.close()
+    log(f"[tier] (b) {TIER_DURABLE_PROPOSALS} proposals, the same traffic under DurableEngine "
+        f"at batch, every row with its bytes (a durable engine logs columnar rows so); "
+        f"abandoned after the reads and recovered on the card in {replay1:.6f} s "
+        f"({stats1.records_applied} records, launches {json.dumps(launches)}) to the live "
+        f"engine's sessions and its state_fingerprint over every session "
+        f"but the {len(lost)} a MAX_ROUNDS_EXCEEDED row failed live (active after recovery, "
+        f"as in the JAX package); two recovered late votes re-ingested: DUPLICATE_VOTE; then "
+        f"sweep_timeouts at NOW + 400 and lifecycle_sweep at NOW + 700 ({swept}), abandoned "
+        f"again and recovered from the whole log ({stats2.records_applied} records, kinds "
+        f"{sorted(set(F.KIND_NAMES[k] for k in kinds))}) in {replay2:.6f} s to the live "
+        f"state_fingerprint ({n_live} sessions left); {time.perf_counter() - t_phase:.3f} s")
+    return dict(recover_s=[replay1, replay2], launches=launches)
+
+
+def phase_tier(dev):
+    """Phase 11: (a) and (b), (b)'s log under TIER_DIR (removed after)."""
+    import shutil
+
+    t = time.perf_counter()
+    a = phase_tier_compare(dev)
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    TIER_DIR.mkdir()
+    try:
+        b = phase_tier_durable(dev, TIER_DIR)
+    finally:
+        shutil.rmtree(TIER_DIR, ignore_errors=True)
+    log(f"[tier] phase 11 took {time.perf_counter() - t:.3f} s on {nvidia_smi()}")
+    return dict(a=a, b=b)
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11")
 
 
 def main() -> int:
@@ -3356,6 +3811,9 @@ def main() -> int:
     if run("10"):
         # Phase 10's counts are zeroed just before each of its steps.
         wal = phase_wal(dev)
+    if run("11"):
+        # Phase 11's counts are zeroed just before each of its steps.
+        tier = phase_tier(dev)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -3383,6 +3841,9 @@ def main() -> int:
             "config3_wire_replay": wal["a"]["replay_launches"].get("ingest_scan", 0),
             "multi_scope": wal["b"]["launches"].get("ingest_scan", 0),
             "wire_verify": wal["c"]["launches"].get("ingest_scan", 0)},
+        "launches_tier": {
+            "late_votes": tier["a"]["launches"].get("ingest_scan", 0),
+            "durable_replay": tier["b"]["launches"].get("ingest_scan", 0)},
         "parity": "bit-exact against the plain PyTorch scan (uint8, uint16, int32 grids; "
                   "pad rows; depths 8, 70 and 128)",
         "max_abs_err": 0,

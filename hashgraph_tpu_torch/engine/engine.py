@@ -34,12 +34,20 @@ A session the pool cannot hold (more expected voters than
 engine serves it: a scalar :class:`ConsensusSession` under a negative
 synthetic slot id, which every entry point routes to.
 
-Not ported yet (the JAX engine has them): session tiering (and so
-``lifecycle_sweep``, ``gc_sessions`` and the tier branches of export, save
-and load), health/metrics/tracing/timelines (and so the proposal and wire
-paths' health notes and the replay mode's timelines and counters),
-multi-host pools (and so ``deliver_proposals``' SESSION_NOT_FOUND misroute
-branch and the wire path's non-local rows) and adaptive timeouts.
+Idle sessions move out of the pool into a compact tier of snapshot item
+bytes (:meth:`demote_session`, or the per-scope TTLs of
+:meth:`lifecycle_sweep`, which :meth:`sweep_timeouts` runs at its end), and
+decided ones past their TTL are garbage-collected (:meth:`gc_sessions`,
+the replay entry point of the WAL's GC records). A demoted session stays
+addressable: point reads and mutations page it back in, enumerations read
+through the tier, so callers see an engine without a tier.
+
+Not ported yet (the JAX engine has them): health/metrics/tracing/timelines
+(and so the proposal and wire paths' health notes, the replay mode's
+timelines and counters, and the tier's registry families, tracer counts
+and flight notes), multi-host pools (and so ``deliver_proposals``'
+SESSION_NOT_FOUND misroute branch, the wire path's non-local rows and the
+tier's multi-host refusal) and adaptive timeouts.
 """
 
 from __future__ import annotations
@@ -167,6 +175,10 @@ class SessionRecord(Generic[Scope]):
     # (its accepts are guard-ordered, so the merged chain stays
     # positional); pre-validated columnar retention clears it.
     wire_only: bool = True
+    # The idle clock the per-scope tier TTLs measure against: the logical
+    # time of registration, of the last accepted vote or of a fired
+    # timeout (set by _track at registration).
+    last_activity: int = 0
 
     def next_arrival_seq(self) -> int:
         seq = self.arrival_seq
@@ -221,6 +233,27 @@ class WireVotePrepass:
             self._result = self._collect_fn()
             self._collect_fn = None
         return self._result
+
+
+class _TierEntry:
+    """One demoted session: its snapshot ITEM_SESSION payload
+    (:func:`..sync.snapshot.encode_session_item`, the signed vote wire
+    included, so promotion needs no re-signing and ``state_fingerprint``
+    hashes the same bytes whether the session is live or demoted), and the
+    scalars that reads need without decoding it: the snapshot state code
+    (0 active, 1 reached, 2 failed) and result for stats, ``created_at``
+    and ``seq`` for the LRU ranking and ``last_activity`` for the GC TTL
+    (an active session's expiry sits in the engine's ``_tier_active``)."""
+
+    __slots__ = ("item", "state", "result", "created_at", "seq", "last_activity")
+
+    def __init__(self, item, state, result, created_at, seq, last_activity):
+        self.item = item
+        self.state = state
+        self.result = result
+        self.created_at = created_at
+        self.seq = seq
+        self.last_activity = last_activity
 
 
 # Dense lifecycle code -> scalar state, for session export.
@@ -289,6 +322,23 @@ class TorchConsensusEngine(Generic[Scope]):
         # Multi-scope resolution cache: one composite-key hash per distinct
         # scope tuple of a multi-scope call; any membership change clears it.
         self._fused_pid_cache: dict[tuple, _PidLookup] = {}
+        # The demoted tier: scope -> {pid -> _TierEntry}, per scope in
+        # demotion order. Every public read and mutation either pages a
+        # demoted session back in (_promote_key) or reads through the tier.
+        self._tier: dict[Scope, dict[int, _TierEntry]] = {}
+        self._tier_count = 0
+        self._tier_bytes = 0
+        # Active demoted sessions only, (scope, pid) -> expiry: the timeout
+        # sweep pages expired ones back in without scanning the decided mass.
+        self._tier_active: dict[tuple[Scope, int], int] = {}
+        # Per-scope demoted pids for batch id draws (rebuilt by _taken_pids).
+        self._tier_pid_arrays: dict[Scope, np.ndarray] = {}
+        # Scopes the lifecycle sweep leaves alone (pin_scope).
+        self._pinned_scopes: set[Scope] = set()
+        # This engine's tier traffic, as occupancy() reports it.
+        self._tier_demotions = 0
+        self._tier_promotions = 0
+        self._tier_gc = 0
         # Lifecycle gate (set_replay_mode): False during WAL replay.
         self._lifecycle_live = True
 
@@ -336,8 +386,10 @@ class TorchConsensusEngine(Generic[Scope]):
         """Create a local proposal and claim a pool slot
         (reference: src/service.rs:183-209)."""
         proposal = request.into_proposal(now)
+        # A demoted session still holds its id.
         regenerate_until_unique(
-            proposal, lambda pid: (scope, pid) in self._index
+            proposal,
+            lambda pid: (scope, pid) in self._index or self._tier_has(scope, pid),
         )
         validate_proposal_timestamp(proposal.expiration_timestamp, now)
         resolved = self._resolve_config(scope, config, proposal)
@@ -346,7 +398,7 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def _draw_unique_pids(self, existing: np.ndarray, count: int) -> np.ndarray:
         """Batch id draw: one urandom read, vectorized collision rejection
-        against ``existing`` live pids and within the batch itself (0 is
+        against ``existing`` pids and within the batch itself (0 is
         treated as a collision: proto3 drops zero fields from the wire)."""
         ids = np.frombuffer(os.urandom(4 * count), dtype=np.uint32).astype(np.int64)
         for _ in range(64):
@@ -397,17 +449,19 @@ class TorchConsensusEngine(Generic[Scope]):
             if scope in seen:
                 raise ValueError("create_proposals_multi: duplicate scope")
             seen.add(scope)
+        # Demoted sessions count against the per-scope cap, so a tiered
+        # engine evicts at the points an untiered one does.
         batched = [
             i for i, (scope, requests) in enumerate(items)
-            if len(self._scopes.get(scope, [])) + len(requests)
-            <= self._max_sessions_per_scope
+            if len(self._scopes.get(scope, [])) + len(self._tier.get(scope, ()))
+            + len(requests) <= self._max_sessions_per_scope
         ]
         # One id draw for the whole call, checked against the union of the
-        # batched scopes' live pids and sliced per scope.
+        # batched scopes' live and demoted pids and sliced per scope.
         total = sum(len(items[i][1]) for i in batched)
         all_ids = (
             self._draw_unique_pids(
-                np.concatenate([self._pid_table(items[i][0])[0] for i in batched]),
+                np.concatenate([self._taken_pids(items[i][0]) for i in batched]),
                 total,
             )
             if total
@@ -572,6 +626,7 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def _track(self, record: SessionRecord[Scope]) -> None:
         scope = record.scope
+        record.last_activity = record.created_at
         self._records[record.slot] = record
         self._index[(scope, record.proposal.proposal_id)] = record.slot
         self._scopes.setdefault(scope, []).append(record.slot)
@@ -590,7 +645,10 @@ class TorchConsensusEngine(Generic[Scope]):
         replayed session into the pool as a dense row. ``config``
         optionally overrides the scope-config resolution with the same
         precedence create_proposal gives its explicit override."""
-        if (scope, proposal.proposal_id) in self._index:
+        if (scope, proposal.proposal_id) in self._index or self._tier_has(
+            scope, proposal.proposal_id
+        ):
+            # A demoted session exists: rejected without paging it in.
             raise ProposalAlreadyExist()
         config = self._resolve_config(scope, config, proposal)
         # Fail fast BEFORE the signature prepass: expired gossip buys no
@@ -659,6 +717,7 @@ class TorchConsensusEngine(Generic[Scope]):
         # ProposalExpired before any signature work).
         skip = [
             (scope, proposal.proposal_id) in self._index
+            or self._tier_has(scope, proposal.proposal_id)
             or now >= proposal.expiration_timestamp
             for scope, proposal in items
         ]
@@ -698,8 +757,11 @@ class TorchConsensusEngine(Generic[Scope]):
             verdicts, vote_hashes = pending_verify.collect()
 
         for i, (scope, proposal) in enumerate(items):
-            # Re-checked: an earlier item may have registered this pid.
-            if (scope, proposal.proposal_id) in self._index:
+            # Re-checked: an earlier item may have registered this pid. A
+            # demoted session is rejected without paging it in.
+            if (scope, proposal.proposal_id) in self._index or self._tier_has(
+                scope, proposal.proposal_id
+            ):
                 statuses[i] = int(StatusCode.PROPOSAL_ALREADY_EXIST)
                 continue
             if spans[i] is None:
@@ -808,10 +870,13 @@ class TorchConsensusEngine(Generic[Scope]):
         for k, (scope, proposal) in enumerate(items):
             key = (scope, proposal.proposal_id)
             # A known pid — or one this run is about to register — must see
-            # the state all earlier items produced: flush first.
-            if key in self._index or key in run_keys:
+            # the state all earlier items produced: flush first. A demoted
+            # session is known: a strict extension pages it back in.
+            if key in self._index or key in run_keys or self._tier_has(*key):
                 flush_run()
             slot = self._index.get(key)
+            if slot is None:
+                slot = self._tier_lookup_promote(*key)
             if slot is None:
                 run.append(k)
                 run_keys.add(key)
@@ -859,7 +924,12 @@ class TorchConsensusEngine(Generic[Scope]):
             seen.add(key)
             slot = self._index.get(key)
             if slot is None:
-                if self._verify_cache is not None and now < proposal.expiration_timestamp:
+                # A demoted session's suffix verifies when it is paged in.
+                if (
+                    self._verify_cache is not None
+                    and now < proposal.expiration_timestamp
+                    and not self._tier_has(*key)
+                ):
                     warm.extend(proposal.votes)
                 continue
             record = self._records[slot]
@@ -1106,9 +1176,11 @@ class TorchConsensusEngine(Generic[Scope]):
         prepass (pre-validated, or a single vote without the cache, which
         verifies inline).
 
+        Rows of demoted sessions take part: the apply pages them back in.
         Safe to call for batch k+1 BEFORE batch k applies — the
-        double-buffered pipeline — because ingest_votes never registers or
-        evicts sessions: every row the prepass resolved stays resolved."""
+        double-buffered pipeline: a verdict depends on the vote's bytes
+        only, and a row whose session is gone by its apply (evicted by a
+        promotion's per-scope cap) is SESSION_NOT_FOUND before validation."""
         batch = len(items)
         if pre_validated or not (
             batch > 1 or (batch == 1 and self._verify_cache is not None)
@@ -1117,6 +1189,7 @@ class TorchConsensusEngine(Generic[Scope]):
         idxs = [
             i for i, (scope, vote) in enumerate(items)
             if (scope, vote.proposal_id) in self._index
+            or self._tier_has(scope, vote.proposal_id)
         ]
         if not idxs:
             return None
@@ -1201,8 +1274,11 @@ class TorchConsensusEngine(Generic[Scope]):
         for i, (scope, vote) in enumerate(items):
             slot = self._index.get((scope, vote.proposal_id))
             if slot is None:
-                statuses[i] = int(StatusCode.SESSION_NOT_FOUND)
-                continue
+                # A late vote on a demoted session pages it back in.
+                slot = self._tier_lookup_promote(scope, vote.proposal_id)
+                if slot is None:
+                    statuses[i] = int(StatusCode.SESSION_NOT_FOUND)
+                    continue
             record = self._records[slot]
             if not pre_validated:
                 try:
@@ -1262,6 +1338,8 @@ class TorchConsensusEngine(Generic[Scope]):
             if record.session is not None:
                 code, event = self._host_add_vote(record, vote, now)
                 statuses[i] = code
+                if code == int(StatusCode.OK):
+                    record.last_activity = now
                 if event is not None:
                     events.append((i, scope, event))
                 continue
@@ -1299,6 +1377,8 @@ class TorchConsensusEngine(Generic[Scope]):
                 record.scalar_seqs.append(record.next_arrival_seq())
                 record.bump_round(1)
                 last_ok[int(slots[j])] = j
+        for slot in last_ok:
+            self._records[slot].last_activity = now
 
         # Events in per-vote arrival order, mirroring the scalar path: the
         # deciding vote emits ConsensusReached, and every later vote to the
@@ -1375,6 +1455,8 @@ class TorchConsensusEngine(Generic[Scope]):
         if len(proposal_ids) == 0:
             return statuses
         found, slots = self._pid_lookup(scope).lookup(proposal_ids)
+        if self._promote_columnar_misses([scope], None, proposal_ids, found):
+            found, slots = self._pid_lookup(scope).lookup(proposal_ids)
         return self._columnar_finish(
             slots, found, voter_gids, values, now, max_depth, statuses, wire_norm
         )
@@ -1422,7 +1504,17 @@ class TorchConsensusEngine(Generic[Scope]):
         self, scopes: list, scope_idx: np.ndarray, proposal_ids: np.ndarray
     ) -> "tuple[np.ndarray, np.ndarray]":
         """Mixed-scope proposal-id resolution of the columnar entry points:
-        (found bool[B], slots int64[B]). One composite-key probe
+        (found bool[B], slots int64[B]). Rows that miss the live index but
+        hit the tier page their sessions back in and resolve again."""
+        found, slots = self._resolve_slots_multi_once(scopes, scope_idx, proposal_ids)
+        if self._promote_columnar_misses(scopes, scope_idx, proposal_ids, found):
+            found, slots = self._resolve_slots_multi_once(scopes, scope_idx, proposal_ids)
+        return found, slots
+
+    def _resolve_slots_multi_once(
+        self, scopes: list, scope_idx: np.ndarray, proposal_ids: np.ndarray
+    ) -> "tuple[np.ndarray, np.ndarray]":
+        """One pass of :meth:`_resolve_slots_multi`: one composite-key probe
         (``scope ordinal << 32 | pid``) resolves the whole batch; should a
         scope hold a pid outside u32, each scope's rows probe its own
         table."""
@@ -1908,6 +2000,8 @@ class TorchConsensusEngine(Generic[Scope]):
                     bool(values[i]), now,
                 )
                 statuses[i] = code
+                if code == int(StatusCode.OK):
+                    record.last_activity = now
                 if event is not None:
                     self._emit(record.scope, event)
             found = found & ~host_rows
@@ -2038,7 +2132,9 @@ class TorchConsensusEngine(Generic[Scope]):
         if ok_m.any():
             cnt = np.bincount(grp_sorted[ok_m], minlength=len(uniq))
             for g in np.nonzero(cnt)[0].tolist():
-                self._records[int(uniq[g])].bump_round(int(cnt[g]))
+                record = self._records[int(uniq[g])]
+                record.bump_round(int(cnt[g]))
+                record.last_activity = now
 
         if not segs[0][5] and len(segs) == 1 and depth > max_depth and (
             len(reached_transitions) > 1
@@ -2184,8 +2280,14 @@ class TorchConsensusEngine(Generic[Scope]):
         when undecidable."""
         slot = self._index.get((scope, proposal_id))
         if slot is None:
-            raise SessionNotFound()
+            # A demoted session can still be timed out: page it back in.
+            slot = self._tier_lookup_promote(scope, proposal_id)
+            if slot is None:
+                raise SessionNotFound()
         record = self._records[slot]
+        if self._state_code(record) == STATE_ACTIVE:
+            # A fired timeout is the session's deciding activity.
+            record.last_activity = now
         if record.session is not None:
             new_state = self._host_timeout(record)
         else:
@@ -2209,10 +2311,11 @@ class TorchConsensusEngine(Generic[Scope]):
         same events as per-session timeouts. A FAILED session is not swept
         again (its tallies are frozen, so it would re-fail forever).
 
-        ``_gc_sink`` (private, the durable wrapper's) would collect the
-        (scope, proposal_id) keys the tier lifecycle garbage-collects
-        after the sweep; the port has no session tiering yet, so it stays
-        empty."""
+        Expired active sessions in the tier are paged in first and fire
+        like live ones. The sweep ends with :meth:`lifecycle_sweep` at
+        ``now``; ``_gc_sink`` (private, the durable wrapper's) collects the
+        (scope, proposal_id) keys it garbage-collects."""
+        self._promote_expired_tier(now)
         expired: list[int] = []
         host_expired: list[int] = []
         for slot, record in self._records.items():
@@ -2235,6 +2338,7 @@ class TorchConsensusEngine(Generic[Scope]):
         out: list[tuple[Scope, int, bool | None]] = []
         for slot, new_state in swept:
             record = self._records[slot]
+            record.last_activity = now  # the fired timeout (the GC TTL's start)
             pid = record.proposal.proposal_id
             if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
                 result = new_state == STATE_REACHED_YES
@@ -2248,6 +2352,7 @@ class TorchConsensusEngine(Generic[Scope]):
                     record.scope, ConsensusFailedEvent(proposal_id=pid, timestamp=now)
                 )
                 out.append((record.scope, pid, None))
+        self.lifecycle_sweep(now, _gc_sink=_gc_sink)
         return out
 
     # ── Queries (reference: src/storage.rs:112-180 derived helpers) ────
@@ -2302,12 +2407,25 @@ class TorchConsensusEngine(Generic[Scope]):
             raise ConsensusFailed()
         return None
 
+    def _tier_sessions_where(self, scope: Scope, want_state: "int | None"):
+        """A scope's demoted sessions as (entry, decoded session), without
+        promoting them; ``want_state`` filters on the stored snapshot state
+        code (None: all). Enumerations read through the tier; only point
+        reads and mutations page sessions back in."""
+        from ..sync.snapshot import decode_session_item
+
+        for entry in self._tier.get(scope, {}).values():
+            if want_state is None or entry.state == want_state:
+                yield entry, decode_session_item(entry.item)[1]
+
     def get_active_proposals(self, scope: Scope) -> list[Proposal]:
-        return [
+        out = [
             self._materialized_proposal(r)
             for r in self._scope_records(scope)
             if self._state_code(r) == STATE_ACTIVE
         ]
+        out.extend(session.proposal for _, session in self._tier_sessions_where(scope, 0))
+        return out
 
     def get_reached_proposals(self, scope: Scope) -> list[tuple[Proposal, bool]]:
         out = []
@@ -2315,14 +2433,22 @@ class TorchConsensusEngine(Generic[Scope]):
             state = self._state_code(r)
             if state in (STATE_REACHED_YES, STATE_REACHED_NO):
                 out.append((self._materialized_proposal(r), state == STATE_REACHED_YES))
+        out.extend(
+            (session.proposal, bool(entry.result))
+            for entry, session in self._tier_sessions_where(scope, 1)
+        )
         return out
 
     def get_scope_stats(self, scope: Scope) -> ConsensusStats:
-        """reference: src/service_stats.rs:32-59 (zeros for unknown scope)."""
+        """reference: src/service_stats.rs:32-59 (zeros for unknown scope).
+        Demoted sessions count from their stored state, undecoded."""
         stats = ConsensusStats()
-        for r in self._scope_records(scope):
+        # Snapshot state codes: 0 active, 1 reached, 2 failed.
+        tier_codes = {0: STATE_ACTIVE, 1: STATE_REACHED_YES, 2: STATE_FAILED}
+        codes = [self._state_code(r) for r in self._scope_records(scope)]
+        codes += [tier_codes[e.state] for e in self._tier.get(scope, {}).values()]
+        for state in codes:
             stats.total_sessions += 1
-            state = self._state_code(r)
             if state == STATE_ACTIVE:
                 stats.active_sessions += 1
             elif state == STATE_FAILED:
@@ -2333,10 +2459,14 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def occupancy(self) -> dict:
         """Capacity snapshot: live sessions, device slots claimed vs the
-        pool's capacity, and host-spilled sessions (negative synthetic ids
-        hold no pool row)."""
+        pool's capacity, host-spilled sessions (negative synthetic ids hold
+        no pool row), and the tier: its sessions, their item bytes, and
+        this engine's demotions, promotions and garbage-collected
+        sessions."""
         with self._lock:
             slots = list(self._records)
+            tier = (self._tier_count, self._tier_bytes, self._tier_demotions,
+                    self._tier_promotions, self._tier_gc)
         device_used = sum(1 for s in slots if s >= 0)
         return {
             "live_sessions": len(slots),
@@ -2344,12 +2474,21 @@ class TorchConsensusEngine(Generic[Scope]):
             "host_spilled": len(slots) - device_used,
             "capacity": self._pool.capacity,
             "voter_capacity": self._pool.voter_capacity,
+            "tier_sessions": tier[0],
+            "tier_bytes": tier[1],
+            "tier_demotions_total": tier[2],
+            "tier_promotions_total": tier[3],
+            "tier_gc_total": tier[4],
         }
 
     def session_keys(self) -> "list[tuple[Scope, int]]":
-        """Every tracked ``(scope, proposal_id)`` in one consistent read."""
+        """Every tracked ``(scope, proposal_id)`` in one consistent read,
+        demoted sessions included."""
         with self._lock:
-            return list(self._index.keys())
+            keys = list(self._index.keys())
+            for scope, entries in self._tier.items():
+                keys.extend((scope, pid) for pid in entries)
+            return keys
 
     # ── Checkpoint (host storage is the source of truth; the pool is a
     #    cache rebuilt from it) ──────────────────────────────────────────
@@ -2408,7 +2547,9 @@ class TorchConsensusEngine(Generic[Scope]):
         """Persist every tracked session and scope config into a
         ``ConsensusStorage`` backend (reference: src/storage.rs:18-22).
         Returns the number of sessions written. The pooled sessions' rows
-        come back from the device in one gather."""
+        come back from the device in one gather; demoted sessions are
+        decoded from their tier bytes, so a snapshot or fingerprint holds
+        the same session items whether a session is live or demoted."""
         records = [
             self._records[slot]
             for slots in self._scopes.values()
@@ -2423,9 +2564,14 @@ class TorchConsensusEngine(Generic[Scope]):
                 k = row_of[record.slot]
                 row = {"vote_mask": rows["vote_mask"][k], "vote_val": rows["vote_val"][k]}
             storage.save_session(record.scope, self._export_record(record, row))
+        count = len(records)
+        for scope in self._tier:
+            for _, session in self._tier_sessions_where(scope, None):
+                storage.save_session(scope, session)
+                count += 1
         for scope, config in self._scope_configs.items():
             storage.set_scope_config(scope, config.clone())
-        return len(records)
+        return count
 
     def load_from_storage(self, storage) -> int:
         """Rebuild pool state from a ``ConsensusStorage`` backend: every
@@ -2441,7 +2587,8 @@ class TorchConsensusEngine(Generic[Scope]):
                 self._scope_configs[scope] = config.clone()
             sessions = storage.list_scope_sessions(scope) or []
             for session in sorted(sessions, key=lambda s: s.created_at):
-                if (scope, session.proposal.proposal_id) in self._index:
+                pid = session.proposal.proposal_id
+                if (scope, pid) in self._index or self._tier_has(scope, pid):
                     continue  # idempotent restore
                 self._register_session(scope, session.clone(), session.created_at)
                 count += 1
@@ -2465,8 +2612,331 @@ class TorchConsensusEngine(Generic[Scope]):
             all_slots.extend(s for s in slots if s >= 0)
             self._scope_configs.pop(scope, None)
             self._drop_pid_cache(scope)
+            # The scope's demoted sessions go with it.
+            if scope in self._tier:
+                self._drop_tier_entries(scope, list(self._tier[scope]))
+            self._pinned_scopes.discard(scope)
             self._scope_seq.pop(scope, None)
         self._pool.release(all_slots)
+
+    # ── Session tier (demote / page in / garbage-collect) ──────────────
+    #
+    # The write-ahead log makes any in-memory form of a session a cache, so
+    # an idle or decided session can leave its pool slot or host record
+    # and live on as its canonical snapshot item (the signed wire
+    # included): promotion re-registers it without re-signing, and
+    # fingerprints hash the same items either way. Point reads and
+    # mutations page a demoted session back in; enumerations, stats and
+    # save_to_storage read through the tier without promoting.
+
+    def _tier_has(self, scope: Scope, proposal_id: int) -> bool:
+        entries = self._tier.get(scope)
+        return entries is not None and proposal_id in entries
+
+    def _tier_lookup_promote(self, scope: Scope, proposal_id: int) -> "int | None":
+        """Slot of a demoted session after paging it back in; None when
+        the session is not in the tier (the caller's miss is real)."""
+        if not self._tier_has(scope, proposal_id):
+            return None
+        return self._promote_key(scope, proposal_id)
+
+    def demote_session(self, scope: Scope, proposal_id: int) -> bool:
+        """Move one session out of its pool slot or host record into the
+        tier. Idempotent: False when already demoted. Raises
+        SessionNotFound for an unknown session. Any read or late vote
+        pages it back in."""
+        if self._tier_has(scope, proposal_id):
+            return False
+        slot = self._index.get((scope, proposal_id))
+        if slot is None:
+            raise SessionNotFound()
+        self._demote_records(scope, [slot])
+        return True
+
+    # Pool lifecycle code -> (snapshot state code, result).
+    _POOL_TO_SNAP = {
+        STATE_ACTIVE: (0, False),
+        STATE_REACHED_YES: (1, True),
+        STATE_REACHED_NO: (1, False),
+        STATE_FAILED: (2, False),
+    }
+
+    def _demote_records(self, scope: Scope, slots: "list[int]") -> int:
+        """Demote live sessions of one scope: one ``read_slots`` gather of
+        every pooled slot's row and one ``states_of`` read, then one pool
+        release. A plain pooled session (no host record, no retained wire)
+        encodes field-direct: the scope and config bytes memoized a call,
+        its tallies straight off the gathered row, and a vote-free
+        proposal's wire from one cached (head, tail) split a request shape
+        plus its id. Host-spilled and wire-retaining sessions go through
+        :meth:`_export_record` and :func:`encode_session_item`. Both routes
+        write the bytes the JAX package writes for the same session."""
+        from ..sync.snapshot import _STATE_CODE, encode_session_fields, encode_session_item
+        from ..wal import format as F
+        from ..wire import _U32_MASK, _encode_uint_field
+
+        records = [self._records[s] for s in slots]
+        rows: dict[int, dict] = {}
+        pool_states: dict[int, int] = {}
+        pooled = [r.slot for r in records if r.session is None]
+        if pooled:
+            batch = self._pool.read_slots(pooled)
+            states = self._pool.states_of(pooled).tolist()
+            for k, slot in enumerate(pooled):
+                rows[slot] = {"vote_mask": batch["vote_mask"][k], "vote_val": batch["vote_val"][k]}
+                pool_states[slot] = states[k]
+        entries = self._tier.setdefault(scope, {})
+        scope_bytes = F.encode_scope(scope)
+        cfg_bytes: dict[int, bytes] = {}  # id(config) -> its encoding
+        split_cache: dict[tuple, tuple[bytes, bytes]] = {}
+        for record in records:
+            pid = record.proposal.proposal_id
+            if record.session is None and not record.retained_wire:
+                state, result = self._POOL_TO_SNAP[pool_states[record.slot]]
+                row = rows[record.slot]
+                votes = record.votes
+                # Assigned lanes only, in lane order (what a walk over the
+                # whole row would find, without its voter_capacity steps).
+                lane_owners = self._pool.lane_owners(record.slot)
+                width = max(lane_owners, default=-1) + 1
+                mask_row = row["vote_mask"][:width].tolist()
+                val_row = row["vote_val"][:width].tolist()
+                tallies: dict[bytes, bool] = {}
+                for lane, owner in lane_owners.items():
+                    if mask_row[lane] and owner not in votes:
+                        tallies[owner] = bool(val_row[lane])
+                config_bytes = cfg_bytes.get(id(record.config))
+                if config_bytes is None:
+                    config_bytes = F.encode_consensus_config(record.config)
+                    cfg_bytes[id(record.config)] = config_bytes
+                p = record.proposal
+                if p.votes:
+                    proposal_wire = p.encode()
+                else:
+                    shape = (p.name, p.payload, p.proposal_owner, p.expected_voters_count,
+                             p.round, p.timestamp, p.expiration_timestamp,
+                             p.liveness_criteria_yes)
+                    parts = split_cache.get(shape)
+                    if parts is None:
+                        parts = split_cache[shape] = p.encode_split()
+                    buf = bytearray(parts[0])
+                    _encode_uint_field(buf, 12, p.proposal_id & _U32_MASK)
+                    buf += parts[1]
+                    proposal_wire = bytes(buf)
+                item = encode_session_fields(scope_bytes, state, result, record.created_at,
+                                             config_bytes, tallies, proposal_wire)
+            else:
+                session = self._export_record(record, row=rows.get(record.slot))
+                item = encode_session_item(scope, session)
+                state = _STATE_CODE[session.state.kind]
+                result = bool(session.state.result)
+            entries[pid] = _TierEntry(item, state, result, record.created_at, record.seq,
+                                      record.last_activity)
+            self._tier_count += 1
+            self._tier_bytes += len(item)
+            if state == 0:
+                # Idle but active: the timeout sweep must still find it.
+                self._tier_active[(scope, pid)] = record.proposal.expiration_timestamp
+        self._drop_live_slots(scope, slots)
+        self._tier_pid_arrays.pop(scope, None)
+        self._tier_demotions += len(records)
+        return len(records)
+
+    def _drop_tier_entries(self, scope: Scope, pids: "list[int]") -> "list[_TierEntry]":
+        """Shared tier teardown (promotion, cap eviction, GC, scope
+        delete): the entries leave the tier, its counts and side maps."""
+        entries = self._tier[scope]
+        out = []
+        for pid in pids:
+            entry = entries.pop(pid)
+            self._tier_count -= 1
+            self._tier_bytes -= len(entry.item)
+            if entry.state == 0:
+                self._tier_active.pop((scope, pid), None)
+            out.append(entry)
+        if not entries:
+            del self._tier[scope]
+        self._tier_pid_arrays.pop(scope, None)
+        return out
+
+    def _promote_key(self, scope: Scope, proposal_id: int) -> "int | None":
+        """Page one demoted session back in: decode its item and register
+        it again (a pool slot, or the host when the session carries
+        tallies or the pool cannot hold it, as registration places any
+        session). It keeps its ``created_at``, its LRU ``seq`` and its
+        idle clock, so demotion and promotion are invisible to eviction and
+        the TTLs. None when the session lost the per-scope LRU ranking."""
+        from ..sync.snapshot import decode_session_item
+
+        [entry] = self._drop_tier_entries(scope, [proposal_id])
+        _, session = decode_session_item(entry.item)
+        self._register_session(scope, session, entry.created_at)
+        self._tier_promotions += 1
+        slot = self._index.get((scope, proposal_id))
+        if slot is None:
+            return None
+        record = self._records[slot]
+        record.last_activity = entry.last_activity
+        record.seq = entry.seq
+        return slot
+
+    def _promote_expired_tier(self, now: int) -> None:
+        """Page back every active demoted session whose expiry has passed,
+        so the timeout sweep fires it as if it had never left. Reads only
+        the active side map, never the decided mass."""
+        due = [key for key, expiry in self._tier_active.items() if expiry <= now]
+        for scope, pid in due:
+            if self._tier_has(scope, pid):
+                self._promote_key(scope, pid)
+
+    def _promote_columnar_misses(
+        self, scopes: list, scope_idx, proposal_ids: np.ndarray, found: np.ndarray
+    ) -> bool:
+        """Page in the demoted sessions a columnar batch's unresolved rows
+        name; True when any was promoted (the caller resolves again: the
+        registrations dropped the pid caches). Free while the tier is
+        empty, and Python work a missed row otherwise, never a row."""
+        if not self._tier:
+            return False
+        promoted = False
+        seen: set = set()
+        for i in np.nonzero(~found)[0].tolist():
+            scope = scopes[0] if scope_idx is None else scopes[int(scope_idx[i])]
+            key = (scope, int(proposal_ids[i]))
+            if key in seen:
+                continue
+            seen.add(key)
+            if self._tier_has(*key):
+                self._promote_key(*key)
+                promoted = True
+        return promoted
+
+    def _drop_live_slots(self, scope: Scope, slots: "list[int]") -> None:
+        """Shared live-session teardown (cap eviction, TTL GC, demotion):
+        untrack the records, filter the scope's list, release the pool
+        slots and drop the pid caches."""
+        gone = set(slots)
+        for slot in slots:
+            record = self._records.pop(slot)
+            del self._index[(scope, record.proposal.proposal_id)]
+        live = self._scopes.get(scope)
+        if live is not None:
+            self._scopes[scope] = [s for s in live if s not in gone]
+        # A host-spilled record holds no pool slot to release.
+        self._pool.release([s for s in slots if s >= 0])
+        self._drop_pid_cache(scope)
+
+    def lifecycle_sweep(self, now: int, _gc_sink: "list | None" = None) -> dict:
+        """Apply every scope's tier TTLs (``ScopeConfig.demote_after`` and
+        ``evict_decided_after``) at the logical clock ``now``: first
+        garbage-collect decided and failed sessions idle past the eviction
+        TTL, live or demoted, then demote live sessions idle past the
+        demotion TTL. :meth:`sweep_timeouts` runs it at its end; it may be
+        called alone. Pinned scopes and scopes without TTLs are left
+        alone. Returns ``{"demoted", "gc_live", "gc_tier"}``.
+
+        ``_gc_sink`` (private) collects the collected (scope, pid) keys: a
+        DurableEngine logs them as the KIND_GC record. Under
+        :meth:`set_replay_mode` the sweep does nothing: the TTLs ride idle
+        clocks a restore does not carry, so recovery applies the logged
+        outcome (:meth:`gc_sessions`) instead of deciding again."""
+        out = {"demoted": 0, "gc_live": 0, "gc_tier": 0}
+        if not self._lifecycle_live:
+            return out
+        records = self._records
+        for scope, config in list(self._scope_configs.items()):
+            demote_after = config.demote_after
+            evict_after = config.evict_decided_after
+            if (demote_after is None and evict_after is None) or scope in self._pinned_scopes:
+                continue
+            if evict_after is not None:
+                cutoff = now - evict_after
+                # The cheap clock filter first, then the states of the
+                # survivors (one host-mirror read for the pooled ones).
+                cand = [s for s in self._scopes.get(scope, [])
+                        if records[s].last_activity <= cutoff]
+                pooled = [s for s in cand if records[s].session is None]
+                pooled_state = (
+                    dict(zip(pooled, self._pool.states_of(pooled).tolist())) if pooled else {}
+                )
+                gc_slots = []
+                for s in cand:
+                    state = pooled_state.get(s)
+                    if state is None:
+                        state = state_code_of(records[s].session.state)
+                    if state != STATE_ACTIVE:
+                        gc_slots.append(s)
+                if gc_slots:
+                    if _gc_sink is not None:
+                        _gc_sink.extend((scope, records[s].proposal.proposal_id)
+                                        for s in gc_slots)
+                    out["gc_live"] += self._gc_live(scope, gc_slots)
+                dead = [pid for pid, e in self._tier.get(scope, {}).items()
+                        if e.state != 0 and e.last_activity <= cutoff]
+                if dead:
+                    if _gc_sink is not None:
+                        _gc_sink.extend((scope, pid) for pid in dead)
+                    out["gc_tier"] += self._gc_tier(scope, dead)
+            if demote_after is not None:
+                cutoff = now - demote_after
+                idle = [s for s in self._scopes.get(scope, [])
+                        if records[s].last_activity <= cutoff]
+                if idle:
+                    out["demoted"] += self._demote_records(scope, idle)
+        return out
+
+    def _gc_live(self, scope: Scope, slots: "list[int]") -> int:
+        """Drop decided live sessions past their TTL, as a cap eviction
+        drops them, counted as tier GC."""
+        self._drop_live_slots(scope, slots)
+        self._tier_gc += len(slots)
+        return len(slots)
+
+    def _gc_tier(self, scope: Scope, pids: "list[int]") -> int:
+        """Drop demoted sessions past their TTL, counted as tier GC."""
+        self._drop_tier_entries(scope, pids)
+        self._tier_gc += len(pids)
+        return len(pids)
+
+    def gc_sessions(self, keys: "list[tuple[Scope, int]]") -> int:
+        """Apply an exact GC outcome: drop each ``(scope, pid)``, live or
+        demoted, counted as tier GC; unknown keys are skipped (idempotent).
+        The replay entry point of KIND_GC records, and an explicit
+        retirement for embedders. Returns the sessions dropped."""
+        live: dict[Scope, list[int]] = {}
+        tier: dict[Scope, list[int]] = {}
+        for scope, pid in keys:
+            slot = self._index.get((scope, pid))
+            if slot is not None:
+                live.setdefault(scope, []).append(slot)
+            elif self._tier_has(scope, pid):
+                tier.setdefault(scope, []).append(pid)
+        applied = sum(self._gc_live(scope, slots) for scope, slots in live.items())
+        return applied + sum(self._gc_tier(scope, pids) for scope, pids in tier.items())
+
+    def pin_scope(self, scope: Scope) -> None:
+        """Leave a scope out of the lifecycle sweep's demotion and GC
+        (idempotent), as a router pins a shard's scopes while it migrates
+        them."""
+        self._pinned_scopes.add(scope)
+
+    def unpin_scope(self, scope: Scope) -> None:
+        self._pinned_scopes.discard(scope)
+
+    def _taken_pids(self, scope: Scope) -> np.ndarray:
+        """Every proposal id claimed in ``scope``, live and demoted, for
+        batch id draws (a fresh id equal to a demoted one would put two
+        sessions under one key at promotion)."""
+        live = self._pid_table(scope)[0]
+        entries = self._tier.get(scope)
+        if not entries:
+            return live
+        tier = self._tier_pid_arrays.get(scope)
+        if tier is None:
+            tier = self._tier_pid_arrays[scope] = np.fromiter(
+                entries.keys(), np.int64, len(entries)
+            )
+        return np.concatenate([live, tier])
 
     # ── Scope config (reference: src/service.rs:375-484) ───────────────
 
@@ -2549,7 +3019,10 @@ class TorchConsensusEngine(Generic[Scope]):
     def _get_record(self, scope: Scope, proposal_id: int) -> SessionRecord[Scope]:
         slot = self._index.get((scope, proposal_id))
         if slot is None:
-            raise SessionNotFound()
+            # A point read on a demoted session pages it back in.
+            slot = self._tier_lookup_promote(scope, proposal_id)
+            if slot is None:
+                raise SessionNotFound()
         return self._records[slot]
 
     def _scope_records(self, scope: Scope) -> list[SessionRecord[Scope]]:
@@ -2561,26 +3034,37 @@ class TorchConsensusEngine(Generic[Scope]):
         stamped ``created_at=now`` before it is allocated: keep the newest
         ``max`` of incumbents+newcomer (ties favor incumbents, matching the
         insert-then-trim stable sort). Evicts surplus incumbents; returns
-        True when the newcomer itself loses the ranking."""
+        True when the newcomer itself loses the ranking.
+
+        Demoted sessions are incumbents too, ranked by their kept
+        ``seq`` (the original insertion order, even after a promotion
+        re-appended a record), so a tiered engine evicts exactly what an
+        untiered one does."""
         slots = self._scopes.get(scope, [])
-        if len(slots) + 1 <= self._max_sessions_per_scope:
+        tier_entries = self._tier.get(scope)
+        n_tier = len(tier_entries) if tier_entries else 0
+        if len(slots) + n_tier + 1 <= self._max_sessions_per_scope:
             return False
-        items = [(self._records[s].created_at, self._records[s].seq, s) for s in slots]
-        newcomer = (now, float("inf"), None)
+        # (created_at, seq, is_tier, key); the newcomer's infinite seq loses
+        # created_at ties to every incumbent.
+        items = [
+            (self._records[s].created_at, self._records[s].seq, False, s)
+            for s in slots
+        ]
+        if tier_entries:
+            items.extend((e.created_at, e.seq, True, pid) for pid, e in tier_entries.items())
+        newcomer = (now, float("inf"), False, None)
         items.append(newcomer)
         items.sort(key=lambda t: t[1])
         items.sort(key=lambda t: t[0], reverse=True)
         keep = items[: self._max_sessions_per_scope]
-        evicted = [s for _, _, s in items[self._max_sessions_per_scope:] if s is not None]
-        if evicted:
-            gone = set(evicted)
-            for slot in evicted:
-                record = self._records.pop(slot)
-                del self._index[(scope, record.proposal.proposal_id)]
-            self._scopes[scope] = [s for s in slots if s not in gone]
-            # A host-spilled record holds no pool slot to release.
-            self._pool.release([s for s in evicted if s >= 0])
-            self._drop_pid_cache(scope)
+        evicted = items[self._max_sessions_per_scope:]
+        evicted_slots = [k for _, _, is_tier, k in evicted if not is_tier and k is not None]
+        evicted_pids = [k for _, _, is_tier, k in evicted if is_tier]
+        if evicted_slots:
+            self._drop_live_slots(scope, evicted_slots)
+        if evicted_pids:
+            self._drop_tier_entries(scope, evicted_pids)
         return newcomer not in keep
 
     def _emit(self, scope: Scope, event: ConsensusEvent) -> None:
@@ -2697,6 +3181,11 @@ for _name in (
     "load_from_storage",
     "delete_scope",
     "delete_scopes",
+    "demote_session",
+    "lifecycle_sweep",
+    "gc_sessions",
+    "pin_scope",
+    "unpin_scope",
     "set_replay_mode",
     "set_scope_config",
     "get_scope_config",

@@ -47,7 +47,7 @@ from ..errors import StatusCode
 from ..scope_config import ScopeConfig, ScopeConfigBuilder
 from ..wire import normalize_wire_votes
 from . import format as F
-from .recovery import ReplayStats, replay
+from .recovery import ReplayStats, _entry_point, replay
 from .writer import WalWriter
 
 
@@ -661,11 +661,12 @@ class DurableEngine:
         recovery rebuilding a demoted session as live is
         fingerprint-identical.
 
-        An engine without ``lifecycle_sweep`` fails here as it fails
-        itself, before anything is logged: a logged call the engine cannot
-        replay would stop every later recovery."""
+        An engine without ``lifecycle_sweep`` raises
+        :class:`~.recovery.UnsupportedRecord` here, before anything is
+        logged: a logged call the engine cannot replay would stop every
+        later recovery."""
         with self._lock:
-            sweep = self._engine.lifecycle_sweep
+            sweep = _entry_point(self._engine, F.KIND_LIFECYCLE, "lifecycle_sweep")
             self._wal.append(F.KIND_LIFECYCLE, F.encode_lifecycle(now))
             sink: list = []
             out = sweep(now, _gc_sink=sink)

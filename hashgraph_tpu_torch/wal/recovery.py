@@ -20,11 +20,12 @@ vote before its proposal).
 
 A copy of the JAX package's ``wal/recovery.py``. What that package counts
 through its tracer is read here from :class:`ReplayStats`
-(``records_applied``, ``torn_bytes``, ``segments_dropped``, ``errors``). A
-record kind whose engine entry point the port does not have yet (the tier
-lifecycle's ``KIND_LIFECYCLE`` and ``KIND_GC``) raises
-:class:`UnsupportedRecord`: recovery that skipped it would silently drop
-acknowledged state.
+(``records_applied``, ``torn_bytes``, ``segments_dropped``, ``errors``).
+The tier lifecycle's records replay through the engine's
+``lifecycle_sweep`` (``KIND_LIFECYCLE``) and ``gc_sessions``
+(``KIND_GC``); an engine without the method raises
+:class:`UnsupportedRecord` there: recovery that skipped the record would
+silently drop acknowledged state.
 """
 
 from __future__ import annotations

@@ -654,16 +654,39 @@ class TestDurableEngine:
         assert fresh.get_consensus_result("s", pid2) is True
 
     def test_lifecycle_sweep_fails_before_logging(self, tmp_path):
-        """The port has no tier lifecycle yet: the durable wrapper's
-        ``lifecycle_sweep`` fails as the engine fails, and logs nothing
-        that a recovery could not apply."""
+        """The durable ``lifecycle_sweep`` logs KIND_LIFECYCLE, applies,
+        and logs the sessions it collected as KIND_GC; a recovery replays
+        both to the live engine's fingerprint. An engine without the tier
+        still fails before anything is logged, so no record a recovery
+        could not apply reaches the log."""
+        from hashgraph_tpu_torch.sync import state_fingerprint
+        from hashgraph_tpu_torch.wal import format as F
         from hashgraph_tpu_torch.wal import scan
 
-        api, durable = self.make(tmp_path)
-        durable.create_proposal("s", request(api, 0, 3), NOW)
-        with pytest.raises(AttributeError):
-            durable.lifecycle_sweep(NOW + 1)
-        assert len(scan(str(tmp_path)).records) == 1
+        api, durable = self.make(tmp_path / "tiered")
+        durable.scope("s").with_evict_decided_after(5.0).initialize()
+        decided = durable.create_proposal("s", request(api, 0, 1), NOW).proposal_id
+        durable.cast_vote("s", decided, True, NOW + 1)
+        kept = durable.create_proposal("s", request(api, 1, 3), NOW + 2).proposal_id
+        assert durable.lifecycle_sweep(NOW + 50) == {"demoted": 0, "gc_live": 1, "gc_tier": 0}
+        kinds = [kind for _, kind, _ in scan(str(tmp_path / "tiered")).records]
+        assert kinds[-2:] == [F.KIND_LIFECYCLE, F.KIND_GC]
+        assert set(durable.session_keys()) == {("s", kept)}
+        live = state_fingerprint(durable)
+        durable.close()
+        recovered = api.wal.DurableEngine(_engine(api), tmp_path / "tiered", fsync_policy="off")
+        assert recovered.recover().records_applied == len(kinds)
+        assert state_fingerprint(recovered) == live
+        recovered.close()
+
+        bare = _engine(api)
+        bare.lifecycle_sweep = None  # an engine without the tier
+        untiered = api.wal.DurableEngine(bare, tmp_path / "bare", fsync_policy="off")
+        untiered.create_proposal("s", request(api, 0, 3), NOW)
+        with pytest.raises(api.wal.UnsupportedRecord, match="lifecycle"):
+            untiered.lifecycle_sweep(NOW + 1)
+        assert len(scan(str(tmp_path / "bare")).records) == 1
+        untiered.close()
 
 
 class TestRecordBudget:

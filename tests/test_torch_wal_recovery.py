@@ -17,11 +17,12 @@ snapshot to the child's last state, and the JAX package, in a subprocess
 (``python tests/test_torch_wal_recovery.py --reference OUT_DIR CHILD_DIR``),
 recovers the same log to the same snapshot.
 
-A log the port cannot apply: the same subprocess writes a tiered JAX log
+The tier's records: the same subprocess writes a tiered JAX log
 (``lifecycle_sweep`` and its garbage collection, ``KIND_LIFECYCLE`` and
-``KIND_GC``); the port's recovery raises ``UnsupportedRecord`` there
-instead of skipping the records, as it does for a hand-written log of
-either kind.
+``KIND_GC``), which the port recovers to the JAX engine's
+``state_fingerprint``; the port replays both kinds from its own logs, and
+an engine without the tier's entry points raises ``UnsupportedRecord``
+there instead of skipping the records.
 """
 
 import json
@@ -389,12 +390,13 @@ class TestCrashPointMatrix:
         recovered.close()
 
 
-# ── Record kinds the port cannot apply yet ────────────────────────────
+# ── The tier's record kinds ───────────────────────────────────────────
 
 
 @pytest.mark.parametrize("kind", ["lifecycle", "gc"])
 def test_recovery_raises_on_tier_records(tmp_path, kind):
-    """A ``KIND_LIFECYCLE`` or ``KIND_GC`` record stops recovery with
+    """On an engine without ``lifecycle_sweep`` and ``gc_sessions``, a
+    ``KIND_LIFECYCLE`` or ``KIND_GC`` record stops recovery with
     ``UnsupportedRecord``; the records before it were applied, none after
     it was skipped to."""
     api = port_api()
@@ -409,6 +411,7 @@ def test_recovery_raises_on_tier_records(tmp_path, kind):
     durable.create_proposal("s1", _request(api, random.Random(4)), NOW + 2)
     durable.close()
     fresh = _fresh_engine(api, b"me")
+    fresh.lifecycle_sweep = fresh.gc_sessions = None  # an engine without the tier
     recovering = api.wal.DurableEngine(fresh, str(tmp_path), fsync_policy="off")
     with pytest.raises(api.wal.UnsupportedRecord, match=F.KIND_NAMES[getattr(
             F, f"KIND_{kind.upper()}")]):
@@ -417,6 +420,51 @@ def test_recovery_raises_on_tier_records(tmp_path, kind):
     assert fresh.get_scope_stats("s0").total_sessions == 1
     assert fresh.get_scope_stats("s1").total_sessions == 0
     # Replay mode is lifted even though recovery raised.
+    assert fresh._lifecycle_live
+
+
+@pytest.mark.parametrize("kind", ["lifecycle", "gc"])
+def test_recovery_replays_tier_records(tmp_path, kind):
+    """The port engine replays the tier's records: a standalone
+    ``lifecycle_sweep`` (``KIND_LIFECYCLE`` then ``KIND_GC``) or a
+    ``sweep_timeouts`` whose lifecycle half collected sessions (``KIND_SWEEP``
+    then ``KIND_GC``) recovers to the live engine's fingerprint, with the
+    collected sessions gone and the demoted ones back."""
+    api = port_api()
+    F = api.wal.format
+    from hashgraph_tpu_torch.sync import state_fingerprint as fingerprint
+    rng = random.Random(5)
+    durable = api.wal.DurableEngine(_fresh_engine(api, b"me"), str(tmp_path),
+                                    fsync_policy="off")
+    durable.scope("s0").with_demote_after(20.0).with_evict_decided_after(5.0).initialize()
+    pids = []
+    for k in range(4):
+        request = _request(api, rng)
+        request.expiration_timestamp = 200
+        pids.append(durable.create_proposal("s0", request, NOW + k).proposal_id)
+    for pid in pids[:2]:
+        voters = durable.get_proposal("s0", pid).expected_voters_count
+        for v in range(voters):
+            proposal = durable.get_proposal("s0", pid)
+            vote = api.pkg.build_vote(proposal, True, api.pkg.StubConsensusSigner(bytes([v]) * 20),
+                                      NOW + 5)
+            durable.process_incoming_vote("s0", vote, NOW + 5)
+    sweep = durable.lifecycle_sweep if kind == "lifecycle" else durable.sweep_timeouts
+    sweep(NOW + 30)
+    kinds = [k for _, k, _ in api.wal.scan(str(tmp_path)).records]
+    want = F.KIND_LIFECYCLE if kind == "lifecycle" else F.KIND_SWEEP
+    assert kinds[-2:] == [want, F.KIND_GC]
+    occ = durable.occupancy()
+    assert occ["tier_gc_total"] == 2 and occ["tier_sessions"] == 2  # the idle actives
+    live = fingerprint(durable)
+    durable.close()
+    fresh = _fresh_engine(api, b"me")
+    recovering = api.wal.DurableEngine(fresh, str(tmp_path), fsync_policy="off")
+    stats = recovering.recover()
+    recovering.close()
+    assert stats.records_applied == len(kinds) and stats.errors == []
+    assert fingerprint(fresh) == live
+    assert sorted(p for _, p in fresh.session_keys()) == sorted(pids[2:])
     assert fresh._lifecycle_live
 
 
@@ -485,7 +533,15 @@ def reference_logs(out_dir, child_dir):
         name="t", payload=b"", proposal_owner=b"o", expected_voters_count=1,
         expiration_timestamp=100, liveness_criteria_yes=True), NOW)
     durable.cast_vote("t", p.proposal_id, True, NOW + 1)
+    q = durable.create_proposal("t", pkg.CreateProposalRequest(
+        name="u", payload=b"", proposal_owner=b"o", expected_voters_count=3,
+        expiration_timestamp=100, liveness_criteria_yes=True), NOW + 2)
+    durable.engine.demote_session("t", q.proposal_id)
+    durable.cast_vote("t", q.proposal_id, True, NOW + 3)  # pages it back in
     durable.lifecycle_sweep(NOW + 50)
+    from hashgraph_tpu.sync import state_fingerprint
+
+    live_fingerprint = state_fingerprint(durable)
     durable.close()
     kinds = [kind for _, kind, _ in api.wal.scan(tiered).records]
     fresh = api.make_engine(pkg.StubConsensusSigner(b"child"), 32, 8, max_sessions=10)
@@ -493,7 +549,8 @@ def reference_logs(out_dir, child_dir):
                                        fsync_policy="off")
     stats = recovering.recover()
     recovering.close()
-    return {"tiered_kinds": kinds, "child": [snapshot(api, fresh), stats.errors]}
+    return {"tiered_kinds": kinds, "tiered_fingerprint": live_fingerprint,
+            "child": [snapshot(api, fresh), stats.errors]}
 
 
 @pytest.fixture(scope="module")
@@ -536,17 +593,23 @@ def test_reference_recovers_the_child_log(crashed):
 
 
 def test_port_refuses_the_reference_tiered_log(crashed):
-    """The JAX package's tier log holds KIND_LIFECYCLE and KIND_GC; the
-    port's recovery stops at the first with UnsupportedRecord."""
+    """The JAX package's tier log (a demoted session paged in by a vote, a
+    lifecycle sweep that collects the decided one: KIND_LIFECYCLE and
+    KIND_GC) recovers on the port to the JAX engine's fingerprint."""
     _, out, reference = crashed
     api = port_api()
     F = api.wal.format
     kinds = reference["tiered_kinds"]
     assert F.KIND_LIFECYCLE in kinds and F.KIND_GC in kinds
     fresh = api.make_engine(api.pkg.StubConsensusSigner(b"ref"), 8, 8)
-    with pytest.raises(api.wal.UnsupportedRecord, match="lifecycle"):
-        api.wal.replay(str(out / "tiered"), fresh)
-    assert fresh.get_scope_stats("t").total_sessions == 1  # applied up to it
+    recovering = api.wal.DurableEngine(fresh, str(out / "tiered"), fsync_policy="off")
+    stats = recovering.recover()
+    recovering.close()
+    assert stats.records_applied == len(kinds) and stats.errors == []
+    from hashgraph_tpu_torch.sync import state_fingerprint
+
+    assert state_fingerprint(fresh) == reference["tiered_fingerprint"]
+    assert fresh.get_scope_stats("t").total_sessions == 1  # the collected one is gone
 
 
 if __name__ == "__main__" and sys.argv[1] == "--reference":
