@@ -152,7 +152,37 @@ phase holds:
    re-ingested are DUPLICATE_VOTE); the recovered engine sweeps at NOW +
    400, runs a standalone ``lifecycle_sweep`` at NOW + 700 (KIND_LIFECYCLE
    and KIND_GC), is abandoned again and recovered from the whole log to
-   the live fingerprint.
+   the live fingerprint;
+12. observability (slice 10), every figure on the port's own registry,
+   read as changes over a step. (a) Config 3 (phase 3's traffic, seeded
+   ids) on a GPU and a CPU engine, each with its own ``HealthMonitor(
+   registry=MetricsRegistry())``: every counter's change, the size
+   histograms' buckets and the count of decision latencies must be equal,
+   ``hashgraph_device_ingest_seconds`` must count each call's dispatch, and
+   ``explain_decision`` of 10 seeded decided proposals must be equal with
+   wall times and trace ids masked; its votes/s with the hooks is printed
+   beside phase 3's and PR 11's. (b) The same traffic on a fresh GPU engine
+   with the tracer, the trace store, an ambient trace context and the
+   continuous profiler on: outcomes, events and ``state_fingerprint`` equal
+   to (a)'s; its votes/s and ``attribution_report()``; a ``MetricsSidecar``
+   on 127.0.0.1:0 whose ``/metrics`` parses and holds every documented
+   family, and whose ``/healthz`` answers 200. (c) Phase 7's batch and its
+   damaged call on a device-signed GPU engine and a CPU engine: the verified
+   signatures equal, the device-verify counters moved by one batch of
+   4,096, then one batch of 64 and one host blame; the verify skill's
+   equivocation recipe grades the peer ``faulty`` with one verified
+   evidence record, and the two ``health_report``s are equal but for
+   ``identity``. (d) ``tracing.device_profile`` (``torch.profiler``, host
+   and CUDA) around config 3's second wave (the scan) and phase 7's batch:
+   the Chrome trace must hold timed launches of ``ingest_scan_kernel``,
+   ``fe_mul_kernel``, ``fe_pow22523_kernel``, ``msm_windows_kernel`` and
+   the ``msm_reduce`` tree's two kernels; each one's device time a launch is
+   printed beside its CUDA-event time. (e) Phase 10 (a)'s waves (2,000
+   proposals) under ``DurableEngine`` on the card, recovered by a fresh GPU
+   engine under replay mode: ``hashgraph_decisions_total`` and
+   ``hashgraph_timeouts_fired_total`` hold still, ``wal_recover_seconds``
+   counts one recovery and the recovered monitor is clean. Files go to a
+   temporary directory, removed at the end.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -164,7 +194,9 @@ MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
 20 times; phase 10 unless the waves and the replay of (a) and the calls of
 (b) launched the scan and (c)'s main frame every verification kernel, the
 MSM's window once; phase 11 unless its late call and (b)'s first replay
-launched the scan; phase 8 fails unless (a) launched every verification kernel in
+launched the scan; phase 12 unless (a)'s GPU run and (e)'s replay launched
+the scan, (c)'s batches every verification kernel and (d)'s profiled calls
+every hand kernel; phase 8 fails unless (a) launched every verification kernel in
 one batch, every batch of (a) and (b) ran its MSM without falling back to
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
@@ -2684,6 +2716,18 @@ def wire_waves(pids, seed, scope_of=None):
     return waves
 
 
+_FRAMES: dict = {}
+
+
+def config3_frames(pids, seed=102):
+    """:func:`wire_waves` over ``pids`` parsed into frames, built once a
+    run: phase 10 (a) and phase 12 (e) take the same waves."""
+    key = (np.asarray(pids, np.int64).tobytes(), seed)
+    if key not in _FRAMES:
+        _FRAMES[key] = [parse_frame(w[0]) for w in wire_waves(pids, seed)]
+    return _FRAMES[key]
+
+
 def parse_frame(rows):
     """Encoded votes as one parsed frame (data, offsets, cols), with the
     native parser (the pure-Python twin is refused here)."""
@@ -2760,9 +2804,11 @@ def wal_child(root, dev, sizes):
 
     globals().update(sizes)
     from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.tracing import tracer
     from hashgraph_tpu_torch.wal import DurableEngine
 
     root = Path(root)
+    tracer.enable()  # the writer's wal.* counts, reported below
     durable = DurableEngine(wal_engine(dev), root / "crashed", fsync_policy="always")
     pids = config3_proposals(durable)
     frames = [parse_frame(w[0]) for w in wire_waves(pids, 102)]
@@ -2771,7 +2817,7 @@ def wal_child(root, dev, sizes):
     statuses, walls = config3_wire(durable, frames)
     (root / "child.json").write_text(json.dumps(dict(
         statuses=statuses, walls=walls, launches=dict(_build.launches),
-        stats=durable.stats())))
+        stats={k: v for k, v in tracer.counters().items() if k.startswith("wal.")})))
     os._exit(CHILD_EXIT)
 
 
@@ -2933,8 +2979,7 @@ def phase_wal_config3(dev, root):
         t = time.perf_counter()
         cpu = DurableEngine(wal_engine("cpu"), root / "cpu", fsync_policy="batch")
         pids = config3_proposals(cpu)
-        waves = wire_waves(pids, 102)
-        frames = [parse_frame(w[0]) for w in waves]
+        frames = config3_frames(pids)
         build_s = time.perf_counter() - t
         out, err = child.communicate(timeout=300)
     finally:
@@ -3670,7 +3715,396 @@ def phase_tier(dev):
     return dict(a=a, b=b)
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11")
+# ── Phase 12: observability on the card ───────────────────────────────
+
+OBS_EXPLAINED = 10  # seeded decided proposals explained on both engines
+PR11_CONFIG3_VOTES_PER_S = 224_811.4  # PR 11's full run (PERF.md §5)
+# Kernel table name -> the names its launches carry in a profiler trace.
+PROFILED_KERNELS = {
+    "ingest_scan": ("ingest_scan_kernel",),
+    "fe_mul": ("fe_mul_kernel",),
+    "fe_pow22523": ("fe_pow22523_kernel",),
+    "msm_windows": ("msm_windows_kernel",),
+    "msm_reduce": ("msm_tree_span_kernel", "msm_tree_root_kernel"),
+}
+# Counters that only the device signer's batches move.
+DEVICE_VERIFY_COUNTERS = ("hashgraph_device_verify_batches_total",
+                          "hashgraph_device_verify_signatures_total",
+                          "hashgraph_device_verify_fallbacks_total")
+
+
+def obs_engine(dev, signer=None):
+    """A phase-12 engine: the README's single-chip size, its own
+    ``HealthMonitor(registry=MetricsRegistry())``, no verify cache."""
+    from hashgraph_tpu_torch import StubConsensusSigner, TorchConsensusEngine
+    from hashgraph_tpu_torch.events import BroadcastEventBus
+    from hashgraph_tpu_torch.obs import HealthMonitor, MetricsRegistry
+
+    return TorchConsensusEngine(
+        signer or StubConsensusSigner(b"chip-smoke"), CAPACITY, VOTER_CAPACITY,
+        event_bus=BroadcastEventBus(max_queued_events=10_000_000),
+        max_sessions_per_scope=CAPACITY, device=dev, verify_cache=None,
+        health_monitor=HealthMonitor(registry=MetricsRegistry()),
+    )
+
+
+def registry_delta(before, after):
+    """What changed between two ``export_state``s of a registry: every
+    counter that moved, and each histogram's count and bucket counts."""
+    counters = {name: value - before["counters"].get(name, 0)
+                for name, value in after["counters"].items()
+                if value != before["counters"].get(name, 0)}
+    histograms = {}
+    for name, h in after["histograms"].items():
+        b = before["histograms"].get(name, {"count": 0, "counts": [0] * len(h["counts"])})
+        histograms[name] = {"count": h["count"] - b["count"],
+                            "buckets": [x - y for x, y in zip(h["counts"], b["counts"])]}
+    return counters, histograms
+
+
+def masked_explain(engine, scope, pid):
+    """``explain_decision`` with the wall-clock latencies and generated
+    trace ids masked (their presence kept)."""
+    out = engine.explain_decision(scope, pid)
+    timeline = dict(out["timeline"] or {})
+    for key in ("first_vote_latency_s", "decision_latency_s"):
+        if key in timeline:
+            timeline[key] = "masked"
+    out["timeline"] = timeline
+    if out["trace"] is not None:
+        out["trace"] = dict.fromkeys(out["trace"], "masked")
+    return out
+
+
+def scrape(sidecar):
+    """GET ``/metrics`` and ``/healthz`` of a running sidecar: the sample
+    names of the text (every line must parse as ``name value``) and the
+    health status and body."""
+    import urllib.request
+
+    host, port = sidecar.address
+    with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=10) as r:
+        text = r.read().decode()
+    names = set()
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        sample, value = line.split(" # ", 1)[0].rsplit(" ", 1)
+        float(value)
+        names.add(sample.split("{", 1)[0])
+    with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=10) as r:
+        health = (r.status, json.loads(r.read()))
+    return names, health
+
+
+def profiled_kernels(path):
+    """Per kernel of :data:`PROFILED_KERNELS`: the CUDA kernel events of a
+    Chrome trace that name it, as (launches, total device ms)."""
+    doc = json.loads(Path(path).read_text())
+    kernels = [e for e in doc.get("traceEvents", [])
+               if str(e.get("cat", "")).lower() == "kernel" and e.get("ph") == "X"]
+    out = {}
+    for name, needles in PROFILED_KERNELS.items():
+        hits = [e for e in kernels if any(n in e.get("name", "") for n in needles)]
+        if not hits or not all(float(e.get("dur", 0)) > 0 for e in hits):
+            raise AssertionError(f"the device trace holds no timed {name} launch "
+                                 f"({len(kernels)} kernel events)")
+        out[name] = (len(hits), sum(float(e["dur"]) for e in hits) / 1e3)
+    return out, len(kernels)
+
+
+def phase_obs_config3(dev, phase3_rate):
+    """(a) config 3 on a GPU and a CPU engine, registry deltas and explains
+    equal; (b) again on a GPU engine with the tracer, the trace store, an
+    ambient trace context and the profiler on, and a sidecar scrape."""
+    from hashgraph_tpu_torch import _build, obs
+    from hashgraph_tpu_torch.obs.trace import TraceContext, trace_store, use_context
+    from hashgraph_tpu_torch.ops import cuda_ingest
+    from hashgraph_tpu_torch.sync import state_fingerprint
+    from hashgraph_tpu_torch.tracing import tracer
+
+    registry = obs.registry
+    runs = {}
+    for label, d in (("gpu", dev), ("cpu", "cpu")):
+        run = Run(obs_engine(d))
+        before = registry.export_state()
+        _build.launches.clear()
+        with seeded_ids(120):
+            statuses, wall, n_votes = config3_traffic(run, 3)
+        launches = dict(_build.launches)
+        runs[label] = dict(run=run, statuses=statuses, wall=wall, n_votes=n_votes,
+                           delta=registry_delta(before, registry.export_state()),
+                           launches=launches)
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    require_launches("(a) config 3", gpu["launches"], [cuda_ingest.KERNEL])
+    compare("(a) statuses", gpu["statuses"], cpu["statuses"])
+    compare("(a) results", gpu["run"].outcome("config3"), cpu["run"].outcome("config3"))
+    events_a = gpu["run"].events_by_session()
+    compare("(a) events", events_a, cpu["run"].events_by_session())
+    (g_counters, g_hist), (c_counters, c_hist) = gpu["delta"], cpu["delta"]
+    compare("(a) counter deltas", g_counters, c_counters)
+    for name in (obs.INGEST_BATCH_SIZE, obs.CHAIN_SUFFIX_LENGTH):
+        compare(f"(a) {name}", g_hist[name], c_hist[name])
+    latency = g_hist[obs.DECISION_LATENCY]["count"]
+    if latency <= 0 or latency != c_hist[obs.DECISION_LATENCY]["count"]:
+        raise AssertionError(f"(a) decision latencies: {latency} on the GPU engine, "
+                             f"{c_hist[obs.DECISION_LATENCY]['count']} on the CPU engine")
+    calls = len(gpu["statuses"])
+    if g_hist[obs.DEVICE_INGEST_SECONDS]["count"] != calls:
+        raise AssertionError(f"(a) hashgraph_device_ingest_seconds counted "
+                             f"{g_hist[obs.DEVICE_INGEST_SECONDS]['count']} dispatches of "
+                             f"{calls} calls")
+    results, _ = gpu["run"].outcome("config3")
+    decided = [k for k, r in enumerate(results) if r in (True, False)]
+    picks = sorted(random.Random(121).sample(decided, OBS_EXPLAINED))
+    pids = gpu["run"].pids["config3"]
+    if pids != cpu["run"].pids["config3"]:
+        raise AssertionError("(a) the two engines minted different proposal ids")
+    for k in picks:
+        compare(f"(a) explain_decision of proposal {k}",
+                masked_explain(gpu["run"].engine, "config3", pids[k]),
+                masked_explain(cpu["run"].engine, "config3", pids[k]))
+    rate = gpu["n_votes"] / gpu["wall"]
+    log(f"[obs] (a) config 3 with the hooks: {gpu['n_votes']} votes in {gpu['wall']:.6f} s = "
+        f"{rate:.1f} votes/s on the GPU engine (phase 3 in this run: "
+        f"{'not run' if phase3_rate is None else f'{phase3_rate:.1f}'}; PR 11's full run "
+        f"{PR11_CONFIG3_VOTES_PER_S:,.1f}); the CPU engine {cpu['n_votes'] / cpu['wall']:.1f}; "
+        f"counter deltas equal on both engines {json.dumps(g_counters, sort_keys=True)}; "
+        f"batch-size buckets equal; {latency} decision latencies on each (p50 "
+        f"{registry.histogram(obs.DECISION_LATENCY).quantile(0.5):.6f} s over the process); "
+        f"device-ingest spans {calls}; {OBS_EXPLAINED} explains equal")
+
+    # (b) the same traffic with every listener on.
+    run_b = Run(obs_engine(dev))
+    tracer.reset()
+    tracer.enable()
+    trace_store.clear()
+    trace_store.enabled = True
+    profiler = obs.default_profiler
+    profiler.reset()
+    profiler.enabled = True
+    profiler.start()
+    root = TraceContext.generate()
+    try:
+        with seeded_ids(120), use_context(root):
+            statuses_b, wall_b, n_votes_b = config3_traffic(run_b, 3)
+    finally:
+        profiler.stop()
+        tracer.disable()
+    compare("(b) statuses", statuses_b, gpu["statuses"])
+    compare("(b) results", run_b.outcome("config3"), gpu["run"].outcome("config3"))
+    compare("(b) events", run_b.events_by_session(), events_a)
+    compare("(b) state_fingerprint", state_fingerprint(run_b.engine),
+            state_fingerprint(gpu["run"].engine))
+    counts = tracer.counters()
+    spans = trace_store.spans(trace_id=root.trace_id)
+    if not counts.get("engine.votes_in") or not spans:
+        raise AssertionError(f"(b) the tracer or the trace store saw nothing: {counts}, "
+                             f"{len(spans)} spans")
+    report = obs.attribution_report()
+    sidecar = obs.MetricsSidecar(registry, health_fn=lambda: {"ok": True})
+    sidecar.start()
+    try:
+        names, health = scrape(sidecar)
+    finally:
+        sidecar.stop()
+    base = {n[: -len(sfx)] for n in names for sfx in ("_bucket", "_sum", "_count")
+            if n.endswith(sfx)} | names
+    missing = [f for f in obs.documented_families() if f not in base]
+    if missing or health[0] != 200:
+        raise AssertionError(f"(b) the scrape lacks {missing}, /healthz {health}")
+    snap = profiler.snapshot()
+    log(f"[obs] (b) with the tracer, the trace store and the profiler on: {n_votes_b} votes "
+        f"in {wall_b:.6f} s = {n_votes_b / wall_b:.1f} votes/s; outcomes, events and "
+        f"state_fingerprint equal to (a); tracer counts {json.dumps(counts, sort_keys=True)}; "
+        f"{len(spans)} spans on the ambient trace; profiler {snap['samples']} samples at "
+        f"{snap['rate_hz']} Hz; /metrics holds all {len(obs.documented_families())} documented "
+        f"families ({len(names)} sample names), /healthz {health[0]}")
+    log(f"[obs] (b) attribution_report(): {json.dumps(report, sort_keys=True)}")
+    tracer.reset()
+    trace_store.clear()
+    return dict(rate=rate, rate_b=n_votes_b / wall_b, latencies=latency,
+                launches=gpu["launches"], counters=g_counters)
+
+
+def equivocate(run, key, now):
+    """Recipe 5 of the verify skill: one vote, then a conflicting one by the
+    same signer, both validated; the statuses."""
+    from hashgraph_tpu_torch import build_vote
+
+    scope = "equivocation"
+    with seeded_ids(123):  # both engines mint the same proposal and vote ids
+        base = run.engine.create_proposal(
+            scope, requests(1, 3, 10_000, lambda i: True)[0], NOW)
+        first = build_vote(base, True, key, now)
+        second = build_vote(base, False, key, now)
+    return [run.engine.ingest_votes([(scope, v)], now).tolist() for v in (first, second)]
+
+
+def phase_obs_verify(dev):
+    """(c) phase 7's batch and its damaged call on a device-signed GPU
+    engine and a CPU engine, then the equivocation recipe on both."""
+    from hashgraph_tpu_torch import _build, obs
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.signing import (
+        Ed25519ConsensusSigner,
+        Ed25519DeviceConsensusSigner,
+    )
+    from hashgraph_tpu_torch.wire import Vote
+
+    scope = "verify"
+    rng = random.Random(70)
+    keys = [Ed25519ConsensusSigner(rng.randbytes(32)) for _ in range(VERIFY_KEYS)]
+    runs = {"gpu": Run(obs_engine(dev, Ed25519DeviceConsensusSigner(rng.randbytes(32)))),
+            "cpu": Run(obs_engine("cpu", Ed25519ConsensusSigner(rng.randbytes(32))))}
+    for run in runs.values():
+        create_seeded(run, scope, VERIFY_PROPOSALS + 4, 71)
+    pids = runs["gpu"].pids[scope]
+    main_bytes = signed_votes(runs["gpu"].engine, scope, pids[:VERIFY_PROPOSALS], keys, 72)
+    blame_bytes = signed_votes(runs["gpu"].engine, scope, pids[VERIFY_PROPOSALS:], keys, 73,
+                               corrupt={0: "scalar", 1: "s>=L", 2: "bad-A", 3: "R-sign"})
+    out = {}
+    for label, run in runs.items():
+        steps, statuses = [], []
+        _build.launches.clear()
+        for data, now in ((main_bytes, NOW + 2), (blame_bytes, NOW + 3)):
+            before = obs.registry.export_state()
+            sync_of(run.engine.device)()
+            statuses.append(run.engine.ingest_votes(
+                [(scope, Vote.decode(b)) for b in data], now).tolist())
+            sync_of(run.engine.device)()
+            steps.append(registry_delta(before, obs.registry.export_state())[0])
+        out[label] = dict(steps=steps, statuses=statuses, launches=dict(_build.launches),
+                          equivocation=equivocate(run, keys[5], NOW + 4))
+    gpu, cpu = out["gpu"], out["cpu"]
+    require_launches("(c) the batches", gpu["launches"], VERIFY_KERNELS)
+    compare("(c) statuses", gpu["statuses"], cpu["statuses"])
+    for k, want in enumerate(({"batches": 1, "signatures": len(main_bytes), "fallbacks": 0},
+                              {"batches": 1, "signatures": len(blame_bytes), "fallbacks": 1})):
+        got = {name.split("_")[-2]: gpu["steps"][k].get(name, 0)
+               for name in DEVICE_VERIFY_COUNTERS}
+        if got != want or any(cpu["steps"][k].get(n) for n in DEVICE_VERIFY_COUNTERS):
+            raise AssertionError(f"(c) call {k}: device verify counters {got}, want {want}")
+        compare(f"(c) call {k} verified signatures",
+                gpu["steps"][k].get(obs.VERIFIED_SIGNATURES_TOTAL),
+                cpu["steps"][k].get(obs.VERIFIED_SIGNATURES_TOTAL))
+    dup = int(StatusCode.DUPLICATE_VOTE)
+    reports = {}
+    for label, run in runs.items():
+        if out[label]["equivocation"] != [[0], [dup]]:
+            raise AssertionError(f"(c) equivocation on the {label} engine: "
+                                 f"{out[label]['equivocation']}")
+        report = run.engine.health_report(NOW + 4)
+        card = report["peers"][keys[5].identity().hex()]
+        evidence = [e for e in report["evidence"] if e["kind"] == "equivocation"]
+        if card["grade"] != "faulty" or len(evidence) != 1 or not evidence[0]["verified"]:
+            raise AssertionError(f"(c) the {label} engine graded {card['grade']} with "
+                                 f"evidence {evidence}")
+        report.pop("identity")
+        reports[label] = report
+    compare("(c) health_report", reports["gpu"], reports["cpu"])
+    log(f"[obs] (c) phase 7's batches: counter changes on the GPU engine "
+        f"{json.dumps(gpu['steps'], sort_keys=True)}; verified signatures equal on the CPU "
+        f"engine ({cpu['steps'][0].get(obs.VERIFIED_SIGNATURES_TOTAL)} + "
+        f"{cpu['steps'][1].get(obs.VERIFIED_SIGNATURES_TOTAL)}); the equivocator graded "
+        f"faulty with one verified evidence record; health_report equal on both engines "
+        f"({len(reports['gpu']['peers'])} peers, firing "
+        f"{[a['rule'] for a in reports['gpu']['alerts']['firing']]})")
+    return dict(main_bytes=main_bytes, keys=keys, launches=gpu["launches"])
+
+
+def phase_obs_profile(dev, main_bytes, root):
+    """(d) ``tracing.device_profile`` around one config-3 wave that runs
+    the scan and one signed batch: every hand kernel in the trace."""
+    from hashgraph_tpu_torch import _build, tracing
+    from hashgraph_tpu_torch.signing import Ed25519DeviceConsensusSigner
+    from hashgraph_tpu_torch.wire import Vote
+
+    run = Run(obs_engine(dev))
+    with seeded_ids(122):
+        calls = config3_calls(run, 3)
+    run.engine.ingest_columnar(*calls[0], max_depth=8)  # wave 1: the scan-free fresh path
+    verifier = Run(obs_engine(dev, Ed25519DeviceConsensusSigner(random.Random(70).randbytes(32))))
+    create_seeded(verifier, "verify", VERIFY_PROPOSALS + 4, 71)
+    items = [("verify", Vote.decode(b)) for b in main_bytes]
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t = time.perf_counter()
+    with tracing.device_profile(str(root)):
+        run.engine.ingest_columnar(*calls[1], max_depth=8)
+        verifier.engine.ingest_votes(items, NOW + 2)
+    wall = time.perf_counter() - t
+    launches = dict(_build.launches)
+    require_launches("(d) the profiled calls", launches, list(PROFILED_KERNELS))
+    profiled, n_events = profiled_kernels(Path(root) / "device_trace.json")
+    log(f"[obs] (d) device_profile: {n_events} CUDA kernel events in {wall:.3f} s; per kernel "
+        f"(trace launches, device ms a launch; wrapper launches): " + "; ".join(
+            f"{k} ({n}, {ms / n:.6f}; {launches.get(k, 0)})" for k, (n, ms) in profiled.items()))
+    return {k: dict(launches=n, ms=ms / n, wrapper_launches=launches.get(k, 0))
+            for k, (n, ms) in profiled.items()}
+
+
+def phase_obs_recovery(dev, root):
+    """(e) a durable GPU engine's log of phase 10 (a)'s shape recovered on
+    the card under replay mode: decisions and timeouts hold still, one
+    recovery counted, the recovered monitor clean."""
+    from hashgraph_tpu_torch import _build, obs
+    from hashgraph_tpu_torch.ops import cuda_ingest
+    from hashgraph_tpu_torch.wal import DurableEngine
+
+    durable = DurableEngine(obs_engine(dev), Path(root) / "wal", fsync_policy="batch")
+    pids = config3_proposals(durable)
+    frames = config3_frames(pids)
+    before = obs.registry.export_state()
+    config3_wire(durable, frames)
+    live, _ = registry_delta(before, obs.registry.export_state())
+    durable.close()
+    fresh = obs_engine(dev)
+    recovering = DurableEngine(fresh, Path(root) / "wal", fsync_policy="batch")
+    before = obs.registry.export_state()
+    _build.launches.clear()
+    t = time.perf_counter()
+    stats = recovering.recover()
+    seconds = time.perf_counter() - t
+    launches = dict(_build.launches)
+    replayed, hist = registry_delta(before, obs.registry.export_state())
+    recovering.close()
+    require_launches("(e) the replay", launches, [cuda_ingest.KERNEL])
+    held = {n: replayed.get(n, 0) for n in (obs.DECISIONS_TOTAL, obs.TIMEOUTS_FIRED_TOTAL)}
+    if (not live.get(obs.DECISIONS_TOTAL) or any(held.values())
+            or hist[obs.WAL_RECOVER_SECONDS]["count"] != 1
+            or hist[obs.DECISION_LATENCY]["count"] != 0):
+        raise AssertionError(f"(e) live {live}; the replay moved {replayed}, "
+                             f"{hist[obs.WAL_RECOVER_SECONDS]}")
+    report = fresh.health_report()
+    if report["peers"] or report["evidence"] or report["alerts"]["firing"]:
+        raise AssertionError(f"(e) the recovered engine's monitor is not clean: {report}")
+    log(f"[obs] (e) recovery of {stats.records_applied} records in {seconds:.3f} s under replay "
+        f"mode: decisions and timeouts held still ({held}; the live run decided "
+        f"{live[obs.DECISIONS_TOTAL]}), votes counted {replayed.get(obs.VOTES_TOTAL, 0)}, "
+        f"wal_recover_seconds one observation, the recovered monitor clean")
+    return dict(launches=launches)
+
+
+def phase_obs(dev, phase3_rate=None):
+    import shutil
+    import tempfile
+
+    t = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-obs-"))
+    try:
+        out = phase_obs_config3(dev, phase3_rate)
+        verify = phase_obs_verify(dev)
+        out["profile"] = phase_obs_profile(dev, verify["main_bytes"], root / "profile")
+        out["verify_launches"] = verify["launches"]
+        out["recovery"] = phase_obs_recovery(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[obs] phase 12 passed in {time.perf_counter() - t:.3f} s")
+    return out
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12")
 
 
 def main() -> int:
@@ -3731,6 +4165,7 @@ def main() -> int:
     timing = phase_kernel(dev) if run("2") else None
 
     gpu, cpu = Run(make_engine(dev)), Run(make_engine("cpu"))
+    phase3_rate = None
     if run("3"):
         # Phase 3, the main path: counts are zeroed just before it.
         _build.launches.clear()
@@ -3755,6 +4190,7 @@ def main() -> int:
         ops3 = config3_ops(dev)
         log(f"[config3] PyTorch operator calls of each ingest_columnar call without "
             f"wire_votes (a fresh engine, the same five calls): {ops3}")
+        phase3_rate = n_votes / wall
         log(f"[config3] {n_votes} votes in {wall:.6f} s = {n_votes / wall:.1f} votes/s on the "
             f"GPU engine; scan launches {main_launches} ({n_scan_calls} wrapper calls, "
             f"{per_call:g} device launches a call), fresh dispatches {n_fresh}; scan "
@@ -3814,6 +4250,9 @@ def main() -> int:
     if run("11"):
         # Phase 11's counts are zeroed just before each of its steps.
         tier = phase_tier(dev)
+    if run("12"):
+        # Phase 12's counts are zeroed just before each of its steps.
+        obs_out = phase_obs(dev, phase3_rate)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -3854,6 +4293,8 @@ def main() -> int:
         "library_ms": None,
         "call_ms": main_timing["call_ms"],
         "config2_call_ms": timing["config 2's call (uint16)"]["ms"],
+        "launches_obs": obs_out["launches"].get("ingest_scan", 0),
+        "profiled_ms": obs_out["profile"]["ingest_scan"]["ms"],
     }]
     crypto = [
         ("fe_mul", "fe_mul.cu", fe_mul_timing,
@@ -3892,10 +4333,16 @@ def main() -> int:
             "launches_proposals": proposals["launches"].get(name, 0),
             "launches_wal": wal["c"]["launches"].get(name, 0),
             "launches_wal_damaged_frame": wal["c"]["launches_blame"].get(name, 0),
+            "launches_obs": obs_out["verify_launches"].get(name, 0),
             "parity": parity,
             "library_ms": None,
             **t,
+            "profiled_ms": obs_out["profile"][name]["ms"],
         })
+    log("[obs] profiled device time a launch (phase 12 (d), torch.profiler) beside the "
+        "CUDA-event time of the same kernel in this run: " + "; ".join(
+            f"{k['name']} {k['profiled_ms']:.6f} ms against {k['ms']:.6f} ms"
+            for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

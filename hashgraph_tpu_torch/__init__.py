@@ -21,6 +21,11 @@ a ``ConsensusStorage``, timeouts, and sessions the pool cannot hold served
 on the host, as in the JAX package. :class:`DurableEngine` (:mod:`.wal`)
 logs every mutating call before acknowledging it, in the JAX package's
 write-ahead-log format, and recovers an engine from the log.
+:mod:`.obs` and :mod:`.tracing` observe all of it as the JAX package's do
+(metrics registry and Prometheus text, timelines, health scoring,
+distributed traces, the flight recorder, SLOs, the profiler), on objects
+of this package's own; ``tracing.device_profile`` captures the GPU with
+``torch.profiler``.
 
 Host cryptography (Keccak, SHA-256, Ethereum ECDSA, Ed25519 signing and
 batch verification) runs in the native C++ runtime (:mod:`.native`), which
@@ -39,13 +44,15 @@ among it the batched vote-chain check of proposals from peers
 
 The port imports nothing of the JAX package: the modules that carry no
 device code (errors, wire, protocol, types, events, scope config, session,
-signing, storage, service, native, the bridge's columnar parser and the
-write-ahead log) are copies of that package's, and the
+signing, storage, service, native, the bridge's columnar parser, the
+write-ahead log and the observability layer) are copies of that package's, and the
 JAX package stays the reference the tests hold the port against. Entry
 points that hold device state take ``device=`` and default to ``"cuda"``;
 they raise without a GPU rather than move to the CPU, which callers ask for
 with ``device="cpu"``.
 """
+
+__version__ = "0.1.0"
 
 from .engine import (
     PendingVoteVerdicts,

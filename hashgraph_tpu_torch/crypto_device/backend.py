@@ -28,7 +28,10 @@ packing; ``decompress`` and ``hash`` are each stage's enqueue in
 :func:`verify_batch_begin` plus the wait for its result at collect (with
 eager PyTorch the enqueue is most of a stage's cost); ``msm`` is the
 scalar algebra, the MSM and the verdict read; ``fallback`` the host blame.
-The JAX backend's metric counters (``obs``) are not ported yet.
+Each batch counts on :mod:`..obs`'s registry, as the JAX backend's does:
+``hashgraph_device_verify_batches_total`` and ``_signatures_total`` at
+submit, ``_fallbacks_total`` per host blame, and the batch's work seconds
+(the phases' sum) in ``hashgraph_device_verify_seconds``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,13 @@ import time
 import numpy as np
 import torch
 
+from ..obs import (
+    DEVICE_VERIFY_BATCHES_TOTAL,
+    DEVICE_VERIFY_FALLBACKS_TOTAL,
+    DEVICE_VERIFY_SECONDS,
+    DEVICE_VERIFY_SIGNATURES_TOTAL,
+    registry,
+)
 from ..signing._ed25519 import L  # ONE home for the group order
 
 # The identity's encoding (y=1): the inert pad for unused lanes.
@@ -89,6 +99,8 @@ def verify_batch_begin(
         "submit": 0.0, "decompress": 0.0, "hash": 0.0, "msm": 0.0,
         "fallback": 0.0,
     }
+    registry.counter(DEVICE_VERIFY_BATCHES_TOTAL).inc()
+    registry.counter(DEVICE_VERIFY_SIGNATURES_TOTAL).inc(n)
 
     # Host precheck: non-canonical scalars (s >= L) are False without
     # touching the device, as in the host verifiers.
@@ -175,6 +187,7 @@ def verify_batch_begin(
             for j in surv:
                 verdicts[live[j]] = True
         else:
+            registry.counter(DEVICE_VERIFY_FALLBACKS_TOTAL).inc()
             rows_i = [live[j] for j in surv]
             host = _host_blame(
                 [identities[i] for i in rows_i],
@@ -191,7 +204,10 @@ def verify_batch_begin(
 
 
 def _finish_phases(phases: "dict[str, float]") -> None:
+    # Work, not wall: total = what begin+collect actually spent, so an
+    # async caller's overlap gap never inflates the histogram.
     phases["total"] = sum(phases.values())
+    registry.histogram(DEVICE_VERIFY_SECONDS).observe(phases["total"])
     _last_phases.clear()
     _last_phases.update(phases)
 

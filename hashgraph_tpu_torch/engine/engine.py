@@ -42,12 +42,21 @@ the replay entry point of the WAL's GC records). A demoted session stays
 addressable: point reads and mutations page it back in, enumerations read
 through the tier, so callers see an engine without a tier.
 
-Not ported yet (the JAX engine has them): health/metrics/tracing/timelines
-(and so the proposal and wire paths' health notes, the replay mode's
-timelines and counters, and the tier's registry families, tracer counts
-and flight notes), multi-host pools (and so ``deliver_proposals``'
-SESSION_NOT_FOUND misroute branch, the wire path's non-local rows and the
-tier's multi-host refusal) and adaptive timeouts.
+Observability is the JAX engine's, on this package's own process-wide
+objects (:mod:`..obs`): the registry families and scrape-time gauges, the
+tracer counts and spans (``observed_span`` around the calls that return
+host arrays), per-proposal timelines feeding the decision-latency
+histogram and the SLO engine, the health monitor's scorecards, evidence and
+watchdog, flight-recorder notes (and a dump on an engine fault), the
+distributed trace bound to each proposal, and the advisory adaptive
+timeouts. Read them through :meth:`health_report`,
+:meth:`explain_decision`, :meth:`proposal_timeline`,
+:meth:`trace_context_of`, :meth:`adaptive_timeout` and
+:meth:`adaptive_timeout_snapshot`.
+
+Not ported yet (the JAX engine has them): multi-host pools (and so
+``deliver_proposals``' SESSION_NOT_FOUND misroute branch, the wire path's
+non-local rows and the tier's multi-host refusal).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ import hashlib
 import os
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Generic, Hashable, TypeVar
 
@@ -73,6 +83,41 @@ from ..errors import (
     error_for_code,
 )
 from ..events import BroadcastEventBus, ConsensusEventBus
+from ..obs import (
+    CHAIN_KERNEL_SECONDS,
+    CHAIN_SUFFIX_LENGTH,
+    DECISION_LATENCY,
+    DECISIONS_TOTAL,
+    DEFAULT_SIZE_BUCKETS,
+    DEVICE_INGEST_SECONDS,
+    INGEST_BATCH_SIZE,
+    LIVE_PROPOSALS,
+    PROPOSALS_CREATED_TOTAL,
+    TIER_BYTES,
+    TIER_DEMOTED_SESSIONS,
+    TIER_DEMOTIONS_TOTAL,
+    TIER_GC_TOTAL,
+    TIER_PROMOTIONS_TOTAL,
+    TIMEOUTS_FIRED_TOTAL,
+    VERIFIED_SIGNATURES_TOTAL,
+    VERIFY_BATCH_SECONDS,
+    VOTE_TABLE_OCCUPANCY,
+    VOTES_ACCEPTED_TOTAL,
+    VOTES_TOTAL,
+    WIRE_APPLY_ROWS_TOTAL,
+    WIRE_DEVICE_DISPATCHES_TOTAL,
+    TimelineStore,
+    flight_recorder,
+    observed_span,
+    slo_engine,
+)
+from ..obs import health_monitor as default_health_monitor
+from ..obs import registry as default_registry
+from ..obs.health import HealthMonitor
+from ..obs.prometheus import _escape_label
+from ..obs.registry import Counter
+from ..obs.timeline import OUTCOME_FAILED, OUTCOME_NO, OUTCOME_YES
+from ..obs.trace import TraceContext, current_context, trace_store
 from ..ops.decide import (
     STATE_ACTIVE,
     STATE_FAILED,
@@ -81,15 +126,19 @@ from ..ops.decide import (
     required_votes_np,
 )
 from ..protocol import (
+    _F64_EPSILON,
+    _TWO_THIRDS,
     COMPUTE_CHAIN,
     build_vote,
+    calculate_required_votes,
+    calculate_threshold_based_value,
     compute_vote_hash,
     regenerate_until_unique,
     validate_proposal_timestamp,
     validate_vote,
     validate_vote_chain,
 )
-from ..scope_config import ScopeConfig, ScopeConfigBuilder
+from ..scope_config import DEFAULT_TIMEOUT_SECONDS, ScopeConfig, ScopeConfigBuilder
 from ..service import (
     DEFAULT_MAX_SESSIONS_PER_SCOPE,
     ConsensusStats,
@@ -97,6 +146,7 @@ from ..service import (
 )
 from ..session import ConsensusConfig, ConsensusSession, ConsensusState
 from ..signing import ConsensusSignatureScheme, PendingVerdicts
+from ..tracing import tracer as default_tracer
 from ..types import (
     ConsensusEvent,
     ConsensusFailedEvent,
@@ -104,6 +154,7 @@ from ..types import (
     CreateProposalRequest,
 )
 from ..wire import Proposal, Vote, normalize_wire_votes
+from .adaptive import AdaptiveTimeoutBook
 from .pool import PoolFullError, ProposalPool
 from .session_sync import allocate_slot, load_session_rows, state_code_of
 from .verify_cache import MISS, VerifiedVoteCache
@@ -179,6 +230,10 @@ class SessionRecord(Generic[Scope]):
     # time of registration, of the last accepted vote or of a fired
     # timeout (set by _track at registration).
     last_activity: int = 0
+    # The distributed trace bound at create/process time (None when the
+    # trace store is off or the session came through a batch path): every
+    # later span and instant of the session joins it.
+    trace: "TraceContext | None" = None
 
     def next_arrival_seq(self) -> int:
         seq = self.arrival_seq
@@ -264,6 +319,14 @@ _STATE_TO_SCALAR = {
     STATE_REACHED_NO: ConsensusState.reached(False),
 }
 
+# Timeline outcome labels per dense lifecycle state (ACTIVE maps to None:
+# a transition list never carries it).
+_OUTCOME_OF_STATE = {
+    STATE_REACHED_YES: OUTCOME_YES,
+    STATE_REACHED_NO: OUTCOME_NO,
+    STATE_FAILED: OUTCOME_FAILED,
+}
+
 
 class TorchConsensusEngine(Generic[Scope]):
     """Batch consensus engine with the ConsensusService API surface, its
@@ -275,7 +338,9 @@ class TorchConsensusEngine(Generic[Scope]):
     ``device="cpu"`` to run on the CPU, where the scan runs its plain
     PyTorch version. ``verify_cache`` is ``"default"`` (a cache of this
     engine's own), a :class:`VerifiedVoteCache` to share between engines,
-    or ``None`` for the uncached admission flow.
+    or ``None`` for the uncached admission flow. ``health_monitor`` is the
+    :class:`~..obs.health.HealthMonitor` that scores this engine's peers
+    (default: the package's process-wide monitor).
     """
 
     def __init__(
@@ -287,8 +352,16 @@ class TorchConsensusEngine(Generic[Scope]):
         max_sessions_per_scope: int = DEFAULT_MAX_SESSIONS_PER_SCOPE,
         device="cuda",
         verify_cache: "VerifiedVoteCache | None | str" = "default",
+        health_monitor: "HealthMonitor | None" = None,
     ):
         self._signer = signer
+        # Per-peer health accounting (scorecards, equivocation and fork
+        # evidence, the liveness watchdog). Gated off during WAL replay
+        # (_health_live): replayed anomalies were recorded before the crash.
+        self.health: HealthMonitor = (
+            health_monitor if health_monitor is not None else default_health_monitor
+        )
+        self._health_live = True
         # Memoized vote-admission verdicts (each unique vote verified once).
         # Any string but "default" would be stored as the cache object and
         # fail at the first ingest: refuse it here instead.
@@ -306,6 +379,79 @@ class TorchConsensusEngine(Generic[Scope]):
         )
         self._pool = ProposalPool(capacity, voter_capacity, device=device)
         self._max_sessions_per_scope = max_sessions_per_scope
+        self.tracer = default_tracer
+        # Distributed-trace peer label: this engine's spans carry its
+        # signer identity.
+        self._trace_peer = "peer:" + signer.identity().hex()[:12]
+        # Always-on metrics on the process-wide registry, resolved once so
+        # the hot paths pay attribute loads, not registry probes.
+        self.metrics = default_registry
+        self._m_votes_total = self.metrics.counter(VOTES_TOTAL)
+        self._m_votes_accepted = self.metrics.counter(VOTES_ACCEPTED_TOTAL)
+        self._m_decisions = self.metrics.counter(DECISIONS_TOTAL)
+        self._m_proposals = self.metrics.counter(PROPOSALS_CREATED_TOTAL)
+        self._m_timeouts = self.metrics.counter(TIMEOUTS_FIRED_TOTAL)
+        self._m_batch_size = self.metrics.histogram(
+            INGEST_BATCH_SIZE, DEFAULT_SIZE_BUCKETS
+        )
+        self._m_verify = self.metrics.histogram(VERIFY_BATCH_SECONDS)
+        # Signatures handed to the scheme (cache hits excluded): the base
+        # family and a per-scheme labelled variant.
+        scheme = type(signer)
+        self._m_verified_sigs = self.metrics.counter(VERIFIED_SIGNATURES_TOTAL)
+        self._m_verified_sigs_scheme = self.metrics.counter(
+            f'{VERIFIED_SIGNATURES_TOTAL}{{scheme="{_escape_label(scheme.__name__)}"}}'
+        )
+        # Every ingest_wire_columnar call is one fused dispatch; its rows
+        # ride along (votes a dispatch = rows / dispatches).
+        self._m_wire_dispatches = self.metrics.counter(WIRE_DEVICE_DISPATCHES_TOTAL)
+        self._m_wire_apply_rows = self.metrics.counter(WIRE_APPLY_ROWS_TOTAL)
+        self._m_chain = self.metrics.histogram(CHAIN_KERNEL_SECONDS)
+        self._m_device = self.metrics.histogram(DEVICE_INGEST_SECONDS)
+        self._m_suffix_len = self.metrics.histogram(
+            CHAIN_SUFFIX_LENGTH, DEFAULT_SIZE_BUCKETS
+        )
+        # Per-proposal lifecycle timelines (created -> first vote ->
+        # decided / timed out), feeding the decision-latency histogram and,
+        # through slo_sink, the SLO engine and the adaptive timeouts.
+        self._timelines = TimelineStore(self.metrics.histogram(DECISION_LATENCY))
+        self._slo_shard: str | None = None
+        self._timelines.slo_sink = self._slo_observe
+        # Advisory per-scope consensus timeouts (adaptive_timeout()); learning
+        # shares the _health_live gate: WAL replay must not teach.
+        self._adaptive = AdaptiveTimeoutBook()
+        # Engine-state gauges sampled at scrape time, weakly bound: a
+        # collected engine's contribution vanishes instead of freezing.
+        ref = weakref.ref(self)
+
+        def _live_proposals() -> int:
+            engine = ref()
+            return len(engine._records) if engine is not None else 0
+
+        def _pool_occupancy() -> int:
+            engine = ref()
+            if engine is None:
+                return 0
+            # Claimed pool slots (host-spilled sessions hold none). list()
+            # snapshots the keys in one call: the scrape thread runs
+            # without the engine lock.
+            return sum(1 for s in list(engine._records) if s >= 0)
+
+        def _tier_sessions() -> int:
+            engine = ref()
+            return engine._tier_count if engine is not None else 0
+
+        def _tier_bytes() -> int:
+            engine = ref()
+            return engine._tier_bytes if engine is not None else 0
+
+        self.metrics.register_gauge(LIVE_PROPOSALS, _live_proposals, owner=self)
+        self.metrics.register_gauge(VOTE_TABLE_OCCUPANCY, _pool_occupancy, owner=self)
+        self.metrics.register_gauge(TIER_DEMOTED_SESSIONS, _tier_sessions, owner=self)
+        self.metrics.register_gauge(TIER_BYTES, _tier_bytes, owner=self)
+        self._m_tier_demotions = self.metrics.counter(TIER_DEMOTIONS_TOTAL)
+        self._m_tier_promotions = self.metrics.counter(TIER_PROMOTIONS_TOTAL)
+        self._m_tier_gc = self.metrics.counter(TIER_GC_TOTAL)
         # One engine-wide reentrant lock, as the JAX engine holds: scalar
         # entry points funnel into ingest_votes.
         self._lock = threading.RLock()
@@ -339,6 +485,9 @@ class TorchConsensusEngine(Generic[Scope]):
         self._tier_demotions = 0
         self._tier_promotions = 0
         self._tier_gc = 0
+        # Reentrancy flag: promotion registers a session again, which is
+        # not a fresh proposal.
+        self._promoting = False
         # Lifecycle gate (set_replay_mode): False during WAL replay.
         self._lifecycle_live = True
 
@@ -348,13 +497,27 @@ class TorchConsensusEngine(Generic[Scope]):
         return self._signer
 
     def set_replay_mode(self, on: bool) -> None:
-        """Gate for WAL recovery (``DurableEngine.recover``): replayed
-        traffic drives the live ingest paths, but the tier lifecycle must
-        not re-derive its TTL decisions from restored clocks, so it pauses
-        while replay mode is on. (The JAX engine also gates its timelines,
-        health notes and decision counters here; the port has none of
-        them yet.)"""
+        """Metrics gate for WAL recovery (``DurableEngine.recover``):
+        replayed traffic drives the live ingest paths, but the decisions it
+        re-applies were made before the crash. With replay mode on,
+        timelines stamp them ``pre_decided`` (outcome without latency), the
+        decisions and timeouts counters hold still, health notes pause
+        (replayed anomalies were scored before the crash) and the tier
+        lifecycle pauses (its TTLs ride idle clocks a restore does not
+        carry). Vote and proposal counters keep counting: replay is work
+        this process performed."""
+        self._timelines.replay_mode = on
+        self._health_live = not on
         self._lifecycle_live = not on
+        if on:
+            # Throwaway instruments: the ingest paths inc their attributes
+            # unconditionally, so swapping the targets replaces a flag
+            # check at every site.
+            self._m_decisions = Counter("replay.decisions.discard")
+            self._m_timeouts = Counter("replay.timeouts.discard")
+        else:
+            self._m_decisions = self.metrics.counter(DECISIONS_TOTAL)
+            self._m_timeouts = self.metrics.counter(TIMEOUTS_FIRED_TOTAL)
 
     def event_bus(self) -> ConsensusEventBus[Scope]:
         return self._event_bus
@@ -385,16 +548,74 @@ class TorchConsensusEngine(Generic[Scope]):
     ) -> Proposal:
         """Create a local proposal and claim a pool slot
         (reference: src/service.rs:183-209)."""
+        wall0 = time.time()
         proposal = request.into_proposal(now)
         # A demoted session still holds its id.
-        regenerate_until_unique(
+        collisions = regenerate_until_unique(
             proposal,
             lambda pid: (scope, pid) in self._index or self._tier_has(scope, pid),
         )
+        if collisions:
+            self.tracer.count("engine.pid_collisions", collisions)
         validate_proposal_timestamp(proposal.expiration_timestamp, now)
         resolved = self._resolve_config(scope, config, proposal)
-        self._register(scope, proposal, resolved, now)
+        record = self._register(scope, proposal, resolved, now)
+        if trace_store.enabled and record is not None:
+            self._bind_trace(record, "consensus.create_proposal", scope, wall0)
         return proposal.clone()
+
+    def _bind_trace(
+        self, record: "SessionRecord[Scope]", span_name: str, scope, wall0: float
+    ) -> None:
+        """Mint (or continue) the distributed trace of a freshly registered
+        session: the ambient context (an embedder's around a gossip
+        delivery) is the causal parent; with none this engine is the trace
+        root. The bound context's span is recorded, so every peer gives at
+        least one span a proposal to the stitched timeline."""
+        parent = current_context()
+        ctx = parent.child() if parent is not None else TraceContext.generate()
+        record.trace = ctx
+        tl = self._timelines.get(record.slot)
+        if tl is not None and tl.proposal_id == record.proposal.proposal_id:
+            tl.trace_hex = ctx.trace_id.hex()
+        trace_store.record(
+            span_name,
+            ctx,
+            wall0,
+            time.time() - wall0,
+            parent=parent.span_id if parent is not None else None,
+            peer=self._trace_peer,
+            attrs={
+                "scope": str(scope),
+                "proposal_id": record.proposal.proposal_id,
+            },
+        )
+
+    def _slo_observe(self, tl, latency: float) -> None:
+        """TimelineStore slo_sink: one call per observed decision (gated as
+        the latency histogram is). Resolves the scope's declared objective
+        and forwards to the process SLO engine; a vote-driven decision also
+        decays the scope's learned timeout toward the observed tail."""
+        cfg = self._scope_configs.get(tl.scope)
+        objective = None
+        if cfg is not None and cfg.decide_p99_ms is not None:
+            objective = cfg.decide_p99_ms * 1e-3
+        slo_engine.observe(
+            tl.scope,
+            latency,
+            shard=self._slo_shard,
+            objective_s=objective,
+            trace_hex=tl.trace_hex,
+        )
+        if (
+            self._health_live
+            and not tl.by_timeout
+            and cfg is not None
+            and cfg.adaptive_timeout_enabled()
+        ):
+            self._adaptive.on_decided(
+                tl.scope, cfg, slo_engine.observed_p99(tl.scope)
+            )
 
     def _draw_unique_pids(self, existing: np.ndarray, count: int) -> np.ndarray:
         """Batch id draw: one urandom read, vectorized collision rejection
@@ -412,6 +633,7 @@ class TorchConsensusEngine(Generic[Scope]):
             n_bad = int(bad.sum())
             if n_bad == 0:
                 return ids
+            self.tracer.count("engine.pid_collisions", n_bad)
             ids[bad] = np.frombuffer(
                 os.urandom(4 * n_bad), dtype=np.uint32
             ).astype(np.int64)
@@ -539,6 +761,8 @@ class TorchConsensusEngine(Generic[Scope]):
             )
         for scope in {scope for scope, _, _ in entries}:
             self._drop_pid_cache(scope)
+        self._m_proposals.inc(len(entries))
+        flight_recorder.record("engine.create", proposals=len(entries))
 
     def _register(
         self,
@@ -587,6 +811,9 @@ class TorchConsensusEngine(Generic[Scope]):
         record.seq = seq
         self._track(record)
         self._drop_pid_cache(scope)
+        if not self._promoting:
+            # Paging a demoted session back in is not a fresh proposal.
+            self._m_proposals.inc()
         return record
 
     def _spilled(
@@ -606,6 +833,7 @@ class TorchConsensusEngine(Generic[Scope]):
                                config, now, session=session)
         record.votes = session.votes  # one dict: the session's
         self._next_host_slot -= 1
+        self.tracer.count("engine.host_spills")
         return record
 
     def _register_session(
@@ -617,8 +845,22 @@ class TorchConsensusEngine(Generic[Scope]):
         record = self._register(
             scope, session.proposal, session.config, created_at, session=session
         )
-        if record is None or record.session is not None:
-            return  # evicted at once, or host-backed: the session IS the state
+        if record is None:
+            return  # evicted at once by the per-scope cap
+        state = state_code_of(session.state)
+        if state != STATE_ACTIVE:
+            # Loaded already decided (restore, vote-carrying gossip): stamp
+            # the timeline's outcome without a latency, since this engine
+            # did not make the decision.
+            self._timelines.decided(
+                record.slot,
+                _OUTCOME_OF_STATE[state],
+                created_at,
+                time.monotonic(),
+                pre_decided=True,
+            )
+        if record.session is not None:
+            return  # host-backed: the session IS the state
         record.votes = {k: v.clone() for k, v in session.votes.items()}
         if session.votes or not session.state.is_active:
             if not load_session_rows(self._pool, record.slot, session):
@@ -630,6 +872,10 @@ class TorchConsensusEngine(Generic[Scope]):
         self._records[record.slot] = record
         self._index[(scope, record.proposal.proposal_id)] = record.slot
         self._scopes.setdefault(scope, []).append(record.slot)
+        self._timelines.created(
+            record.slot, scope, record.proposal.proposal_id, record.created_at,
+            time.monotonic(),
+        )
 
     # ── Proposals from peers ───────────────────────────────────────────
 
@@ -650,10 +896,15 @@ class TorchConsensusEngine(Generic[Scope]):
         ):
             # A demoted session exists: rejected without paging it in.
             raise ProposalAlreadyExist()
+        wall0 = time.time()
         config = self._resolve_config(scope, config, proposal)
         # Fail fast BEFORE the signature prepass: expired gossip buys no
         # signature work and does not churn the cache.
-        validate_proposal_timestamp(proposal.expiration_timestamp, now)
+        try:
+            validate_proposal_timestamp(proposal.expiration_timestamp, now)
+        except ConsensusError:
+            self._note_expired_proposal(proposal, now)
+            raise
         # Verdicts for the embedded chain through the admission cache
         # (None: from_proposal verifies each vote inline, the scalar flow).
         sv = ch = None
@@ -678,6 +929,43 @@ class TorchConsensusEngine(Generic[Scope]):
                 ),
             )
         self._register_session(scope, session, now)
+        self._note_chain_admitted(proposal.votes, config, now)
+        if trace_store.enabled:
+            slot = self._index.get((scope, proposal.proposal_id))
+            if slot is not None:
+                # Continues the trace the proposal travelled with (the
+                # ambient context); roots a fresh one for untraced senders.
+                self._bind_trace(
+                    self._records[slot], "consensus.process_proposal", scope, wall0
+                )
+
+    def _note_chain_admitted(
+        self, votes: "list[Vote]", config: ConsensusConfig, now: int
+    ) -> None:
+        """Scorecard admissions for an embedded chain accepted whole: one
+        dict pass a chain, one monitor call."""
+        if not self._health_live or not votes:
+            return
+        counts: dict[bytes, int] = {}
+        for vote in votes:
+            counts[vote.vote_owner] = counts.get(vote.vote_owner, 0) + 1
+        self.health.note_admitted(
+            counts, now, timeout_hint=config.consensus_timeout
+        )
+
+    def _note_expired_proposal(self, proposal: Proposal, now: int) -> None:
+        """Expired-gossip scorecard hit for a whole stale proposal, on the
+        chain's most recent signer (the proposal owner for a vote-free
+        proposal)."""
+        if not self._health_live:
+            return
+        source = (
+            proposal.votes[-1].vote_owner
+            if proposal.votes
+            else proposal.proposal_owner
+        )
+        if source:
+            self.health.note_expired(source, now)
 
     def ingest_proposals(
         self,
@@ -743,9 +1031,15 @@ class TorchConsensusEngine(Generic[Scope]):
             packed = chain_pack_from_numpy(
                 pack_chains([items[i][1].votes for i in chain_idx]), self.device
             )
-            chain_statuses = chain_kernel_batch(
-                *(packed[k] for k in CHAIN_FIELDS)
-            ).cpu().numpy()
+            with observed_span(
+                self.tracer,
+                "engine.chain_kernel",
+                self._m_chain,
+                chains=len(chain_idx),
+            ):
+                chain_statuses = chain_kernel_batch(
+                    *(packed[k] for k in CHAIN_FIELDS)
+                ).cpu().numpy()
             for j, i in enumerate(chain_idx):
                 code = first_chain_error(chain_statuses[j])
                 exc_cls = error_for_code(code) if code else None
@@ -798,8 +1092,11 @@ class TorchConsensusEngine(Generic[Scope]):
                         ),
                     )
                 self._register_session(scope, session, now)
+                self._note_chain_admitted(proposal.votes, config, now)
             except ConsensusError as exc:
                 statuses[i] = int(exc.code)
+                if exc.code == StatusCode.PROPOSAL_EXPIRED:
+                    self._note_expired_proposal(proposal, now)
         return statuses
 
     def deliver_proposal(
@@ -890,8 +1187,77 @@ class TorchConsensusEngine(Generic[Scope]):
                 statuses[k] = self._apply_chain_suffix(record, suffix, now, verdicts)
             else:
                 statuses[k] = int(StatusCode.PROPOSAL_ALREADY_EXIST)
+                # Still crypto-free: the probe re-walks the compared prefix
+                # to classify why the redelivery did not extend (fork
+                # evidence, truncation lag).
+                self._note_redelivery_health(record, proposal, now)
         flush_run()
         return statuses
+
+    def _note_redelivery_health(
+        self, record: SessionRecord[Scope], proposal: Proposal, now: int
+    ) -> None:
+        """Classify a non-extending redelivery for the health layer. A
+        prefix mismatch where the divergent vote's signer also has a
+        different accepted vote in the session is a FORK, retained as a
+        self-authenticating evidence pair (the watermark settles forks
+        crypto-free; the bytes authenticate themselves offline). A weaker
+        divergence is counted (``engine.divergent_redeliveries``), not
+        convicted. A matching but shorter chain is a TRUNCATION, scored on
+        the chain's most recent signer. Identical redeliveries score
+        nothing. Pre-validated columnar retention is skipped: its merged
+        order is not positional."""
+        if not self._health_live or (
+            record.retained_wire and not record.wire_only
+        ):
+            return
+        accepted = (
+            self._accepted_vote_chain(record)
+            if record.retained_wire
+            else record.proposal.votes
+        )
+        incoming = proposal.votes
+        n = len(incoming)
+        if n and n <= len(accepted):
+            # Identical (equal length) or lagging (shorter): one tail-hash
+            # compare. received_hash links commit each vote to its
+            # predecessor, so a matching tail at one position means a
+            # matching prefix for fully linked chains.
+            if incoming[-1].vote_hash == accepted[n - 1].vote_hash:
+                if n < len(accepted):
+                    self.health.note_truncation(
+                        incoming[-1].vote_owner, len(accepted) - n, now
+                    )
+                return
+        elif not n:
+            if accepted and proposal.proposal_owner:
+                self.health.note_truncation(
+                    proposal.proposal_owner, len(accepted), now
+                )
+            return
+        for ours, theirs in zip(accepted, incoming):
+            if ours.vote_hash != theirs.vote_hash:
+                prior = record.votes.get(theirs.vote_owner)
+                if prior is None and record.session is not None:
+                    prior = record.session.votes.get(theirs.vote_owner)
+                if prior is None and record.retained_wire:
+                    # Wire-retained accepts live in the merged chain.
+                    for vote in accepted:
+                        if vote.vote_owner == theirs.vote_owner:
+                            prior = vote
+                            break
+                if prior is not None and prior.vote_hash != theirs.vote_hash:
+                    self.health.note_fork(
+                        record.scope,
+                        proposal.proposal_id,
+                        prior.encode(),
+                        theirs.encode(),
+                        theirs.vote_owner,
+                        now,
+                    )
+                else:
+                    self.tracer.count("engine.divergent_redeliveries")
+                return
 
     def _suffix_prepass(
         self, items: "list[tuple[Scope, Proposal]]", now: int
@@ -995,6 +1361,10 @@ class TorchConsensusEngine(Generic[Scope]):
         try:
             validate_proposal_timestamp(proposal.expiration_timestamp, now)
         except ConsensusError as exc:
+            if self._health_live and suffix[-1].vote_owner:
+                # Expired-gossip hit on the chain's most recent signer,
+                # still with zero crypto.
+                self.health.note_expired(suffix[-1].vote_owner, now)
             return int(exc.code)
         verdicts, hashes = verified if verified is not None else self._cached_verify(suffix)
         for i, vote in enumerate(suffix):
@@ -1011,6 +1381,7 @@ class TorchConsensusEngine(Generic[Scope]):
                     computed_hash=hashes[i],
                 )
             except ConsensusError as exc:
+                self._note_reject_health(vote, int(exc.code), now)
                 return int(exc.code)
         # The chain rule from the watermark on (the prefix's links were
         # checked at acceptance), over the merged accepted chain when wire
@@ -1028,6 +1399,13 @@ class TorchConsensusEngine(Generic[Scope]):
         sub = self.ingest_votes(
             [(record.scope, vote) for vote in suffix], now, pre_validated=True
         )
+        # "Votes applied per watermark extension": what actually landed,
+        # so rejected deliveries and partial applies never read as healthy
+        # extension traffic.
+        applied = int(np.sum(np.asarray(sub) == int(StatusCode.OK)))
+        if applied:
+            self._m_suffix_len.observe(applied)
+            self.tracer.count("engine.chain_extensions")
         # Soft codes a live session legitimately gives chain votes that
         # raced concurrent gossip: the owner already voted, or the session
         # decided mid-suffix. Anything else is a hard error.
@@ -1127,7 +1505,19 @@ class TorchConsensusEngine(Generic[Scope]):
                 [v.signing_payload() for v in votes],
                 [v.signature for v in votes],
             )
-            return PendingVoteVerdicts(lambda: (list(pending.collect()), hashes))
+
+            def _finish_uncached():
+                # The span times the collect wait: a well-overlapped
+                # pipeline shows near-zero residence.
+                with observed_span(
+                    self.tracer, "engine.verify_batch", self._m_verify,
+                    votes=len(votes),
+                ):
+                    verdicts = pending.collect()
+                self._note_verified(len(votes))
+                return list(verdicts), hashes
+
+            return PendingVoteVerdicts(_finish_uncached)
         cache = self._verify_cache
         verdicts: list = [False] * len(votes)
         rows: list[int] = []
@@ -1158,7 +1548,12 @@ class TorchConsensusEngine(Generic[Scope]):
         )
 
         def _finish():
-            fresh = pending.collect()
+            with observed_span(
+                self.tracer, "engine.verify_batch", self._m_verify,
+                votes=len(rep),
+            ):
+                fresh = pending.collect()
+            self._note_verified(len(rep))
             for miss, verdict in zip(miss_rows.values(), fresh):
                 for i in miss:
                     verdicts[i] = verdict
@@ -1166,6 +1561,10 @@ class TorchConsensusEngine(Generic[Scope]):
             return verdicts, hashes
 
         return PendingVoteVerdicts(_finish)
+
+    def _note_verified(self, count: int) -> None:
+        self._m_verified_sigs.inc(count)
+        self._m_verified_sigs_scheme.inc(count)
 
     def _vote_prepass_begin(
         self, items: "list[tuple[Scope, Vote]]", pre_validated: bool
@@ -1243,6 +1642,12 @@ class TorchConsensusEngine(Generic[Scope]):
         default starts it here.
         """
         batch = len(items)
+        self.tracer.count("engine.votes_in", batch)
+        wall = time.monotonic()
+        if batch:
+            self._m_votes_total.inc(batch)
+            self._m_batch_size.observe(batch)
+            flight_recorder.record("engine.ingest_votes", votes=batch)
         statuses = np.zeros(batch, np.int32)
         dev_rows: list[int] = []  # indices into items that reach the device
         slots = np.empty(batch, np.int64)
@@ -1252,6 +1657,12 @@ class TorchConsensusEngine(Generic[Scope]):
         # index, scope, event) and interleave with the device path's, so
         # events follow per-vote arrival order across both substrates.
         events: list[tuple[int, Scope, ConsensusEvent]] = []
+        host_accepted = 0
+        host_transitions = 0
+        # Per-signer admissions accumulate into one dict, flushed in one
+        # monitor call (_flush_vote_health): the hot path pays dict stores.
+        admit_counts: dict[bytes, int] = {}
+        admit_timeout = 0.0
         # Same-batch chain tails per record: a chained run (v2 extends the
         # tail, v3 extends v2) must see v2 as the effective tail although
         # its host-side append happens after the dispatch.
@@ -1293,6 +1704,7 @@ class TorchConsensusEngine(Generic[Scope]):
                     )
                 except ConsensusError as exc:
                     statuses[i] = int(exc.code)
+                    self._note_reject_health(vote, int(exc.code), now)
                     continue
             # Dangling-vote guard: a FIRST-TIME voter whose received_hash
             # names a vote this session never accepted is rejected instead
@@ -1333,13 +1745,39 @@ class TorchConsensusEngine(Generic[Scope]):
                     )
                     if vote.received_hash != tail:
                         statuses[i] = int(StatusCode.RECEIVED_HASH_MISMATCH)
+                        self.tracer.count("engine.dangling_votes_rejected")
                         continue
                 pending_tail[slot] = vote.vote_hash
             if record.session is not None:
+                was_active = record.session.state.is_active
                 code, event = self._host_add_vote(record, vote, now)
                 statuses[i] = code
                 if code == int(StatusCode.OK):
+                    host_accepted += 1
                     record.last_activity = now
+                    owner = vote.vote_owner
+                    admit_counts[owner] = admit_counts.get(owner, 0) + 1
+                    if record.config.consensus_timeout > admit_timeout:
+                        admit_timeout = record.config.consensus_timeout
+                    self._timelines.voted(slot, now, wall)
+                    if trace_store.enabled and record.trace is not None:
+                        trace_store.instant(
+                            "consensus.vote_applied",
+                            record.trace,
+                            peer=self._trace_peer,
+                            attrs={"owner": vote.vote_owner.hex()[:12]},
+                        )
+                if was_active and not record.session.state.is_active:
+                    host_transitions += 1
+                    outcome = _OUTCOME_OF_STATE[state_code_of(record.session.state)]
+                    self._timelines.decided(slot, outcome, now, wall)
+                    if trace_store.enabled and record.trace is not None:
+                        trace_store.instant(
+                            "consensus.decided",
+                            record.trace,
+                            peer=self._trace_peer,
+                            attrs={"outcome": outcome},
+                        )
                 if event is not None:
                     events.append((i, scope, event))
                 continue
@@ -1353,15 +1791,46 @@ class TorchConsensusEngine(Generic[Scope]):
             dev_rows.append(i)
 
         if not dev_rows:
+            self.tracer.count("engine.votes_accepted", host_accepted)
+            self.tracer.count("engine.transitions", host_transitions)
+            self._m_votes_accepted.inc(host_accepted)
+            self._m_decisions.inc(host_transitions)
             for _, ev_scope, event in events:
                 self._emit(ev_scope, event)
+            self._flush_vote_health(
+                items, statuses, admit_counts, admit_timeout, now, pre_validated
+            )
             return statuses
 
         k = len(dev_rows)
-        dev_statuses, transitions = self._pool.ingest(
-            slots[:k], lanes[:k], values[:k], now
-        )
+        with observed_span(
+            self.tracer, "engine.device_ingest", self._m_device, votes=k
+        ):
+            dev_statuses, transitions = self._pool.ingest(
+                slots[:k], lanes[:k], values[:k], now
+            )
         statuses[np.asarray(dev_rows)] = dev_statuses
+        # Stamp the wall clock after the dispatch: a decision's latency
+        # includes the ingest that produced it.
+        wall = time.monotonic()
+        accepted = int(np.sum(dev_statuses == int(StatusCode.OK))) + host_accepted
+        self.tracer.count("engine.votes_accepted", accepted)
+        self.tracer.count("engine.transitions", len(transitions) + host_transitions)
+        self._m_votes_accepted.inc(accepted)
+        self._m_decisions.inc(len(transitions) + host_transitions)
+        for slot, new_state in transitions:
+            outcome = _OUTCOME_OF_STATE.get(new_state)
+            if outcome is not None:
+                self._timelines.decided(slot, outcome, now, wall)
+                if trace_store.enabled:
+                    tctx = self._records[slot].trace
+                    if tctx is not None:
+                        trace_store.instant(
+                            "consensus.decided",
+                            tctx,
+                            peer=self._trace_peer,
+                            attrs={"outcome": outcome},
+                        )
 
         # Host bookkeeping for accepted votes, in arrival order; remember the
         # last accepted vote per slot — the vote that flipped a slot that
@@ -1376,9 +1845,23 @@ class TorchConsensusEngine(Generic[Scope]):
                 record.proposal.votes.append(stored)
                 record.scalar_seqs.append(record.next_arrival_seq())
                 record.bump_round(1)
+                admit_counts[stored.vote_owner] = (
+                    admit_counts.get(stored.vote_owner, 0) + 1
+                )
                 last_ok[int(slots[j])] = j
         for slot in last_ok:
-            self._records[slot].last_activity = now
+            record = self._records[slot]
+            record.last_activity = now
+            if record.config.consensus_timeout > admit_timeout:
+                admit_timeout = record.config.consensus_timeout
+            self._timelines.voted(slot, now, wall)
+            if trace_store.enabled and record.trace is not None:
+                trace_store.instant(
+                    "consensus.vote_applied",
+                    record.trace,
+                    peer=self._trace_peer,
+                    attrs={"batch": int(batch)},
+                )
 
         # Events in per-vote arrival order, mirroring the scalar path: the
         # deciding vote emits ConsensusReached, and every later vote to the
@@ -1412,7 +1895,99 @@ class TorchConsensusEngine(Generic[Scope]):
         events.sort(key=lambda t: t[0])
         for _, ev_scope, event in events:
             self._emit(ev_scope, event)
+        self._flush_vote_health(
+            items, statuses, admit_counts, admit_timeout, now, pre_validated
+        )
         return statuses
+
+    # Duplicate-shaped statuses worth an equivocation probe: the session
+    # already holds a vote by this owner (device DUPLICATE_VOTE, scalar
+    # USER_ALREADY_VOTED) or absorbed a late vote after deciding
+    # (ALREADY_REACHED). All three come after signature admission, so a
+    # differing vote_hash means the owner validly signed two distinct votes
+    # for one proposal.
+    _EQUIVOCATION_PROBE_CODES = (
+        int(StatusCode.DUPLICATE_VOTE),
+        int(StatusCode.USER_ALREADY_VOTED),
+        int(StatusCode.ALREADY_REACHED),
+    )
+
+    def _flush_vote_health(
+        self,
+        items: "list[tuple[Scope, Vote]]",
+        statuses: np.ndarray,
+        admit_counts: "dict[bytes, int]",
+        admit_timeout: float,
+        now: int,
+        pre_validated: bool,
+    ) -> None:
+        """Per-batch health flush of ingest_votes: one batched admission
+        update, then an equivocation probe over the (rare) duplicate-shaped
+        rejections: two validly signed votes with different hashes from one
+        owner on one proposal become a retained evidence pair."""
+        if not self._health_live or not len(items):
+            return
+        if admit_counts:
+            self.health.note_admitted(
+                admit_counts, now, timeout_hint=admit_timeout
+            )
+        if pre_validated:
+            # No signature admission ran in this call: a duplicate-shaped
+            # rejection must not mint verified evidence (a forged replay row
+            # could otherwise fabricate "self-authenticating" proof).
+            return
+        # Candidate selection stays cheap on the clean path: one int for a
+        # scalar batch, one vectorized any() (OK == 0) for larger ones.
+        if len(items) == 1:
+            if int(statuses[0]) not in self._EQUIVOCATION_PROBE_CODES:
+                return
+            rows = [0]
+        else:
+            if not statuses.any():
+                return
+            candidates = statuses == self._EQUIVOCATION_PROBE_CODES[0]
+            for code in self._EQUIVOCATION_PROBE_CODES[1:]:
+                candidates |= statuses == code
+            if not candidates.any():
+                return
+            rows = np.nonzero(candidates)[0].tolist()
+        last_key: "tuple | None" = None  # duplicates cluster a proposal
+        record: "SessionRecord[Scope] | None" = None
+        for i in rows:
+            scope, vote = items[i]
+            key = (scope, vote.proposal_id)
+            if key != last_key:
+                last_key = key
+                slot = self._index.get(key)
+                record = self._records[slot] if slot is not None else None
+            if record is None:
+                continue
+            prior = record.votes.get(vote.vote_owner)
+            if prior is not None and prior.vote_hash != vote.vote_hash:
+                self.health.note_equivocation(
+                    scope,
+                    vote.proposal_id,
+                    prior.encode(),
+                    vote.encode(),
+                    vote.vote_owner,
+                    now,
+                )
+
+    def _note_reject_health(self, vote: Vote, code: int, now: int) -> None:
+        """Scorecard attribution of a per-vote admission rejection, on the
+        vote's claimed signer."""
+        if not self._health_live:
+            return
+        if code in (
+            int(StatusCode.INVALID_VOTE_SIGNATURE),
+            int(StatusCode.INVALID_VOTE_HASH),
+            int(StatusCode.SIGNATURE_SCHEME),
+        ):
+            if vote.vote_owner:
+                self.health.note_invalid_signature(vote.vote_owner, now)
+        elif code == int(StatusCode.VOTE_EXPIRED):
+            if vote.vote_owner:
+                self.health.note_expired(vote.vote_owner, now)
 
     def voter_gid(self, owner: bytes) -> int:
         """Intern an owner identity for the columnar ingest path
@@ -1498,6 +2073,11 @@ class TorchConsensusEngine(Generic[Scope]):
         wire_norm = (
             self._normalize_wire(wire_votes, batch) if wire_votes is not None else None
         )
+        self.tracer.count("engine.votes_in", batch)
+        if batch:
+            self._m_votes_total.inc(batch)
+            self._m_batch_size.observe(batch)
+            flight_recorder.record("engine.ingest_columnar", votes=batch)
         return wire_norm, np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
 
     def _resolve_slots_multi(
@@ -1705,7 +2285,16 @@ class TorchConsensusEngine(Generic[Scope]):
         k = len(owners)
         if self._verify_cache is None:
             pending = self._scheme.verify_batch_submit(owners, payloads, sigs)
-            return lambda: list(pending.collect())
+
+            def _finish_uncached():
+                with observed_span(
+                    self.tracer, "engine.verify_batch", self._m_verify, votes=k
+                ):
+                    verdicts = pending.collect()
+                self._note_verified(k)
+                return list(verdicts)
+
+            return _finish_uncached
         cache = self._verify_cache
         verdicts: list = [False] * k
         keys = [
@@ -1728,7 +2317,12 @@ class TorchConsensusEngine(Generic[Scope]):
         )
 
         def _finish():
-            fresh = pending.collect()
+            with observed_span(
+                self.tracer, "engine.verify_batch", self._m_verify,
+                votes=len(rep),
+            ):
+                fresh = pending.collect()
+            self._note_verified(len(rep))
             for rows, verdict in zip(miss_rows.values(), fresh):
                 for i in rows:
                     verdicts[i] = verdict
@@ -1768,6 +2362,13 @@ class TorchConsensusEngine(Generic[Scope]):
         scope_idx = np.asarray(scope_idx, np.int64)
         offsets = np.asarray(offsets, np.int64)
         batch = len(cols)
+        self.tracer.count("engine.votes_in", batch)
+        if batch:
+            self._m_votes_total.inc(batch)
+            self._m_batch_size.observe(batch)
+            self._m_wire_dispatches.inc()
+            self._m_wire_apply_rows.inc(batch)
+            flight_recorder.record("engine.ingest_wire_columnar", votes=batch)
         statuses = np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
         if batch == 0:
             return statuses
@@ -1806,6 +2407,7 @@ class TorchConsensusEngine(Generic[Scope]):
         # per unique slot, then one vectorized compare per rule.
         ts_u64 = np.ascontiguousarray(cols[:, C.COL_TS]).view(np.uint64)
         rows_v = np.nonzero(valid)[0]
+        admit_timeout = 0.0
         if rows_v.size:
             uniq = np.unique(slots[rows_v])
             creation = np.empty(len(uniq), np.uint64)
@@ -1814,6 +2416,8 @@ class TorchConsensusEngine(Generic[Scope]):
                 record = self._records[slot]
                 creation[j] = record.proposal.timestamp
                 expiry[j] = record.proposal.expiration_timestamp
+                if record.config.consensus_timeout > admit_timeout:
+                    admit_timeout = record.config.consensus_timeout
             pos = np.searchsorted(uniq, slots[rows_v])
             ts_rows = ts_u64[rows_v]
             old = ts_rows < creation[pos]
@@ -1821,6 +2425,7 @@ class TorchConsensusEngine(Generic[Scope]):
             statuses[rows_v[old]] = int(StatusCode.TIMESTAMP_OLDER_THAN_CREATION_TIME)
             statuses[rows_v[expired]] = int(StatusCode.VOTE_EXPIRED)
             valid[rows_v[old | expired]] = False
+        self._wire_reject_health(buf, cols, found, statuses, now)
         self._wire_dangling_guard(buf, cols, slots, valid, statuses)
         # One gid per unique owner, then the shared columnar apply with
         # wire retention on.
@@ -1831,6 +2436,10 @@ class TorchConsensusEngine(Generic[Scope]):
             (data, offsets), wire_validated=True,
         )
         self._wire_track_chain(buf, cols, slots, statuses)
+        self._wire_admit_health(
+            buf, cols, scopes, scope_idx, slots, offsets, statuses,
+            admit_timeout, now,
+        )
         if stage_seconds is not None:
             stage_seconds["apply"] = stage_seconds.get("apply", 0.0) + time.monotonic() - t1
         return statuses
@@ -1892,9 +2501,91 @@ class TorchConsensusEngine(Generic[Scope]):
             if received and received != tail:
                 statuses[i] = int(StatusCode.RECEIVED_HASH_MISMATCH)
                 valid[i] = False
+                self.tracer.count("engine.dangling_votes_rejected")
                 continue
             tail = buf[c[C.COL_HASH_OFF]:c[C.COL_HASH_OFF] + c[C.COL_HASH_LEN]]
             seen.add(owner)
+
+    def _wire_reject_health(self, buf, cols, found, statuses, now) -> None:
+        """Scorecard attribution of wire-columnar validation rejects: the
+        vectorized twin of :meth:`_note_reject_health` (same codes, same
+        claimed-signer attribution), sliced from the frame only on the
+        failure path."""
+        if not self._health_live:
+            return
+        from ..bridge import columnar as C
+
+        sig_codes = (
+            int(StatusCode.INVALID_VOTE_SIGNATURE),
+            int(StatusCode.INVALID_VOTE_HASH),
+            int(StatusCode.SIGNATURE_SCHEME),
+        )
+        mask = found & (
+            (statuses == sig_codes[0])
+            | (statuses == sig_codes[1])
+            | (statuses == sig_codes[2])
+            | (statuses == int(StatusCode.VOTE_EXPIRED))
+        )
+        for row in np.nonzero(mask)[0].tolist():
+            c = cols[row]
+            owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+            if not owner:
+                continue
+            if int(statuses[row]) == int(StatusCode.VOTE_EXPIRED):
+                self.health.note_expired(owner, now)
+            else:
+                self.health.note_invalid_signature(owner, now)
+
+    def _wire_admit_health(
+        self, buf, cols, scopes, scope_idx, slots, offsets, statuses,
+        admit_timeout, now,
+    ) -> None:
+        """Post-apply health flush of the wire path: batched admission
+        counts for the accepted rows, then the equivocation probe over the
+        duplicate-shaped rejections, the prior vote recovered from the
+        session's scalar votes or its retained wire chunks."""
+        if not self._health_live:
+            return
+        from ..bridge import columnar as C
+
+        ok = statuses == int(StatusCode.OK)
+        if ok.any():
+            admit_counts: dict[bytes, int] = {}
+            for row in np.nonzero(ok)[0].tolist():
+                c = cols[row]
+                owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+                admit_counts[owner] = admit_counts.get(owner, 0) + 1
+            self.health.note_admitted(admit_counts, now, timeout_hint=admit_timeout)
+        cand = statuses == self._EQUIVOCATION_PROBE_CODES[0]
+        for code in self._EQUIVOCATION_PROBE_CODES[1:]:
+            cand |= statuses == code
+        for row in np.nonzero(cand)[0].tolist():
+            record = self._records[int(slots[row])]
+            c = cols[row]
+            owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+            vote_hash = buf[c[C.COL_HASH_OFF]:c[C.COL_HASH_OFF] + c[C.COL_HASH_LEN]]
+            prior = record.votes.get(owner)
+            prior_bytes = None
+            if prior is not None and prior.vote_hash != vote_hash:
+                prior_bytes = prior.encode()
+            elif prior is None:
+                for _seq, chunk in self._decoded_retained(record):
+                    for v in chunk:
+                        if v.vote_owner == owner:
+                            if v.vote_hash != vote_hash:
+                                prior_bytes = v.encode()
+                            break
+                    if prior_bytes is not None:
+                        break
+            if prior_bytes is not None:
+                self.health.note_equivocation(
+                    scopes[int(scope_idx[row])],
+                    int(cols[row, C.COL_PID]),
+                    prior_bytes,
+                    buf[int(offsets[row]):int(offsets[row + 1])],
+                    owner,
+                    now,
+                )
 
     def _accepted_vote_chain(self, record: SessionRecord[Scope]) -> list[Vote]:
         """The session's accepted votes in arrival order, retained wire
@@ -1991,10 +2682,13 @@ class TorchConsensusEngine(Generic[Scope]):
             found = found & ~bad_gid
         # Host-spilled sessions (negative slots) take their rows tally-only,
         # in arrival order: no Vote object is made up for them.
+        wall = time.monotonic()
         host_rows = found & (slots < 0)
         if host_rows.any():
             for i in np.nonzero(host_rows)[0].tolist():
-                record = self._records[int(slots[i])]
+                slot = int(slots[i])
+                record = self._records[slot]
+                was_active = record.session.state.is_active
                 code, event = self._host_add_tally(
                     record, self._pool.owner_of_gid(int(voter_gids[i])),
                     bool(values[i]), now,
@@ -2002,6 +2696,23 @@ class TorchConsensusEngine(Generic[Scope]):
                 statuses[i] = code
                 if code == int(StatusCode.OK):
                     record.last_activity = now
+                    self._timelines.voted(slot, now, wall)
+                    self._m_votes_accepted.inc()
+                self.tracer.count(
+                    "engine.votes_accepted", int(code == int(StatusCode.OK))
+                )
+                if was_active and not record.session.state.is_active:
+                    self._timelines.decided(
+                        slot,
+                        _OUTCOME_OF_STATE[state_code_of(record.session.state)],
+                        now,
+                        wall,
+                    )
+                    self._m_decisions.inc()
+                self.tracer.count(
+                    "engine.transitions",
+                    int(was_active and not record.session.state.is_active),
+                )
                 if event is not None:
                     self._emit(record.scope, event)
             found = found & ~host_rows
@@ -2078,6 +2789,7 @@ class TorchConsensusEngine(Generic[Scope]):
         depth = int(counts.max())
         everything = np.arange(len(order), dtype=np.int64)
         if fast_lanes and self._pool.fresh_ingest_viable(uniq, depth, len(order)):
+            self.tracer.count("engine.fresh_dispatches")
             segs.append((uniq, grp_sorted, col_sorted, depth, everything, True))
         elif depth > max_depth and not self._pool.grid_within_budget(
             len(uniq), depth, len(order)
@@ -2115,15 +2827,32 @@ class TorchConsensusEngine(Generic[Scope]):
                 )
             )
             orig_of.append(sel[idx_k])
-        results = self._pool.complete_all(pendings)
+        # The span ends where the host holds the results: complete_all is
+        # the call that brings the statuses back.
+        with observed_span(
+            self.tracer, "engine.device_ingest", self._m_device,
+            votes=int(len(order)),
+        ):
+            results = self._pool.complete_all(pendings)
 
+        wall = time.monotonic()
+        accepted = 0
+        n_transitions = 0
         reached_transitions: list[tuple[int, int]] = []
         for orig_rows, (seg_statuses, transitions) in zip(orig_of, results):
             statuses[orig_rows] = seg_statuses
-            reached_transitions.extend(
-                (slot, st) for slot, st in transitions
-                if st in (STATE_REACHED_YES, STATE_REACHED_NO)
-            )
+            accepted += int(np.sum(seg_statuses == int(StatusCode.OK)))
+            n_transitions += len(transitions)
+            for slot, st in transitions:
+                if st in (STATE_REACHED_YES, STATE_REACHED_NO):
+                    reached_transitions.append((slot, st))
+                outcome = _OUTCOME_OF_STATE.get(st)
+                if outcome is not None:
+                    self._timelines.decided(slot, outcome, now, wall)
+        self.tracer.count("engine.votes_accepted", accepted)
+        self.tracer.count("engine.transitions", n_transitions)
+        self._m_votes_accepted.inc(accepted)
+        self._m_decisions.inc(n_transitions)
 
         # Round bookkeeping per touched slot, via bincount over the
         # sorted-domain group index (totals are order-independent).
@@ -2132,9 +2861,11 @@ class TorchConsensusEngine(Generic[Scope]):
         if ok_m.any():
             cnt = np.bincount(grp_sorted[ok_m], minlength=len(uniq))
             for g in np.nonzero(cnt)[0].tolist():
-                record = self._records[int(uniq[g])]
+                slot = int(uniq[g])
+                record = self._records[slot]
                 record.bump_round(int(cnt[g]))
                 record.last_activity = now
+                self._timelines.voted(slot, now, wall)
 
         if not segs[0][5] and len(segs) == 1 and depth > max_depth and (
             len(reached_transitions) > 1
@@ -2284,14 +3015,39 @@ class TorchConsensusEngine(Generic[Scope]):
             slot = self._tier_lookup_promote(scope, proposal_id)
             if slot is None:
                 raise SessionNotFound()
+        # Timeout calls carry the embedder's clock even when vote traffic
+        # has stopped: the liveness watchdog measures silence against it.
+        self.health.tick(now)
         record = self._records[slot]
-        if self._state_code(record) == STATE_ACTIVE:
+        was_active = self._state_code(record) == STATE_ACTIVE
+        if was_active:
             # A fired timeout is the session's deciding activity.
             record.last_activity = now
         if record.session is not None:
             new_state = self._host_timeout(record)
         else:
             [(_, new_state)] = self._pool.timeout([slot])
+        if was_active:
+            # Only timeouts that fired count: the call is idempotent for
+            # decided sessions, and polls must not inflate the counter.
+            self._m_timeouts.inc()
+            if self._health_live:
+                # A fired timeout backs off the scope's learned timeout.
+                self._adaptive.on_timeout(scope, self._scope_configs.get(scope))
+        outcome = _OUTCOME_OF_STATE.get(new_state)
+        if outcome is not None:
+            # The store ignores a second outcome for a session decided by
+            # votes.
+            self._timelines.decided(
+                slot, outcome, now, time.monotonic(), by_timeout=True
+            )
+            if trace_store.enabled and was_active and record.trace is not None:
+                trace_store.instant(
+                    "consensus.timeout_decided",
+                    record.trace,
+                    peer=self._trace_peer,
+                    attrs={"outcome": outcome},
+                )
         if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
             result = new_state == STATE_REACHED_YES
             self._emit(
@@ -2330,15 +3086,38 @@ class TorchConsensusEngine(Generic[Scope]):
                 and self._pool.meta(slot).expiry <= now
             ):
                 expired.append(slot)
+        self.tracer.count("engine.timeout_sweeps")
+        self.tracer.count("engine.timeouts_fired", len(expired) + len(host_expired))
+        self.health.tick(now)  # the watchdog clock advances with the sweeps
+        if expired or host_expired:
+            flight_recorder.record(
+                "engine.sweep", fired=len(expired) + len(host_expired)
+            )
+        wall = time.monotonic()
         # Pooled sessions in one dispatch, then the host-spilled ones, in
         # the JAX engine's order.
         swept = self._pool.timeout(expired) + [
             (slot, self._host_timeout(self._records[slot])) for slot in host_expired
         ]
+        self._m_timeouts.inc(len(swept))
         out: list[tuple[Scope, int, bool | None]] = []
         for slot, new_state in swept:
             record = self._records[slot]
             record.last_activity = now  # the fired timeout (the GC TTL's start)
+            if self._health_live:
+                self._adaptive.on_timeout(
+                    record.scope, self._scope_configs.get(record.scope)
+                )
+            outcome = _OUTCOME_OF_STATE.get(new_state)
+            if outcome is not None:
+                self._timelines.decided(slot, outcome, now, wall, by_timeout=True)
+                if trace_store.enabled and record.trace is not None:
+                    trace_store.instant(
+                        "consensus.timeout_decided",
+                        record.trace,
+                        peer=self._trace_peer,
+                        attrs={"outcome": outcome},
+                    )
             pid = record.proposal.proposal_id
             if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
                 result = new_state == STATE_REACHED_YES
@@ -2456,6 +3235,148 @@ class TorchConsensusEngine(Generic[Scope]):
             else:
                 stats.consensus_reached += 1
         return stats
+
+    def proposal_timeline(self, scope: Scope, proposal_id: int) -> dict | None:
+        """Lifecycle timeline of one proposal: created / first_vote /
+        quorum / decided logical timestamps, the outcome (yes/no/failed and
+        by_timeout) and the wall-clock latencies derived from them
+        (``decision_latency_s`` feeds
+        ``hashgraph_decision_latency_seconds``). Falls back to the bounded
+        ring of finished timelines for recently deleted or evicted
+        sessions; None when the proposal was never seen or aged out."""
+        slot = self._index.get((scope, proposal_id))
+        if slot is not None:
+            tl = self._timelines.get(slot)
+            if tl is not None and tl.proposal_id == proposal_id:
+                return tl.as_dict()
+        tl = self._timelines.find(scope, proposal_id)
+        return tl.as_dict() if tl is not None else None
+
+    def trace_context_of(self, scope: Scope, proposal_id: int):
+        """The distributed :class:`~..obs.trace.TraceContext` bound to a
+        live session (None when untracked or untraced), for embedders to
+        carry to the peers they gossip to."""
+        slot = self._index.get((scope, proposal_id))
+        if slot is None:
+            return None
+        return self._records[slot].trace
+
+    def explain_decision(self, scope: Scope, proposal_id: int) -> dict:
+        """Decision provenance: one JSON-ready verdict on why and how this
+        proposal is in its current state. The accepted vote chain (chain
+        order, per-peer contributions, columnar tallies included), the
+        quorum arithmetic (``div_ceil(2n, 3)``, ``ceil(n·t)`` or n <= 2
+        unanimity, with the observed yes/no/silent counts and an
+        independent re-run of the decision rule as a cross-check), the
+        lifecycle timeline and the bound distributed-trace identity.
+        Raises SessionNotFound for an unknown proposal; a
+        :class:`~..wal.DurableEngine` overlays the WAL LSN watermark."""
+        record = self._get_record(scope, proposal_id)
+        session = self.export_session(scope, proposal_id)
+        proposal = session.proposal
+        n = proposal.expected_voters_count
+        thr = session.config.consensus_threshold
+        state = self._state_code(record)
+        status = {
+            STATE_ACTIVE: "active",
+            STATE_FAILED: "failed",
+            STATE_REACHED_YES: "reached",
+            STATE_REACHED_NO: "reached",
+        }[state]
+        result = (
+            state == STATE_REACHED_YES
+            if state in (STATE_REACHED_YES, STATE_REACHED_NO)
+            else None
+        )
+        timeline = self.proposal_timeline(scope, proposal_id)
+        by_timeout = bool(timeline and timeline.get("by_timeout"))
+        yes, total = session.tally_counts()
+        if n <= 2:
+            # Unanimity rule (reference: src/utils.rs:239-244).
+            rule = "unanimity (n <= 2)"
+            required = choice_required = n
+        else:
+            required = calculate_required_votes(n, thr)
+            choice_required = calculate_threshold_based_value(n, thr)
+            # Exactly the comparison calculate_threshold_based_value makes,
+            # so the stated rule names the path that gave the numbers.
+            rule = (
+                "div_ceil(2n, 3)"
+                if abs(thr - _TWO_THIRDS) < _F64_EPSILON
+                else f"ceil(n * {thr!r})"
+            )
+        # Independent re-run of the decision rule over the reconstructed
+        # session (the scalar substrate's decide_now).
+        recomputed = session.decide_now(by_timeout)
+        chain = [
+            {
+                "position": i,
+                "owner": v.vote_owner.hex(),
+                "vote": v.vote,
+                "vote_id": v.vote_id,
+                "timestamp": v.timestamp,
+                "parent_hash": v.parent_hash.hex(),
+                "vote_hash": v.vote_hash.hex(),
+            }
+            for i, v in enumerate(proposal.votes)
+        ]
+        contributions = {
+            v.vote_owner.hex(): {"vote": v.vote, "via": "vote"}
+            for v in session.votes.values()
+        }
+        for owner, value in session.tallies.items():
+            contributions[owner.hex()] = {"vote": value, "via": "tally"}
+        trace = None
+        if record.trace is not None:
+            trace = {
+                "traceparent": record.trace.to_traceparent(),
+                "trace_id": record.trace.trace_id.hex(),
+                "span_id": record.trace.span_id.hex(),
+            }
+        return {
+            "scope": str(scope),
+            "proposal_id": proposal.proposal_id,
+            "status": status,
+            "result": result,
+            "by_timeout": by_timeout,
+            "proposal": {
+                "name": proposal.name,
+                "owner": proposal.proposal_owner.hex(),
+                "round": proposal.round,
+                "created_at": record.created_at,
+                "expiration_timestamp": proposal.expiration_timestamp,
+                "liveness_criteria_yes": proposal.liveness_criteria_yes,
+            },
+            "quorum": {
+                "expected_voters": n,
+                "threshold": thr,
+                "rule": rule,
+                "required_votes": required,
+                "required_choice_votes": choice_required,
+                "yes": yes,
+                "no": total - yes,
+                "total": total,
+                "silent": max(n - total, 0),
+                "reached": status == "reached",
+                "recomputed_result": recomputed,
+            },
+            "vote_chain": chain,
+            "contributions": contributions,
+            "timeline": timeline,
+            "trace": trace,
+        }
+
+    def health_report(self, now: int | None = None) -> dict:
+        """Consensus-health snapshot: graded per-peer scorecards, the
+        retained equivocation and fork evidence, the liveness watchdog and
+        the firing alert rules (:meth:`HealthMonitor.snapshot`) plus this
+        engine's signer identity. ``now`` is the embedder's logical tick
+        (default: the latest tick the monitor has seen). Not engine-locked:
+        the monitor has its own lock, so scrapes never contend with ingest.
+        A :class:`~..wal.DurableEngine` overlays the WAL LSN watermark."""
+        out = self.health.snapshot(now)
+        out["identity"] = self._signer.identity().hex()
+        return out
 
     def occupancy(self) -> dict:
         """Capacity snapshot: live sessions, device slots claimed vs the
@@ -2608,6 +3529,7 @@ class TorchConsensusEngine(Generic[Scope]):
             for slot in slots:
                 record = self._records.pop(slot)
                 del self._index[(scope, record.proposal.proposal_id)]
+                self._timelines.forget(slot)
             # A host-spilled record holds no pool slot to release.
             all_slots.extend(s for s in slots if s >= 0)
             self._scope_configs.pop(scope, None)
@@ -2739,8 +3661,11 @@ class TorchConsensusEngine(Generic[Scope]):
                 self._tier_active[(scope, pid)] = record.proposal.expiration_timestamp
         self._drop_live_slots(scope, slots)
         self._tier_pid_arrays.pop(scope, None)
-        self._tier_demotions += len(records)
-        return len(records)
+        n = len(records)
+        self._tier_demotions += n
+        self._m_tier_demotions.inc(n)
+        self.tracer.count("engine.tier_demotions", n)
+        return n
 
     def _drop_tier_entries(self, scope: Scope, pids: "list[int]") -> "list[_TierEntry]":
         """Shared tier teardown (promotion, cap eviction, GC, scope
@@ -2770,8 +3695,14 @@ class TorchConsensusEngine(Generic[Scope]):
 
         [entry] = self._drop_tier_entries(scope, [proposal_id])
         _, session = decode_session_item(entry.item)
-        self._register_session(scope, session, entry.created_at)
+        self._promoting = True
+        try:
+            self._register_session(scope, session, entry.created_at)
+        finally:
+            self._promoting = False
         self._tier_promotions += 1
+        self._m_tier_promotions.inc()
+        self.tracer.count("engine.tier_promotions")
         slot = self._index.get((scope, proposal_id))
         if slot is None:
             return None
@@ -2819,6 +3750,7 @@ class TorchConsensusEngine(Generic[Scope]):
         for slot in slots:
             record = self._records.pop(slot)
             del self._index[(scope, record.proposal.proposal_id)]
+            self._timelines.forget(slot)
         live = self._scopes.get(scope)
         if live is not None:
             self._scopes[scope] = [s for s in live if s not in gone]
@@ -2883,20 +3815,28 @@ class TorchConsensusEngine(Generic[Scope]):
                         if records[s].last_activity <= cutoff]
                 if idle:
                     out["demoted"] += self._demote_records(scope, idle)
+        if out["demoted"] or out["gc_live"] or out["gc_tier"]:
+            flight_recorder.record("engine.lifecycle_sweep", **out)
         return out
 
     def _gc_live(self, scope: Scope, slots: "list[int]") -> int:
         """Drop decided live sessions past their TTL, as a cap eviction
         drops them, counted as tier GC."""
         self._drop_live_slots(scope, slots)
-        self._tier_gc += len(slots)
-        return len(slots)
+        n = len(slots)
+        self._tier_gc += n
+        self._m_tier_gc.inc(n)
+        self.tracer.count("engine.tier_gc", n)
+        return n
 
     def _gc_tier(self, scope: Scope, pids: "list[int]") -> int:
         """Drop demoted sessions past their TTL, counted as tier GC."""
         self._drop_tier_entries(scope, pids)
-        self._tier_gc += len(pids)
-        return len(pids)
+        n = len(pids)
+        self._tier_gc += n
+        self._m_tier_gc.inc(n)
+        self.tracer.count("engine.tier_gc", n)
+        return n
 
     def gc_sessions(self, keys: "list[tuple[Scope, int]]") -> int:
         """Apply an exact GC outcome: drop each ``(scope, pid)``, live or
@@ -2957,6 +3897,23 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def get_scope_config(self, scope: Scope) -> ScopeConfig | None:
         return self._scope_configs.get(scope)
+
+    def adaptive_timeout(self, scope: Scope) -> float:
+        """The consensus timeout the embedder should schedule next for
+        ``scope``, in seconds: the learned value when the scope declared
+        ``timeout_min``/``timeout_max`` bounds, else the scope's static
+        ``default_timeout`` (or the gossipsub default), the reference
+        behaviour. Advisory: timers stay the embedder's
+        (reference: src/lib.rs:15-34)."""
+        cfg = self._scope_configs.get(scope)
+        learned = self._adaptive.current(scope, cfg)
+        if learned is not None:
+            return learned
+        return cfg.default_timeout if cfg is not None else DEFAULT_TIMEOUT_SECONDS
+
+    def adaptive_timeout_snapshot(self) -> dict:
+        """Learner introspection (per-scope learned values and counters)."""
+        return self._adaptive.snapshot()
 
     # ScopeConfigBuilderWrapper terminal hooks.
     def _initialize_scope(self, scope: Scope, config: ScopeConfig) -> None:
@@ -3144,7 +4101,20 @@ def _synchronized(fn):
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         with self._lock:
-            return fn(self, *args, **kwargs)
+            try:
+                return fn(self, *args, **kwargs)
+            except ConsensusError:
+                # The caller-facing contract: typed rejections, not faults.
+                raise
+            except Exception as exc:
+                # Anything else is a fault: keep the evidence. The ring
+                # holds the recent batch, creation and sweep notes; dumps
+                # are rate-limited inside the recorder.
+                flight_recorder.record(
+                    "engine.fault", api=fn.__name__, error=repr(exc)
+                )
+                flight_recorder.dump(f"engine-fault:{fn.__name__}")
+                raise
 
     return wrapper
 
@@ -3176,6 +4146,9 @@ for _name in (
     "get_active_proposals",
     "get_reached_proposals",
     "get_scope_stats",
+    "proposal_timeline",
+    "trace_context_of",
+    "explain_decision",
     "export_session",
     "save_to_storage",
     "load_from_storage",

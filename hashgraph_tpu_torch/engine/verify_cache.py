@@ -1,13 +1,10 @@
 """Memoized vote-admission verdicts: verify each unique vote ONCE.
 
-Port of ``hashgraph_tpu/engine/verify_cache.py``. The class, its keys and
-its LRU policy are the JAX package's; one thing differs: the port has no
-``obs`` metrics registry yet, so the hit, miss, negative-hit and eviction
-counts are integers on the instance, which :meth:`VerifiedVoteCache.stats`
-reports beside the sizing readout (the JAX package counts them on its
-process-wide registry and its ``stats()`` reports sizing only). The
-engine's scheme tag hashes the scheme's module path, so a cache never
-serves a verdict of the JAX package's schemes to the port's.
+Port of the JAX package's ``engine/verify_cache.py``: the class, its keys,
+its LRU policy and its counters (on this package's process-wide metrics
+registry, :mod:`hashgraph_tpu_torch.obs`) are that package's. The engine's
+scheme tag hashes the scheme's module path, so a cache never serves a
+verdict of the JAX package's schemes to the port's.
 
 The reference protocol gossips *growing vote chains*: a chain of length L
 delivered one extension at a time re-presents every earlier vote L times,
@@ -49,6 +46,8 @@ The cache is bounded (entry count and approximate byte caps) with LRU
 eviction, and thread-safe so one instance can be shared by several
 engines in one process — a vote gossiped to N co-hosted peers is then
 verified once, not N times.
+Hit/miss/negative-hit/evict counters land on the process-wide metrics
+registry (:mod:`hashgraph_tpu_torch.obs`) and appear in ``/metrics``.
 """
 
 from __future__ import annotations
@@ -57,6 +56,13 @@ import hashlib
 import threading
 from collections import OrderedDict
 
+from ..obs import (
+    VERIFY_CACHE_EVICTIONS_TOTAL,
+    VERIFY_CACHE_HITS_TOTAL,
+    VERIFY_CACHE_MISSES_TOTAL,
+    VERIFY_CACHE_NEGATIVE_HITS_TOTAL,
+)
+from ..obs import registry as default_registry
 
 __all__ = ["VerifiedVoteCache", "MISS"]
 
@@ -93,11 +99,11 @@ class VerifiedVoteCache:
         self._entries: OrderedDict[bytes, object] = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
-        # The counts the JAX package puts on its metrics registry.
-        self.hits = 0
-        self.misses = 0
-        self.negative_hits = 0
-        self.evictions = 0
+        reg = default_registry
+        self._m_hits = reg.counter(VERIFY_CACHE_HITS_TOTAL)
+        self._m_misses = reg.counter(VERIFY_CACHE_MISSES_TOTAL)
+        self._m_negative_hits = reg.counter(VERIFY_CACHE_NEGATIVE_HITS_TOTAL)
+        self._m_evictions = reg.counter(VERIFY_CACHE_EVICTIONS_TOTAL)
 
     @staticmethod
     def key(
@@ -127,23 +133,23 @@ class VerifiedVoteCache:
     def get(self, key: bytes):
         """Cached verdict for ``key``, or :data:`MISS`. A hit refreshes
         LRU recency; negative verdicts (False / scheme error) count
-        separately so poisoning attempts are visible in the counts."""
+        separately so poisoning attempts are visible in metrics."""
         with self._lock:
             verdict = self._entries.get(key, MISS)
             if verdict is MISS:
-                self.misses += 1
+                self._m_misses.inc()
                 return MISS
             self._entries.move_to_end(key)
-            self.hits += 1
-            if verdict is not True:
-                self.negative_hits += 1
+        self._m_hits.inc()
+        if verdict is not True:
+            self._m_negative_hits.inc()
         return verdict
 
     def get_many(self, keys: "list[bytes]") -> list:
         """Batched :meth:`get`: one lock acquisition and one counter
         update for the whole batch — the engine's per-batch prepass calls
-        this so a cache consult costs dict probes, not per-vote lock
-        traffic. Returns one verdict-or-:data:`MISS` per key."""
+        this so a cache consult costs dict probes, not per-vote lock and
+        metrics traffic. Returns one verdict-or-:data:`MISS` per key."""
         hits = misses = negatives = 0
         out = []
         entries = self._entries
@@ -157,9 +163,12 @@ class VerifiedVoteCache:
                     hits += 1
                     negatives += verdict is not True
                 out.append(verdict)
-            self.hits += hits
-            self.misses += misses
-            self.negative_hits += negatives
+        if hits:
+            self._m_hits.inc(hits)
+        if misses:
+            self._m_misses.inc(misses)
+        if negatives:
+            self._m_negative_hits.inc(negatives)
         return out
 
     def put(self, key: bytes, verdict) -> None:
@@ -184,7 +193,8 @@ class VerifiedVoteCache:
                 victim, _ = self._entries.popitem(last=False)
                 self._bytes -= len(victim) + _ENTRY_OVERHEAD
                 evicted += 1
-            self.evictions += evicted
+        if evicted:
+            self._m_evictions.inc(evicted)
 
     def clear(self) -> None:
         with self._lock:
@@ -202,16 +212,12 @@ class VerifiedVoteCache:
             return self._bytes
 
     def stats(self) -> dict:
-        """Point-in-time sizing readout and this instance's hit, miss,
-        negative-hit and eviction counts."""
+        """Point-in-time sizing readout (the hit/miss/evict *rates* live
+        on the process-wide metrics registry, not per instance)."""
         with self._lock:
             return {
                 "entries": len(self._entries),
                 "bytes_used": self._bytes,
                 "max_entries": self.max_entries,
                 "max_bytes": self.max_bytes,
-                "hits": self.hits,
-                "misses": self.misses,
-                "negative_hits": self.negative_hits,
-                "evictions": self.evictions,
             }

@@ -27,12 +27,13 @@ Quick start::
     durable.create_proposal(...)      # logged before acknowledged
     durable.checkpoint(storage)       # snapshot, mark, drop covered segments
 
-Counts: ``WalWriter.stats()`` (``wal.append_records``, ``wal.append_bytes``,
-``wal.fsync``, ``wal.rotate``, ``wal.compact.segments``,
-``wal.repair.truncated_bytes``, fsync seconds and the on-disk footprint),
-``DurableEngine.stats()`` (those plus checkpoints and recovery seconds) and
-the :class:`ReplayStats` a recovery returns (records applied, torn bytes,
-dropped segments, decode errors).
+Tracing: the subsystem emits ``wal.append_records`` / ``wal.append_bytes``
+/ ``wal.fsync`` / ``wal.rotate`` / ``wal.recover.records`` /
+``wal.compact.segments`` / ``wal.repair.truncated_bytes`` counters, plus
+the recovery-loss counters ``wal.recover.torn_bytes`` /
+``wal.recover.dropped_segments`` / ``wal.recover.decode_errors``, through
+:mod:`hashgraph_tpu_torch.tracing` (no-ops until the tracer is enabled), and
+the ``wal_*`` families of :mod:`hashgraph_tpu_torch.obs`.
 """
 
 from . import format, recovery, segment

@@ -27,11 +27,7 @@ equals apply order across threads — acceptable because the engine itself is
 coarse-locked by design.
 
 A copy of the JAX package's ``wal/durable.py`` over
-:class:`~hashgraph_tpu_torch.engine.TorchConsensusEngine`. The checkpoint
-and recovery counts and the flight-recorder notes that package sends to its
-process-wide metrics stay on the wrapper (:meth:`DurableEngine.stats`,
-:meth:`DurableEngine.flight_notes`); the ``explain_decision`` and
-``health_report`` overlays wait for the port's health layer.
+:class:`~hashgraph_tpu_torch.engine.TorchConsensusEngine`.
 """
 
 from __future__ import annotations
@@ -39,11 +35,12 @@ from __future__ import annotations
 import os
 import threading
 import time
-from collections import deque
 
 import numpy as np
 
 from ..errors import StatusCode
+from ..obs import WAL_CHECKPOINTS_TOTAL, WAL_RECOVER_SECONDS, flight_recorder
+from ..obs import registry as default_registry
 from ..scope_config import ScopeConfig, ScopeConfigBuilder
 from ..wire import normalize_wire_votes
 from . import format as F
@@ -82,11 +79,6 @@ class DurableEngine:
         self._record_budget = record_budget
         self._ckpt_watermark = 0
         self._lock = threading.RLock()
-        # Checkpoint and recovery counts, and the last flight-recorder
-        # notes (kind, fields), kept on the wrapper.
-        self._checkpoints = 0
-        self._recover_seconds: list[float] = []
-        self._notes: deque = deque(maxlen=256)
 
     def _append_split(self, kind, items, encode, lead, sizeof) -> None:
         """Append ``encode(chunk)`` for consecutive chunks of ``items``,
@@ -214,32 +206,43 @@ class DurableEngine:
         # Reads and anything else not intercepted delegate to the engine.
         return getattr(self._engine, name)
 
+    def explain_decision(self, scope, proposal_id) -> dict:
+        """Engine decision provenance plus this peer's durability
+        position: the WAL LSN watermark at readout time (every record at
+        or below ``last_lsn`` survives a crash under the configured fsync
+        policy) and the last checkpoint watermark (records at or below it
+        are also covered by a snapshot)."""
+        out = self._engine.explain_decision(scope, proposal_id)
+        out["wal"] = self._wal_overlay()
+        return out
+
     def capture_consistent(self, capture):
         """Run ``capture(engine, watermark)`` under the mutator lock and
         return its result: the callback observes a frozen engine whose
         state reflects exactly the records with ``lsn <= watermark``
         (mutators and the capture serialize on the same lock, so nothing
         can land between reading the LSN and reading the state). This is
-        the consistency primitive state-sync snapshot builds ride on; the capture
+        the consistency primitive state-sync snapshot builds ride on
+        (:func:`hashgraph_tpu_torch.sync.snapshot.build_snapshot`); the capture
         should be read-only and brief — writes stall for its duration."""
         with self._lock:
             return capture(self._engine, self._wal.last_lsn)
 
-    def stats(self) -> dict:
-        """The writer's counts (:meth:`WalWriter.stats`) with this
-        wrapper's: checkpoints taken and the seconds of each recovery, under
-        the JAX package's metric names."""
-        out = self._wal.stats()
-        with self._lock:
-            out["wal_checkpoints_total"] = self._checkpoints
-            out["wal_recover_seconds"] = list(self._recover_seconds)
+    def health_report(self, now=None) -> dict:
+        """Engine health snapshot (scorecards / evidence / watchdog /
+        alerts) plus this peer's durability position — same overlay as
+        :meth:`explain_decision`, so an operator reading one health blob
+        also knows what a crash right now would and would not lose."""
+        out = self._engine.health_report(now)
+        out["wal"] = self._wal_overlay()
         return out
 
-    def flight_notes(self) -> list:
-        """The wrapper's last flight-recorder notes, oldest first:
-        ``("wal.recover", fields)`` and ``("wal.checkpoint", fields)``."""
-        with self._lock:
-            return list(self._notes)
+    def _wal_overlay(self) -> dict:
+        return {
+            "last_lsn": self._wal.last_lsn,
+            "checkpoint_watermark": self._ckpt_watermark,
+            "fsync_policy": self._wal.fsync_policy,
+        }
 
     # ── Recovery ───────────────────────────────────────────────────────
 
@@ -306,14 +309,15 @@ class DurableEngine:
                 if set_mode is not None:
                     set_mode(False)
             duration = time.perf_counter() - start
-            self._recover_seconds.append(duration)
-            self._notes.append(("wal.recover", dict(
+            default_registry.histogram(WAL_RECOVER_SECONDS).observe(duration)
+            flight_recorder.record(
+                "wal.recover",
                 directory=self._wal.directory,
                 records=stats.records_applied,
                 errors=len(stats.errors),
                 segments_dropped=stats.segments_dropped,
                 seconds=round(duration, 6),
-            )))
+            )
             return stats
 
     # ── Proposal lifecycle ─────────────────────────────────────────────
@@ -789,8 +793,8 @@ class DurableEngine:
     def _save_and_mark(self, storage) -> tuple[int, int]:
         with self._lock:
             count = self._engine.save_to_storage(storage)
-            self._checkpoints += 1
-            self._notes.append(("wal.checkpoint", dict(sessions=count)))
+            default_registry.counter(WAL_CHECKPOINTS_TOTAL).inc()
+            flight_recorder.record("wal.checkpoint", sessions=count)
             # Everything logged before the save is inside the snapshot
             # (mutators and the save both run under this lock). Sealing the
             # active segment first puts the whole covered history into

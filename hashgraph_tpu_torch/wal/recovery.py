@@ -18,12 +18,9 @@ dropped segments in the scan result rather than replaying around a hole
 (log order is the correctness invariant — skipping a gap could replay a
 vote before its proposal).
 
-A copy of the JAX package's ``wal/recovery.py``. What that package counts
-through its tracer is read here from :class:`ReplayStats`
-(``records_applied``, ``torn_bytes``, ``segments_dropped``, ``errors``).
-The tier lifecycle's records replay through the engine's
-``lifecycle_sweep`` (``KIND_LIFECYCLE``) and ``gc_sessions``
-(``KIND_GC``); an engine without the method raises
+A copy of the JAX package's ``wal/recovery.py``. The tier lifecycle's records
+replay through the engine's ``lifecycle_sweep`` (``KIND_LIFECYCLE``) and
+``gc_sessions`` (``KIND_GC``); an engine without the method raises
 :class:`UnsupportedRecord` there: recovery that skipped the record would
 silently drop acknowledged state.
 """
@@ -35,6 +32,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..errors import ConsensusError
+from ..tracing import tracer as default_tracer
 from ..wire import Proposal, Vote
 from . import format as F
 from .segment import list_segments, scan_segment
@@ -129,6 +127,7 @@ def replay(
     engine,
     *,
     after_lsn: "int | None" = 0,
+    tracer=None,
     on_record=None,
 ) -> ReplayStats:
     """Replay a WAL (directory path or a prior :func:`scan`) into ``engine``.
@@ -155,6 +154,7 @@ def replay(
     holding a replay mid-flight to assert other shards keep serving).
     Exceptions from the callback abort the replay.
     """
+    tr = tracer if tracer is not None else default_tracer
     log_watermark = 0  # marks the probe saw beyond forward-reachable ones
     if isinstance(source, str):
         if after_lsn is None:
@@ -165,7 +165,7 @@ def replay(
             for lsn, kind, payload in records:
                 if on_record is not None:
                     on_record(lsn, kind)
-                _replay_record(engine, lsn, kind, payload, after_lsn, stats)
+                _replay_record(engine, lsn, kind, payload, after_lsn, stats, tr)
     else:
         meta = source
         if after_lsn is None:
@@ -174,12 +174,22 @@ def replay(
         for lsn, kind, payload in meta.records:
             if on_record is not None:
                 on_record(lsn, kind)
-            _replay_record(engine, lsn, kind, payload, after_lsn, stats)
+            _replay_record(engine, lsn, kind, payload, after_lsn, stats, tr)
     stats.last_lsn = meta.last_lsn
     stats.watermark = max(meta.watermark, log_watermark)
     stats.torn_path = meta.torn_path
     stats.torn_bytes = meta.torn_bytes
     stats.segments_dropped = meta.segments_dropped
+    # Corruption is never silent: beyond the returned stats, emit counters
+    # so an embedder watching tracing sees data loss without inspecting
+    # every ReplayStats (nonzero dropped_segments/decode_errors means
+    # acknowledged records could not be replayed — not a crash tail).
+    if stats.torn_bytes:
+        tr.count("wal.recover.torn_bytes", stats.torn_bytes)
+    if stats.segments_dropped:
+        tr.count("wal.recover.dropped_segments", stats.segments_dropped)
+    if stats.errors:
+        tr.count("wal.recover.decode_errors", len(stats.errors))
     return stats
 
 
@@ -205,19 +215,19 @@ def latest_watermark(directory: str) -> int:
     return 0
 
 
-def _replay_record(engine, lsn, kind, payload, after_lsn, stats) -> None:
+def _replay_record(engine, lsn, kind, payload, after_lsn, stats, tr) -> None:
     stats.records_total += 1
     if kind == F.KIND_SNAPSHOT:
         return  # bookkeeping, not state
     if lsn <= after_lsn:
         stats.records_skipped += 1
         return
-    apply_record(engine, kind, payload, stats, lsn=lsn)
+    apply_record(engine, kind, payload, stats, tracer=tr, lsn=lsn)
 
 
 def apply_record(
     engine, kind: int, payload: bytes, stats: "ReplayStats | None" = None,
-    *, lsn: int = 0,
+    *, tracer=None, lsn: int = 0,
 ) -> ReplayStats:
     """Dispatch ONE decoded WAL record through the engine's live batch
     entry points — the unit step of :func:`replay`, public so other
@@ -227,6 +237,7 @@ def apply_record(
     Snapshot marks are bookkeeping and apply nothing."""
     if stats is None:
         stats = ReplayStats()
+    tr = tracer if tracer is not None else default_tracer
     if kind == F.KIND_SNAPSHOT:
         return stats
     try:
@@ -241,6 +252,7 @@ def apply_record(
         stats.errors.append((lsn, repr(exc)))
         return stats
     stats.records_applied += 1
+    tr.count("wal.recover.records")
     return stats
 
 

@@ -21,11 +21,6 @@ Every policy keeps the framing invariant: a record is written with one
 buffered ``write`` call and the frame CRC covers the whole body, so a
 partially-persisted record is detected and truncated at recovery — the WAL
 never replays garbage, it only ever loses an un-fsynced suffix.
-
-A copy of the JAX package's ``wal/writer.py``. Its counts (appends, bytes,
-fsyncs and their seconds, rotations, compactions, tail repair, and the
-on-disk footprint) stay on the writer and are read through
-:meth:`WalWriter.stats` under the JAX package's counter names.
 """
 
 from __future__ import annotations
@@ -34,7 +29,15 @@ import errno
 import os
 import threading
 import time
+import weakref
 
+from ..obs import (
+    WAL_FSYNC_SECONDS,
+    WAL_SEGMENT_BYTES,
+    WAL_SEGMENT_COUNT,
+)
+from ..obs import registry as default_registry
+from ..tracing import tracer as default_tracer
 from . import format as F
 from .segment import (
     DEFAULT_SEGMENT_BYTES,
@@ -59,16 +62,6 @@ LOCK_FILENAME = "wal.lock"
 # bytes of that frame on disk — a torn write); "append.flushed" fires
 # after the frame reached the OS; "fsync"/"fsync.done" bracket each fsync
 # syscall; "rotate"/"rotate.done" bracket a segment roll.
-# The writer's counters, under the JAX package's tracer names.
-_COUNTERS = (
-    "wal.append_records",
-    "wal.append_bytes",
-    "wal.fsync",
-    "wal.rotate",
-    "wal.compact.segments",
-    "wal.repair.truncated_bytes",
-)
-
 CRASH_POINTS = (
     "append",
     "append.flushed",
@@ -125,6 +118,7 @@ class WalWriter:
         segment_bytes: int = DEFAULT_SEGMENT_BYTES,
         fsync_policy: str = FSYNC_BATCH,
         fsync_interval: int = 256,
+        tracer=None,
         crash_hook=None,
     ):
         if fsync_policy not in _POLICIES:
@@ -139,9 +133,7 @@ class WalWriter:
         self._segment_bytes = segment_bytes
         self._policy = fsync_policy
         self._interval = fsync_interval
-        # The writer's counts (see stats()).
-        self._counts = dict.fromkeys(_COUNTERS, 0)
-        self._fsync_seconds = 0.0
+        self._tracer = tracer if tracer is not None else default_tracer
         self._lock = threading.Lock()
         self._since_fsync = 0
         self._closed = False
@@ -184,7 +176,7 @@ class WalWriter:
             records, valid_end, size = scan_segment(path)
             if valid_end < size:
                 removed = truncate_segment(path, valid_end)
-                self._counts["wal.repair.truncated_bytes"] += removed
+                self._tracer.count("wal.repair.truncated_bytes", removed)
             last_lsn = records[-1][0] if records else base - 1
             self._segment_base = base
             self._segment_size = valid_end
@@ -203,6 +195,25 @@ class WalWriter:
             )
             self._segment_count = 1
             self._total_bytes = 0
+        # Scrape-time gauges for this writer's on-disk footprint; providers
+        # sum across writers (one per durable peer), are unregistered on
+        # close, and hold only a weakref so an abandoned writer can still
+        # be collected.
+        self._m_fsync = default_registry.histogram(WAL_FSYNC_SECONDS)
+        ref = weakref.ref(self)
+
+        def _segments() -> int:
+            writer = ref()
+            return writer._segment_count if writer is not None else 0
+
+        def _bytes() -> int:
+            writer = ref()
+            return writer._total_bytes if writer is not None else 0
+
+        self._gauge_handles = [
+            default_registry.register_gauge(WAL_SEGMENT_COUNT, _segments, owner=self),
+            default_registry.register_gauge(WAL_SEGMENT_BYTES, _bytes, owner=self),
+        ]
         # The directory entries created above (the dir itself, the lock
         # file, a possibly-new active segment) must be durable before any
         # append is acknowledged.
@@ -222,17 +233,6 @@ class WalWriter:
     @property
     def fsync_policy(self) -> str:
         return self._policy
-
-    def stats(self) -> dict:
-        """The writer's counts since it opened, under the JAX package's
-        counter names, with the seconds its fsyncs took and the log's
-        on-disk footprint (segments and bytes)."""
-        with self._lock:
-            out = dict(self._counts)
-            out["wal.fsync_seconds"] = self._fsync_seconds
-            out["wal.segment_count"] = self._segment_count
-            out["wal.segment_bytes"] = self._total_bytes
-            return out
 
     # ── Appending ──────────────────────────────────────────────────────
 
@@ -267,8 +267,8 @@ class WalWriter:
             self._next_lsn = lsn + 1
             self._segment_size += len(frame)
             self._total_bytes += len(frame)
-            self._counts["wal.append_records"] += 1
-            self._counts["wal.append_bytes"] += len(frame)
+            self._tracer.count("wal.append_records")
+            self._tracer.count("wal.append_bytes", len(frame))
             self._since_fsync += 1
             if self._policy == FSYNC_ALWAYS or (
                 self._policy == FSYNC_BATCH and self._since_fsync >= self._interval
@@ -314,6 +314,8 @@ class WalWriter:
             self._file.close()
             self._lock_file.close()  # releases the cross-process flock
             self._closed = True
+            for handle in self._gauge_handles:
+                handle.unregister()
 
     def abandon(self) -> None:
         """Simulated ``kill -9``: release the file handles and the
@@ -332,6 +334,8 @@ class WalWriter:
                     handle.close()
                 except OSError:
                     pass
+            for handle in self._gauge_handles:
+                handle.unregister()
 
     def set_crash_hook(self, hook) -> None:
         """Install/replace the crash hook (``None`` removes it)."""
@@ -362,6 +366,8 @@ class WalWriter:
             except OSError:
                 pass
             self._closed = True
+            for handle in self._gauge_handles:
+                handle.unregister()
             raise
 
     def __enter__(self) -> "WalWriter":
@@ -394,7 +400,7 @@ class WalWriter:
                     self._segment_count -= 1
                     self._total_bytes -= dropped_bytes
             if removed:
-                self._counts["wal.compact.segments"] += removed
+                self._tracer.count("wal.compact.segments", removed)
             return removed
 
     # ── Internals ──────────────────────────────────────────────────────
@@ -405,10 +411,10 @@ class WalWriter:
         start = time.perf_counter()
         os.fsync(self._file.fileno())
         self._crash("fsync.done")
-        # The durability/throughput dial's price tag: the seconds of every
-        # fsync syscall, always counted.
-        self._fsync_seconds += time.perf_counter() - start
-        self._counts["wal.fsync"] += 1
+        # wal_fsync_seconds is THE durability/throughput dial's price tag:
+        # one observation per fsync syscall, always on.
+        self._m_fsync.observe(time.perf_counter() - start)
+        self._tracer.count("wal.fsync")
         self._since_fsync = 0
 
     def _rotate_locked(self) -> None:
@@ -427,5 +433,5 @@ class WalWriter:
         # Make the new segment's directory entry durable before records in
         # it are acknowledged (file fsync alone doesn't persist existence).
         _fsync_dir(self._dir)
-        self._counts["wal.rotate"] += 1
+        self._tracer.count("wal.rotate")
         self._crash("rotate.done")

@@ -6,10 +6,14 @@ its own modules untouched: a vote cycle on the engine and the README
 quick-start on the service over the pool-backed storage, with Ethereum
 signers on the port's native runtime. A static scan covers every import statement of
 the package, of ``chip_smoke.py`` and of ``compare_trees.py``, including
-imports inside functions.
+imports inside functions, and every string literal of the package outside
+docstrings: none may name the JAX package (``hashgraph_tpu`` as a module
+or ``hashgraph-tpu`` as a distribution), since a ``sys.modules`` key or a
+metadata lookup by that name reaches the JAX package without an import.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -118,3 +122,57 @@ def test_no_build_or_triton_at_import_time(path):
             names = [node.module]
         for name in names:
             assert not name.startswith(("triton", "torch.utils.cpp_extension")), name
+
+
+REFERENCE_NAME = re.compile(r"hashgraph_tpu(?!_torch)|hashgraph-tpu")
+
+
+def _docstring_nodes(tree):
+    """The string constants that are docstrings of the module, a class or
+    a function."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                out.add(id(body[0].value))
+    return out
+
+
+def reference_name_strings(path: Path):
+    """(line, text) of every string literal outside docstrings that names
+    the JAX package (comments are not in the tree)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = _docstring_nodes(tree)
+    return [
+        (node.lineno, node.value)
+        for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and id(node) not in docs and REFERENCE_NAME.search(node.value)
+    ]
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_string_names_the_reference_package(path):
+    bad = reference_name_strings(path)
+    assert not bad, f"{path.relative_to(REPO)} names the JAX package in {bad}"
+
+
+def test_string_scan_sees_what_imports_miss(tmp_path):
+    """The scan catches the by-name reaches an import scan cannot see, and
+    leaves docstrings, comments and the port's own name alone."""
+    src = tmp_path / "probe.py"
+    src.write_text(
+        '"""Docstring naming hashgraph_tpu."""\n'
+        "import sys  # a comment naming hashgraph_tpu\n"
+        "def f():\n"
+        '    """hashgraph-tpu in a docstring."""\n'
+        '    a = sys.modules.get("hashgraph_tpu")\n'
+        '    b = version("hashgraph-tpu")\n'
+        '    c = sys.modules.get("hashgraph_tpu.native")\n'
+        '    d = f"{a}hashgraph_tpu_torch"\n'
+    )
+    assert [line for line, _ in reference_name_strings(src)] == [5, 6, 7]

@@ -96,10 +96,29 @@ def grown(chain, k):
     return p
 
 
+def cache_counts():
+    """The cache counters on the port's process-wide registry, as a
+    function that gives their change since this call (the registry is
+    shared by every cache and test in the process)."""
+    from hashgraph_tpu_torch import obs
+
+    names = {
+        "hits": obs.VERIFY_CACHE_HITS_TOTAL,
+        "misses": obs.VERIFY_CACHE_MISSES_TOTAL,
+        "negative_hits": obs.VERIFY_CACHE_NEGATIVE_HITS_TOTAL,
+        "evictions": obs.VERIFY_CACHE_EVICTIONS_TOTAL,
+    }
+    before = {k: obs.registry.counter(n).value for k, n in names.items()}
+    return lambda: {
+        k: obs.registry.counter(n).value - before[k] for k, n in names.items()
+    }
+
+
 # ── The class ─────────────────────────────────────────────────────────
 
 
 def test_roundtrip_and_miss():
+    counts = cache_counts()
     cache = VerifiedVoteCache(max_entries=4)
     assert cache.get(b"k1") is MISS
     cache.put(b"k1", True)
@@ -109,11 +128,12 @@ def test_roundtrip_and_miss():
     assert cache.get(b"k2") is err
     cache.put(b"k3", False)
     assert cache.get(b"k3") is False
-    stats = cache.stats()
+    stats = counts()
     assert (stats["hits"], stats["misses"], stats["negative_hits"]) == (3, 1, 2)
 
 
 def test_entry_cap_evicts_lru():
+    counts = cache_counts()
     cache = VerifiedVoteCache(max_entries=3)
     for k in (b"a", b"b", b"c"):
         cache.put(k, True)
@@ -122,18 +142,19 @@ def test_entry_cap_evicts_lru():
     assert len(cache) == 3
     assert cache.get(b"b") is MISS
     assert cache.get(b"a") is True
-    assert cache.stats()["evictions"] == 1
+    assert counts()["evictions"] == 1
 
 
 def test_byte_cap_evicts():
     per_entry = 8 + _ENTRY_OVERHEAD
+    counts = cache_counts()
     cache = VerifiedVoteCache(max_entries=1000, max_bytes=3 * per_entry)
     for i in range(10):
         cache.put(b"key%05d" % i, True)
     assert len(cache) <= 3
     assert cache.bytes_used <= 3 * per_entry
     assert cache.get(b"key00009") is True
-    assert cache.stats()["evictions"] == 7
+    assert counts()["evictions"] == 7
 
 
 def test_overwrite_does_not_leak_bytes():
@@ -161,14 +182,16 @@ def test_clear_and_stats():
 
 
 def test_get_many_counts_like_get():
+    counts = cache_counts()
     cache = VerifiedVoteCache(max_entries=8)
     cache.put_many([(b"t", True), (b"f", False)])
     assert cache.get_many([b"t", b"f", b"x", b"t"]) == [True, False, MISS, True]
-    stats = cache.stats()
+    stats = counts()
     assert (stats["hits"], stats["misses"], stats["negative_hits"]) == (3, 1, 1)
 
 
 def test_concurrent_put_get_stays_bounded():
+    counts = cache_counts()
     cache = VerifiedVoteCache(max_entries=64)
     errors = []
 
@@ -188,7 +211,7 @@ def test_concurrent_put_get_stays_bounded():
     assert not any(t.is_alive() for t in threads)
     assert not errors
     assert len(cache) <= 64
-    stats = cache.stats()
+    stats = counts()
     assert stats["hits"] + stats["misses"] == 8 * 500  # no lost update
 
 
@@ -230,12 +253,13 @@ def test_redelivered_vote_verified_once():
     proposal = make_proposal(engine)
     vote = build_vote(proposal, True, CountingSigner(b"\x01" * 20), NOW + 1)
     CountingSigner.calls = 0
+    counts = cache_counts()
     engine.process_incoming_vote("s", vote.clone(), NOW + 2)
     assert CountingSigner.calls == 1
     [code] = engine.ingest_votes([("s", vote.clone())], NOW + 3)
     assert CountingSigner.calls == 1
     assert int(code) == int(StatusCode.DUPLICATE_VOTE)
-    assert engine.verify_cache().stats()["hits"] == 1
+    assert counts()["hits"] == 1
 
 
 def test_in_batch_dedup_single_verify():
@@ -255,11 +279,12 @@ def test_negative_verdict_cached():
     vote = build_vote(proposal, True, CountingSigner(b"\x01" * 20), NOW + 1)
     vote.signature = b"\x00" * 32
     CountingSigner.calls = 0
+    counts = cache_counts()
     for _ in range(3):
         [code] = engine.ingest_votes([("s", vote.clone())], NOW + 2)
         assert int(code) == int(StatusCode.INVALID_VOTE_SIGNATURE)
     assert CountingSigner.calls == 1
-    assert engine.verify_cache().stats()["negative_hits"] == 2
+    assert counts()["negative_hits"] == 2
 
 
 def test_forged_signature_cannot_poison_good_vote():

@@ -42,6 +42,13 @@ from test_torch_wire_columnar import (
 )
 
 
+def counting_tracer():
+    """An enabled tracer of the port's own, for one writer's counts."""
+    from hashgraph_tpu_torch.tracing import Tracer
+
+    return Tracer(enabled=True)
+
+
 # ── The traces, played on both packages ───────────────────────────────
 
 
@@ -460,10 +467,11 @@ class TestWriter:
         from hashgraph_tpu_torch.wal import format as F
         from hashgraph_tpu_torch.wal.segment import list_segments
 
-        with WalWriter(tmp_path, fsync_policy="off", segment_bytes=64) as wal:
+        tr = counting_tracer()
+        with WalWriter(tmp_path, fsync_policy="off", segment_bytes=64, tracer=tr) as wal:
             for i in range(20):
                 wal.append(F.KIND_SWEEP, F.encode_sweep(i))
-            assert wal.stats()["wal.rotate"] == len(list_segments(str(tmp_path))) - 1
+            assert tr.counters()["wal.rotate"] == len(list_segments(str(tmp_path))) - 1
         assert len(list_segments(str(tmp_path))) > 1
         assert [lsn for lsn, _, _ in scan(str(tmp_path)).records] == list(range(1, 21))
 
@@ -481,8 +489,9 @@ class TestWriter:
             fh.write(garbage)
         pre = scan(str(tmp_path))
         assert pre.torn and len(pre.records) == 3
-        with WalWriter(tmp_path, fsync_policy="off") as wal:
-            assert wal.stats()["wal.repair.truncated_bytes"] == len(garbage)
+        tr = counting_tracer()
+        with WalWriter(tmp_path, fsync_policy="off", tracer=tr) as wal:
+            assert tr.counters()["wal.repair.truncated_bytes"] == len(garbage)
             assert wal.last_lsn == 3
             wal.append(F.KIND_SWEEP, F.encode_sweep(99))
         post = scan(str(tmp_path))
@@ -496,10 +505,11 @@ class TestWriter:
         counts = {}
         for policy, kwargs, n in (("always", {}, 4), ("batch", {"fsync_interval": 3}, 7),
                                   ("off", {}, 7)):
-            with WalWriter(tmp_path / policy, fsync_policy=policy, **kwargs) as wal:
+            tr = counting_tracer()
+            with WalWriter(tmp_path / policy, fsync_policy=policy, tracer=tr, **kwargs) as wal:
                 for i in range(n):
                     wal.append(F.KIND_SWEEP, F.encode_sweep(i))
-            counts[policy] = wal.stats()["wal.fsync"]
+            counts[policy] = tr.counters()["wal.fsync"]
         assert counts["always"] >= 4  # one a record, and the close
         assert counts["batch"] == 3  # lsn 3, lsn 6, close
         assert counts["off"] == 1  # close only
@@ -507,29 +517,37 @@ class TestWriter:
             WalWriter(tmp_path / "bad", fsync_policy="sometimes")
 
     def test_append_counters(self, tmp_path):
+        from hashgraph_tpu_torch.obs import WAL_SEGMENT_BYTES, WAL_SEGMENT_COUNT, registry
         from hashgraph_tpu_torch.wal import WalWriter
         from hashgraph_tpu_torch.wal import format as F
 
-        with WalWriter(tmp_path, fsync_policy="off") as wal:
+        # The footprint gauges sum every live writer: read this one's share
+        # as the change it makes.
+        before = registry.snapshot()["gauges"]
+        tr = counting_tracer()
+        with WalWriter(tmp_path, fsync_policy="off", tracer=tr) as wal:
             wal.append(F.KIND_SWEEP, F.encode_sweep(0))
-            stats = wal.stats()
-        assert stats["wal.append_records"] == 1
-        assert stats["wal.append_bytes"] == stats["wal.segment_bytes"] > 0
-        assert stats["wal.segment_count"] == 1
+            gauges = registry.snapshot()["gauges"]
+        counts = tr.counters()
+        segment_bytes = gauges[WAL_SEGMENT_BYTES] - before.get(WAL_SEGMENT_BYTES, 0)
+        assert counts["wal.append_records"] == 1
+        assert counts["wal.append_bytes"] == segment_bytes > 0
+        assert gauges[WAL_SEGMENT_COUNT] - before.get(WAL_SEGMENT_COUNT, 0) == 1
 
     def test_compaction_drops_only_covered_sealed_segments(self, tmp_path):
         from hashgraph_tpu_torch.wal import WalWriter, scan
         from hashgraph_tpu_torch.wal import format as F
         from hashgraph_tpu_torch.wal.segment import list_segments
 
-        with WalWriter(tmp_path, fsync_policy="off", segment_bytes=64) as wal:
+        tr = counting_tracer()
+        with WalWriter(tmp_path, fsync_policy="off", segment_bytes=64, tracer=tr) as wal:
             for i in range(20):
                 wal.append(F.KIND_SWEEP, F.encode_sweep(i))
             segments = list_segments(str(tmp_path))
             assert len(segments) >= 3
             removed = wal.compact(segments[-1][0] - 1)
             assert removed == len(segments) - 1
-            assert wal.stats()["wal.compact.segments"] == removed
+            assert tr.counters()["wal.compact.segments"] == removed
             assert [b for b, _ in list_segments(str(tmp_path))] == [segments[-1][0]]
             assert [lsn for lsn, _, _ in scan(str(tmp_path)).records] == list(
                 range(segments[-1][0], 21))
@@ -619,24 +637,39 @@ class TestDurableEngine:
         from hashgraph_tpu_torch.wal import scan
         from hashgraph_tpu_torch.wal.segment import list_segments
 
-        api, durable = self.make(tmp_path, segment_bytes=256)
+        from hashgraph_tpu_torch.obs import (
+            WAL_CHECKPOINTS_TOTAL,
+            WAL_RECOVER_SECONDS,
+            flight_recorder,
+            registry,
+        )
+
+        api = _api()
+        tr = counting_tracer()
+        durable = api.wal.DurableEngine(_engine(api), api.wal.WalWriter(
+            tmp_path, fsync_policy="off", segment_bytes=256, tracer=tr))
         for i in range(12):
             durable.create_proposal("s", request(api, i, 3), NOW + i)
         assert len(list_segments(str(tmp_path))) > 1
         storage = api.pkg.InMemoryConsensusStorage()
+        checkpoints = registry.counter(WAL_CHECKPOINTS_TOTAL).value
         assert durable.checkpoint(storage) == 10  # the per-scope LRU cap
         assert len(list_segments(str(tmp_path))) == 1
         assert [kind for _, kind, _ in scan(str(tmp_path)).records] == [F.KIND_SNAPSHOT]
         expected = durable.get_scope_stats("s").total_sessions
-        stats = durable.stats()
-        assert stats["wal_checkpoints_total"] == 1 and stats["wal.compact.segments"] >= 1
-        assert durable.flight_notes()[-1] == ("wal.checkpoint", {"sessions": 10})
+        assert registry.counter(WAL_CHECKPOINTS_TOTAL).value - checkpoints == 1
+        assert tr.counters()["wal.compact.segments"] >= 1
+        notes = [(kind, attrs) for _, kind, attrs in flight_recorder.events()
+                 if kind.startswith("wal.")]
+        assert notes[-1] == ("wal.checkpoint", {"sessions": 10})
         durable.close()
+        recoveries = registry.histogram(WAL_RECOVER_SECONDS).count
         recovered = api.wal.DurableEngine(_engine(api), tmp_path, fsync_policy="off")
         assert recovered.recover(storage).records_applied == 0
         assert recovered.get_scope_stats("s").total_sessions == expected
-        assert len(recovered.stats()["wal_recover_seconds"]) == 1
-        assert recovered.flight_notes()[-1][0] == "wal.recover"
+        assert registry.histogram(WAL_RECOVER_SECONDS).count - recoveries == 1
+        notes = [kind for _, kind, _ in flight_recorder.events() if kind.startswith("wal.")]
+        assert notes[-1] == "wal.recover"
         recovered.close()
 
     def test_timeout_and_sweep_replay(self, tmp_path):

@@ -383,10 +383,15 @@ class TestCrashPointMatrix:
                 _run_workload(api, live, rng, n_ops=1)
         surviving = api.wal.scan(str(tmp_path))
         assert surviving.torn and surviving.torn_bytes == 11
-        recovered = api.wal.DurableEngine(_fresh_engine(api, identity), str(tmp_path),
-                                          fsync_policy="off")
+        from hashgraph_tpu_torch.tracing import Tracer
+
+        tr = Tracer(enabled=True)
+        recovered = api.wal.DurableEngine(
+            _fresh_engine(api, identity),
+            api.wal.WalWriter(str(tmp_path), fsync_policy="off", tracer=tr),
+        )
         assert recovered.recover().records_applied == len(surviving.records)
-        assert recovered.stats()["wal.repair.truncated_bytes"] == 11
+        assert tr.counters()["wal.repair.truncated_bytes"] == 11
         recovered.close()
 
 
