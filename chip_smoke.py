@@ -182,7 +182,51 @@ phase holds:
    engine under replay mode: ``hashgraph_decisions_total`` and
    ``hashgraph_timeouts_fired_total`` hold still, ``wal_recover_seconds``
    counts one recovery and the recovered monitor is clean. Files go to a
-   temporary directory, removed at the end.
+   temporary directory, removed at the end;
+13. the bridge (slice 11): port ``BridgeServer``s on the card, started
+   (loopback TCP, their own threads). (a) ``native/bridge_client.c``,
+   built with ``cc`` into ``hashgraph_tpu_torch/_build/``, and the port's
+   ``BridgeClient`` run the README quick-start against a default server
+   (Ethereum signers); ``OP_EXPLAIN``, ``OP_HEALTH``, ``GET_METRICS``,
+   ``OP_STATE_FINGERPRINT`` (equal to ``sync.state_fingerprint`` of the
+   peer's engine) and ``OP_FLEET_TALLY`` must answer. (b) Config 3 over a
+   socket: a stub-signed key-carrying peer on a server whose engines are
+   config 3's (``engine_factory``: the default engine keeps the
+   reference's 10 sessions a scope; the P2P half in a second scope on
+   the P2P preset, as no opcode carries a per-proposal config); 10,000
+   proposals as pipelined ``OP_PROCESS_PROPOSAL`` frames, then phase 10's
+   waves over them as ``OP_VOTE_BATCH`` frames of 1,024 rows from 4
+   pipelined connections, each owning a quarter of the proposals. Reactor
+   off, reactor on (each a fresh server) and a ``device="cpu"`` server
+   cut to 2,000 proposals must give equal per-row statuses, state
+   fingerprints (the CPU arm's over its 2,000 sessions) and scope stats,
+   with the wire fallback, bridge error and retry-after counters
+   unmoved; each arm's votes/s, dispatches, rows a dispatch, scan
+   launches, the card's busy share and the wire counters' decode,
+   prepass and apply seconds are printed. Its frames fill a default
+   reactor window each, which keeps the reactor from merging two frames
+   of one connection (a merge across a refused vote changes the chain
+   guard's verdict, as in the JAX package). (c) On both servers
+   on the card, 2,000 ``OP_PROCESS_VOTE`` frames one at a time, each a
+   first vote on a fresh proposal of 64 voters: p50 and p99 round trips.
+   (d) Phase 7's traffic on a server whose peers verify on the card: one
+   ``OP_PROCESS_VOTES`` frame of 4,096 votes; on a fresh peer one
+   canonical ``OP_VOTE_BATCH`` frame through a pipelined connection (the
+   reader thread starts the batch); the damaged 64-vote frame; on a third
+   peer the 4,096 votes from four pipelined connections at once, one
+   frame of 1,024 each, their four device batches overlapping. Statuses equal a CPU-engine server's
+   with the host signer; each clean 4,096-vote frame is one device batch
+   with no fallback, and no concurrent batch falls back. (e) A server
+   with a WAL takes (b)'s cut and two waves and stops; a new server on
+   the directory recovers the peer when its key is re-added (no dropped
+   segment, no error, the fingerprint from before the stop); its snapshot
+   over ``OP_SYNC_MANIFEST`` and ``OP_SYNC_CHUNK`` checks every chunk's
+   digest and restores a fresh GPU engine to that fingerprint;
+   ``OP_WAL_TAIL`` after a mid-log LSN serves exactly the later records.
+   Every figure is printed beside the card's name and power limit, and
+   the phase fails if any frame was answered with a bridge-level error. The
+   kernels are the ones earlier phases hold against their plain versions
+   at these shapes.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -196,7 +240,9 @@ MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
 MSM's window once; phase 11 unless its late call and (b)'s first replay
 launched the scan; phase 12 unless (a)'s GPU run and (e)'s replay launched
 the scan, (c)'s batches every verification kernel and (d)'s profiled calls
-every hand kernel; phase 8 fails unless (a) launched every verification kernel in
+every hand kernel; phase 13 unless (b)'s GPU arms launched the scan and
+(d)'s clean frames every verification kernel, one MSM window launch
+each; phase 8 fails unless (a) launched every verification kernel in
 one batch, every batch of (a) and (b) ran its MSM without falling back to
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
@@ -4104,7 +4150,689 @@ def phase_obs(dev, phase3_rate=None):
     return out
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12")
+# ── Phase 13: the bridge ───────────────────────────────────────────────
+
+BRIDGE_PROPOSALS = 10_000  # (b): config 3 over a socket
+BRIDGE_CUT = 2_000  # (b)'s CPU arm and (e), cut in depth as phase 10 (a) is
+BRIDGE_FRAME_ROWS = 1_024  # rows of one OP_VOTE_BATCH frame
+BRIDGE_CONNECTIONS = 4  # pipelined vote connections, a quarter of the proposals each
+BRIDGE_SMALL_CALLS = 2_000  # (c): OP_PROCESS_VOTE frames sent one at a time
+BRIDGE_SCOPES = ("config3", "config3-p2p")  # connections 0-1, 2-3
+BRIDGE_PEER = 1  # the first ADD_PEER of a fresh server
+# Frames a pipelined client keeps in flight: under the server's admission
+# limit (3/4 of its 256-frame window), so no frame is shed (retry-after).
+BRIDGE_INFLIGHT = 128
+BRIDGE_COUNTERS = ("WIRE_FALLBACK_FRAMES_TOTAL", "BRIDGE_ERRORS_TOTAL", "BRIDGE_RETRY_AFTER_TOTAL",
+                   "WIRE_DEVICE_DISPATCHES_TOTAL", "WIRE_APPLY_ROWS_TOTAL",
+                   "REACTOR_WINDOWS_TOTAL", "WIRE_DECODE_SECONDS_TOTAL",
+                   "WIRE_CRYPTO_SECONDS_TOTAL", "WIRE_APPLY_SECONDS_TOTAL")
+
+
+def bridge_factory(dev):
+    """The engines of (b)-(e)'s servers: config 3's engine (phase 10's:
+    one scope may hold every proposal, the events queue deep), with
+    ``BRIDGE_SCOPES[1]`` on the P2P preset. The server's default engine
+    keeps the reference's 10 sessions a scope, so these servers build
+    theirs through ``engine_factory``."""
+    from hashgraph_tpu_torch import TorchConsensusEngine
+    from hashgraph_tpu_torch.events import BroadcastEventBus
+
+    def factory(signer):
+        engine = TorchConsensusEngine(
+            signer, CAPACITY, VOTER_CAPACITY,
+            event_bus=BroadcastEventBus(max_queued_events=10_000_000),
+            max_sessions_per_scope=CAPACITY, device=dev, verify_cache=None,
+        )
+        engine.scope(BRIDGE_SCOPES[1]).p2p_preset().initialize()
+        return engine
+
+    return factory
+
+
+def bridge_server(dev, signer_cls=None, **kwargs):
+    """A started port server on ``dev`` over :func:`bridge_factory`'s
+    engines (stub-signed peers unless ``signer_cls``)."""
+    from hashgraph_tpu_torch import StubConsensusSigner
+    from hashgraph_tpu_torch.bridge import BridgeServer
+
+    server = BridgeServer(
+        engine_factory=bridge_factory(dev), device=dev, verify_cache=None,
+        signer_factory=signer_cls or StubConsensusSigner, **kwargs)
+    server.start()
+    return server
+
+
+def bridge_counters():
+    import hashgraph_tpu_torch.obs as obs
+
+    return {name: obs.registry.counter(getattr(obs, name)).value for name in BRIDGE_COUNTERS}
+
+
+def bridge_traffic(seed=130):
+    """(b)'s traffic, built once: the proposals' wire bytes (seeded ids;
+    the first half for the gossipsub scope, the second for the P2P one)
+    and phase 10's waves over them (:func:`wire_waves`: four waves of 16
+    stub-signed votes a proposal, then wave 2 again), cut per connection:
+    connection ``c`` owns the ``c``-th quarter of the proposals, and its
+    rows of a wave keep the wave's order (vote j of each of its proposals,
+    then vote j + 1). ``rows[w][c]`` are those rows; ``cut(w, c)`` the
+    indices into them of the first ``BRIDGE_CUT / 4`` proposals of the
+    quarter (the CPU arm's and (e)'s)."""
+    from hashgraph_tpu_torch.wire import Proposal
+
+    rng = random.Random(seed)
+    n, q = BRIDGE_PROPOSALS, BRIDGE_PROPOSALS // BRIDGE_CONNECTIONS
+    pids = rng.sample(range(1, 2**32), n)
+    proposals = [Proposal(
+        name=f"p{i}", payload=i.to_bytes(4, "little"), proposal_id=pid,
+        proposal_owner=b"smoke", expected_voters_count=WAL_VOTERS, timestamp=NOW,
+        expiration_timestamp=NOW + 3600, liveness_criteria_yes=i % 4 < 2,
+    ).encode() for i, pid in enumerate(pids)]
+    waves = wire_waves(pids, seed + 1)
+    rows = []
+    for wave in waves:
+        flat = wave[0]
+        rows.append([[flat[j * n + k] for j in range(WAL_PER_WAVE)
+                      for k in range(c * q, (c + 1) * q)]
+                     for c in range(BRIDGE_CONNECTIONS)])
+    share = BRIDGE_CUT // BRIDGE_CONNECTIONS
+    cut = [j * q + k for j in range(WAL_PER_WAVE) for k in range(share)]
+    return dict(pids=pids, proposals=proposals, rows=rows, cut=cut, share=share)
+
+
+def scope_of(c):
+    return BRIDGE_SCOPES[c * 2 // BRIDGE_CONNECTIONS]
+
+
+def bridge_frames(traffic, keep=None, waves=None, rows_a_frame=None):
+    """The encoded OP_VOTE_BATCH payloads per connection, in send order
+    (wave by wave): ``keep`` picks the rows of each (wave, connection)
+    list (the cut), all by default; ``waves`` how many waves, all five
+    by default; frames of ``rows_a_frame`` rows (``BRIDGE_FRAME_ROWS``).
+
+    A wire call's chain guard walks a session's votes within a frame but
+    checks a later frame's against the tail the session kept, so a vote
+    after one refused as ALREADY_REACHED passes in the same frame and is
+    RECEIVED_HASH_MISMATCH in the next (the JAX engine's rule). Statuses
+    compare across arms only where every frame holds at most one vote of
+    a proposal: a quarter is wider than a frame, and the cut's frames are
+    no wider than its share of a quarter."""
+    from hashgraph_tpu_torch.bridge import protocol as P
+
+    rows_a_frame = rows_a_frame or BRIDGE_FRAME_ROWS
+    width = len(keep) if keep is not None else len(traffic["rows"][0][0])
+    if rows_a_frame > width // WAL_PER_WAVE:
+        raise AssertionError("a frame would hold two votes of one proposal")
+    out = []
+    for c in range(BRIDGE_CONNECTIONS):
+        frames = []
+        for w, wave in enumerate(traffic["rows"][:waves]):
+            rows = wave[c] if keep is None else [wave[c][i] for i in keep]
+            for i in range(0, len(rows), rows_a_frame):
+                frames.append(P.encode_vote_batch(
+                    NOW + 1 + w, [(BRIDGE_PEER, scope_of(c), rows[i:i + rows_a_frame])]))
+        out.append(frames)
+    return out
+
+
+def send_proposals(server, items, now=NOW):
+    """``items`` ((scope, proposal bytes)) as pipelined OP_PROCESS_PROPOSAL
+    frames on one connection; fails on any non-OK answer."""
+    from hashgraph_tpu_torch.bridge import PipelinedBridgeClient
+    from hashgraph_tpu_torch.bridge import protocol as P
+
+    with PipelinedBridgeClient(*server.address, timeout=300, max_inflight=BRIDGE_INFLIGHT) as pc:
+        futures = [pc.submit(P.OP_PROCESS_PROPOSAL, P.u32(BRIDGE_PEER) + P.string(scope)
+                             + P.u64(now) + P.blob(blob)) for scope, blob in items]
+        for f in futures:
+            f.result(300)
+
+
+def send_vote_frames(server, frames, dev):
+    """One pipelined connection a list of ``frames``, all sending at once;
+    returns the statuses per connection (flattened in send order) and the
+    wall from the first send to the last answer."""
+    from hashgraph_tpu_torch.bridge import PipelinedBridgeClient
+    from hashgraph_tpu_torch.bridge import protocol as P
+    from hashgraph_tpu_torch.bridge.client import parse_status_list
+
+    clients = [PipelinedBridgeClient(*server.address, timeout=300, max_inflight=BRIDGE_INFLIGHT) for _ in frames]
+    out = [None] * len(frames)
+    errors = []
+    start = threading.Barrier(len(frames) + 1)
+
+    def run(c):
+        try:
+            start.wait()
+            futures = [clients[c].submit(P.OP_VOTE_BATCH, f) for f in frames[c]]
+            out[c] = [s for f in futures for s in parse_status_list(f.result(300))]
+        except Exception as exc:  # surfaced below: any failed frame fails the phase
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(len(frames))]
+    for t in threads:
+        t.start()
+    sync_of(dev)()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    sync_of(dev)()
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if errors:
+        raise AssertionError(f"a vote frame failed: {errors[0]!r}")
+    return out, wall
+
+
+def phase_bridge_arm(dev, frames, proposals, reactor):
+    """(b) on one fresh server: ADD_PEER, the proposals, the vote frames
+    of every connection at once. Returns the server (still running) and
+    what it answered."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.bridge import BridgeClient
+    from hashgraph_tpu_torch.obs import REACTOR_ROWS_PER_DISPATCH, registry
+    from hashgraph_tpu_torch.ops import cuda_ingest
+
+    server = bridge_server(dev, apply_reactor=reactor)
+    with BridgeClient(*server.address, timeout=300) as client:
+        peer, _ = client.add_peer(b"\x13" * 32)
+    if peer != BRIDGE_PEER:
+        raise AssertionError(f"(b) the first peer is {peer}")
+    t = time.perf_counter()
+    send_proposals(server, proposals)
+    proposals_s = time.perf_counter() - t
+    before, hist = bridge_counters(), registry.histogram(REACTOR_ROWS_PER_DISPATCH).snapshot()
+    _build.launches.clear()
+    with Timer() as timer:
+        statuses, wall = send_vote_frames(server, frames, dev)
+        busy = (timer.ms("scan") + timer.ms("fresh")) if torch.device(dev).type == "cuda" else 0.0
+    launches = dict(_build.launches)
+    after, hist_after = bridge_counters(), registry.histogram(REACTOR_ROWS_PER_DISPATCH).snapshot()
+    moved = {k: after[k] - before[k] for k in after}
+    if (moved["WIRE_FALLBACK_FRAMES_TOTAL"] or moved["BRIDGE_ERRORS_TOTAL"]
+            or moved["BRIDGE_RETRY_AFTER_TOTAL"]):
+        raise AssertionError(f"(b) counters moved on canonical traffic: {moved}")
+    with BridgeClient(*server.address, timeout=300) as client:
+        stats = [client.get_stats(BRIDGE_PEER, s) for s in BRIDGE_SCOPES]
+        fingerprint = client.state_fingerprint(BRIDGE_PEER)
+    n_rows = sum(len(s) for s in statuses)
+    dispatches = moved["WIRE_DEVICE_DISPATCHES_TOTAL"]
+    reactor_rows = hist_after["sum"] - hist["sum"]
+    reactor_windows = hist_after["count"] - hist["count"]
+    return server, dict(
+        statuses=statuses, wall=wall, n_rows=n_rows, busy_ms=busy, proposals_s=proposals_s,
+        launches=launches, scan=launches.get(cuda_ingest.KERNEL, 0), moved=moved,
+        stats=stats, fingerprint=fingerprint, dispatches=dispatches,
+        rows_per_dispatch=moved["WIRE_APPLY_ROWS_TOTAL"] / max(dispatches, 1),
+        reactor_rows_per_dispatch=(reactor_rows / reactor_windows) if reactor_windows else None)
+
+
+def small_calls(server, seed):
+    """(c): fresh proposals of 64 voters, then one OP_PROCESS_VOTE frame a
+    proposal, each sent after the previous answered. Returns the round
+    trips (seconds), the statuses and the launches of the calls."""
+    from hashgraph_tpu_torch import StubConsensusSigner, _build, build_vote, protocol
+    from hashgraph_tpu_torch.bridge import BridgeClient, BridgeError
+    from hashgraph_tpu_torch.wire import Proposal
+
+    rng = random.Random(seed)
+    pids = rng.sample(range(1, 2**32), BRIDGE_SMALL_CALLS)
+    props = [Proposal(name=f"s{i}", payload=b"", proposal_id=pid, proposal_owner=b"smoke",
+                      expected_voters_count=WAL_VOTERS, timestamp=NOW,
+                      expiration_timestamp=NOW + 3600, liveness_criteria_yes=True)
+             for i, pid in enumerate(pids)]
+    ids = random.Random(seed + 1)
+    protocol.set_id_entropy(lambda: ids.getrandbits(128))
+    try:
+        signer = StubConsensusSigner(b"small-voter")
+        votes = [build_vote(p, True, signer, NOW + 1).encode() for p in props]
+    finally:
+        protocol.set_id_entropy(None)
+    send_proposals(server, [("small", p.encode()) for p in props])
+    trips, codes = [], []
+    _build.launches.clear()
+    with BridgeClient(*server.address, timeout=300) as client:
+        for vote in votes:
+            t = time.perf_counter()
+            try:
+                client.process_vote(BRIDGE_PEER, "small", vote, NOW + 1)
+                codes.append(0)
+            except BridgeError as exc:
+                codes.append(exc.status)
+            trips.append(time.perf_counter() - t)
+    return dict(trips=trips, codes=codes, launches=dict(_build.launches))
+
+
+def phase_bridge_quickstart(dev):
+    """(a): the C embedder and the port's client run the README
+    quick-start against a port server on the card (default engines and
+    Ethereum signers), then the read opcodes."""
+    import shutil
+
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.bridge import BridgeClient, BridgeServer
+    from hashgraph_tpu_torch.bridge import protocol as P
+    from hashgraph_tpu_torch.sync import state_fingerprint
+
+    root = Path(__file__).resolve().parent
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        raise AssertionError("(a) no C compiler")
+    binary = root / "hashgraph_tpu_torch" / "_build" / "bridge_client"
+    binary.parent.mkdir(exist_ok=True)
+    built = subprocess.run([cc, "-O2", "-o", str(binary), str(root / "native" / "bridge_client.c")],
+                           capture_output=True, text=True, timeout=120)
+    if built.returncode != 0:
+        raise AssertionError(f"(a) the C client did not build: {built.stderr[-2000:]}")
+    _build.launches.clear()
+    with BridgeServer(device=dev) as server:
+        t = time.perf_counter()
+        proc = subprocess.run([str(binary), *map(str, server.address)], capture_output=True,
+                              text=True, timeout=120)
+        c_s = time.perf_counter() - t
+        if proc.returncode != 0 or "QUICKSTART PASS" not in proc.stdout or not all(
+                f"{name}: consensus YES" in proc.stdout for name in ("alice", "bob", "carol")):
+            raise AssertionError(f"(a) the C client: {proc.returncode} {proc.stdout[-2000:]} "
+                                 f"{proc.stderr[-2000:]}")
+        with BridgeClient(*server.address) as cl:
+            t = time.perf_counter()
+            peers = [cl.add_peer()[0] for _ in range(3)]
+            pid, _ = cl.create_proposal(peers[0], "qs", NOW, "upgrade", b"ship", 3, 600)
+            cl.cast_vote(peers[0], "qs", pid, True, NOW + 1)
+            proposal = cl.get_proposal(peers[0], "qs", pid)
+            for peer in peers[1:]:
+                cl.process_proposal(peer, "qs", proposal, NOW + 2)
+            for i, voter in enumerate(peers[1:], start=1):
+                vote = cl.cast_vote(voter, "qs", pid, True, NOW + 2 + i)
+                for other in peers:
+                    if other != voter:
+                        try:
+                            cl.process_vote(other, "qs", vote, NOW + 3 + i)
+                        except Exception as exc:  # the last vote lands after the decision
+                            if getattr(exc, "status", None) != 28:
+                                raise
+            py_s = time.perf_counter() - t
+            for peer in peers:
+                engine = server.peer_engine(peer)
+                if engine.pool().device.type != torch.device(dev).type:
+                    raise AssertionError("(a) the server's engine is not on the card")
+                if cl.get_result(peer, "qs", pid) is not True or not any(
+                        e.kind == P.EVENT_REACHED and e.proposal_id == pid and e.result
+                        for e in cl.poll_events(peer)):
+                    raise AssertionError(f"(a) peer {peer} did not reach YES with an event")
+            explain = cl.explain(peers[0], "qs", pid)
+            health = cl.health(peers[0], NOW + 10)
+            metrics = cl.get_metrics()
+            fingerprint = cl.state_fingerprint(peers[0])
+            tally = cl.fleet_tally(peers[0])
+            if (explain["status"] != "reached" or "peers" not in health
+                    or "bridge_errors_total" not in metrics or sum(tally.values()) != 256
+                    or fingerprint != state_fingerprint(server.peer_engine(peers[0]))):
+                raise AssertionError("(a) a read opcode answered wrong")
+    return dict(launches=dict(_build.launches), c_s=c_s, py_s=py_s)
+
+
+def phase_bridge_config3(dev):
+    """(b) and (c): config 3 over a socket, reactor off, reactor on (each
+    on a fresh server on the card) and on a CPU-engine server cut to
+    ``BRIDGE_CUT`` proposals; then (c)'s small calls on the two servers
+    on the card."""
+    from hashgraph_tpu_torch.bridge.reactor import ApplyReactor
+    from hashgraph_tpu_torch.errors import StatusCode
+
+    # A frame that fills a default window alone keeps the reactor from
+    # merging two frames of one connection: a merged call walks the chain
+    # guard across a refused vote that separate calls check against the
+    # session's kept tail (the JAX package's rule, ROADMAP queue 3), and
+    # the arms' statuses would differ.
+    if BRIDGE_FRAME_ROWS < ApplyReactor().max_rows:
+        raise AssertionError("(b) a frame must fill a default reactor window")
+    t = time.perf_counter()
+    traffic = bridge_traffic()
+    frames = bridge_frames(traffic)
+    share = traffic["share"]
+    cut_frames = bridge_frames(traffic, traffic["cut"], rows_a_frame=share)
+    q = BRIDGE_PROPOSALS // BRIDGE_CONNECTIONS
+    items = [(scope_of(k // q), blob) for k, blob in enumerate(traffic["proposals"])]
+    cut_items = [items[c * q + k] for c in range(BRIDGE_CONNECTIONS) for k in range(share)]
+    build_s = time.perf_counter() - t
+    arms, small = {}, {}
+    for name, reactor in (("off", False), ("on", True)):
+        server, arms[name] = phase_bridge_arm(dev, frames, items, reactor)
+        log(f"[bridge] (b) reactor {name}: the arm's votes took {arms[name]['wall']:.3f} s, "
+            f"its proposals {arms[name]['proposals_s']:.3f} s; "
+            f"{time.perf_counter() - t:.3f} s into (b)")
+        try:
+            if name == "off":
+                skip = {(scope_of(k // q), traffic["pids"][k]) for k in range(BRIDGE_PROPOSALS)
+                        if k % q >= share}
+                arms[name]["cut_fingerprint"] = tier_fingerprints(
+                    server.peer_engine(BRIDGE_PEER), skip)[0]
+            small[name] = small_calls(server, 140)
+        finally:
+            server.stop()
+        del server
+    server, cpu = phase_bridge_arm("cpu", cut_frames, cut_items, False)
+    server.stop()
+    del server
+    off, on = arms["off"], arms["on"]
+    compare("(b) statuses, reactor on", on["statuses"], off["statuses"])
+    compare("(b) fingerprint, reactor on", on["fingerprint"], off["fingerprint"])
+    compare("(b) scope stats, reactor on", on["stats"], off["stats"])
+    cut_statuses = []
+    for c in range(BRIDGE_CONNECTIONS):
+        per_wave = len(off["statuses"][c]) // len(traffic["rows"])
+        cut_statuses.append([off["statuses"][c][w * per_wave + i]
+                             for w in range(len(traffic["rows"])) for i in traffic["cut"]])
+    for c, (got, want) in enumerate(zip(cpu["statuses"], cut_statuses)):
+        if got != want:
+            diff = [(i // (len(got) // len(traffic["rows"])), i % (len(got) // len(traffic["rows"])),
+                     got[i], want[i]) for i in range(len(got)) if got[i] != want[i]]
+            raise AssertionError(f"(b) statuses, CPU engine: connection {c} differs at "
+                                 f"{len(diff)} rows, first (wave, row, cpu, gpu) {diff[:8]}")
+    compare("(b) fingerprint over the cut, CPU engine", cpu["fingerprint"], off["cut_fingerprint"])
+    flat = np.concatenate([np.asarray(s) for s in off["statuses"]])
+    codes = {StatusCode(c).name: int((flat == c).sum()) for c in np.unique(flat)}
+    if not {"OK", "DUPLICATE_VOTE", "ALREADY_REACHED"} <= set(codes):
+        raise AssertionError(f"(b) did not reach the expected statuses: {codes}")
+    if torch.device(dev).type == "cuda":
+        for name in ("off", "on"):
+            require_launches(f"(b) reactor {name}", arms[name]["launches"], ["ingest_scan"])
+    for name, calls in small.items():
+        if set(calls["codes"]) != {0}:
+            raise AssertionError(f"(c) reactor {name}: statuses {sorted(set(calls['codes']))}")
+    return dict(arms=arms, cpu=cpu, small=small, codes=codes, build_s=build_s,
+                n_frames=sum(len(f) for f in frames),
+                cut_traffic=(cut_items, bridge_frames(traffic, traffic["cut"], waves=2,
+                                                      rows_a_frame=share)))
+
+
+def phase_bridge_verify(dev):
+    """(d): phase 7's traffic as signed frames on a server whose peers
+    verify on the card, against a CPU-engine server with the host signer:
+    one OP_PROCESS_VOTES frame of 4,096 votes; on a fresh peer, the same
+    votes as one canonical OP_VOTE_BATCH frame through a pipelined
+    connection (the reader thread starts its signature batch), then the
+    damaged 64-vote frame; on a third peer, the 4,096 votes from four
+    pipelined connections at once, each its quarter of the proposals in
+    one frame of 1,024, their device batches overlapping (checked against
+    the CPU server fed the frames one at a time)."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.bridge import BridgeClient, PipelinedBridgeClient
+    from hashgraph_tpu_torch.bridge import protocol as P
+    from hashgraph_tpu_torch.bridge.client import parse_status_list
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
+
+    scope = "bridge-verify"
+    rng = random.Random(150)
+    keys = [Ed25519ConsensusSigner(rng.randbytes(32)) for _ in range(VERIFY_KEYS)]
+    builder = Run(verify_engine("cpu", Ed25519ConsensusSigner(rng.randbytes(32))))
+    n_main = VERIFY_PROPOSALS
+    create_seeded(builder, scope, n_main + 4, 151)
+    pids = builder.pids[scope]
+    blobs = [builder.engine.get_proposal(scope, pid).encode() for pid in pids]
+    main_bytes = signed_votes(builder.engine, scope, pids[:n_main], keys, 152)
+    blame_bytes = signed_votes(builder.engine, scope, pids[n_main:], keys, 153,
+                               corrupt={0: "scalar", 1: "s>=L", 2: "bad-A", 3: "R-sign"})
+    del builder
+    # Rows of main_bytes: vote j of proposal k at j * n_main + k.
+    quarter = n_main // 4
+    conc = [[main_bytes[j * n_main + k] for j in range(VERIFY_VOTERS)
+             for k in range(c * quarter, (c + 1) * quarter)] for c in range(4)]
+    signer_cls = counting_device_signer()
+    if torch.device(dev).type != "cuda":
+        signer_cls = type("CpuCounting", (signer_cls,), {"device": "cpu"})
+    servers = {"gpu": bridge_server(dev, signer_cls), "cpu": bridge_server("cpu", Ed25519ConsensusSigner)}
+    out = {}
+    try:
+        for side, server in servers.items():
+            with BridgeClient(*server.address, timeout=300) as cl, \
+                    PipelinedBridgeClient(*server.address, timeout=300, max_inflight=BRIDGE_INFLIGHT) as pc:
+                peers = [cl.add_peer(bytes([0x21 + i]) * 32)[0] for i in range(3)]
+                for peer in peers:
+                    for blob in blobs:
+                        cl.process_proposal(peer, scope, blob, NOW)
+                res = {}
+                sync = sync_of(server.peer_engine(peers[0]).device)
+                batches0 = len(signer_cls.batches)
+                _build.launches.clear()
+                sync()
+                t = time.perf_counter()
+                res["process_votes"] = cl.process_votes(peers[0], scope, main_bytes, NOW + 2)
+                sync()
+                res["process_votes_s"] = time.perf_counter() - t
+                res["process_votes_launches"] = dict(_build.launches)
+                _build.launches.clear()
+                sync()
+                t = time.perf_counter()
+                res["vote_batch"] = parse_status_list(pc.submit(
+                    P.OP_VOTE_BATCH, P.encode_vote_batch(NOW + 2, [(peers[1], scope, main_bytes)]),
+                ).result(300))
+                sync()
+                res["vote_batch_s"] = time.perf_counter() - t
+                res["vote_batch_launches"] = dict(_build.launches)
+                _build.launches.clear()
+                res["damaged"] = parse_status_list(pc.submit(
+                    P.OP_VOTE_BATCH, P.encode_vote_batch(NOW + 3, [(peers[1], scope, blame_bytes)]),
+                ).result(300))
+                res["damaged_launches"] = dict(_build.launches)
+                res["batches"] = list(signer_cls.batches[batches0:]) if side == "gpu" else []
+                frames = [[P.encode_vote_batch(NOW + 2, [(peers[2], scope, rows)])]
+                          for rows in conc]
+            if side == "gpu":
+                _build.launches.clear()
+                statuses, wall = send_vote_frames(server, frames, dev)
+                res["concurrent"], res["concurrent_s"] = statuses, wall
+                res["concurrent_launches"] = dict(_build.launches)
+                res["concurrent_batches"] = list(signer_cls.batches[batches0 + len(res["batches"]):])
+            else:
+                with PipelinedBridgeClient(*server.address, timeout=300, max_inflight=BRIDGE_INFLIGHT) as pc:
+                    res["concurrent"] = [[s for f in fr for s in parse_status_list(
+                        pc.submit(P.OP_VOTE_BATCH, f).result(300))] for fr in frames]
+            out[side] = res
+    finally:
+        for server in servers.values():
+            server.stop()
+    gpu, cpu = out["gpu"], out["cpu"]
+    for key in ("process_votes", "vote_batch", "damaged", "concurrent"):
+        compare(f"(d) {key} statuses", gpu[key], cpu[key])
+    batches = gpu["batches"]
+    if [b["items"] for b in batches[:2]] != [len(main_bytes)] * 2 or any(
+            b["fallback"] for b in batches[:2]) or len(batches) != 3 or not batches[2]["fallback"]:
+        raise AssertionError(f"(d) device batches {batches}")
+    conc_batches = gpu["concurrent_batches"]
+    if len(conc_batches) != 4 or any(b["fallback"] for b in conc_batches):
+        raise AssertionError(f"(d) concurrent frames' batches {conc_batches}")
+    codes = {StatusCode(c).name: gpu["vote_batch"].count(c) for c in sorted(set(gpu["vote_batch"]))}
+    damaged = {StatusCode(c).name: gpu["damaged"].count(c) for c in sorted(set(gpu["damaged"]))}
+    if set(codes) - {"OK", "ALREADY_REACHED"} or damaged.get("INVALID_VOTE_SIGNATURE") != 4:
+        raise AssertionError(f"(d) statuses {codes}, damaged frame {damaged}")
+    if torch.device(dev).type == "cuda":
+        for key in ("process_votes_launches", "vote_batch_launches"):
+            require_launches(f"(d) {key}", gpu[key], VERIFY_KERNELS, {"msm_windows": 1})
+        require_launches("(d) the concurrent frames", gpu["concurrent_launches"],
+                         VERIFY_KERNELS, {"msm_windows": 4})
+    gpu.update(codes=codes, damaged_codes=damaged, n=len(main_bytes))
+    return gpu
+
+
+def phase_bridge_durable(dev, traffic_cut):
+    """(e): a server with a WAL takes the cut's proposals and waves 1-2 on
+    a key-carrying peer and stops; a new server on the same directory
+    recovers the peer when the key is re-added; its snapshot travels over
+    OP_SYNC_MANIFEST and OP_SYNC_CHUNK into a fresh GPU engine; its log's
+    tail after a mid-log LSN over OP_WAL_TAIL."""
+    import hashlib
+    import tempfile
+
+    from hashgraph_tpu_torch import InMemoryConsensusStorage, StubConsensusSigner
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.bridge import BridgeClient
+    from hashgraph_tpu_torch.sync import decode_snapshot, state_fingerprint
+    from hashgraph_tpu_torch.wal.segment import list_segments, scan_segment
+
+    items, frames = traffic_cut
+    key = b"\x17" * 32
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bridge-") as root:
+        server = bridge_server(dev, wal_dir=root)
+        try:
+            with BridgeClient(*server.address, timeout=300) as cl:
+                peer, identity = cl.add_peer(key)
+            send_proposals(server, items)
+            send_vote_frames(server, frames, dev)
+            with BridgeClient(*server.address, timeout=300) as cl:
+                before = cl.state_fingerprint(peer)
+            wal = server.durable_engine(identity).wal
+            last_lsn, directory = wal.last_lsn, wal.directory
+        finally:
+            server.stop()
+        del server
+        server = bridge_server(dev, wal_dir=root)
+        try:
+            _build.launches.clear()
+            with BridgeClient(*server.address, timeout=600) as cl:
+                t = time.perf_counter()
+                peer2, identity2 = cl.add_peer(key)
+                recovery_s = time.perf_counter() - t
+                recovery_launches = dict(_build.launches)
+                stats = server.recovery_stats(identity2)
+                if identity2 != identity or stats is None or stats.segments_dropped or stats.errors:
+                    raise AssertionError(f"(e) recovery: {stats}")
+                after = cl.state_fingerprint(peer2)
+                compare("(e) fingerprint after recovery", after, before)
+                t = time.perf_counter()
+                manifest = cl.sync_manifest(peer2, 1 << 20)
+                chunks = [cl.sync_chunk(peer2, manifest["snapshot_id"], i)
+                          for i in range(manifest["chunk_count"])]
+                sync_s = time.perf_counter() - t
+                if [hashlib.sha256(c).digest() for c in chunks] != manifest["digests"] or sum(
+                        map(len, chunks)) != manifest["total_bytes"]:
+                    raise AssertionError("(e) a snapshot chunk does not match its digest")
+                watermark, sessions, configs = decode_snapshot(chunks)
+                if watermark != manifest["watermark"] or len(sessions) != manifest["session_count"]:
+                    raise AssertionError(f"(e) snapshot watermark {watermark} / {manifest}")
+                fresh = bridge_factory(dev)(StubConsensusSigner(key))
+                storage = InMemoryConsensusStorage()
+                for scope, config in configs:
+                    storage.set_scope_config(scope, config)
+                    fresh.set_scope_config(scope, config)
+                for scope, session in sessions:
+                    storage.save_session(scope, session)
+                fresh.load_from_storage(storage)
+                compare("(e) fingerprint of the restored snapshot", state_fingerprint(fresh), before)
+                del fresh
+                mid = last_lsn // 2
+                served, after_lsn, more = [], mid, True
+                while more:
+                    records, more = cl.wal_tail(peer2, after_lsn)
+                    served += records
+                    after_lsn = records[-1][0] if records else after_lsn
+                on_disk = [r for _, path in list_segments(directory)
+                           for r in scan_segment(path)[0] if r[0] > mid]
+                if served != on_disk or not served or served[0][0] != mid + 1:
+                    raise AssertionError(f"(e) the tail after LSN {mid}: {len(served)} records "
+                                         f"served, {len(on_disk)} in the log")
+        finally:
+            server.stop()
+    return dict(recovery_s=recovery_s, recovery_launches=recovery_launches,
+                sync_s=sync_s, sync_bytes=manifest["total_bytes"], chunks=manifest["chunk_count"],
+                sessions=len(sessions), records=stats.records_applied, tail=len(served),
+                last_lsn=last_lsn, mid=mid)
+
+
+def bridge_launches(bridge, kernel):
+    """One kernel's launches in each step of phase 13, for the kernel line."""
+    b, d = bridge["b"], bridge["d"]
+    steps = {
+        "quickstart": bridge["quick"]["launches"],
+        "config3_reactor_off": b["arms"]["off"]["launches"],
+        "config3_reactor_on": b["arms"]["on"]["launches"],
+        "small_calls_reactor_off": b["small"]["off"]["launches"],
+        "small_calls_reactor_on": b["small"]["on"]["launches"],
+        "signed_process_votes": d["process_votes_launches"],
+        "signed_vote_batch": d["vote_batch_launches"],
+        "signed_damaged_frame": d["damaged_launches"],
+        "signed_concurrent_frames": d["concurrent_launches"],
+        "durable_recovery": bridge["e"]["recovery_launches"],
+    }
+    return {step: counts.get(kernel, 0) for step, counts in steps.items()}
+
+
+def phase_bridge(dev):
+    """Phase 13: the bridge on the card ((a)-(e), see the module doc)."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    errors_before = bridge_counters()["BRIDGE_ERRORS_TOTAL"]
+    quick = phase_bridge_quickstart(dev)
+    log(f"[bridge] (a) the C embedder (native/bridge_client.c, built with cc) ran the "
+        f"quick-start against a port server on the card in {quick['c_s']:.3f} s: QUICKSTART "
+        f"PASS, alice/bob/carol consensus YES; the port's BridgeClient in {quick['py_s']:.3f} s, "
+        f"EVENT_REACHED on all three; OP_EXPLAIN, OP_HEALTH, GET_METRICS, OP_STATE_FINGERPRINT "
+        f"(equal to sync.state_fingerprint of the peer's engine) and OP_FLEET_TALLY answered; "
+        f"launches {json.dumps(quick['launches'])}")
+    b = phase_bridge_config3(dev)
+    for name in ("off", "on"):
+        arm = b["arms"][name]
+        rpd = (f"; reactor windows' rows per dispatch {arm['reactor_rows_per_dispatch']:.1f}"
+               if arm["reactor_rows_per_dispatch"] is not None else "")
+        log(f"[bridge] (b) reactor {name}: {arm['n_rows']} votes in {b['n_frames']} OP_VOTE_BATCH "
+            f"frames of up to {BRIDGE_FRAME_ROWS} rows from {BRIDGE_CONNECTIONS} pipelined "
+            f"connections in {arm['wall']:.6f} s = {arm['n_rows'] / arm['wall']:.1f} votes/s over "
+            f"the socket; ingest_wire_columnar dispatches {arm['dispatches']} "
+            f"({arm['rows_per_dispatch']:.1f} rows a dispatch){rpd}; ingest_scan launches "
+            f"{arm['scan']}; the scan and fresh dispatches' device time {arm['busy_ms']:.6f} ms = "
+            f"{arm['busy_ms'] / (1e3 * arm['wall']):.6f} of the wall; the wire counters: frame "
+            f"decode {arm['moved']['WIRE_DECODE_SECONDS_TOTAL']:.6f} s and the signature "
+            f"prepass {arm['moved']['WIRE_CRYPTO_SECONDS_TOTAL']:.6f} s on the reader threads, "
+            f"apply {arm['moved']['WIRE_APPLY_SECONDS_TOTAL']:.6f} s; {BRIDGE_PROPOSALS} "
+            f"proposals as OP_PROCESS_PROPOSAL frames in {arm['proposals_s']:.3f} s; {smi}")
+    cpu = b["cpu"]
+    log(f"[bridge] (b) CPU engine (device='cpu'), cut to {BRIDGE_CUT} proposals: {cpu['n_rows']} "
+        f"votes in {cpu['wall']:.6f} s = {cpu['n_rows'] / cpu['wall']:.1f} votes/s, dispatches "
+        f"{cpu['dispatches']} ({cpu['rows_per_dispatch']:.1f} rows a dispatch); per-row statuses "
+        f"equal across the three arms (the CPU arm on its rows), state fingerprints equal (the "
+        f"CPU arm's to the card's over the same {BRIDGE_CUT} sessions), scope stats "
+        f"{b['arms']['off']['stats']} equal on and off; statuses {b['codes']}; wire fallback "
+        f"frames and bridge errors unmoved; traffic built in {b['build_s']:.3f} s")
+    for name, calls in b["small"].items():
+        trips, launches = calls["trips"], calls["launches"]
+        log(f"[bridge] (c) reactor {name}: {len(trips)} OP_PROCESS_VOTE round trips, each a "
+            f"first vote on a fresh proposal of 64 voters: p50 {percentile(trips, 0.5) * 1e3:.6f} ms, "
+            f"p99 {percentile(trips, 0.99) * 1e3:.6f} ms, mean "
+            f"{sum(trips) / len(trips) * 1e3:.6f} ms; launches {json.dumps(launches)}; {smi}")
+    d = phase_bridge_verify(dev)
+    log(f"[bridge] (d) {d['n']} Ed25519-signed votes on a server whose peers verify on the card: "
+        f"one OP_PROCESS_VOTES frame {d['process_votes_s']:.6f} s = "
+        f"{d['n'] / d['process_votes_s']:.1f} signatures/s (launches "
+        f"{json.dumps(d['process_votes_launches'])}); one OP_VOTE_BATCH frame on a fresh peer "
+        f"{d['vote_batch_s']:.6f} s = {d['n'] / d['vote_batch_s']:.1f} signatures/s (launches "
+        f"{json.dumps(d['vote_batch_launches'])}); each one device batch of {d['n']} with no "
+        f"fallback; the damaged frame's batch fell back to the host blame, "
+        f"{d['damaged_codes']}; four pipelined connections at once, one frame of 1,024 each: "
+        f"{d['concurrent_s']:.6f} s = {d['n'] / d['concurrent_s']:.1f} signatures/s, 4 device "
+        f"batches, none fell back; every status equal to a CPU-engine server with the host "
+        f"signer; {smi}")
+    e = phase_bridge_durable(dev, b["cut_traffic"])
+    log(f"[bridge] (e) a durable peer ({BRIDGE_CUT} proposals, waves 1-2) recovered by a new "
+        f"server on its WAL in {e['recovery_s']:.6f} s ({e['records']} records, launches "
+        f"{json.dumps(e['recovery_launches'])}) to the fingerprint before the stop; "
+        f"OP_SYNC_MANIFEST and {e['chunks']} OP_SYNC_CHUNKs ({e['sessions']} sessions, "
+        f"{e['sync_bytes']} B) in {e['sync_s']:.6f} s = {e['sync_bytes'] / e['sync_s']:.1f} B/s, "
+        f"every chunk's digest checked, restored into a fresh GPU engine to the same "
+        f"fingerprint; OP_WAL_TAIL after LSN {e['mid']} of {e['last_lsn']} served exactly the "
+        f"{e['tail']} later records; {smi}")
+    errors = bridge_counters()["BRIDGE_ERRORS_TOTAL"] - errors_before
+    if errors:
+        raise AssertionError(f"phase 13 answered {errors} frames with a bridge-level error")
+    log(f"[bridge] phase 13 took {time.perf_counter() - t_phase:.3f} s with no bridge-level "
+        f"error answered, on {smi}")
+    return dict(quick=quick, b=b, d=d, e=e)
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13")
 
 
 def main() -> int:
@@ -4253,6 +4981,9 @@ def main() -> int:
     if run("12"):
         # Phase 12's counts are zeroed just before each of its steps.
         obs_out = phase_obs(dev, phase3_rate)
+    if run("13"):
+        # Phase 13's counts are zeroed just before each of its steps.
+        bridge = phase_bridge(dev)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -4294,6 +5025,7 @@ def main() -> int:
         "call_ms": main_timing["call_ms"],
         "config2_call_ms": timing["config 2's call (uint16)"]["ms"],
         "launches_obs": obs_out["launches"].get("ingest_scan", 0),
+        "launches_bridge": bridge_launches(bridge, "ingest_scan"),
         "profiled_ms": obs_out["profile"]["ingest_scan"]["ms"],
     }]
     crypto = [
@@ -4334,6 +5066,7 @@ def main() -> int:
             "launches_wal": wal["c"]["launches"].get(name, 0),
             "launches_wal_damaged_frame": wal["c"]["launches_blame"].get(name, 0),
             "launches_obs": obs_out["verify_launches"].get(name, 0),
+            "launches_bridge": bridge_launches(bridge, name),
             "parity": parity,
             "library_ms": None,
             **t,

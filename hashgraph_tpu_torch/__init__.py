@@ -21,6 +21,11 @@ a ``ConsensusStorage``, timeouts, and sessions the pool cannot hold served
 on the host, as in the JAX package. :class:`DurableEngine` (:mod:`.wal`)
 logs every mutating call before acknowledging it, in the JAX package's
 write-ahead-log format, and recovers an engine from the log.
+:mod:`.bridge` serves the engine to other processes over the JAX
+package's framed TCP protocol, byte for byte: ``BridgeServer`` hosts one
+engine a peer on the card (``device=``), ``BridgeClient`` and
+``PipelinedBridgeClient`` drive it, and the apply reactor merges vote
+frames from every connection into one dispatch a window.
 :mod:`.obs` and :mod:`.tracing` observe all of it as the JAX package's do
 (metrics registry and Prometheus text, timelines, health scoring,
 distributed traces, the flight recorder, SLOs, the profiler), on objects
@@ -44,8 +49,8 @@ among it the batched vote-chain check of proposals from peers
 
 The port imports nothing of the JAX package: the modules that carry no
 device code (errors, wire, protocol, types, events, scope config, session,
-signing, storage, service, native, the bridge's columnar parser, the
-write-ahead log and the observability layer) are copies of that package's, and the
+signing, storage, service, native, the bridge, the write-ahead log and
+the observability layer) are copies or ports of that package's, and the
 JAX package stays the reference the tests hold the port against. Entry
 points that hold device state take ``device=`` and default to ``"cuda"``;
 they raise without a GPU rather than move to the CPU, which callers ask for

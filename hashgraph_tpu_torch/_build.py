@@ -54,6 +54,10 @@ HOST_NATIVE_FLAGS = ("-march=native",)
 # Kernel launches per kernel name: each wrapper adds one where it launches
 # its kernel, so a caller can show that a path really ran through it.
 launches: collections.Counter = collections.Counter()
+# Launches come from several threads at once (the bridge's reader threads
+# start signature batches while serial lanes run scans): ``+=`` on the
+# Counter is a read and a write, so a count is taken under this lock.
+_count_lock = threading.Lock()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -214,7 +218,8 @@ def launched(kernel: str, err: int) -> None:
     under the kernel's name."""
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
-    launches[kernel] += 1
+    with _count_lock:
+        launches[kernel] += 1
 
 
 def build_log(name: str) -> str:

@@ -104,6 +104,7 @@ def ingest_scan(
         lane_mask, val_bit, valid_bit, int(pad_rows), ctypes.byref(launched),
         torch.cuda.current_stream(state.device).cuda_stream,
     )
-    grid_launches += launched.value
     _build.launched(KERNEL, err)
+    with _build._count_lock:
+        grid_launches += launched.value
     return out

@@ -78,6 +78,39 @@ def test_full_cycle_with_jax_blocked():
     assert "LOADED []" in proc.stdout
 
 
+BRIDGE = r"""
+import sys
+from hashgraph_tpu_torch.bridge import BridgeClient, BridgeServer, columnar
+import hashgraph_tpu_torch.gossip, hashgraph_tpu_torch.parallel
+from hashgraph_tpu_torch.gossip import shm
+from hashgraph_tpu_torch.parallel import ShardMigratingError
+import torch
+torch.set_num_threads(1)
+with BridgeServer(capacity=8, voter_capacity=4, device="cpu") as server:
+    with BridgeClient(*server.address) as client:
+        peer, identity = client.add_peer()
+        assert len(identity) == 20
+        pid, _ = client.create_proposal(peer, "s", 1000, "p", b"", 1, 60)
+        client.cast_vote(peer, "s", pid, True, 1001)
+        assert client.get_result(peer, "s", pid) is True
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "hashgraph_tpu")))
+print("LOADED", loaded)
+"""
+
+
+def test_bridge_gossip_and_parallel_load_no_jax():
+    """Importing the bridge, gossip and parallel packages and serving a
+    proposal over the bridge, in a fresh interpreter with nothing blocked,
+    leaves neither JAX nor the JAX package in ``sys.modules``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", BRIDGE],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO),
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout
+
+
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_native_paths(path):
