@@ -226,7 +226,41 @@ phase holds:
    Every figure is printed beside the card's name and power limit, and
    the phase fails if any frame was answered with a bridge-level error. The
    kernels are the ones earlier phases hold against their plain versions
-   at these shapes.
+   at these shapes;
+14. gossip, catch-up and the chaos simulator (slice 12), at config 3's
+   cut: 2,000 proposals x 64 voters, half Gossipsub, half P2P in a second
+   scope, on port servers on the card (engines of 4,096 slots). (a) Four
+   servers take the proposals; a ``GossipNode`` submits every session's
+   64 stub-signed votes in chunks of 16. Arm 1: a driver with no engine
+   fans out to all four (``bench.py::run_gossip``'s fabric; its transport
+   queues the whole traffic, so nothing is shed); every fingerprint must
+   equal a ``device="cpu"`` server's fed the same chunks directly. Arm 2:
+   the node owns the first server's engine (applying on its own thread),
+   samples 2 of the other three a session, and runs anti-entropy until a
+   round repairs nothing; every server must equal the CPU server but for
+   sessions failed at the P2P round cap, which a server that learnt them
+   by repair holds active on the same chain (the JAX package's fault,
+   ROADMAP queue 3). Aggregate networked votes/s, frames sent, shed and
+   deferred, rounds and scan launches are printed. (b) A durable server
+   (``wal_fsync="batch"``) takes the proposals and three waves of chains
+   of 64 Ed25519 votes from 64 keys (signed by the native runtime); a
+   fresh GPU joiner with the device signer runs ``CatchUpClient.catch_up``,
+   and the fourth wave reaches the source after the snapshot's chunks, so
+   the tail is not empty; a second GPU joiner runs ``full_replay``, and a
+   CPU joiner with the host signer runs ``catch_up``. The source's and
+   both ``catch_up`` joiners' fingerprints must be equal, the replay's
+   sessions the source's but for the round-cap failures the log cannot
+   carry (queue 3); the snapshot must be one device batch of the retained
+   signatures, with no fallback, one ``msm_windows`` and ``fe_pow22523``
+   launch and ``msm_reduce``'s passes at the batch's lanes; each
+   verification kernel is held against its plain version and timed on the
+   batch's inputs; a snapshot with one signature byte flipped must raise
+   ``SyncVerificationError``, fall back to the host blame and install
+   nothing. Each joiner's wall is split into download, verify, install and
+   tail. (c) Every scenario of ``SCENARIOS`` at seed 424242 on the card and
+   on the CPU: every verdict ok and the verdict JSON byte-identical; then
+   ``expired-spam-burst`` and ``columnar-wire-storm`` with the device
+   signer on the card, equal to the host signer on the CPU.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -242,8 +276,10 @@ launched the scan; phase 12 unless (a)'s GPU run and (e)'s replay launched
 the scan, (c)'s batches every verification kernel and (d)'s profiled calls
 every hand kernel; phase 13 unless (b)'s GPU arms launched the scan and
 (d)'s clean frames every verification kernel, one MSM window launch
-each; phase 8 fails unless (a) launched every verification kernel in
-one batch, every batch of (a) and (b) ran its MSM without falling back to
+each; phase 14 unless both arms of (a), the catch-up and the full replay
+of (b) and the corpus of (c) launched the scan, and (b)'s snapshot batch
+and (c)'s device-signer scenarios every verification kernel; phase 8
+fails unless (a) launched every verification kernel in one batch, every batch of (a) and (b) ran its MSM without falling back to
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
 that the kernels are held against run with ``field.mul`` routed to
@@ -1658,9 +1694,11 @@ PROPOSAL_KERNELS = VERIFY_KERNELS + ("ingest_scan",)
 def counting_device_signer():
     """The device Ed25519 scheme, counting each (payload, signature) it is
     asked to verify and keeping every batch's phase seconds (with its item
-    count) as the batch is collected."""
+    count, its wall from submit to collected, and the kernel launches, of
+    every thread, in that time) as the batch is collected."""
     from collections import Counter
 
+    from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.signing import Ed25519DeviceConsensusSigner, PendingVerdicts
 
     class CountingDeviceSigner(Ed25519DeviceConsensusSigner):
@@ -1670,11 +1708,16 @@ def counting_device_signer():
         @classmethod
         def verify_batch_submit(cls, identities, payloads, signatures):
             cls.submitted.update(p + s for p, s in zip(payloads, signatures))
+            before, t = dict(_build.launches), time.perf_counter()
             pending = super().verify_batch_submit(identities, payloads, signatures)
 
             def collect():
                 out = pending.collect()
-                cls.batches.append(dict(cls.device_phase_seconds(), items=len(payloads)))
+                cls.batches.append(dict(
+                    cls.device_phase_seconds(), items=len(payloads),
+                    seconds=time.perf_counter() - t,
+                    launches={k: v - before.get(k, 0) for k, v in _build.launches.items()
+                              if v != before.get(k, 0)}))
                 return out
 
             return PendingVerdicts(collect)
@@ -1766,8 +1809,8 @@ def hold_captured(captured):
             root, verdict = cuda_msm.msm_reduce(acc)
             ok = torch.equal(root, root_plain) and int(verdict) == verdict_plain == 1
         if not ok:
-            raise AssertionError(f"{name} at {list(shape)} on the proposal path's inputs "
-                                 "differs from its plain version")
+            raise AssertionError(f"{name} at {list(shape)} on the path's inputs differs "
+                                 "from its plain version")
         held.setdefault(name, []).append(list(shape))
     return held
 
@@ -4168,20 +4211,21 @@ BRIDGE_COUNTERS = ("WIRE_FALLBACK_FRAMES_TOTAL", "BRIDGE_ERRORS_TOTAL", "BRIDGE_
                    "WIRE_CRYPTO_SECONDS_TOTAL", "WIRE_APPLY_SECONDS_TOTAL")
 
 
-def bridge_factory(dev):
+def bridge_factory(dev, capacity=CAPACITY, voter_capacity=VOTER_CAPACITY):
     """The engines of (b)-(e)'s servers: config 3's engine (phase 10's:
     one scope may hold every proposal, the events queue deep), with
     ``BRIDGE_SCOPES[1]`` on the P2P preset. The server's default engine
     keeps the reference's 10 sessions a scope, so these servers build
-    theirs through ``engine_factory``."""
+    theirs through ``engine_factory``. Phase 14's engines are smaller
+    (``capacity``, ``voter_capacity``)."""
     from hashgraph_tpu_torch import TorchConsensusEngine
     from hashgraph_tpu_torch.events import BroadcastEventBus
 
     def factory(signer):
         engine = TorchConsensusEngine(
-            signer, CAPACITY, VOTER_CAPACITY,
+            signer, capacity, voter_capacity,
             event_bus=BroadcastEventBus(max_queued_events=10_000_000),
-            max_sessions_per_scope=CAPACITY, device=dev, verify_cache=None,
+            max_sessions_per_scope=capacity, device=dev, verify_cache=None,
         )
         engine.scope(BRIDGE_SCOPES[1]).p2p_preset().initialize()
         return engine
@@ -4189,14 +4233,14 @@ def bridge_factory(dev):
     return factory
 
 
-def bridge_server(dev, signer_cls=None, **kwargs):
+def bridge_server(dev, signer_cls=None, factory=None, **kwargs):
     """A started port server on ``dev`` over :func:`bridge_factory`'s
-    engines (stub-signed peers unless ``signer_cls``)."""
+    engines, or ``factory``'s (stub-signed peers unless ``signer_cls``)."""
     from hashgraph_tpu_torch import StubConsensusSigner
     from hashgraph_tpu_torch.bridge import BridgeServer
 
     server = BridgeServer(
-        engine_factory=bridge_factory(dev), device=dev, verify_cache=None,
+        engine_factory=factory or bridge_factory(dev), device=dev, verify_cache=None,
         signer_factory=signer_cls or StubConsensusSigner, **kwargs)
     server.start()
     return server
@@ -4832,7 +4876,752 @@ def phase_bridge(dev):
     return dict(quick=quick, b=b, d=d, e=e)
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13")
+# ── Phase 14: gossip, catch-up and the chaos simulator ─────────────────
+
+GOSSIP_PROPOSALS = 2_000  # config 3 cut in depth, as in phases 10, 11 and 13
+GOSSIP_PEERS = 4  # servers of the fabric, as bench.py::run_gossip's 4 peers
+GOSSIP_CHUNK = WAL_PER_WAVE  # votes a submit (run_gossip's chunks of 16)
+GOSSIP_CAPACITY = 4_096  # the phase's engines: every session of the cut fits
+GOSSIP_VOTER_CAPACITY = WAL_VOTERS
+GOSSIP_CPU_FRAME_SESSIONS = 64  # chunks in one OP_VOTE_BATCH frame of the CPU arm
+GOSSIP_FLUSH_VOTES = 512  # the driver's coalescer window, as run_gossip's
+# The driver's send queue a peer: room for the whole traffic (about 26 MB
+# of stub-signed votes), so arm 1, which has no repair, sheds nothing.
+GOSSIP_QUEUE_BYTES = 64 << 20
+GOSSIP_KEY = b"\x14" * 32
+CATCHUP_KEYS = 64  # Ed25519 keys voting on the source, as phase 7's
+CATCHUP_TAIL_WAVE = WAL_WAVES - 1  # the wave that arrives after the snapshot
+SIM_SEED = 424242  # the seed of the reference's tests/test_sim.py
+SIM_DEVICE_SIGNER = ("expired-spam-burst", "columnar-wire-storm")
+
+
+def gossip_factory(dev):
+    """The engines of phase 14's servers and joiners: every session of the
+    cut fits."""
+    return bridge_factory(dev, GOSSIP_CAPACITY, GOSSIP_VOTER_CAPACITY)
+
+
+def gossip_server(dev, signer_cls=None, **kwargs):
+    """A started port server on ``dev`` over :func:`gossip_factory`'s
+    engines with one key-carrying peer (``BRIDGE_PEER``)."""
+    from hashgraph_tpu_torch.bridge import BridgeClient
+
+    server = bridge_server(dev, signer_cls, gossip_factory(dev), **kwargs)
+    with BridgeClient(*server.address, timeout=300) as client:
+        peer, identity = client.add_peer(GOSSIP_KEY)
+    if peer != BRIDGE_PEER:
+        raise AssertionError(f"phase 14: the first peer is {peer}")
+    return server, identity
+
+
+def fingerprint_of(server):
+    from hashgraph_tpu_torch.bridge import BridgeClient
+
+    with BridgeClient(*server.address, timeout=300) as client:
+        return client.state_fingerprint(BRIDGE_PEER)
+
+
+def gossip_traffic(seed=140):
+    """The cut's proposals (seeded ids; the first half in the gossipsub
+    scope, the second in the P2P one) and their stub-signed chains of 64
+    votes (:func:`wire_waves`), as the chunks a gossip driver submits:
+    ``chunks[w][k]`` is wave ``w``'s 16 votes of proposal ``k``."""
+    from hashgraph_tpu_torch.wire import Proposal
+
+    rng = random.Random(seed)
+    n = GOSSIP_PROPOSALS
+    pids = rng.sample(range(1, 2**32), n)
+    scopes = [BRIDGE_SCOPES[k * 2 // n] for k in range(n)]
+    items = [(scopes[k], Proposal(
+        name=f"g{k}", payload=k.to_bytes(4, "little"), proposal_id=pid,
+        proposal_owner=b"smoke", expected_voters_count=WAL_VOTERS, timestamp=NOW,
+        expiration_timestamp=NOW + 3600, liveness_criteria_yes=k % 4 < 2,
+    ).encode()) for k, pid in enumerate(pids)]
+    waves = wire_waves(pids, seed + 1)[:WAL_WAVES]
+    chunks = [[[rows[j * n + k] for j in range(WAL_PER_WAVE)] for k in range(n)]
+              for rows, *_ in waves]
+    return dict(pids=pids, scopes=scopes, items=items, chunks=chunks)
+
+
+def session_states(engine):
+    """Every session of ``engine``: (state kind, SHA-256 of its proposal
+    bytes with the retained chain), from one ``save_to_storage``."""
+    import hashlib
+
+    from hashgraph_tpu_torch import InMemoryConsensusStorage
+
+    storage = InMemoryConsensusStorage()
+    engine.save_to_storage(storage)
+    return {(scope, s.proposal.proposal_id): (s.state.kind, hashlib.sha256(
+        s.proposal.encode()).digest()) for scope in storage.list_scopes() or ()
+        for s in storage.list_scope_sessions(scope) or ()}
+
+
+def round_cap_misses(label, states, want):
+    """Sessions where ``states`` differs from ``want``: it must be only
+    sessions that ``want`` holds failed and ``states`` holds active on the
+    same chain. A session failed at the P2P round cap keeps only its
+    accepted votes, so a peer that learns it from its chain (anti-entropy)
+    or from the WAL (replay) holds it active: the JAX package's faults,
+    ROADMAP queue 3. Returns their count."""
+    from hashgraph_tpu_torch.session import ConsensusStateKind
+
+    diff = {key for key in set(states) | set(want) if states.get(key) != want.get(key)}
+    allowed = {key for key in diff if key in states and key in want
+               and want[key][0] == ConsensusStateKind.FAILED
+               and states[key] == (ConsensusStateKind.ACTIVE, want[key][1])}
+    if diff != allowed:
+        raise AssertionError(f"{label}: {len(diff - allowed)} sessions differ other than by "
+                             f"a round-cap failure")
+    return len(diff)
+
+
+def gossip_counters():
+    import hashgraph_tpu_torch.obs as obs
+
+    names = ("GOSSIP_FRAMES_SENT_TOTAL", "GOSSIP_FRAMES_SHED_TOTAL",
+             "GOSSIP_FRAMES_DEFERRED_TOTAL", "GOSSIP_VOTES_COALESCED_TOTAL",
+             "GOSSIP_ANTI_ENTROPY_SESSIONS_TOTAL")
+    return {name: obs.registry.counter(getattr(obs, name)).value for name in names}
+
+
+def gossip_arm(dev, traffic, fanout, repair):
+    """One arm of (a) on fresh servers: the proposals to every server
+    (untimed), then every chunk through a ``GossipNode``, timed to the end
+    of its drain. Arm 1 (``repair`` False): a driver with no engine fans
+    out to all the servers. Arm 2: the node owns the first server's engine
+    (applying on this thread), samples ``fanout`` of the others, and runs
+    anti-entropy rounds until the fingerprints agree."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.gossip import GossipNode, GossipTransport
+
+    servers = [gossip_server(dev)[0] for _ in range(GOSSIP_PEERS)]
+    node = transport = None
+    try:
+        t_setup = time.perf_counter()
+        for server in servers:
+            send_proposals(server, traffic["items"])
+        setup_s = time.perf_counter() - t_setup
+        engine = servers[0].peer_engine(BRIDGE_PEER) if repair else None
+        targets = servers[1:] if repair else servers
+        transport = GossipTransport(max_queue_bytes=GOSSIP_QUEUE_BYTES)
+        node = GossipNode("phase14", engine=engine, transport=transport, fanout=fanout,
+                          seed=14, flush_votes=GOSSIP_FLUSH_VOTES)
+        for i, server in enumerate(targets):
+            node.add_peer(f"peer{i}", *server.address, BRIDGE_PEER)
+        before = gossip_counters()
+        _build.launches.clear()
+        sync_of(dev)()
+        t0 = time.perf_counter()
+        for wave in traffic["chunks"]:
+            for k, chunk in enumerate(wave):
+                node.submit_votes(traffic["scopes"][k], traffic["pids"][k], chunk, NOW + 1,
+                                  local=repair)
+        report = node.drain(timeout=600)
+        sync_of(dev)()
+        wall = time.perf_counter() - t0
+        rounds, repair_s = 0, 0.0
+        prints = [fingerprint_of(s) for s in servers]
+        t1 = time.perf_counter()
+        while repair and len(set(prints)) > 1 and rounds < 8:
+            done = node.anti_entropy(NOW + 1, max_sessions=GOSSIP_PROPOSALS, window=64,
+                                     timeout=600)
+            rounds += 1
+            prints = [fingerprint_of(s) for s in servers]
+            if not done["created_or_extended"]:
+                break  # nothing left that a chain can repair
+        repair_s = time.perf_counter() - t1
+        launches = dict(_build.launches)
+        after = gossip_counters()
+        states = [session_states(s.peer_engine(BRIDGE_PEER)) for s in servers]
+    finally:
+        if node is not None:
+            node.close()
+        if transport is not None:
+            transport.close()
+        for server in servers:
+            server.stop()
+    if report["failed_frames"] or (not repair and report["shed_total"]):
+        raise AssertionError(f"(a) gossip frames failed or shed: {report}")
+    return dict(wall=wall, report=report, rounds=rounds, repair_s=repair_s, setup_s=setup_s,
+                fingerprints=prints, launches=launches, states=states,
+                moved={k: after[k] - before[k] for k in after})
+
+
+def gossip_cpu_arm(traffic):
+    """(a)'s reference: a ``device="cpu"`` server fed the same chunks
+    directly, wave by wave, as OP_VOTE_BATCH frames of 64 chunks."""
+    from hashgraph_tpu_torch.bridge import protocol as P
+
+    server, _ = gossip_server("cpu")
+    try:
+        send_proposals(server, traffic["items"])
+        frames = []
+        n = GOSSIP_PROPOSALS
+        for wave in traffic["chunks"]:
+            for lo in range(0, n, GOSSIP_CPU_FRAME_SESSIONS):
+                groups = [(BRIDGE_PEER, traffic["scopes"][k], wave[k])
+                          for k in range(lo, min(lo + GOSSIP_CPU_FRAME_SESSIONS, n))]
+                frames.append(P.encode_vote_batch(NOW + 1, groups))
+        t = time.perf_counter()
+        send_vote_frames(server, [frames], "cpu")
+        wall = time.perf_counter() - t
+        return fingerprint_of(server), session_states(server.peer_engine(BRIDGE_PEER)), wall
+    finally:
+        server.stop()
+
+
+def phase_gossip(dev):
+    """(a): the gossip fabric over 4 port servers on the card."""
+    t = time.perf_counter()
+    traffic = gossip_traffic()
+    build_s = time.perf_counter() - t
+    want, want_states, cpu_s = gossip_cpu_arm(traffic)
+    arms = {"fanout_all": gossip_arm(dev, traffic, GOSSIP_PEERS, False),
+            "fanout_2_anti_entropy": gossip_arm(dev, traffic, 2, True)}
+    full = arms["fanout_all"]
+    if set(full["fingerprints"]) != {want}:
+        raise AssertionError(f"(a) fanout_all: fingerprints {full['fingerprints']}, the CPU "
+                             f"server's {want}")
+    # Sampled fan-out and anti-entropy: every server equals the CPU server
+    # but for sessions failed at the P2P round cap on it, which a server
+    # that learnt them by repair holds active on the same chain.
+    repaired = arms["fanout_2_anti_entropy"]
+    repaired["misses"] = [round_cap_misses("(a) fanout_2_anti_entropy", states, want_states)
+                          for states in repaired.pop("states")]
+    full.pop("states")
+    for name, arm in arms.items():
+        require_launches(f"(a) {name}", arm["launches"], ("ingest_scan",))
+    failed = sum(1 for kind, _ in want_states.values() if kind.name == "FAILED")
+    return dict(arms=arms, cpu_s=cpu_s, build_s=build_s, fingerprint=want, failed=failed)
+
+
+def catchup_traffic(seed=141):
+    """(b)'s traffic: the cut's proposals (as :func:`gossip_traffic`'s) and
+    a chain of 64 votes each from 64 Ed25519 keys, every signature made by
+    the native runtime on 8 threads, as OP_VOTE_BATCH frames a wave at a
+    time (vote j of every proposal of a scope, then vote j + 1; 1,024 rows
+    a frame)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hashgraph_tpu_torch import Ed25519ConsensusSigner, build_vote, native, protocol
+    from hashgraph_tpu_torch.bridge import protocol as P
+    from hashgraph_tpu_torch.wire import Proposal
+
+    t = time.perf_counter()
+    traffic = gossip_traffic(seed)
+    rng = random.Random(seed)
+    keys = [Ed25519ConsensusSigner(rng.randbytes(32)) for _ in range(CATCHUP_KEYS)]
+    unsigned = [_Unsigned(k) for k in keys]
+    seed_of = {k.identity(): k.private_key_bytes() for k in keys}
+    n = GOSSIP_PROPOSALS
+    shadows = [Proposal.decode(blob) for _, blob in traffic["items"]]
+    protocol.set_id_entropy(lambda: rng.getrandbits(128))
+    try:
+        for j in range(WAL_VOTERS):
+            for k, shadow in enumerate(shadows):
+                shadow.votes.append(build_vote(shadow, rng.random() < 0.6,
+                                               unsigned[(k + j) % CATCHUP_KEYS], NOW + 1))
+    finally:
+        protocol.set_id_entropy(None)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    votes = [v for shadow in shadows for v in shadow.votes]
+    with ThreadPoolExecutor(8) as pool:
+        sigs = list(pool.map(lambda v: native.ed25519_sign(seed_of[v.vote_owner],
+                                                           v.signing_payload()),
+                             votes, chunksize=512))
+    if any(s is None for s in sigs):
+        raise AssertionError("the native runtime did not sign")
+    for vote, sig in zip(votes, sigs):
+        vote.signature = sig
+    sign_s = time.perf_counter() - t
+    waves = []
+    for w in range(WAL_WAVES):
+        frames = []
+        for scope in BRIDGE_SCOPES:
+            ks = [k for k in range(n) if traffic["scopes"][k] == scope]
+            rows = [shadows[k].votes[WAL_PER_WAVE * w + j].encode()
+                    for j in range(WAL_PER_WAVE) for k in ks]
+            frames += [P.encode_vote_batch(NOW + 1, [(BRIDGE_PEER, scope, rows[i:i + 1024])])
+                       for i in range(0, len(rows), 1024)]
+        waves.append(frames)
+    return dict(items=traffic["items"], waves=waves, signed=len(votes), sign_s=sign_s,
+                build_s=build_s)
+
+
+class TimedBridge:
+    """The catch-up client's transport to the source: a ``BridgeClient``
+    whose sync calls are timed. ``after_chunks`` runs once, when the last
+    chunk of the snapshot has arrived (more votes reach the source there,
+    after the snapshot's watermark, so that the tail is not empty); its
+    time is kept apart from the download's."""
+
+    def __init__(self, address, after_chunks=None):
+        from hashgraph_tpu_torch.bridge import BridgeClient
+
+        self.client = BridgeClient(*address, timeout=600)
+        self.after_chunks = after_chunks
+        self.seconds = {"download": 0.0, "tail_fetch": 0.0, "after_chunks": 0.0}
+        self.manifest = None
+
+    def _timed(self, key, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.seconds[key] += time.perf_counter() - t
+
+    def sync_manifest(self, peer, max_chunk_bytes=0):
+        self.manifest = self._timed("download", self.client.sync_manifest, peer, max_chunk_bytes)
+        return self.manifest
+
+    def sync_chunk(self, peer, snapshot_id, index):
+        data = self._timed("download", self.client.sync_chunk, peer, snapshot_id, index)
+        if index == self.manifest["chunk_count"] - 1 and self.after_chunks is not None:
+            hook, self.after_chunks = self.after_chunks, None
+            self._timed("after_chunks", hook)
+        return data
+
+    def wal_tail(self, peer, after_lsn, max_bytes=0):
+        return self._timed("tail_fetch", self.client.wal_tail, peer, after_lsn, max_bytes)
+
+    def close(self):
+        self.client.close()
+
+
+class ServedSnapshot:
+    """A source that serves a given snapshot stream and an empty tail (the
+    transport a ``CatchUpClient`` takes as ``bridge``)."""
+
+    def __init__(self, data, watermark, sessions, configs, chunk_bytes=1 << 20):
+        import hashlib
+
+        self.chunks = [data[i:i + chunk_bytes] for i in range(0, len(data), chunk_bytes)]
+        self.manifest = dict(
+            snapshot_id=1, watermark=watermark, total_bytes=len(data), chunk_bytes=chunk_bytes,
+            session_count=sessions, config_count=configs, chunk_count=len(self.chunks),
+            digests=[hashlib.sha256(c).digest() for c in self.chunks])
+
+    def sync_manifest(self, peer, max_chunk_bytes=0):
+        return dict(self.manifest)
+
+    def sync_chunk(self, peer, snapshot_id, index):
+        return self.chunks[index]
+
+    def wal_tail(self, peer, after_lsn, max_bytes=0):
+        return [], False
+
+    def close(self):
+        pass
+
+
+def tampered_stream(chunks):
+    """The snapshot stream with one byte of one signature's scalar flipped
+    (byte 40, the middle vote of the middle session; the scalar stays below
+    L, so the batch's combination fails and the host blame names the vote),
+    every frame re-encoded with its CRC: the stream decodes and every
+    digest checks, only the signature is wrong."""
+    from hashgraph_tpu_torch.sync import snapshot as S
+
+    frames = list(S.iter_snapshot_frames(chunks))
+    sessions = [i for i, (kind, _) in enumerate(frames) if kind == S.ITEM_SESSION]
+    at = sessions[len(sessions) // 2]
+    scope, session = S.decode_session_item(frames[at][1])
+    vote = session.proposal.votes[len(session.proposal.votes) // 2]
+    vote.signature = vote.signature[:40] + bytes([vote.signature[40] ^ 0x01]) + vote.signature[41:]
+    frames[at] = (S.ITEM_SESSION, S.encode_session_item(scope, session))
+    watermark = S.decode_snapshot(chunks)[0]
+    return b"".join(S.encode_frame(kind, payload) for kind, payload in frames), watermark, len(
+        sessions), sum(1 for kind, _ in frames if kind == S.ITEM_SCOPE_CONFIG)
+
+
+@contextlib.contextmanager
+def catchup_stages(client, engine):
+    """Seconds a catch-up spends verifying the snapshot (``verify_sessions``),
+    installing it (``load_from_storage``) and in its tail (``_tail``)."""
+    from hashgraph_tpu_torch.sync import client as sync_client
+
+    stages = dict(verify=0.0, install=0.0, tail=0.0)
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stages[key] += time.perf_counter() - t
+
+        return run
+
+    saved = sync_client.verify_sessions
+    sync_client.verify_sessions = timed("verify", saved)
+    engine.load_from_storage = timed("install", engine.load_from_storage)
+    client._tail = timed("tail", client._tail)
+    try:
+        yield stages
+    finally:
+        sync_client.verify_sessions = saved
+        del engine.load_from_storage
+        del client._tail
+
+
+def run_catchup(dev, signer, source, how, after_chunks=None):
+    """A fresh joiner on ``dev`` signed by ``signer`` catches up from the
+    source's peer through ``how`` (``catch_up`` or ``full_replay``).
+    Returns its engine, the report and the split of its wall."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.sync import CatchUpClient
+
+    engine = gossip_factory(dev)(signer)
+    bridge = TimedBridge(source.address, after_chunks)
+    client = CatchUpClient("", 0, BRIDGE_PEER, timeout=600, bridge=bridge)
+    _build.launches.clear()
+    with catchup_stages(client, engine) as stages:
+        sync_of(dev)()
+        t = time.perf_counter()
+        report = getattr(client, how)(engine)
+        sync_of(dev)()
+        wall = time.perf_counter() - t
+    launches = dict(_build.launches)
+    client.close()
+    stages["download"] = bridge.seconds["download"]
+    stages["tail_fetch"] = bridge.seconds["tail_fetch"]
+    stages["after_chunks"] = bridge.seconds["after_chunks"]
+    return engine, report, dict(stages, wall=wall - stages["after_chunks"]), launches
+
+
+def retained_votes(engine):
+    return sum(len(engine.get_proposal(scope, pid).votes) for scope, pid in engine.session_keys())
+
+
+def require_one_batch(batches, replay_batches, items):
+    """Fail unless the catch-up verified its snapshot in exactly one device
+    batch of ``items`` signatures, with no fallback to the host, one launch
+    of ``msm_windows`` and ``fe_pow22523``, the tree's passes of
+    ``msm_reduce`` at the batch's MSM lanes, and ``fe_mul``; and the full
+    replay verified nothing. Returns the MSM lanes."""
+    from hashgraph_tpu_torch.crypto_device import cuda_msm
+
+    lanes = 8
+    while lanes < 2 * items + 1:
+        lanes *= 2
+    want = {"msm_windows": 1, "fe_pow22523": 1,
+            "msm_reduce": len(cuda_msm.tree_passes(lanes, cuda_msm._lib().hg_msm_tree_span()))}
+    batch = batches[0] if batches else None
+    if (len(batches) != 1 or replay_batches or batch["items"] != items
+            or batch["fallback"] != 0
+            or {k: batch["launches"].get(k, 0) for k in want} != want
+            or not batch["launches"].get("fe_mul")):
+        raise AssertionError(f"(b) the snapshot was not one device batch of {items} with "
+                             f"{want}: {batches}; the full replay verified {replay_batches} "
+                             "batches")
+    return lanes
+
+
+def catchup_kernel_times(captured, msm_lanes):
+    """Each verification kernel's device time on the snapshot batch's
+    inputs (its largest shape), with its bound at that shape."""
+    from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm, msm
+
+    largest = {}
+    for (name, shape), args in captured.seen.items():
+        if name not in largest or shape[0] > largest[name][0][0]:
+            largest[name] = (shape, args)
+    out = {}
+    for name, (shape, args) in sorted(largest.items()):
+        lanes = shape[0]
+        if name == "fe_mul":
+            ms = device_ms(lambda: cuda_field.fe_mul(*args), 20)
+            n_bytes, n_ops = lanes * FE_MUL_BYTES_PER_LANE, lanes * FE_MUL_OPS_PER_LANE
+        elif name == "fe_pow22523":
+            ms = device_ms(lambda: cuda_field.fe_pow22523(*args), 5)
+            n_bytes, n_ops = lanes * 2 * 16 * 8, lanes * POW22523_OPS_PER_LANE
+        elif name == "msm_windows":
+            ms = device_ms(lambda: cuda_msm.msm_windows(*args), 3)
+            n_bytes = lanes * (2 * POINT_BYTES + 4 * msm.WINDOWS)
+            n_ops = lanes * MSM_WINDOWS_OPS_PER_LANE
+        else:
+            ms = device_ms(lambda: cuda_msm.msm_reduce(*args), 10)
+            n_bytes, n_ops = tree_bound_counts(lanes)
+        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT_OPS_PER_S * 1e3
+        out[name] = dict(shape=list(shape), ms=ms, bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    if out["msm_windows"]["shape"][0] != msm_lanes:
+        raise AssertionError(f"(b) the MSM ran at {out['msm_windows']['shape']}, not "
+                             f"{msm_lanes} lanes")
+    return out
+
+
+def phase_catchup(dev):
+    """(b): a durable port server on the card takes the cut's Ed25519-signed
+    chains; GPU joiners catch up (snapshot and tail; full replay) and a CPU
+    joiner with the host signer catches up; a tampered snapshot installs
+    nothing."""
+    import tempfile
+
+    from hashgraph_tpu_torch import Ed25519ConsensusSigner, StubConsensusSigner, _build
+    from hashgraph_tpu_torch.bridge import BridgeClient
+    from hashgraph_tpu_torch.errors import StatusCode
+    from hashgraph_tpu_torch.obs import DEVICE_VERIFY_FALLBACKS_TOTAL, registry
+    from hashgraph_tpu_torch.sync import CatchUpClient, SyncVerificationError, state_fingerprint
+
+    traffic = catchup_traffic()
+    bad = {int(StatusCode.INVALID_VOTE_SIGNATURE), int(StatusCode.INVALID_VOTE_HASH)}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-catchup-") as root:
+        source, identity = gossip_server(dev, signer_cls=Ed25519ConsensusSigner,
+                                         wal_dir=root, wal_fsync="batch")
+        try:
+            send_proposals(source, traffic["items"])
+            t = time.perf_counter()
+            for w in range(CATCHUP_TAIL_WAVE):
+                statuses, _ = send_vote_frames(source, [traffic["waves"][w]], dev)
+                if bad & set(statuses[0]):
+                    raise AssertionError("(b) the source refused a signature")
+            source_s = time.perf_counter() - t
+            source_engine = source.peer_engine(BRIDGE_PEER)
+            retained_at_snapshot = retained_votes(source_engine)
+
+            hook_launches = {}
+
+            def tail_votes():
+                from hashgraph_tpu_torch import _build
+
+                before = dict(_build.launches)
+                statuses, _ = send_vote_frames(source, [traffic["waves"][CATCHUP_TAIL_WAVE]], dev)
+                hook_launches.update({k: v - before.get(k, 0) for k, v in _build.launches.items()})
+                if bad & set(statuses[0]):
+                    raise AssertionError("(b) the source refused a signature")
+
+            signer_cls = counting_device_signer()
+            signer_cls.batches.clear()
+            captured = KernelInputs()
+            fallbacks = registry.counter(DEVICE_VERIFY_FALLBACKS_TOTAL).value
+            with captured.active():
+                gpu, gpu_report, gpu_stages, gpu_launches = run_catchup(
+                    dev, signer_cls(b"\x21" * 32), source, "catch_up", tail_votes)
+            if registry.counter(DEVICE_VERIFY_FALLBACKS_TOTAL).value != fallbacks:
+                raise AssertionError("(b) the snapshot's device batch fell back to the host")
+            # The source's launches while it took the late votes are not the joiner's.
+            gpu_launches = {k: v - hook_launches.get(k, 0) for k, v in gpu_launches.items()}
+            batches = list(signer_cls.batches)
+            signer_cls.batches.clear()
+            want = fingerprint_of(source)
+            retained = retained_votes(source_engine)
+            replay, replay_report, replay_stages, replay_launches = run_catchup(
+                dev, signer_cls(b"\x22" * 32), source, "full_replay")
+            replay_batches = len(signer_cls.batches)
+            cpu, cpu_report, cpu_stages, _ = run_catchup(
+                "cpu", Ed25519ConsensusSigner(b"\x23" * 32), source, "catch_up")
+            prints = {"source": want, "gpu_catch_up": state_fingerprint(gpu),
+                      "cpu_catch_up": state_fingerprint(cpu)}
+            if len(set(prints.values())) != 1:
+                raise AssertionError(f"(b) fingerprints differ: {prints}")
+            # The log keeps accepted rows only: a replay holds the sessions
+            # failed at the round cap active (ROADMAP queue 3).
+            source_states = session_states(source_engine)
+            replay_misses = round_cap_misses("(b) full_replay", session_states(replay),
+                                             source_states)
+            source_failed = sum(1 for kind, _ in source_states.values() if kind.name == "FAILED")
+            with BridgeClient(*source.address, timeout=600) as cl:
+                manifest = cl.sync_manifest(BRIDGE_PEER)
+                chunks = [cl.sync_chunk(BRIDGE_PEER, manifest["snapshot_id"], i)
+                          for i in range(manifest["chunk_count"])]
+        finally:
+            source.stop()
+    if gpu_report.votes_verified != retained_at_snapshot or cpu_report.votes_verified != retained:
+        raise AssertionError(f"(b) verified {gpu_report.votes_verified} (GPU) and "
+                             f"{cpu_report.votes_verified} (CPU) signatures, the source retained "
+                             f"{retained_at_snapshot} at the snapshot and {retained} at the end")
+    if not gpu_report.tail_records or replay_report.sessions_installed:
+        raise AssertionError(f"(b) tail records {gpu_report.tail_records}, full replay "
+                             f"installed {replay_report.sessions_installed} sessions")
+    snapshot_batch = batches[0] if batches else None
+    lanes = require_one_batch(batches, replay_batches, retained_at_snapshot)
+    require_launches("(b) catch_up", gpu_launches, VERIFY_KERNELS + ("ingest_scan",))
+    require_launches("(b) full_replay", replay_launches, ("ingest_scan",))
+    t = time.perf_counter()
+    held = hold_captured(captured)
+    hold_s = time.perf_counter() - t
+    times = catchup_kernel_times(captured, lanes)
+
+    # A snapshot with one signature byte flipped: nothing installed.
+    data, watermark, n_sessions, n_configs = tampered_stream(chunks)
+    joiner = gossip_factory(dev)(signer_cls(b"\x24" * 32))
+    empty = state_fingerprint(gossip_factory(dev)(StubConsensusSigner(b"empty")))
+    client = CatchUpClient("", 0, BRIDGE_PEER, bridge=ServedSnapshot(
+        data, watermark, n_sessions, n_configs))
+    signer_cls.batches.clear()
+    _build.launches.clear()
+    t = time.perf_counter()
+    try:
+        client.catch_up(joiner)
+    except SyncVerificationError as exc:
+        tamper_error = str(exc)
+    else:
+        raise AssertionError("(b) the tampered snapshot was installed")
+    tamper_s = time.perf_counter() - t
+    tamper_launches = dict(_build.launches)
+    if state_fingerprint(joiner) != empty or joiner.occupancy().get("live_sessions", 0):
+        raise AssertionError("(b) the tampered snapshot left state behind")
+    if len(signer_cls.batches) != 1 or not signer_cls.batches[0]["fallback"]:
+        raise AssertionError(f"(b) the tampered snapshot's batch did not fail on the card and "
+                             f"fall back to the host blame: {signer_cls.batches}")
+    return dict(
+        signed=traffic["signed"], sign_s=traffic["sign_s"], build_s=traffic["build_s"],
+        source_s=source_s, hold_s=hold_s, tamper_s=tamper_s,
+        retained_at_snapshot=retained_at_snapshot, retained=retained, lanes=lanes,
+        gpu=dict(report=gpu_report, stages=gpu_stages, launches=gpu_launches),
+        replay=dict(report=replay_report, stages=replay_stages, launches=replay_launches),
+        cpu=dict(report=cpu_report, stages=cpu_stages),
+        batch=snapshot_batch, held=held, times=times, fingerprint=want,
+        replay_misses=replay_misses, source_failed=source_failed,
+        replay_fingerprint=state_fingerprint(replay),
+        tamper_error=tamper_error, tamper_launches=tamper_launches,
+        tamper_fallback=signer_cls.batches[0]["fallback"])
+
+
+def phase_sim(dev):
+    """(c): every scenario of ``SCENARIOS`` at ``SIM_SEED`` on the card and on
+    the CPU, then the device-signer scenarios on the card against the host
+    signer on the CPU."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
+    from hashgraph_tpu_torch.sim import SCENARIOS, run_scenario
+
+    def verdict_json(name, device, **kwargs):
+        t = time.perf_counter()
+        result = run_scenario(name, SIM_SEED, device=device, **kwargs)
+        sync_of(device)()
+        wall = time.perf_counter() - t
+        if not result["passed"] or not all(v["ok"] for v in result["verdicts"].values()):
+            raise AssertionError(f"(c) {name} on {device}: {result['verdicts']} "
+                                 f"{result['checks']}")
+        return json.dumps(result, sort_keys=True), wall
+
+    walls = {}
+    _build.launches.clear()
+    on_card = {}
+    for name in SCENARIOS:
+        on_card[name], walls[(name, "cuda")] = verdict_json(name, dev)
+    corpus_launches = dict(_build.launches)
+    for name in SCENARIOS:
+        cpu_json, walls[(name, "cpu")] = verdict_json(name, "cpu")
+        compare(f"(c) {name}'s verdict JSON", on_card[name], cpu_json)
+    signer_cls = counting_device_signer()
+    signer_cls.batches.clear()
+    _build.launches.clear()
+    device_signed = {}
+    for name in SIM_DEVICE_SIGNER:
+        device_signed[name], walls[(name, "cuda, device signer")] = verdict_json(
+            name, dev, signer_factory=signer_cls)
+    signer_launches = dict(_build.launches)
+    for name in SIM_DEVICE_SIGNER:
+        host_json, walls[(name, "cpu, host signer")] = verdict_json(
+            name, "cpu", signer_factory=Ed25519ConsensusSigner)
+        compare(f"(c) {name}'s verdict JSON, device signer against host", device_signed[name],
+                host_json)
+    require_launches("(c) the corpus", corpus_launches, ("ingest_scan",))
+    require_launches("(c) the device signer", signer_launches, VERIFY_KERNELS + ("ingest_scan",))
+    return dict(walls=walls, corpus_launches=corpus_launches, signer_launches=signer_launches,
+                batches=len(signer_cls.batches),
+                fallbacks=sum(1 for b in signer_cls.batches if b["fallback"]),
+                n=len(SCENARIOS))
+
+
+def phase_gossip_sync(dev):
+    """Phase 14: gossip, catch-up and the chaos simulator on the card
+    ((a)-(c), see the module doc)."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    a = phase_gossip(dev)
+    n_votes = GOSSIP_PROPOSALS * WAL_VOTERS
+    for name, arm in a["arms"].items():
+        rep, moved = arm["report"], arm["moved"]
+        rate = (f" = {n_votes * GOSSIP_PEERS / arm['wall']:.1f} aggregate networked votes/s "
+                f"({GOSSIP_PROPOSALS} x {WAL_VOTERS} x {GOSSIP_PEERS} peers / wall)"
+                if name == "fanout_all" else "")
+        log(f"[gossip] (a) {name}: {n_votes} votes in chunks of {GOSSIP_CHUNK} through a "
+            f"GossipNode in {arm['wall']:.6f} s{rate}; acked {rep['acked']}, rejected "
+            f"{rep['rejected']}, frames sent {moved['GOSSIP_FRAMES_SENT_TOTAL']}, shed "
+            f"{moved['GOSSIP_FRAMES_SHED_TOTAL']}, deferred {moved['GOSSIP_FRAMES_DEFERRED_TOTAL']}"
+            f"; the proposals to every server first, untimed above: {arm['setup_s']:.3f} s"
+            f"; anti-entropy rounds {arm['rounds']} ({arm['repair_s']:.6f} s, "
+            f"{moved['GOSSIP_ANTI_ENTROPY_SESSIONS_TOTAL']} sessions pushed); ingest_scan "
+            f"launches {arm['launches'].get('ingest_scan', 0)}; "
+            + (f"{GOSSIP_PEERS} fingerprints equal to the CPU server's" if "misses" not in arm
+               else f"sessions differing from the CPU server by a round-cap failure that "
+                    f"repair cannot carry, per server: {arm['misses']} (of its {a['failed']} "
+                    f"failed sessions); every other session equal")
+            + f"; {smi}")
+    log(f"[gossip] (a) the CPU server (device='cpu') took the same chunks directly in "
+        f"{a['cpu_s']:.6f} s; traffic built in {a['build_s']:.3f} s; the servers are in this "
+        f"process and share one GIL with the driver")
+    b = phase_catchup(dev)
+    batch = phases = b["batch"]
+    log(f"[catchup] (b) the source took {b['signed']} Ed25519 votes (chains built in "
+        f"{b['build_s']:.3f} s, signed by the native runtime on 8 threads in "
+        f"{b['sign_s']:.3f} s; waves 1-{CATCHUP_TAIL_WAVE} in "
+        f"{b['source_s']:.3f} s) and retains {b['retained_at_snapshot']} at the snapshot, "
+        f"{b['retained']} at the end; {smi}")
+    for name in ("gpu", "replay", "cpu"):
+        rep, st = b[name]["report"], b[name]["stages"]
+        log(f"[catchup] (b) {name} joiner ({'full_replay' if name == 'replay' else 'catch_up'})"
+            f": wall {st['wall']:.6f} s = download {st['download']:.6f} s + verify "
+            f"{st['verify']:.6f} s + install {st['install']:.6f} s + tail {st['tail']:.6f} s "
+            f"(of it fetching {st['tail_fetch']:.6f} s); {rep.sessions_installed} sessions, "
+            f"{rep.votes_verified} signatures verified, {rep.tail_records} tail records "
+            f"({rep.tail_votes} votes), {rep.snapshot_bytes} snapshot bytes in "
+            f"{rep.chunks_fetched} chunks")
+    gpu_v, cpu_v = b["gpu"]["stages"]["verify"], b["cpu"]["stages"]["verify"]
+    log(f"[catchup] (b) the snapshot's {batch['items']} signatures in one device batch "
+        f"({batch['seconds']:.6f} s: submit {phases['submit']:.6f}, decompress "
+        f"{phases['decompress']:.6f}, hash {phases['hash']:.6f}, msm {phases['msm']:.6f}, "
+        f"fallback {phases['fallback']:.6f}) at {b['lanes']} MSM lanes, launches "
+        f"{json.dumps(batch['launches'])}; verify_sessions {b['retained_at_snapshot'] / gpu_v:.1f} "
+        f"signatures/s on the card against {b['retained'] / cpu_v:.1f} with the native host "
+        f"batch; the source's and both catch_up joiners' fingerprints equal; the full replay's "
+        f"sessions equal the source's but for {b['replay_misses']} of its {b['source_failed']} "
+        f"sessions failed at the P2P round cap, active on the same chain after replay; {smi}")
+    for name, t in b["times"].items():
+        log(f"[catchup] (b) {name} at {t['shape']}: {t['ms']:.6f} ms, bound {t['bound_ms']:.6f} "
+            f"ms by {t['bound_by']}; held against its plain version at {b['held'].get(name)}")
+    log(f"[catchup] (b) holding the kernels against their plain versions took "
+        f"{b['hold_s']:.3f} s")
+    log(f"[catchup] (b) a snapshot with one signature byte flipped ({b['tamper_s']:.3f} s): "
+        f"SyncVerificationError "
+        f"({b['tamper_error'][:120]}...), nothing installed; its batch fell back to the host "
+        f"blame in {b['tamper_fallback']:.6f} s; launches {json.dumps(b['tamper_launches'])}")
+    c = phase_sim(dev)
+    walls = c["walls"]
+    log(f"[sim] (c) {c['n']} scenarios at seed {SIM_SEED}, every verdict ok and the verdict "
+        f"JSON equal on the card and the CPU: " + "; ".join(
+            f"{name} {walls[(name, 'cuda')]:.3f} s / {walls[(name, 'cpu')]:.3f} s"
+            for name, dev_ in walls if dev_ == "cuda") + f"; launches {json.dumps(c['corpus_launches'])}")
+    log(f"[sim] (c) with the device signer on the card, equal to the host signer on the CPU: "
+        + "; ".join(f"{name} {walls[(name, 'cuda, device signer')]:.3f} s / "
+                    f"{walls[(name, 'cpu, host signer')]:.3f} s" for name in SIM_DEVICE_SIGNER)
+        + f"; {c['batches']} device batches, {c['fallbacks']} fell back to the host blame; "
+        f"launches {json.dumps(c['signer_launches'])}; {smi}")
+    log(f"[gossip] phase 14 took {time.perf_counter() - t_phase:.3f} s on {smi}")
+    return dict(a=a, b=b, c=c)
+
+
+def gossip_sync_launches(out, kernel):
+    """One kernel's launches in each step of phase 14, for the kernel line."""
+    a, b, c = out["a"], out["b"], out["c"]
+    return (
+        {arm: a["arms"][arm]["launches"].get(kernel, 0) for arm in a["arms"]},
+        {"catch_up": b["gpu"]["launches"].get(kernel, 0),
+         "snapshot_batch": b["batch"]["launches"].get(kernel, 0),
+         "full_replay": b["replay"]["launches"].get(kernel, 0),
+         "tampered_snapshot": b["tamper_launches"].get(kernel, 0)},
+        {"corpus": c["corpus_launches"].get(kernel, 0),
+         "device_signer": c["signer_launches"].get(kernel, 0)},
+    )
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13", "14")
 
 
 def main() -> int:
@@ -4984,6 +5773,9 @@ def main() -> int:
     if run("13"):
         # Phase 13's counts are zeroed just before each of its steps.
         bridge = phase_bridge(dev)
+    if run("14"):
+        # Phase 14's counts are zeroed just before each of its steps.
+        gossip_sync = phase_gossip_sync(dev)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -5028,6 +5820,9 @@ def main() -> int:
         "launches_bridge": bridge_launches(bridge, "ingest_scan"),
         "profiled_ms": obs_out["profile"]["ingest_scan"]["ms"],
     }]
+    scan_14 = gossip_sync_launches(gossip_sync, "ingest_scan")
+    kernels[0].update(launches_gossip=scan_14[0], launches_catchup=scan_14[1],
+                      launches_sim=scan_14[2])
     crypto = [
         ("fe_mul", "fe_mul.cu", fe_mul_timing,
          "one thread per lane, uint32 columns in registers; decompression's products "
@@ -5054,6 +5849,8 @@ def main() -> int:
          "and 16 threads a point"),
     ]
     for name, source, t, design, parity in crypto:
+        gossip_14, catchup_14, sim_14 = gossip_sync_launches(gossip_sync, name)
+        at_catchup = gossip_sync["b"]["times"][name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5067,6 +5864,13 @@ def main() -> int:
             "launches_wal_damaged_frame": wal["c"]["launches_blame"].get(name, 0),
             "launches_obs": obs_out["verify_launches"].get(name, 0),
             "launches_bridge": bridge_launches(bridge, name),
+            "launches_gossip": gossip_14,
+            "launches_catchup": catchup_14,
+            "launches_sim": sim_14,
+            "catchup_shape": at_catchup["shape"],
+            "catchup_ms": at_catchup["ms"],
+            "catchup_bound_ms": at_catchup["bound_ms"],
+            "catchup_bound_by": at_catchup["bound_by"],
             "parity": parity,
             "library_ms": None,
             **t,

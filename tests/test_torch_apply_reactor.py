@@ -7,7 +7,8 @@ rows/bytes closes, manual-mode determinism, adaptive delay), error
 scatter, reactor-on vs reactor-off DECISION IDENTITY on a randomized
 multi-connection workload (byte-identical fingerprints AND per-row
 statuses), and the serial-lane admission shed counting queued reactor
-rows. The reference's two simulator tests wait for the port of ``sim/``."""
+rows, and the chaos corpus with the reactor forced on (the simulator's
+two tests, the corpus run marked ``slow`` as the reference marks it)."""
 
 import random
 import sys
@@ -493,6 +494,44 @@ def test_shed_counts_queued_reactor_rows():
     # Queued rows scale the hint beyond the frame count alone.
     assert hint > 2 / 1000.0
     server.stop()
+
+
+# ── the chaos corpus with the reactor forced on ────────────────────────
+
+
+class TestChaosCorpusReactorOn:
+    @pytest.mark.slow
+    @pytest.mark.parametrize("name", sorted(
+        __import__(
+            "hashgraph_tpu_torch.sim.scenarios", fromlist=["SCENARIOS"]
+        ).SCENARIOS
+    ))
+    def test_scenario_passes_with_reactor_forced_on(self, name, tmp_path):
+        from hashgraph_tpu_torch.sim.scenarios import run_scenario
+
+        result = run_scenario(
+            name, 5, root=str(tmp_path), overrides={"apply_reactor": True},
+            device="cpu",
+        )
+        assert result["passed"], (name, result["verdicts"], result["checks"])
+
+    def test_columnar_wire_storm_reactor_on_matches_reactor_off(self):
+        """The decision-identity bar inside the simulator: the
+        columnar-wire-storm scenario's verdict fingerprints must be
+        IDENTICAL with the reactor on and off (flush-on-tick manual
+        mode keeps the sim seed-deterministic)."""
+        from hashgraph_tpu_torch.sim.scenarios import run_scenario
+
+        on = run_scenario(
+            "columnar-wire-storm", 5, overrides={"apply_reactor": True},
+            device="cpu",
+        )
+        off = run_scenario("columnar-wire-storm", 5, device="cpu")
+        assert on["passed"] and off["passed"]
+        assert (
+            on["verdicts"]["convergence"]["fingerprints"]
+            == off["verdicts"]["convergence"]["fingerprints"]
+        )
 
 
 # ── pinned: the JAX package's merge changes the wire chain guard ───────
