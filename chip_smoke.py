@@ -260,7 +260,25 @@ phase holds:
    tail. (c) Every scenario of ``SCENARIOS`` at seed 424242 on the card and
    on the CPU: every verdict ok and the verdict JSON byte-identical; then
    ``expired-spam-burst`` and ``columnar-wire-storm`` with the device
-   signer on the card, equal to the host signer on the CPU.
+   signer on the card, equal to the host signer on the CPU;
+15. placement (slice 13) on the one card. (a) Phase 3's config 3 on an
+   engine over ``ShardedPool(25_000, 1024, mesh=[cuda:0] * 4)`` (phase 3's
+   capacity as four blocks): statuses, results, scope stats, events per
+   session, ``global_state_counts`` and ``per_device_occupancy`` equal to
+   a single-pool engine's on the card and to the same sharded pool's on
+   four CPU entries, every pool array equal to the CPU blocks'; the scan
+   must launch once a dispatch on every shard. Votes/s of both GPU engines
+   and the launches per shard are printed. (b) The engine worker of
+   ``tests/test_torch_multihost.py`` at 2,000 proposals x 64 voters: two
+   processes of one gloo group, each holding a ``MultiHostPool`` block on
+   cuda:0, and the same worker on the CPU, both pairs at once; each
+   process's observations (owned sessions, statuses, events, the
+   replicated created id, stats, the checkpoint digest) must equal its CPU
+   twin's, the owned sets must be disjoint and not empty, and each card
+   process must launch the scan once a scan dispatch. A worker that fails
+   or outlives ``MULTIHOST_TIMEOUT`` (then killed) fails the phase. One
+   card checks routing, per-block kernels, summed stats and the control
+   plane; placement across GPUs and NCCL stay unchecked.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -278,7 +296,9 @@ every hand kernel; phase 13 unless (b)'s GPU arms launched the scan and
 (d)'s clean frames every verification kernel, one MSM window launch
 each; phase 14 unless both arms of (a), the catch-up and the full replay
 of (b) and the corpus of (c) launched the scan, and (b)'s snapshot batch
-and (c)'s device-signer scenarios every verification kernel; phase 8
+and (c)'s device-signer scenarios every verification kernel; phase 15
+unless (a)'s sharded run launched the scan on every shard and each card
+process of (b) launched it; phase 8
 fails unless (a) launched every verification kernel in one batch, every batch of (a) and (b) ran its MSM without falling back to
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
@@ -5621,7 +5641,151 @@ def gossip_sync_launches(out, kernel):
     )
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13", "14")
+# ── Phase 15: placement (slice 13) ─────────────────────────────────────
+
+SHARDS = 4  # blocks of phase 15 (a)'s sharded pool, all on cuda:0
+# Phase 15 (b): two processes of one gloo group, one block each on cuda:0,
+# config 3's width cut to 2,000 proposals decided by 64 votes each.
+MULTIHOST_SCALE = dict(proposals=2_000, voters=64, per_device=1_100,
+                       voter_capacity=128, local_devices=1)
+MULTIHOST_TIMEOUT = 300  # seconds a worker may take before it is killed
+
+
+def sharded_engine(mesh):
+    from hashgraph_tpu_torch import StubConsensusSigner, TorchConsensusEngine
+    from hashgraph_tpu_torch.events import BroadcastEventBus
+    from hashgraph_tpu_torch.parallel import ShardedPool
+
+    return TorchConsensusEngine(
+        StubConsensusSigner(b"chip-smoke"),
+        event_bus=BroadcastEventBus(max_queued_events=10_000_000),
+        max_sessions_per_scope=CAPACITY, verify_cache=None,
+        pool=ShardedPool(CAPACITY // SHARDS, VOTER_CAPACITY, mesh=mesh),
+    )
+
+
+def all_state_counts(pool):
+    """Every slot state's count (zeros included) from the host mirror."""
+    from hashgraph_tpu_torch.ops.decide import (
+        STATE_ACTIVE, STATE_FAILED, STATE_FREE, STATE_REACHED_NO, STATE_REACHED_YES,
+    )
+
+    counts = pool.state_counts()
+    return {code: counts.get(code, 0) for code in (
+        STATE_FREE, STATE_ACTIVE, STATE_FAILED, STATE_REACHED_NO, STATE_REACHED_YES)}
+
+
+def phase_sharded(dev):
+    """(a) Config 3 on a ShardedPool of four blocks on cuda:0, against phase
+    3's single-pool engine on the card and the same ShardedPool on four CPU
+    entries."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.convert import DEVICE_ARRAYS, pool_to_numpy
+    from hashgraph_tpu_torch.ops import cuda_ingest
+
+    t0 = time.perf_counter()
+    single = Run(make_engine(dev))
+    single_st, single_wall, n_votes = config3_traffic(single, 3)
+    gpu = Run(sharded_engine([torch.device("cuda", 0)] * SHARDS))
+    # The main path of the phase: counts are zeroed just before it.
+    _build.launches.clear()
+    gpu_st, gpu_wall, _ = config3_traffic(gpu, 3)
+    launches = _build.launches[cuda_ingest.KERNEL]
+    per_shard = list(gpu.engine.pool().scan_dispatches)
+    cpu = Run(sharded_engine([torch.device("cpu")] * SHARDS))
+    cpu_st, _, _ = config3_traffic(cpu, 3)
+    runs = {"single GPU pool": single, "sharded CPU pool": cpu}
+    seen = {label: (r.outcome("config3"), r.events_by_session()) for label, r in runs.items()}
+    mine = (gpu.outcome("config3"), gpu.events_by_session())
+    for label, st in (("single GPU pool", single_st), ("sharded CPU pool", cpu_st)):
+        compare(f"sharded config 3 statuses against the {label}", gpu_st, st)
+        compare(f"sharded config 3 results and stats against the {label}", mine[0], seen[label][0])
+        compare(f"sharded config 3 events against the {label}", mine[1], seen[label][1])
+    gpu_pool, cpu_pool = gpu.engine.pool(), cpu.engine.pool()
+    counts = gpu_pool.global_state_counts()
+    compare("sharded global_state_counts against the CPU pool", counts,
+            cpu_pool.global_state_counts())
+    compare("sharded global_state_counts against the single pool", counts,
+            all_state_counts(single.engine.pool()))
+    compare("sharded global_state_counts against the host mirror", counts,
+            all_state_counts(gpu_pool))
+    occupancy = gpu_pool.per_device_occupancy()
+    compare("sharded per_device_occupancy", occupancy, cpu_pool.per_device_occupancy())
+    if sum(occupancy) != 10_000:
+        raise AssertionError(f"sharded occupancy {occupancy} does not hold 10,000 sessions")
+    gpu_arrays, cpu_arrays = pool_to_numpy(gpu_pool)[0], pool_to_numpy(cpu_pool)[0]
+    for name in DEVICE_ARRAYS:
+        if not np.array_equal(gpu_arrays[name], cpu_arrays[name]):
+            raise AssertionError(f"sharded pool array {name}: the card's blocks differ "
+                                 "from the CPU's")
+    if launches == 0 or launches != sum(per_shard) or 0 in per_shard:
+        raise AssertionError(f"sharded config 3: {launches} ingest_scan launches, per shard "
+                             f"{per_shard} (every shard must launch, once a dispatch)")
+    wall = time.perf_counter() - t0
+    log(f"[placement] (a) config 3 on ShardedPool({CAPACITY // SHARDS}, {VOTER_CAPACITY}, "
+        f"mesh=[cuda:0] * {SHARDS}): {n_votes} votes in {gpu_wall:.6f} s = "
+        f"{n_votes / gpu_wall:.1f} votes/s; the single-pool engine {single_wall:.6f} s = "
+        f"{n_votes / single_wall:.1f} votes/s; ingest_scan launches {launches}, per shard "
+        f"{per_shard}; statuses, results, stats, events, global counts {counts}, "
+        f"occupancy {occupancy} equal to the single pool's and the CPU blocks', every "
+        f"pool array equal to the CPU blocks'; {wall:.3f} s")
+    return dict(launches=launches, per_shard=per_shard, votes_per_s=n_votes / gpu_wall,
+                single_votes_per_s=n_votes / single_wall, seconds=wall)
+
+
+def phase_multihost():
+    """(b) The engine worker of tests/test_torch_multihost.py, two processes
+    of one gloo group each holding one block on cuda:0, against the same
+    worker on the CPU; both pairs run at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_multihost as mh
+
+    t0 = time.perf_counter()
+    sides = {"cuda": [], "cpu": []}
+    with ThreadPoolExecutor(2) as pool:
+        futures = {device: pool.submit(mh.run_engine_workers, "port", device, MULTIHOST_SCALE,
+                                       MULTIHOST_TIMEOUT, sides[device])
+                   for device in ("cuda", "cpu")}
+        observed = {device: f.result() for device, f in futures.items()}
+    for rank, (on_card, on_cpu) in enumerate(zip(observed["cuda"], observed["cpu"])):
+        compare(f"multi-host rank {rank}'s observations", on_card, on_cpu)
+    owned = [set(obs["owned"]) for obs in observed["cuda"]]
+    if owned[0] & owned[1] or not owned[0] or not owned[1]:
+        raise AssertionError(f"multi-host owned sets overlap or are empty: {owned}")
+    launches = [side["launches"].get("ingest_scan", 0) for side in sides["cuda"]]
+    dispatches = [side["scan_dispatches"] for side in sides["cuda"]]
+    if 0 in launches or launches != [sum(d) for d in dispatches]:
+        raise AssertionError(f"multi-host ingest_scan launches {launches}, scan dispatches "
+                             f"{dispatches}")
+    if any(side["launches"] for side in sides["cpu"]):
+        raise AssertionError(f"the CPU workers launched kernels: {sides['cpu']}")
+    wall = time.perf_counter() - t0
+    log(f"[placement] (b) two gloo processes, one MultiHostPool block each on cuda:0, "
+        f"{MULTIHOST_SCALE['proposals']} proposals x {MULTIHOST_SCALE['voters']} voters: "
+        f"observations equal to the CPU pair's, rank by rank (created pid "
+        f"{observed['cuda'][0]['created_pid']}, checkpoint digest "
+        f"{observed['cuda'][0]['digest'][:16]}); owned {len(owned[0])} and {len(owned[1])} "
+        f"sessions, disjoint; ingest_scan launches per process {launches} (fresh "
+        f"processes: their counts start at 0); {wall:.3f} s for both pairs at once")
+    return dict(launches=launches, owned=[len(o) for o in owned], seconds=wall)
+
+
+def phase_placement(dev):
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    a = phase_sharded(dev)
+    torch.cuda.empty_cache()
+    b = phase_multihost()
+    log(f"[placement] phase 15 took {time.perf_counter() - t0:.3f} s on {smi}; one card "
+        "checks routing, per-block kernels, summed stats and the gloo control plane, not "
+        "placement across GPUs or NCCL")
+    return dict(a=a, b=b)
+
+
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13", "14",
+          "15")
 
 
 def main() -> int:
@@ -5776,6 +5940,10 @@ def main() -> int:
     if run("14"):
         # Phase 14's counts are zeroed just before each of its steps.
         gossip_sync = phase_gossip_sync(dev)
+    if run("15"):
+        # Phase 15's counts are zeroed just before (a)'s sharded run; (b)'s
+        # workers are fresh processes.
+        placement = phase_placement(dev)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -5823,6 +5991,10 @@ def main() -> int:
     scan_14 = gossip_sync_launches(gossip_sync, "ingest_scan")
     kernels[0].update(launches_gossip=scan_14[0], launches_catchup=scan_14[1],
                       launches_sim=scan_14[2])
+    kernels[0].update(
+        launches_sharded={"total": placement["a"]["launches"],
+                          "per_shard": placement["a"]["per_shard"]},
+        launches_multihost=placement["b"]["launches"])
     crypto = [
         ("fe_mul", "fe_mul.cu", fe_mul_timing,
          "one thread per lane, uint32 columns in registers; decompression's products "

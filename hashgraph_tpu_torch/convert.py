@@ -3,7 +3,10 @@
 :func:`pool_from_numpy` builds a port :class:`ProposalPool` from the arrays
 of a pool of the JAX package, given as numpy (device arrays and host
 mirrors), so traffic that started there can continue on the port.
-:func:`pool_to_numpy` is its inverse. :func:`field_from_numpy` and
+:func:`pool_to_numpy` is its inverse. :func:`sharded_pool_from_numpy`
+does the same for the JAX package's ``ShardedPool``, whose global arrays it
+splits into the port's per-device blocks (:func:`pool_to_numpy`
+concatenates them again, in mesh order). :func:`field_from_numpy` and
 :func:`points_from_numpy` carry field elements and curve points of the
 device verifier across (the JAX package's uint32 limbs to the port's
 int64), with their inverses. :func:`chain_pack_from_numpy` takes the
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .engine.pool import ProposalPool, SlotMeta, resolve_device
+from .engine.pool import ProposalPool, SlotMeta, SlotTensors, resolve_device
 from .ops.chain import CHAIN_FIELDS
 
 # Device arrays: name -> (pool attribute, dtype).
@@ -61,6 +64,30 @@ def _copy(value):
     return value
 
 
+def _fill_rows(rows: SlotTensors, arrays: dict, lo: int, hi: int) -> None:
+    """Set ``rows``' tensors to rows ``[lo, hi)`` of the given arrays."""
+    for name, (attr, dtype) in DEVICE_ARRAYS.items():
+        # torch.tensor copies: the pool never aliases the caller's arrays.
+        setattr(rows, attr, torch.tensor(
+            np.asarray(arrays[name])[lo:hi], dtype=dtype, device=rows.device
+        ))
+
+
+def _fill_host(pool: ProposalPool, arrays: dict, host_meta: dict) -> None:
+    """Check the arrays' rows and set the pool's host mirrors."""
+    for name in DEVICE_ARRAYS:
+        rows = np.asarray(arrays[name]).shape[0]
+        if rows != pool.capacity:
+            raise ValueError(f"{name}: {rows} rows, expected {pool.capacity}")
+    for name, attr in HOST_FIELDS.items():
+        setattr(pool, attr, _copy(host_meta[name]))
+    pool._meta = {
+        int(slot): SlotMeta(key=key, expiry=int(expiry), created_at=int(created))
+        for slot, (key, expiry, created) in host_meta["meta"].items()
+    }
+    pool._inflight = []
+
+
 def pool_from_numpy(arrays: dict, host_meta: dict, device="cuda") -> ProposalPool:
     """A port pool holding exactly the given state.
 
@@ -74,27 +101,49 @@ def pool_from_numpy(arrays: dict, host_meta: dict, device="cuda") -> ProposalPoo
     pool.capacity = int(p)
     pool.voter_capacity = int(v)
     pool.device = resolve_device(device)
-    for name, (attr, dtype) in DEVICE_ARRAYS.items():
-        arr = np.asarray(arrays[name])
-        if arr.shape[0] != p:
-            raise ValueError(f"{name}: {arr.shape[0]} rows, expected {p}")
-        # torch.tensor copies: the pool never aliases the caller's arrays.
-        setattr(pool, attr, torch.tensor(arr, dtype=dtype, device=pool.device))
-    for name, attr in HOST_FIELDS.items():
-        setattr(pool, attr, _copy(host_meta[name]))
-    pool._meta = {
-        int(slot): SlotMeta(key=key, expiry=int(expiry), created_at=int(created))
-        for slot, (key, expiry, created) in host_meta["meta"].items()
-    }
-    pool._inflight = []
+    _fill_host(pool, arrays, host_meta)
+    _fill_rows(pool, arrays, 0, pool.capacity)
+    return pool
+
+
+def sharded_pool_from_numpy(arrays: dict, host_meta: dict, mesh) -> "ShardedPool":
+    """A port :class:`~.parallel.ShardedPool` holding exactly the state of
+    a JAX ``ShardedPool``: ``arrays`` are its global arrays (``np.asarray``
+    of each sharded array, in global slot order), split here into one block
+    a mesh entry; ``host_meta`` as :func:`pool_from_numpy` takes it (the
+    round-robin free list included). The capacity must divide evenly over
+    the mesh."""
+    from .parallel.sharded import ShardedPool
+
+    p, v = np.asarray(arrays["vote_mask"]).shape
+    mesh = [resolve_device(d) for d in mesh]
+    if not mesh or p % len(mesh):
+        raise ValueError(f"{p} slots do not split over a mesh of {len(mesh)}")
+    pool = ShardedPool.__new__(ShardedPool)
+    pool.mesh = mesh
+    pool.n_devices = len(mesh)
+    pool.local_capacity = p // len(mesh)
+    pool.scan_dispatches = [0] * len(mesh)
+    pool.capacity = int(p)
+    pool.voter_capacity = int(v)
+    pool.device = mesh[0]
+    _fill_host(pool, arrays, host_meta)
+    pool._blocks = []
+    for d, device in enumerate(mesh):
+        block = SlotTensors.__new__(SlotTensors)
+        block.capacity, block.voter_capacity, block.device = pool.local_capacity, int(v), device
+        _fill_rows(block, arrays, d * pool.local_capacity, (d + 1) * pool.local_capacity)
+        pool._blocks.append(block)
     return pool
 
 
 def pool_to_numpy(pool: ProposalPool) -> tuple[dict, dict]:
     """``(arrays, host_meta)`` of a port pool, in the form
-    :func:`pool_from_numpy` takes."""
+    :func:`pool_from_numpy` takes; a sharded pool's blocks are
+    concatenated in mesh order (global slot order)."""
+    blocks = getattr(pool, "_blocks", [pool])
     arrays = {
-        name: getattr(pool, attr).cpu().numpy()
+        name: np.concatenate([getattr(b, attr).cpu().numpy() for b in blocks])
         for name, (attr, _) in DEVICE_ARRAYS.items()
     }
     host_meta = {name: _copy(getattr(pool, attr)) for name, attr in HOST_FIELDS.items()}

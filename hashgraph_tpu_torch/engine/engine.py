@@ -54,9 +54,19 @@ timeouts. Read them through :meth:`health_report`,
 :meth:`trace_context_of`, :meth:`adaptive_timeout` and
 :meth:`adaptive_timeout_snapshot`.
 
-Not ported yet (the JAX engine has them): multi-host pools (and so
-``deliver_proposals``' SESSION_NOT_FOUND misroute branch, the wire path's
-non-local rows and the tier's multi-host refusal).
+The engine runs on any pool the caller passes (``pool=``): a
+:class:`~..parallel.ShardedPool` over several devices, or a
+:class:`~..parallel.MultiHostPool` across the processes of a gloo group.
+On a multi-host pool the engine runs SPMD, as the JAX engine does:
+control-plane calls (create and process proposals, ``delete_scope``,
+timeouts) are replicated with identical arguments on every process and
+mint identical proposal ids; each process ingests votes for its own slots
+only (a vote for another process's session reports SESSION_NOT_FOUND,
+before validation, and :meth:`is_local` says where to route it); every
+ingest call joins the fleet's agreed dispatch cadence, empty ones
+included; and each event is emitted by exactly one process. Session
+tiering is refused there (:meth:`demote_session` raises,
+:meth:`lifecycle_sweep` does nothing).
 """
 
 from __future__ import annotations
@@ -162,6 +172,28 @@ from .verify_cache import MISS, VerifiedVoteCache
 Scope = TypeVar("Scope", bound=Hashable)
 
 _U32_MAX = 0xFFFFFFFF
+
+
+def _canonical_scope_bytes(scope) -> bytes:
+    """Process-independent byte encoding of a scope for the multi-host
+    deterministic pid derivation. repr() is NOT safe here: the default
+    object repr embeds a memory address, which would silently de-sync the
+    replicated control plane — the exact failure deterministic pids exist
+    to prevent — so non-canonical scope types are a hard error in
+    multi-host mode."""
+    if isinstance(scope, str):
+        return b"s:" + scope.encode()
+    if isinstance(scope, (bytes, bytearray)):
+        return b"b:" + bytes(scope)
+    if isinstance(scope, int):
+        # int(scope) so bool encodes identically to the int it equals
+        # (True and 1 are the same dict key, so they are the same scope).
+        return b"i:" + str(int(scope)).encode()
+    raise TypeError(
+        f"multi-host mode requires str/bytes/int scopes (canonical "
+        f"cross-process encoding); got {type(scope).__name__}"
+    )
+
 
 __all__ = [
     "ConsensusStats",
@@ -333,10 +365,14 @@ class TorchConsensusEngine(Generic[Scope]):
     state on one device.
 
     Capacity is fixed at construction: ``capacity`` concurrent sessions
-    across all scopes, ``voter_capacity`` voter lanes per proposal.
-    ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
-    ``device="cpu"`` to run on the CPU, where the scan runs its plain
-    PyTorch version. ``verify_cache`` is ``"default"`` (a cache of this
+    across all scopes (default 4096), ``voter_capacity`` voter lanes per
+    proposal (default 64). ``device`` defaults to ``"cuda"`` and raises
+    without a GPU; pass ``device="cpu"`` to run on the CPU, where the scan
+    runs its plain PyTorch version. ``pool`` injects a pool instead (a
+    :class:`~..parallel.ShardedPool` or
+    :class:`~..parallel.MultiHostPool`): its geometry and device win, so
+    it is passed instead of ``capacity`` and ``voter_capacity``.
+    ``verify_cache`` is ``"default"`` (a cache of this
     engine's own), a :class:`VerifiedVoteCache` to share between engines,
     or ``None`` for the uncached admission flow. ``health_monitor`` is the
     :class:`~..obs.health.HealthMonitor` that scores this engine's peers
@@ -346,13 +382,14 @@ class TorchConsensusEngine(Generic[Scope]):
     def __init__(
         self,
         signer: ConsensusSignatureScheme,
-        capacity: int,
-        voter_capacity: int,
+        capacity: int | None = None,
+        voter_capacity: int | None = None,
         event_bus: ConsensusEventBus[Scope] | None = None,
         max_sessions_per_scope: int = DEFAULT_MAX_SESSIONS_PER_SCOPE,
         device="cuda",
         verify_cache: "VerifiedVoteCache | None | str" = "default",
         health_monitor: "HealthMonitor | None" = None,
+        pool: ProposalPool | None = None,
     ):
         self._signer = signer
         # Per-peer health accounting (scorecards, equivocation and fork
@@ -377,8 +414,33 @@ class TorchConsensusEngine(Generic[Scope]):
         self._event_bus: ConsensusEventBus[Scope] = (
             event_bus if event_bus is not None else BroadcastEventBus()
         )
-        self._pool = ProposalPool(capacity, voter_capacity, device=device)
+        # An injected pool (a ShardedPool over a device mesh, a
+        # MultiHostPool across processes) swaps the execution substrate
+        # without touching engine semantics.
+        if pool is not None:
+            if capacity is not None or voter_capacity is not None:
+                raise ValueError(
+                    "pass capacity/voter_capacity OR an explicit pool, not "
+                    "both (the pool's own geometry wins)"
+                )
+            self._pool = pool
+        else:
+            self._pool = ProposalPool(
+                capacity if capacity is not None else 4096,
+                voter_capacity if voter_capacity is not None else 64,
+                device=device,
+            )
         self._max_sessions_per_scope = max_sessions_per_scope
+        # Multi-host awareness: a pool exposing local_slots() splits the
+        # slot axis across the processes of a gloo group
+        # (parallel.MultiHostPool). The engine then runs SPMD: control-plane
+        # calls replicated with IDENTICAL arguments on every process, vote
+        # ingest process-local, and every event emitted by exactly one
+        # owning process (see _owns_slot).
+        self._multihost = hasattr(self._pool, "local_slots")
+        self._process_zero = (
+            self._pool.process_index == 0 if self._multihost else True
+        )
         self.tracer = default_tracer
         # Distributed-trace peer label: this engine's spans carry its
         # signer identity.
@@ -550,13 +612,7 @@ class TorchConsensusEngine(Generic[Scope]):
         (reference: src/service.rs:183-209)."""
         wall0 = time.time()
         proposal = request.into_proposal(now)
-        # A demoted session still holds its id.
-        collisions = regenerate_until_unique(
-            proposal,
-            lambda pid: (scope, pid) in self._index or self._tier_has(scope, pid),
-        )
-        if collisions:
-            self.tracer.count("engine.pid_collisions", collisions)
+        self._ensure_unique_pid(scope, proposal)
         validate_proposal_timestamp(proposal.expiration_timestamp, now)
         resolved = self._resolve_config(scope, config, proposal)
         record = self._register(scope, proposal, resolved, now)
@@ -616,6 +672,64 @@ class TorchConsensusEngine(Generic[Scope]):
             self._adaptive.on_decided(
                 tl.scope, cfg, slo_engine.observed_p99(tl.scope)
             )
+
+    def _ensure_unique_pid(
+        self, scope: Scope, proposal: Proposal, taken: set[int] | None = None
+    ) -> None:
+        """Collision-proof a locally generated proposal id against live
+        and demoted sessions in this scope and (for batch creation) earlier
+        proposals of the same batch (protocol.regenerate_until_unique).
+
+        Multi-host: random ids would differ per process and silently
+        de-sync the replicated control plane, so the id is derived
+        deterministically from the proposal's content plus the
+        (replicated) per-scope population — identical create_proposal
+        calls then mint the identical pid on every process.
+        """
+        if self._multihost:
+            taken_set = taken or set()
+            seq = len(self._scopes.get(scope, []))
+            salt = 0
+            while True:
+                digest = hashlib.sha256(
+                    b"|".join(
+                        [
+                            _canonical_scope_bytes(scope),
+                            proposal.name.encode(),
+                            proposal.payload,
+                            proposal.proposal_owner,
+                            str(
+                                (
+                                    proposal.expected_voters_count,
+                                    proposal.timestamp,
+                                    seq,
+                                    salt,
+                                )
+                            ).encode(),
+                        ]
+                    )
+                ).digest()
+                pid = int.from_bytes(digest[:4], "little") ^ int.from_bytes(
+                    digest[4:8], "little"
+                )
+                if (
+                    pid
+                    and (scope, pid) not in self._index
+                    and not self._tier_has(scope, pid)
+                    and pid not in taken_set
+                ):
+                    proposal.proposal_id = pid
+                    return
+                salt += 1
+                self.tracer.count("engine.pid_collisions")
+        collisions = regenerate_until_unique(
+            proposal,
+            lambda pid: (scope, pid) in self._index
+            or self._tier_has(scope, pid)
+            or (taken is not None and pid in taken),
+        )
+        if collisions:
+            self.tracer.count("engine.pid_collisions", collisions)
 
     def _draw_unique_pids(self, existing: np.ndarray, count: int) -> np.ndarray:
         """Batch id draw: one urandom read, vectorized collision rejection
@@ -678,28 +792,38 @@ class TorchConsensusEngine(Generic[Scope]):
             if len(self._scopes.get(scope, [])) + len(self._tier.get(scope, ()))
             + len(requests) <= self._max_sessions_per_scope
         ]
-        # One id draw for the whole call, checked against the union of the
-        # batched scopes' live and demoted pids and sliced per scope.
+        # Single-host: one id draw for the whole call, checked against the
+        # union of the batched scopes' live and demoted pids and sliced per
+        # scope. Multi-host: the deterministic per-proposal derivation
+        # (_ensure_unique_pid).
         total = sum(len(items[i][1]) for i in batched)
         all_ids = (
             self._draw_unique_pids(
                 np.concatenate([self._taken_pids(items[i][0]) for i in batched]),
                 total,
             )
-            if total
-            else np.zeros(0, np.int64)
+            if total and not self._multihost
+            else None
         )
         entries: list[tuple[Scope, Proposal, ConsensusConfig]] = []
         spans: dict[int, tuple[int, int]] = {}
         for i in batched:
             scope, requests = items[i]
-            ids = all_ids[len(entries):len(entries) + len(requests)]
+            ids = (
+                all_ids[len(entries):len(entries) + len(requests)].tolist()
+                if all_ids is not None
+                else [None] * len(requests)
+            )
             spans[i] = (len(entries), len(requests))
+            batch_pids: set[int] = set()
             # Config resolution is identical for requests sharing
             # (expiration, liveness) when no per-proposal override exists.
             cfg_cache: dict = {}
-            for request, pid in zip(requests, ids.tolist()):
+            for request, pid in zip(requests, ids):
                 proposal = request.into_proposal(now, pid=pid)
+                if pid is None:
+                    self._ensure_unique_pid(scope, proposal, taken=batch_pids)
+                    batch_pids.add(proposal.proposal_id)
                 validate_proposal_timestamp(proposal.expiration_timestamp, now)
                 key = (proposal.expiration_timestamp, proposal.liveness_criteria_yes)
                 resolved = cfg_cache.get(key)
@@ -919,7 +1043,7 @@ class TorchConsensusEngine(Generic[Scope]):
             computed_hashes=ch,
         )
         # Event before save, as in the reference (src/service.rs:275-277).
-        if transition.is_reached:
+        if transition.is_reached and self._owns_replicated_event():
             self._emit(
                 scope,
                 ConsensusReached(
@@ -1082,7 +1206,7 @@ class TorchConsensusEngine(Generic[Scope]):
                     chain_error=chain_error,
                     computed_hashes=ch,
                 )
-                if transition.is_reached:
+                if transition.is_reached and self._owns_replicated_event():
                     self._emit(
                         scope,
                         ConsensusReached(
@@ -1179,6 +1303,12 @@ class TorchConsensusEngine(Generic[Scope]):
                 run_keys.add(key)
                 continue
             record = self._records[slot]
+            if self._misrouted(record):
+                # Rejected BEFORE validation: the relay routes on this
+                # status, and a misrouted-but-invalid delivery must look
+                # the same as a misrouted-valid one.
+                statuses[k] = int(StatusCode.SESSION_NOT_FOUND)
+                continue
             if k in verified:
                 suffix, verdicts = verified[k]
             else:
@@ -1299,8 +1429,8 @@ class TorchConsensusEngine(Generic[Scope]):
                     warm.extend(proposal.votes)
                 continue
             record = self._records[slot]
-            if now >= record.proposal.expiration_timestamp:
-                continue  # expired: no signature work
+            if now >= record.proposal.expiration_timestamp or self._misrouted(record):
+                continue  # expired or another process's: no signature work
             suffix = self._extension_suffix(record, proposal)
             if suffix:
                 plan.append((k, suffix))
@@ -1587,7 +1717,10 @@ class TorchConsensusEngine(Generic[Scope]):
             return None
         idxs = [
             i for i, (scope, vote) in enumerate(items)
-            if (scope, vote.proposal_id) in self._index
+            if (
+                (slot := self._index.get((scope, vote.proposal_id))) is not None
+                and (slot < 0 or self._owns_slot(slot))  # skip misrouted rows
+            )
             or self._tier_has(scope, vote.proposal_id)
         ]
         if not idxs:
@@ -1659,6 +1792,7 @@ class TorchConsensusEngine(Generic[Scope]):
         events: list[tuple[int, Scope, ConsensusEvent]] = []
         host_accepted = 0
         host_transitions = 0
+        host_owned_transitions = 0
         # Per-signer admissions accumulate into one dict, flushed in one
         # monitor call (_flush_vote_health): the hot path pays dict stores.
         admit_counts: dict[bytes, int] = {}
@@ -1691,6 +1825,12 @@ class TorchConsensusEngine(Generic[Scope]):
                     statuses[i] = int(StatusCode.SESSION_NOT_FOUND)
                     continue
             record = self._records[slot]
+            if self._misrouted(record):
+                # Misrouted vote, rejected BEFORE validation: the relay
+                # routes on this status, and a misrouted-but-invalid vote
+                # must look the same as a misrouted-valid one.
+                statuses[i] = int(StatusCode.SESSION_NOT_FOUND)
+                continue
             if not pre_validated:
                 try:
                     validate_vote(
@@ -1769,8 +1909,13 @@ class TorchConsensusEngine(Generic[Scope]):
                         )
                 if was_active and not record.session.state.is_active:
                     host_transitions += 1
+                    # Host-spilled sessions are replicated on every
+                    # process: decision metrics are ownership-gated like
+                    # events so a fleet-wide sum counts each decision once.
+                    owned = self._owns_slot(slot)
+                    host_owned_transitions += owned
                     outcome = _OUTCOME_OF_STATE[state_code_of(record.session.state)]
-                    self._timelines.decided(slot, outcome, now, wall)
+                    self._timelines.decided(slot, outcome, now, wall, observe=owned)
                     if trace_store.enabled and record.trace is not None:
                         trace_store.instant(
                             "consensus.decided",
@@ -1778,7 +1923,7 @@ class TorchConsensusEngine(Generic[Scope]):
                             peer=self._trace_peer,
                             attrs={"outcome": outcome},
                         )
-                if event is not None:
+                if event is not None and self._owns_slot(slot):
                     events.append((i, scope, event))
                 continue
             lane = self._pool.lane_for(slot, vote.vote_owner)
@@ -1791,10 +1936,17 @@ class TorchConsensusEngine(Generic[Scope]):
             dev_rows.append(i)
 
         if not dev_rows:
+            if self._multihost:
+                # Collective cadence: the other processes' batches join the
+                # same collective dispatch, so an empty one still does.
+                self._pool.ingest(
+                    np.empty(0, np.int64), np.empty(0, np.int32),
+                    np.empty(0, bool), now,
+                )
             self.tracer.count("engine.votes_accepted", host_accepted)
             self.tracer.count("engine.transitions", host_transitions)
             self._m_votes_accepted.inc(host_accepted)
-            self._m_decisions.inc(host_transitions)
+            self._m_decisions.inc(host_owned_transitions)
             for _, ev_scope, event in events:
                 self._emit(ev_scope, event)
             self._flush_vote_health(
@@ -1817,7 +1969,10 @@ class TorchConsensusEngine(Generic[Scope]):
         self.tracer.count("engine.votes_accepted", accepted)
         self.tracer.count("engine.transitions", len(transitions) + host_transitions)
         self._m_votes_accepted.inc(accepted)
-        self._m_decisions.inc(len(transitions) + host_transitions)
+        # Device transitions are local by construction (misrouted votes
+        # were rejected before the dispatch); host-spilled ones were
+        # ownership-filtered above.
+        self._m_decisions.inc(len(transitions) + host_owned_transitions)
         for slot, new_state in transitions:
             outcome = _OUTCOME_OF_STATE.get(new_state)
             if outcome is not None:
@@ -2026,8 +2181,10 @@ class TorchConsensusEngine(Generic[Scope]):
         proposal_ids = np.asarray(proposal_ids, np.int64)
         voter_gids = np.asarray(voter_gids, np.int64)
         values = np.asarray(values, bool)
-        wire_norm, statuses = self._columnar_preamble(len(proposal_ids), wire_votes)
-        if len(proposal_ids) == 0:
+        wire_norm, statuses, done = self._columnar_preamble(
+            len(proposal_ids), wire_votes
+        )
+        if done:
             return statuses
         found, slots = self._pid_lookup(scope).lookup(proposal_ids)
         if self._promote_columnar_misses([scope], None, proposal_ids, found):
@@ -2056,8 +2213,10 @@ class TorchConsensusEngine(Generic[Scope]):
         scope_idx = np.asarray(scope_idx, np.int64)
         voter_gids = np.asarray(voter_gids, np.int64)
         values = np.asarray(values, bool)
-        wire_norm, statuses = self._columnar_preamble(len(proposal_ids), wire_votes)
-        if len(proposal_ids) == 0:
+        wire_norm, statuses, done = self._columnar_preamble(
+            len(proposal_ids), wire_votes
+        )
+        if done:
             return statuses
         found, slots = self._resolve_slots_multi(scopes, scope_idx, proposal_ids)
         return self._columnar_finish(
@@ -2066,10 +2225,13 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def _columnar_preamble(
         self, batch: int, wire_votes
-    ) -> "tuple[tuple[np.ndarray, np.ndarray] | None, np.ndarray]":
+    ) -> "tuple[tuple[np.ndarray, np.ndarray] | None, np.ndarray, bool]":
         """The columnar paths' entry: ``wire_votes`` normalized before any
         state mutates (a malformed argument fails the call instead of
-        stranding applied votes without their bytes), and the statuses."""
+        stranding applied votes without their bytes), the statuses, and a
+        ``done`` flag that short-circuits empty single-host batches.
+        Multi-host must NOT short-circuit: an empty local batch still joins
+        the fleet's agreed dispatch cadence (:meth:`_columnar_apply`)."""
         wire_norm = (
             self._normalize_wire(wire_votes, batch) if wire_votes is not None else None
         )
@@ -2078,7 +2240,8 @@ class TorchConsensusEngine(Generic[Scope]):
             self._m_votes_total.inc(batch)
             self._m_batch_size.observe(batch)
             flight_recorder.record("engine.ingest_columnar", votes=batch)
-        return wire_norm, np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
+        statuses = np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
+        return wire_norm, statuses, batch == 0 and not self._multihost
 
     def _resolve_slots_multi(
         self, scopes: list, scope_idx: np.ndarray, proposal_ids: np.ndarray
@@ -2370,10 +2533,16 @@ class TorchConsensusEngine(Generic[Scope]):
             self._m_wire_apply_rows.inc(batch)
             flight_recorder.record("engine.ingest_wire_columnar", votes=batch)
         statuses = np.full(batch, int(StatusCode.SESSION_NOT_FOUND), np.int32)
-        if batch == 0:
+        if batch == 0 and not self._multihost:
             return statuses
         pids = np.ascontiguousarray(cols[:, C.COL_PID])
         found, slots = self._resolve_slots_multi(scopes, scope_idx, pids)
+        if self._multihost:
+            # Misrouted rows reject BEFORE validation (SESSION_NOT_FOUND),
+            # mirroring ingest_votes' precedence: the relay routes on this
+            # status and a misrouted-but-invalid vote must look the same
+            # as a misrouted-valid one.
+            found &= ~self._non_local(found, slots)
         t0 = time.monotonic()
         prepass = (
             _prepass
@@ -2674,6 +2843,17 @@ class TorchConsensusEngine(Generic[Scope]):
         """Slot-resolved columnar pipeline: gid filter, lane resolution,
         the dispatch plan (fresh or segmented scan), round bookkeeping and
         event emission."""
+        if self._multihost:
+            # Misrouted rows (device slots another process owns) report the
+            # session as not found on this host; the relay routes by
+            # is_local(). Host-spilled rows (slots < 0) are replicated
+            # control-plane state and apply everywhere. This runs BEFORE the
+            # gid check: a misrouted voter is typically not interned here,
+            # and the relay must see the routing status, not an identity one.
+            non_local = self._non_local(found, slots)
+            if non_local.any():
+                statuses[non_local] = int(StatusCode.SESSION_NOT_FOUND)
+                found = found & ~non_local
         # Gids must be LIVE current-generation identities: out-of-range,
         # freed and stale-generation ids get a typed per-row status.
         bad_gid = ~self._pool.gids_live(voter_gids)
@@ -2702,29 +2882,36 @@ class TorchConsensusEngine(Generic[Scope]):
                     "engine.votes_accepted", int(code == int(StatusCode.OK))
                 )
                 if was_active and not record.session.state.is_active:
+                    # Ownership-gated like events: host-spilled sessions are
+                    # replicated fleet-wide, decision metrics must not be.
+                    owned = self._owns_slot(slot)
                     self._timelines.decided(
                         slot,
                         _OUTCOME_OF_STATE[state_code_of(record.session.state)],
                         now,
                         wall,
+                        observe=owned,
                     )
-                    self._m_decisions.inc()
+                    if owned:
+                        self._m_decisions.inc()
                 self.tracer.count(
                     "engine.transitions",
                     int(was_active and not record.session.state.is_active),
                 )
-                if event is not None:
+                if event is not None and self._owns_slot(slot):
                     self._emit(record.scope, event)
             found = found & ~host_rows
         dev_rows = np.nonzero(found)[0]
-        if dev_rows.size == 0:
+        # Multi-host: an empty local batch still takes part in the fleet's
+        # plan and dispatch-count agreement below.
+        if dev_rows.size == 0 and not self._multihost:
             return statuses
 
         def _group(s_sorted: np.ndarray):
             b = len(s_sorted)
-            is_start = np.empty(b, bool)
-            is_start[0] = True
-            np.not_equal(s_sorted[1:], s_sorted[:-1], out=is_start[1:])
+            is_start = np.ones(b, bool)
+            if b:
+                np.not_equal(s_sorted[1:], s_sorted[:-1], out=is_start[1:])
             starts_idx = np.nonzero(is_start)[0]
             grp = np.cumsum(is_start) - 1
             col = np.arange(b) - starts_idx[grp]
@@ -2772,7 +2959,7 @@ class TorchConsensusEngine(Generic[Scope]):
             sel = sel[keep]
             s_sorted = s_sorted[keep]
             lanes_sorted = lanes_sorted[keep]
-            if len(order) == 0:
+            if len(order) == 0 and not self._multihost:
                 return statuses
             uniq, starts_idx, grp_sorted, col_sorted, counts = _group(s_sorted)
         vals_sorted = values[sel]
@@ -2786,12 +2973,29 @@ class TorchConsensusEngine(Generic[Scope]):
         # one hot row far deeper than the rest — bounded-depth scan segments
         # (segment k holds votes [k*D, (k+1)*D) of every slot, D=max_depth).
         segs: list[tuple] = []  # (uniq_k, rows_k, cols_k, depth_k, idx_k, fresh)
-        depth = int(counts.max())
+        depth = int(counts.max()) if len(order) else 0
         everything = np.arange(len(order), dtype=np.int64)
-        if fast_lanes and self._pool.fresh_ingest_viable(uniq, depth, len(order)):
+        use_fresh = (
+            fast_lanes
+            and len(order) > 0
+            and self._pool.fresh_ingest_viable(uniq, depth, len(order))
+        )
+        fleet_fresh = False
+        if self._multihost:
+            # Fleet agreement on the dispatch PLAN, not just the count: the
+            # path is fresh only when EVERY process votes yes (an empty
+            # local batch votes yes if its pool supports the kernel — it
+            # then dispatches one empty fresh call to hold the collective
+            # cadence), AND the fleet-max grid shapes fit the cell budget.
+            use_fresh = fleet_fresh = self._agree_fresh_plan(
+                use_fresh or len(order) == 0, len(uniq), depth
+            )
+            if use_fresh and len(order) == 0:
+                segs.append((uniq, grp_sorted, col_sorted, 0, everything, True))
+        if use_fresh and len(order) > 0:
             self.tracer.count("engine.fresh_dispatches")
             segs.append((uniq, grp_sorted, col_sorted, depth, everything, True))
-        elif depth > max_depth and not self._pool.grid_within_budget(
+        elif len(order) and depth > max_depth and not self._pool.grid_within_budget(
             len(uniq), depth, len(order)
         ):
             d = max_depth
@@ -2808,8 +3012,18 @@ class TorchConsensusEngine(Generic[Scope]):
                     np.arange(int(seg_mask.sum()), dtype=np.int64), g_lens
                 )
                 segs.append((uniq[seg_mask], rows_k, local, d, idx_k, False))
-        else:
+        elif len(order):
             segs.append((uniq, grp_sorted, col_sorted, depth, everything, False))
+        if self._multihost and not fleet_fresh:
+            # Collective cadence for the scan plan: every process issues
+            # the same number of dispatches this call, empty ones included.
+            # (The fresh plan is exactly one dispatch per process by
+            # construction, so it needs no second collective.)
+            empty = np.empty(0, np.int64)
+            for _ in range(self._agree_dispatch_count(len(segs)) - len(segs)):
+                segs.append((empty, empty, empty, 0, empty, False))
+        if not segs:
+            return statuses
 
         pendings = []
         orig_of = []  # statuses rows per pending, in dispatch item order
@@ -3019,6 +3233,7 @@ class TorchConsensusEngine(Generic[Scope]):
         # has stopped: the liveness watchdog measures silence against it.
         self.health.tick(now)
         record = self._records[slot]
+        owned = self._owns_slot(slot)
         was_active = self._state_code(record) == STATE_ACTIVE
         if was_active:
             # A fired timeout is the session's deciding activity.
@@ -3026,20 +3241,33 @@ class TorchConsensusEngine(Generic[Scope]):
         if record.session is not None:
             new_state = self._host_timeout(record)
         else:
-            [(_, new_state)] = self._pool.timeout([slot])
-        if was_active:
-            # Only timeouts that fired count: the call is idempotent for
-            # decided sessions, and polls must not inflate the counter.
+            transitions = self._pool.timeout([slot])
+            if transitions:
+                [(_, new_state)] = transitions
+            else:
+                # Multi-host collective: this process joined the dispatch
+                # but another process owns the slot; pool.timeout synced the
+                # state mirror, so the result is readable (and the owner
+                # emits the event).
+                new_state = self._pool.state_of(slot)
+        if was_active and owned:
+            # Only timeouts that fired count, on the owning process only:
+            # the call is idempotent for decided sessions (polls must not
+            # inflate the counter), and a multi-host fleet's metrics sum
+            # must report one firing.
             self._m_timeouts.inc()
-            if self._health_live:
-                # A fired timeout backs off the scope's learned timeout.
-                self._adaptive.on_timeout(scope, self._scope_configs.get(scope))
+        if was_active and self._health_live:
+            # A fired timeout backs off the scope's learned timeout
+            # (ownership-independent: each process keeps its own book).
+            self._adaptive.on_timeout(scope, self._scope_configs.get(scope))
         outcome = _OUTCOME_OF_STATE.get(new_state)
         if outcome is not None:
             # The store ignores a second outcome for a session decided by
-            # votes.
+            # votes; the latency observation is ownership-gated like
+            # events, the timeline stamp is not.
             self._timelines.decided(
-                slot, outcome, now, time.monotonic(), by_timeout=True
+                slot, outcome, now, time.monotonic(), by_timeout=True,
+                observe=owned,
             )
             if trace_store.enabled and was_active and record.trace is not None:
                 trace_store.instant(
@@ -3050,12 +3278,18 @@ class TorchConsensusEngine(Generic[Scope]):
                 )
         if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
             result = new_state == STATE_REACHED_YES
-            self._emit(
-                scope,
-                ConsensusReached(proposal_id=proposal_id, result=result, timestamp=now),
-            )
+            if owned:
+                self._emit(
+                    scope,
+                    ConsensusReached(
+                        proposal_id=proposal_id, result=result, timestamp=now
+                    ),
+                )
             return result
-        self._emit(scope, ConsensusFailedEvent(proposal_id=proposal_id, timestamp=now))
+        if owned:
+            self._emit(
+                scope, ConsensusFailedEvent(proposal_id=proposal_id, timestamp=now)
+            )
         raise InsufficientVotesAtTimeout()
 
     def sweep_timeouts(
@@ -3070,7 +3304,14 @@ class TorchConsensusEngine(Generic[Scope]):
         Expired active sessions in the tier are paged in first and fire
         like live ones. The sweep ends with :meth:`lifecycle_sweep` at
         ``now``; ``_gc_sink`` (private, the durable wrapper's) collects the
-        (scope, proposal_id) keys it garbage-collects."""
+        (scope, proposal_id) keys it garbage-collects.
+
+        Multi-host: collective (same cadence everywhere). The state mirror
+        is synced first so every process computes the IDENTICAL expired
+        set (remote slots' mirrored states lag between collectives), and
+        each process returns and emits only the sessions it owns."""
+        if self._multihost:
+            self._pool.sync_states()
         self._promote_expired_tier(now)
         expired: list[int] = []
         host_expired: list[int] = []
@@ -3094,14 +3335,19 @@ class TorchConsensusEngine(Generic[Scope]):
                 "engine.sweep", fired=len(expired) + len(host_expired)
             )
         wall = time.monotonic()
-        # Pooled sessions in one dispatch, then the host-spilled ones, in
-        # the JAX engine's order.
-        swept = self._pool.timeout(expired) + [
-            (slot, self._host_timeout(self._records[slot])) for slot in host_expired
+        # Pooled sessions in one dispatch (collective on a multi-host pool,
+        # which returns this process's slots only), then the host-spilled
+        # ones, in the JAX engine's order. Host-spilled sessions advance on
+        # every process, but their events and results belong to process 0.
+        swept = [(slot, st, True) for slot, st in self._pool.timeout(expired)] + [
+            (slot, self._host_timeout(self._records[slot]), self._owns_slot(slot))
+            for slot in host_expired
         ]
-        self._m_timeouts.inc(len(swept))
+        # Fired count and latency observations are ownership-gated like
+        # events: a fleet's metrics sum reports each swept session once.
+        self._m_timeouts.inc(sum(1 for _, _, owned in swept if owned))
         out: list[tuple[Scope, int, bool | None]] = []
-        for slot, new_state in swept:
+        for slot, new_state, owned in swept:
             record = self._records[slot]
             record.last_activity = now  # the fired timeout (the GC TTL's start)
             if self._health_live:
@@ -3110,7 +3356,9 @@ class TorchConsensusEngine(Generic[Scope]):
                 )
             outcome = _OUTCOME_OF_STATE.get(new_state)
             if outcome is not None:
-                self._timelines.decided(slot, outcome, now, wall, by_timeout=True)
+                self._timelines.decided(
+                    slot, outcome, now, wall, by_timeout=True, observe=owned
+                )
                 if trace_store.enabled and record.trace is not None:
                     trace_store.instant(
                         "consensus.timeout_decided",
@@ -3118,6 +3366,8 @@ class TorchConsensusEngine(Generic[Scope]):
                         peer=self._trace_peer,
                         attrs={"outcome": outcome},
                     )
+            if not owned:
+                continue
             pid = record.proposal.proposal_id
             if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
                 result = new_state == STATE_REACHED_YES
@@ -3566,7 +3816,11 @@ class TorchConsensusEngine(Generic[Scope]):
         """Move one session out of its pool slot or host record into the
         tier. Idempotent: False when already demoted. Raises
         SessionNotFound for an unknown session. Any read or late vote
-        pages it back in."""
+        pages it back in. Refused on a multi-host pool."""
+        if self._multihost:
+            raise RuntimeError(
+                "session tiering is not supported on multi-host pools"
+            )
         if self._tier_has(scope, proposal_id):
             return False
         slot = self._index.get((scope, proposal_id))
@@ -3771,10 +4025,12 @@ class TorchConsensusEngine(Generic[Scope]):
         DurableEngine logs them as the KIND_GC record. Under
         :meth:`set_replay_mode` the sweep does nothing: the TTLs ride idle
         clocks a restore does not carry, so recovery applies the logged
-        outcome (:meth:`gc_sessions`) instead of deciding again."""
+        outcome (:meth:`gc_sessions`) instead of deciding again. On a
+        multi-host pool it does nothing either: the control plane is
+        replicated, and tiering is refused there."""
         out = {"demoted": 0, "gc_live": 0, "gc_tier": 0}
-        if not self._lifecycle_live:
-            return out
+        if self._multihost or not self._lifecycle_live:
+            return out  # replicated control plane / WAL replay
         records = self._records
         for scope, config in list(self._scope_configs.items()):
             demote_after = config.demote_after
@@ -4026,6 +4282,76 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def _emit(self, scope: Scope, event: ConsensusEvent) -> None:
         self._event_bus.publish(scope, event)
+
+    # ── Multi-host ownership (parallel/multihost.py contract) ──────────
+
+    def _owns_replicated_event(self) -> bool:
+        """Events arising from replicated, not-slot-owned work — proposal
+        loads and host-spilled sessions — are emitted by process 0 only in
+        multi-host mode, so a fleet of engine front-ends never
+        double-publishes."""
+        return self._process_zero
+
+    def _owns_slot(self, slot: int) -> bool:
+        """EVENT-emission ownership of one session. Single-host pools own
+        everything. On a multi-host pool a device slot belongs to the
+        process whose local range holds it; host-spilled sessions
+        (replicated on every process) belong to process 0."""
+        if not self._multihost:
+            return True
+        if slot < 0:
+            return self._process_zero
+        lo, hi = self._pool.local_slots()
+        return lo <= slot < hi
+
+    def _misrouted(self, record: SessionRecord[Scope]) -> bool:
+        """A device-pooled session another process owns: its votes and
+        deliveries report SESSION_NOT_FOUND here, before validation."""
+        return (
+            self._multihost
+            and record.session is None
+            and not self._owns_slot(record.slot)
+        )
+
+    def _non_local(self, found: np.ndarray, slots: np.ndarray) -> np.ndarray:
+        """Columnar rows whose device slot another process owns."""
+        lo, hi = self._pool.local_slots()
+        return found & (slots >= 0) & ((slots < lo) | (slots >= hi))
+
+    def _agree_fresh_plan(self, fresh_ok: bool, s_count: int, depth: int) -> bool:
+        """Multi-host columnar plan: the closed-form path is taken only when
+        every process votes for it and the fleet-max grid fits the pool's
+        cell budget (one all-gather, collective)."""
+        from ..parallel.multihost import process_allgather
+
+        fresh_ok = fresh_ok and getattr(self._pool, "supports_fresh_ingest", False)
+        agreed = process_allgather(
+            np.array([1 if fresh_ok else 0, s_count, depth], np.int64)
+        )
+        return bool(np.min(agreed[..., 0])) and self._pool.fresh_grid_within_budget(
+            int(np.max(agreed[..., 1])), int(np.max(agreed[..., 2]))
+        )
+
+    def _agree_dispatch_count(self, count: int) -> int:
+        """Multi-host scan plan: the most dispatches any process makes this
+        call (one all-gather, collective); the others pad with empty ones."""
+        from ..parallel.multihost import process_allgather
+
+        return int(np.max(process_allgather(np.array([count], np.int64))))
+
+    def is_local(self, scope: Scope, proposal_id: int) -> bool:
+        """Routing query for multi-host embedders: should THIS process
+        apply the session's votes? Device-pooled sessions: the slot-owning
+        process only (route to it). Host-spilled sessions are replicated
+        control-plane state: True on EVERY process — the relay must deliver
+        their votes fleet-wide (like proposals) so the replicas advance
+        identically; their events still come from process 0 only."""
+        slot = self._index.get((scope, proposal_id))
+        if slot is None:
+            raise SessionNotFound()
+        if slot < 0:
+            return True
+        return self._owns_slot(slot)
 
 
 class _PidLookup:

@@ -37,7 +37,9 @@ from ..ops.ingest import (
     unpack_slots,
 )
 
-__all__ = ["ProposalPool", "SlotMeta", "PoolFullError", "PendingIngest"]
+__all__ = [
+    "ProposalPool", "SlotMeta", "SlotTensors", "PoolFullError", "PendingIngest",
+]
 
 
 class PoolFullError(RuntimeError):
@@ -67,7 +69,9 @@ class PendingIngest:
     """An in-flight ingest dispatch: the device output plus the host-side
     coordinates needed to interpret it."""
 
-    out: torch.Tensor  # device int8[rows, L+1]: statuses + final row state
+    # device int8[rows, L+1]: statuses + final row state (a sharded pool's
+    # is one such tensor a block, parallel.sharded.BlockOutputs)
+    out: torch.Tensor
     uniq: np.ndarray  # [S] touched slots
     row: np.ndarray  # [B] batch item -> grid row
     col: np.ndarray  # [B] batch item -> grid col
@@ -84,44 +88,17 @@ class SlotMeta:
     created_at: int
 
 
-class ProposalPool:
-    """Fixed-capacity device pool of consensus proposal slots.
+class SlotTensors:
+    """The device half of a pool: the ten slot-indexed tensors, ``capacity``
+    rows of them on one device, and the dispatches that touch them by row
+    id. :class:`ProposalPool` is one of these plus the host bookkeeping; a
+    sharded pool (:mod:`..parallel.sharded`) holds one a mesh entry."""
 
-    ``capacity`` (P) bounds concurrent proposals; ``voter_capacity`` (V)
-    bounds ``expected_voters_count`` per proposal. ``device`` defaults to
-    ``"cuda"`` and raises without a GPU. All mutating methods are batched;
-    statuses and transitions are returned per call with no global
-    readbacks.
-    """
-
-    def __init__(self, capacity: int, voter_capacity: int, device="cuda"):
-        if capacity < 1 or voter_capacity < 1:
-            raise ValueError("capacity and voter_capacity must be >= 1")
+    def __init__(self, capacity: int, voter_capacity: int, device: torch.device):
         self.capacity = capacity
         self.voter_capacity = voter_capacity
-        self.device = resolve_device(device)
+        self.device = device
         self._init_device_arrays()
-
-        # Host mirrors / bookkeeping (identical to the JAX pool's).
-        self._state_host = np.full(capacity, STATE_FREE, np.int32)
-        self._expiry_host = np.zeros(capacity, np.int64)
-        self._free: list[int] = list(range(capacity - 1, -1, -1))
-        self._meta: dict[int, SlotMeta] = {}
-        # Voter identity registry + dense lane tables: owners intern to a
-        # generation-tagged global id (``generation << 32 | index``);
-        # per-slot lanes are first-come order in ``_lane_gids`` rows.
-        self._gid_of: dict[bytes, int] = {}
-        self._owners: list[bytes] = []
-        self._gid_refs = np.zeros(0, np.int64)
-        self._gid_live = np.zeros(0, bool)
-        self._gid_gen = np.zeros(0, np.int64)
-        self._gen_floor = 0
-        self._free_gids: list[int] = []
-        self._lane_gids = np.full((capacity, voter_capacity), -1, np.int32)
-        self._lane_count = np.zeros(capacity, np.int32)
-        # Host mirror updates must apply in dispatch order, and no other
-        # mutation may interleave with in-flight ingests.
-        self._inflight: list[PendingIngest] = []
 
     def _init_device_arrays(self) -> None:
         p, v, dev = self.capacity, self.voter_capacity, self.device
@@ -146,6 +123,114 @@ class ProposalPool:
             self._state, self._yes, self._tot, self._vote_mask, self._vote_val,
             self._n, self._req, self._cap, self._gossip, self._liveness,
         )
+
+    # ── Device dispatch ────────────────────────────────────────────────
+
+    def _dispatch_activate(self, slots, n, req, cap, gossip, liveness) -> None:
+        ids = self._to_device(slots, torch.long)
+        self._state[ids] = STATE_ACTIVE
+        self._yes[ids] = 0
+        self._tot[ids] = 0
+        self._vote_mask[ids] = False
+        self._vote_val[ids] = False
+        self._n[ids] = self._to_device(n, torch.int32)
+        self._req[ids] = self._to_device(req, torch.int32)
+        self._cap[ids] = self._to_device(cap, torch.int32)
+        self._gossip[ids] = self._to_device(gossip, torch.bool)
+        self._liveness[ids] = self._to_device(liveness, torch.bool)
+
+    def _dispatch_load(self, slots, state, yes, tot, mask_rows, val_rows) -> None:
+        ids = self._to_device(slots, torch.long)
+        self._state[ids] = self._to_device(state, torch.int32)
+        self._yes[ids] = self._to_device(yes, torch.int32)
+        self._tot[ids] = self._to_device(tot, torch.int32)
+        self._vote_mask[ids] = self._to_device(mask_rows, torch.bool)
+        self._vote_val[ids] = self._to_device(val_rows, torch.bool)
+
+    def _dispatch_release(self, slots) -> None:
+        self._state[self._to_device(slots, torch.long)] = STATE_FREE
+
+    def _dispatch_ingest(self, slot_pack, grid_pack):
+        """Launch the arrival-ordered scan on the packed batch; returns
+        (device out [S, L+1], row-select indexer). Does not block. The
+        host knows whether the batch holds pad rows (ids >= P), so the
+        kernel's pad-row phase is launched only when it does."""
+        out = ingest_scan(
+            *self._pool_tensors(),
+            self._to_device(slot_pack, torch.int32),
+            grid_tensor(grid_pack, self.device),
+            pad_rows=bool((unpack_slots(slot_pack)[0] >= self.capacity).any()),
+        )
+        return out, np.arange(len(slot_pack))
+
+    def _dispatch_ingest_fresh(self, slot_pack, grid_pack, laneless=False):
+        """Closed-form (scan-free) ingest dispatch for fresh-slot batches —
+        same transfer contract as :meth:`_dispatch_ingest`."""
+        out = fresh_ingest_body(
+            *self._pool_tensors(),
+            self._to_device(slot_pack, torch.int32),
+            grid_tensor(grid_pack, self.device),
+            laneless=laneless,
+        )[-1]
+        return out, np.arange(len(slot_pack))
+
+    def _dispatch_timeout(self, slots) -> np.ndarray:
+        """Returns new row states, one per requested slot."""
+        _, row_state = timeout_body(
+            self._state, self._yes, self._tot, self._n, self._req,
+            self._liveness, self._to_device(slots, torch.long),
+        )
+        return row_state.cpu().numpy()
+
+    def read_slots(self, slots) -> dict[str, np.ndarray]:
+        """Batched :meth:`read_slot`: one gather and one transfer per array
+        for many slots (arrays indexed [k] in ``slots`` order)."""
+        ids = self._to_device(np.asarray(slots, np.int64), torch.long)
+        ids = ids.clamp(0, self.capacity - 1)
+        return dict(
+            state=self._state[ids].cpu().numpy(),
+            yes=self._yes[ids].cpu().numpy(),
+            tot=self._tot[ids].cpu().numpy(),
+            vote_mask=self._vote_mask[ids].cpu().numpy(),
+            vote_val=self._vote_val[ids].cpu().numpy(),
+        )
+
+
+class ProposalPool(SlotTensors):
+    """Fixed-capacity device pool of consensus proposal slots.
+
+    ``capacity`` (P) bounds concurrent proposals; ``voter_capacity`` (V)
+    bounds ``expected_voters_count`` per proposal. ``device`` defaults to
+    ``"cuda"`` and raises without a GPU. All mutating methods are batched;
+    statuses and transitions are returned per call with no global
+    readbacks.
+    """
+
+    def __init__(self, capacity: int, voter_capacity: int, device="cuda"):
+        if capacity < 1 or voter_capacity < 1:
+            raise ValueError("capacity and voter_capacity must be >= 1")
+        super().__init__(capacity, voter_capacity, resolve_device(device))
+
+        # Host mirrors / bookkeeping (identical to the JAX pool's).
+        self._state_host = np.full(capacity, STATE_FREE, np.int32)
+        self._expiry_host = np.zeros(capacity, np.int64)
+        self._free: list[int] = list(range(capacity - 1, -1, -1))
+        self._meta: dict[int, SlotMeta] = {}
+        # Voter identity registry + dense lane tables: owners intern to a
+        # generation-tagged global id (``generation << 32 | index``);
+        # per-slot lanes are first-come order in ``_lane_gids`` rows.
+        self._gid_of: dict[bytes, int] = {}
+        self._owners: list[bytes] = []
+        self._gid_refs = np.zeros(0, np.int64)
+        self._gid_live = np.zeros(0, bool)
+        self._gid_gen = np.zeros(0, np.int64)
+        self._gen_floor = 0
+        self._free_gids: list[int] = []
+        self._lane_gids = np.full((capacity, voter_capacity), -1, np.int32)
+        self._lane_count = np.zeros(capacity, np.int32)
+        # Host mirror updates must apply in dispatch order, and no other
+        # mutation may interleave with in-flight ingests.
+        self._inflight: list[PendingIngest] = []
 
     # ── Introspection ──────────────────────────────────────────────────
 
@@ -817,64 +902,6 @@ class ProposalPool:
             out.append((int(slot), new_state))
         return out
 
-    # ── Device dispatch ────────────────────────────────────────────────
-
-    def _dispatch_activate(self, slots, n, req, cap, gossip, liveness) -> None:
-        ids = self._to_device(slots, torch.long)
-        self._state[ids] = STATE_ACTIVE
-        self._yes[ids] = 0
-        self._tot[ids] = 0
-        self._vote_mask[ids] = False
-        self._vote_val[ids] = False
-        self._n[ids] = self._to_device(n, torch.int32)
-        self._req[ids] = self._to_device(req, torch.int32)
-        self._cap[ids] = self._to_device(cap, torch.int32)
-        self._gossip[ids] = self._to_device(gossip, torch.bool)
-        self._liveness[ids] = self._to_device(liveness, torch.bool)
-
-    def _dispatch_load(self, slots, state, yes, tot, mask_rows, val_rows) -> None:
-        ids = self._to_device(slots, torch.long)
-        self._state[ids] = self._to_device(state, torch.int32)
-        self._yes[ids] = self._to_device(yes, torch.int32)
-        self._tot[ids] = self._to_device(tot, torch.int32)
-        self._vote_mask[ids] = self._to_device(mask_rows, torch.bool)
-        self._vote_val[ids] = self._to_device(val_rows, torch.bool)
-
-    def _dispatch_release(self, slots) -> None:
-        self._state[self._to_device(slots, torch.long)] = STATE_FREE
-
-    def _dispatch_ingest(self, slot_pack, grid_pack):
-        """Launch the arrival-ordered scan on the packed batch; returns
-        (device out [S, L+1], row-select indexer). Does not block. The
-        host knows whether the batch holds pad rows (ids >= P), so the
-        kernel's pad-row phase is launched only when it does."""
-        out = ingest_scan(
-            *self._pool_tensors(),
-            self._to_device(slot_pack, torch.int32),
-            grid_tensor(grid_pack, self.device),
-            pad_rows=bool((unpack_slots(slot_pack)[0] >= self.capacity).any()),
-        )
-        return out, np.arange(len(slot_pack))
-
-    def _dispatch_ingest_fresh(self, slot_pack, grid_pack, laneless=False):
-        """Closed-form (scan-free) ingest dispatch for fresh-slot batches —
-        same transfer contract as :meth:`_dispatch_ingest`."""
-        out = fresh_ingest_body(
-            *self._pool_tensors(),
-            self._to_device(slot_pack, torch.int32),
-            grid_tensor(grid_pack, self.device),
-            laneless=laneless,
-        )[-1]
-        return out, np.arange(len(slot_pack))
-
-    def _dispatch_timeout(self, slots) -> np.ndarray:
-        """Returns new row states, one per requested slot."""
-        _, row_state = timeout_body(
-            self._state, self._yes, self._tot, self._n, self._req,
-            self._liveness, self._to_device(slots, torch.long),
-        )
-        return row_state.cpu().numpy()
-
     # ── Cold query path ────────────────────────────────────────────────
 
     def read_slot(self, slot: int) -> dict[str, np.ndarray]:
@@ -882,16 +909,3 @@ class ProposalPool:
         an out-of-range slot clips to the last row, as the JAX pool's does."""
         rows = self.read_slots([slot])
         return {key: value[0] for key, value in rows.items()}
-
-    def read_slots(self, slots) -> dict[str, np.ndarray]:
-        """Batched :meth:`read_slot`: one gather and one transfer per array
-        for many slots (arrays indexed [k] in ``slots`` order)."""
-        ids = self._to_device(np.asarray(slots, np.int64), torch.long)
-        ids = ids.clamp(0, self.capacity - 1)
-        return dict(
-            state=self._state[ids].cpu().numpy(),
-            yes=self._yes[ids].cpu().numpy(),
-            tot=self._tot[ids].cpu().numpy(),
-            vote_mask=self._vote_mask[ids].cpu().numpy(),
-            vote_val=self._vote_val[ids].cpu().numpy(),
-        )
