@@ -193,8 +193,9 @@ phase holds:
    socket: a stub-signed key-carrying peer on a server whose engines are
    config 3's (``engine_factory``: the default engine keeps the
    reference's 10 sessions a scope; the P2P half in a second scope on
-   the P2P preset, as no opcode carries a per-proposal config); 10,000
-   proposals as pipelined ``OP_PROCESS_PROPOSAL`` frames, then phase 10's
+   the P2P preset, as no opcode carries a per-proposal config); 5,000
+   proposals (config 3 cut in depth) as pipelined ``OP_PROCESS_PROPOSAL``
+   frames, then phase 10's
    waves over them as ``OP_VOTE_BATCH`` frames of 1,024 rows from 4
    pipelined connections, each owning a quarter of the proposals. Reactor
    off, reactor on (each a fresh server) and a ``device="cpu"`` server
@@ -228,7 +229,7 @@ phase holds:
    kernels are the ones earlier phases hold against their plain versions
    at these shapes;
 14. gossip, catch-up and the chaos simulator (slice 12), at config 3's
-   cut: 2,000 proposals x 64 voters, half Gossipsub, half P2P in a second
+   cut: 500 proposals x 64 voters, half Gossipsub, half P2P in a second
    scope, on port servers on the card (engines of 4,096 slots). (a) Four
    servers take the proposals; a ``GossipNode`` submits every session's
    64 stub-signed votes in chunks of 16. Arm 1: a driver with no engine
@@ -278,7 +279,39 @@ phase holds:
    process must launch the scan once a scan dispatch. A worker that fails
    or outlives ``MULTIHOST_TIMEOUT`` (then killed) fails the phase. One
    card checks routing, per-block kernels, summed stats and the control
-   plane; placement across GPUs and NCCL stay unchecked.
+   plane; placement across GPUs and NCCL stay unchecked;
+16. the fleet and the federation (slice 14) on the one card. (a) Config 3
+   with its proposals spread over 64 scopes through ``ConsensusFleet(
+   n_shards=4, devices=[cuda:0], capacity_per_shard=25_000,
+   voter_capacity=1024)`` in five ``ingest_columnar_multi`` calls:
+   statuses, results, scope stats and events equal to one engine on the
+   card and to the same fleet on the CPU, the scan launched on every
+   shard, and ``fleet_state_counts`` reduced on the card from the four
+   shards' device vectors, equal to the host mirrors; votes/s of the
+   fleet and the engine are printed. Then phase 8's Ed25519 chains
+   through ``deliver_proposals`` on a fleet whose shards verify on the
+   card, equal to a fleet of host signers on the CPU, with no device batch
+   falling back to the host blame and each verification kernel held
+   against its plain version on the path's inputs. (b) Cut to 2,000
+   proposals x 64 voters in 16 scopes: (b1) a durable fleet of four shards
+   on cuda:0 takes the waves as wire rows, one shard crashes and replays
+   its log in the background while a wave goes to the other three, and
+   another is rebuilt from a peer (a bridge server holding a replica of
+   its log) while the next does; (b2) two ``FleetGroup``s of two shards
+   over loopback TCP take three waves of object votes, half through the
+   other host (the fabric), the fabric tally must agree on both hosts,
+   and one ``migrate_shard`` runs under a traffic thread. Statuses,
+   results, fingerprints, tallies and the migration report must equal
+   the same runs on the CPU (in a child process, ``--fleet-twin``,
+   beside the card's runs). (c) The federation worker of
+   ``tests/test_torch_multihost.py``: two gloo processes, each a
+   ``FleetGroup`` of one shard on cuda:0 with 200 proposals, where
+   ``tally_path()`` must be ``"psum"`` and the all-gather's counts equal
+   the fabric's, equal to the same pair on the CPU; a worker or twin that
+   fails or outlives ``FED_TIMEOUT`` (then killed) fails the phase. One
+   card checks the router, the per-shard kernels, the device tally, the
+   fabric and live migration; shards on separate GPUs, NCCL and hosts on
+   separate machines stay unchecked.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -298,7 +331,9 @@ each; phase 14 unless both arms of (a), the catch-up and the full replay
 of (b) and the corpus of (c) launched the scan, and (b)'s snapshot batch
 and (c)'s device-signer scenarios every verification kernel; phase 15
 unless (a)'s sharded run launched the scan on every shard and each card
-process of (b) launched it; phase 8
+process of (b) launched it; phase 16 unless (a)'s fleet launched the scan
+on every shard, its signed deliveries every verification kernel, and (b)'s
+card runs and each card process of (c) the scan; phase 8
 fails unless (a) launched every verification kernel in one batch, every batch of (a) and (b) ran its MSM without falling back to
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
@@ -4215,7 +4250,9 @@ def phase_obs(dev, phase3_rate=None):
 
 # ── Phase 13: the bridge ───────────────────────────────────────────────
 
-BRIDGE_PROPOSALS = 10_000  # (b): config 3 over a socket
+# (b): config 3 over a socket, cut in depth from 10,000 to 5,000 once phase
+# 16 came, to keep the whole run under 1,000 s.
+BRIDGE_PROPOSALS = 5_000
 BRIDGE_CUT = 2_000  # (b)'s CPU arm and (e), cut in depth as phase 10 (a) is
 BRIDGE_FRAME_ROWS = 1_024  # rows of one OP_VOTE_BATCH frame
 BRIDGE_CONNECTIONS = 4  # pipelined vote connections, a quarter of the proposals each
@@ -4898,7 +4935,9 @@ def phase_bridge(dev):
 
 # ── Phase 14: gossip, catch-up and the chaos simulator ─────────────────
 
-GOSSIP_PROPOSALS = 2_000  # config 3 cut in depth, as in phases 10, 11 and 13
+# Config 3 cut in depth: to 2,000 as in phases 10, 11 and 13 until phase 16
+# came, then to 500 to keep the whole run under 1,000 s.
+GOSSIP_PROPOSALS = 500
 GOSSIP_PEERS = 4  # servers of the fabric, as bench.py::run_gossip's 4 peers
 GOSSIP_CHUNK = WAL_PER_WAVE  # votes a submit (run_gossip's chunks of 16)
 GOSSIP_CAPACITY = 4_096  # the phase's engines: every session of the cut fits
@@ -5784,8 +5823,694 @@ def phase_placement(dev):
     return dict(a=a, b=b)
 
 
+# ── Phase 16: the fleet and the federation (slice 14) ──────────────────
+
+FLEET_SHARDS = 4  # shards of (a) and (b1), all on cuda:0
+FLEET_SCOPES = 64  # (a): config 3's proposals spread over these scopes
+FED_PROPOSALS = 2_000  # (b): config 3 cut in depth, as in phases 10, 11, 13 and 14
+FED_SCOPES = 16
+FED_CAPACITY = 2_048  # slots of each shard of (b): every session of the cut fits
+FED_WAVES = 3  # (b2): waves of WAL_PER_WAVE votes a proposal through the federation
+FED_WORKER_SCALE = dict(proposals=200, voters=64)  # (c): each gloo process's host
+FED_TIMEOUT = 300  # seconds a (c) worker may take before it is killed
+
+
+def fleet_of(dev, capacity, voter_capacity, signer_factory=None, **kw):
+    """A ConsensusFleet of FLEET_SHARDS shards, every one on ``dev``."""
+    from hashgraph_tpu_torch import StubConsensusSigner
+    from hashgraph_tpu_torch.parallel import ConsensusFleet
+
+    factory = signer_factory or (lambda k: StubConsensusSigner(b"fleet-%d" % k))
+    return ConsensusFleet(factory, n_shards=FLEET_SHARDS, devices=[dev],
+                          capacity_per_shard=capacity, voter_capacity=voter_capacity, **kw)
+
+
+class FleetRun(Run):
+    """:class:`Run` over a fleet: the router takes the engine's calls, and
+    every shard's events come merged through the fleet's single-engine
+    facade (``FleetEngineAdapter.event_bus``), each shard's bus as wide as
+    the single engine's (a shard's default bus keeps 1,000 events a
+    subscriber, and a wave decides more sessions than that on one shard)."""
+
+    def __init__(self, fleet):
+        from hashgraph_tpu_torch.events import BroadcastEventBus
+        from hashgraph_tpu_torch.parallel import FleetEngineAdapter
+
+        for sid in fleet.shard_ids:
+            shard_engine = fleet.shard(sid).engine
+            shard_engine = getattr(shard_engine, "engine", shard_engine)
+            shard_engine._event_bus = BroadcastEventBus(max_queued_events=10_000_000)
+        self.engine = fleet
+        self.rx = FleetEngineAdapter(fleet).event_bus().subscribe()
+        self.pids = {}
+
+
+def spread_calls(run, seed, gid_of, scopes=FLEET_SCOPES, n=10_000):
+    """Config 3 (``n`` proposals × 64 voters, the first half gossipsub, the
+    second P2P) with proposal i in scope ``i % scopes``, and the arguments
+    of its five ``ingest_columnar_multi`` calls: four waves of 16 votes a
+    proposal, then wave 2 again. ``gid_of(scope, owner)`` interns a voter
+    (per shard on a fleet, once on an engine)."""
+    from hashgraph_tpu_torch import ConsensusConfig
+
+    names = [f"fleet-{k}" for k in range(scopes)]
+    half = n // 2
+    reqs = requests(n, 64, 3600, lambda i: i % 4 < 2)
+    pid_of = np.zeros(n, np.int64)
+    sidx_of = np.arange(n) % scopes
+    for k, scope in enumerate(names):
+        for lo, hi, config in ((0, half, ConsensusConfig.gossipsub()),
+                               (half, n, ConsensusConfig.p2p())):
+            idx = [i for i in range(lo, hi) if i % scopes == k]
+            before = len(run.pids.get(scope, []))
+            run.create(scope, [reqs[i] for i in idx], NOW, config)
+            pid_of[idx] = run.pids[scope][before:]
+    gids = np.array([[gid_of(scope, b"voter-%d" % v) for v in range(64)] for scope in names])
+    rng = np.random.default_rng(seed)
+    waves = []
+    for w in range(4):
+        rows_p = np.repeat(np.arange(n), 16)
+        rows_v = 16 * w + np.tile(np.arange(16), n)
+        order = rng.permutation(len(rows_p))
+        waves.append((rows_p[order], rows_v[order], rng.random(len(rows_p)) < 0.6))
+    waves.append(waves[1])
+    return names, [
+        (sidx_of[rp], pid_of[rp], gids[sidx_of[rp], rv], vals, NOW + 1 + w)
+        for w, (rp, rv, vals) in enumerate(waves)
+    ]
+
+
+def spread_traffic(run, seed, gid_of):
+    """:func:`spread_calls` through ``run``'s engine or fleet: statuses,
+    wall and votes."""
+    names, calls = spread_calls(run, seed, gid_of)
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    statuses, wall = [], 0.0
+    for sidx, pids, gids, vals, now in calls:
+        sync()
+        t0 = time.perf_counter()
+        st = run.engine.ingest_columnar_multi(names, sidx, pids, gids, vals, now, max_depth=8)
+        sync()
+        wall += time.perf_counter() - t0
+        statuses.append(st.tolist())
+    return names, statuses, wall, sum(len(c[1]) for c in calls)
+
+
+def fleet_outcomes(run, names):
+    return {scope: run.outcome(scope) for scope in names}
+
+
+def phase_fleet_config3(dev):
+    """(a), first half: config 3 over 64 scopes through a fleet of four
+    shards on the card, against one engine on the card and the same fleet
+    on the CPU; the fleet tally from the device reduction."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.ops import cuda_ingest
+    from hashgraph_tpu_torch.parallel import ShardedPool
+
+    t0 = time.perf_counter()
+    single = Run(make_engine(dev))
+    names, single_st, single_wall, n_votes = spread_traffic(
+        single, 16, lambda scope, owner: single.engine.voter_gid(owner))
+    fleet = fleet_of(dev, CAPACITY // FLEET_SHARDS, VOTER_CAPACITY)
+    gpu = FleetRun(fleet)
+    owners = {fleet.owner_of(scope) for scope in names}
+    if owners != set(fleet.shard_ids):
+        raise AssertionError(f"the 64 scopes land on shards {owners} only")
+    # The main path of the phase: counts are zeroed just before it.
+    _build.launches.clear()
+    _, gpu_st, gpu_wall, _ = spread_traffic(gpu, 16, fleet.voter_gid)
+    launches = _build.launches[cuda_ingest.KERNEL]
+    per_shard = [fleet.shard(sid).pool().scan_dispatches[0] for sid in fleet.shard_ids]
+    cpu_fleet = fleet_of(torch.device("cpu"), CAPACITY // FLEET_SHARDS, VOTER_CAPACITY)
+    cpu = FleetRun(cpu_fleet)
+    _, cpu_st, _, _ = spread_traffic(cpu, 16, cpu_fleet.voter_gid)
+    mine = (fleet_outcomes(gpu, names), gpu.events_by_session())
+    for label, other, st in (("single GPU engine", single, single_st),
+                             ("CPU fleet", cpu, cpu_st)):
+        compare(f"fleet config 3 statuses against the {label}", gpu_st, st)
+        compare(f"fleet config 3 results and stats against the {label}", mine[0],
+                fleet_outcomes(other, names))
+        compare(f"fleet config 3 events against the {label}", mine[1],
+                other.events_by_session())
+    if launches == 0 or launches != sum(per_shard) or 0 in per_shard:
+        raise AssertionError(f"fleet config 3: {launches} ingest_scan launches, per shard "
+                             f"{per_shard} (every shard must launch, once a dispatch)")
+    # The fleet tally: each shard's device count vector, reduced on the card.
+    reduced = []
+    counts_fn = ShardedPool.device_state_counts
+
+    def counting(pool):
+        out = counts_fn(pool)
+        reduced.append(out.device)
+        return out
+
+    ShardedPool.device_state_counts = counting
+    try:
+        tally = fleet.fleet_state_counts()
+    finally:
+        ShardedPool.device_state_counts = counts_fn
+    if fleet._tally() != dev or reduced != [dev] * FLEET_SHARDS:
+        raise AssertionError(f"the fleet tally did not reduce on the card: target "
+                             f"{fleet._tally()}, shard vectors on {reduced}")
+    mirrors = {}
+    for sid in fleet.shard_ids:
+        for code, c in fleet.shard(sid).pool().state_counts().items():
+            mirrors[code] = mirrors.get(code, 0) + c
+    compare("fleet tally against the host mirrors", tally,
+            {code: mirrors.get(code, 0) for code in tally})
+    compare("fleet tally against the CPU fleet's", tally, cpu_fleet.fleet_state_counts())
+    compare("fleet tally against the single engine's pool", tally,
+            all_state_counts(single.engine.pool()))
+    occupancy = [fleet.occupancy()[sid]["live_sessions"] for sid in fleet.shard_ids]
+    fleet.close()
+    cpu_fleet.close()
+    wall = time.perf_counter() - t0
+    log(f"[fleet] (a) config 3 over {FLEET_SCOPES} scopes on ConsensusFleet("
+        f"n_shards={FLEET_SHARDS}, devices=[{dev}], capacity_per_shard="
+        f"{CAPACITY // FLEET_SHARDS}, voter_capacity={VOTER_CAPACITY}), five "
+        f"ingest_columnar_multi calls: {n_votes} votes in {gpu_wall:.6f} s = "
+        f"{n_votes / gpu_wall:.1f} votes/s; one engine on the card {single_wall:.6f} s = "
+        f"{n_votes / single_wall:.1f} votes/s; ingest_scan launches {launches}, per shard "
+        f"{per_shard}; sessions per shard {occupancy}; statuses, results, stats and events "
+        f"equal to the single engine's and the CPU fleet's; fleet tally {tally} reduced on "
+        f"the card from {len(reduced)} shard vectors, equal to the host mirrors, the CPU "
+        f"fleet's and the single pool's; {wall:.3f} s")
+    return dict(launches=launches, per_shard=per_shard, votes_per_s=n_votes / gpu_wall,
+                single_votes_per_s=n_votes / single_wall, seconds=wall)
+
+
+def fleet_deliveries(fleet, data):
+    """Phase 8's four delivery stages through ``fleet.deliver_proposals``
+    (stage (a)'s proposals arrive through it too): statuses, events and
+    the sessions' final state, read through the fleet's single-engine
+    facade."""
+    from hashgraph_tpu_torch.parallel import FleetEngineAdapter
+    from hashgraph_tpu_torch.wire import Proposal
+
+    run = ProposalRun(FleetEngineAdapter(fleet))
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    log_, walls = [], []
+    for payload, now in ((data["a"], NOW + 100), (data["b"][0], NOW + 101),
+                         (data["b"][1], NOW + 102), (data["c"], NOW + 103)):
+        items = [(scope, Proposal.decode(b)) for scope, b in payload]
+        sync()
+        t = time.perf_counter()
+        log_.append(fleet.deliver_proposals(items, now))
+        sync()
+        walls.append(time.perf_counter() - t)
+        log_.append(sorted(run.events(), key=repr))
+    return log_, run.state(data["chain_pids"]), walls
+
+
+def phase_fleet_signed(dev):
+    """(a), second half: phase 8's Ed25519 chains through
+    ``deliver_proposals`` on a fleet whose shards verify on the card,
+    against a fleet of host signers on the CPU."""
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
+
+    t0 = time.perf_counter()
+    data = proposal_traffic_data()
+    sign_s = time.perf_counter() - t0
+    rng = random.Random(161)
+    seeds = [rng.randbytes(32) for _ in range(FLEET_SHARDS)]
+    device_signer = counting_device_signer()
+    # Shard ids under which the two scopes land on two shards, whose
+    # batches then run side by side on the card.
+    ids = [f"signed-{k}" for k in range(FLEET_SHARDS)]
+    fleets = {
+        "gpu": fleet_of(dev, FED_CAPACITY, VOTER_CAPACITY, shard_ids=ids,
+                        signer_factory=lambda k: device_signer(seeds[k])),
+        "cpu": fleet_of(torch.device("cpu"), FED_CAPACITY, VOTER_CAPACITY, shard_ids=ids,
+                        signer_factory=lambda k: Ed25519ConsensusSigner(seeds[k])),
+    }
+    for fleet in fleets.values():
+        fleet.scope("p2p").p2p_preset().initialize()
+    shards = sorted({fleets["gpu"].owner_of(scope) for scope in PROP_SCOPES})
+    if len(shards) != len(PROP_SCOPES):
+        raise AssertionError(f"the signed scopes share a shard: {shards}")
+    captured = KernelInputs()
+    _build.launches.clear()
+    t = time.perf_counter()
+    with captured.active():
+        gpu_log, gpu_state, gpu_walls = fleet_deliveries(fleets["gpu"], data)
+    gpu_s = time.perf_counter() - t
+    launches = dict(_build.launches)
+    t = time.perf_counter()
+    cpu_log, cpu_state, cpu_walls = fleet_deliveries(fleets["cpu"], data)
+    cpu_s = time.perf_counter() - t
+    compare("signed fleet statuses and events", gpu_log, cpu_log)
+    compare("signed fleet sessions, votes and stats", gpu_state, cpu_state)
+    never = [k for k in VERIFY_KERNELS if not launches.get(k)]
+    batches = device_signer.batches
+    if never or not batches:
+        raise AssertionError(f"signed fleet: launches {launches}, kernels never launched "
+                             f"{never}, {len(batches)} device batches")
+    for batch in batches:
+        if batch["fallback"] != 0.0 or not batch["msm"] > 0.0:
+            raise AssertionError(f"signed fleet: batch {batch} fell back to the host blame "
+                                 "or ran no MSM")
+    t = time.perf_counter()
+    held = hold_captured(captured)
+    hold_s = time.perf_counter() - t
+    if set(held) != set(VERIFY_KERNELS):
+        raise AssertionError(f"signed fleet: kernel inputs captured on the path: {held}")
+    for fleet in fleets.values():
+        fleet.close()
+    codes = sorted(set(gpu_log[0]))
+    wall = time.perf_counter() - t0
+    log(f"[fleet] (a) phase 8's {PROP_MAIN} x {PROP_VOTERS} Ed25519 chains (and its extra "
+        f"items) through fleet.deliver_proposals on {FLEET_SHARDS} shards of {dev} with "
+        f"device signers (scopes on shards {shards}): stage walls "
+        f"{[round(x, 6) for x in gpu_walls]} s against the CPU fleet's "
+        f"{[round(x, 6) for x in cpu_walls]} s (host batch verification); {len(batches)} "
+        f"device batches, none fell back to the host blame; launches {json.dumps(launches)}; "
+        f"statuses {codes} of stage (a), events, results, votes and stats equal to the CPU "
+        f"fleet's; each kernel held against its plain version on the path's inputs at "
+        f"{json.dumps(held)} ({hold_s:.3f} s); signing {sign_s:.3f} s, the GPU fleet "
+        f"{gpu_s:.3f} s, the CPU fleet {cpu_s:.3f} s; {wall:.3f} s")
+    return dict(launches=launches, batches=len(batches), seconds=wall)
+
+
+def fed_plan(create, seed=162):
+    """(b)'s proposals, created through ``create(scope, requests, config)``
+    under seeded ids (so the card's run and the CPU's get the same ids):
+    FED_PROPOSALS × 64 voters, proposal i in scope ``i % FED_SCOPES``, the
+    first half gossipsub, the second P2P. Returns the scope names, the pid
+    and scope index of each proposal, and :func:`wire_waves` over them."""
+    from hashgraph_tpu_torch import ConsensusConfig
+
+    names = [f"fed-{k}" for k in range(FED_SCOPES)]
+    half = FED_PROPOSALS // 2
+    reqs = requests(FED_PROPOSALS, WAL_VOTERS, 3600, lambda i: i % 4 < 2)
+    pids = np.zeros(FED_PROPOSALS, np.int64)
+    sidx = np.arange(FED_PROPOSALS) % FED_SCOPES
+    with seeded_ids(seed):
+        for k, scope in enumerate(names):
+            for lo, hi, config in ((0, half, ConsensusConfig.gossipsub()),
+                                   (half, FED_PROPOSALS, ConsensusConfig.p2p())):
+                idx = [i for i in range(lo, hi) if i % FED_SCOPES == k]
+                made = create(scope, [reqs[i] for i in idx], config)
+                pids[idx] = [p.proposal_id for p in made]
+    return names, pids, sidx
+
+
+def fed_results(read, names, pids, sidx):
+    """Each proposal's result (or what raised) and each scope's stats."""
+    results = []
+    for i, pid in enumerate(pids.tolist()):
+        try:
+            results.append(read(names[sidx[i]]).get_consensus_result(names[sidx[i]], pid))
+        except Exception as exc:  # the exception type is the result compared
+            results.append(type(exc).__name__)
+    stats = []
+    for scope in names:
+        st = read(scope).get_scope_stats(scope)
+        stats.append((st.total_sessions, st.active_sessions, st.failed_sessions,
+                      st.consensus_reached))
+    return results, stats
+
+
+def fleet_recovery_run(dev, root):
+    """(b1) on ``dev``: a durable fleet takes (b)'s waves as wire rows; one
+    shard crashes and replays its log in the background while wave 1 goes
+    to the other three, then another is rebuilt from a peer (a bridge
+    server holding a replica recovered from a copy of its log) while wave 2
+    goes to the other three. Both crash before any session can fail at the
+    P2P round cap, a failure the log does not carry (ROADMAP queue 3)."""
+    import shutil
+
+    from hashgraph_tpu_torch import StubConsensusSigner, TorchConsensusEngine, _build
+    from hashgraph_tpu_torch.bridge import protocol as P
+    from hashgraph_tpu_torch.bridge.server import BridgeServer
+    from hashgraph_tpu_torch.sync import state_fingerprint
+    from hashgraph_tpu_torch.wal import DurableEngine
+
+    fleet = fleet_of(dev, FED_CAPACITY, WAL_VOTERS, wal_root=str(root / "fleet"))
+    names, pids, sidx = fed_plan(
+        lambda scope, reqs, config: fleet.create_proposals(scope, reqs, NOW, config))
+    waves = wire_waves(pids, 163, scope_of=sidx)
+    owners = [StubConsensusSigner(b"voter-%d" % i).identity() for i in range(WAL_VOTERS)]
+    gids = np.array([[fleet.voter_gid(scope, o) for o in owners] for scope in names])
+    shard_of = np.array([fleet.owner_of(scope) for scope in names])
+    log_ = {}
+
+    def send(w, keep=lambda sid: True):
+        """Wave ``w``'s rows of the scopes on shards that ``keep``; the call
+        names only those scopes (a route to a scope of an unavailable
+        shard raises)."""
+        rows, row_sidx, row_pid, row_owner, values = waves[w]
+        kept = [k for k in range(len(names)) if keep(shard_of[k])]
+        local = np.full(len(names), -1)
+        local[kept] = np.arange(len(kept))
+        sel = np.nonzero(local[row_sidx] >= 0)[0]
+        st = fleet.ingest_columnar_multi(
+            [names[k] for k in kept], local[row_sidx[sel]], row_pid[sel],
+            gids[row_sidx[sel], row_owner[sel]], values[sel], NOW + 1 + w,
+            wire_votes=[rows[k] for k in sel])
+        log_.setdefault(f"wave{w}", []).append(st.tolist())
+
+    _build.launches.clear()
+    send(0)
+    victim = fleet.owner_of(names[0])
+    before = state_fingerprint(fleet.shard(victim).engine)
+    fleet.crash_shard(victim)
+    thread = fleet.recover_shard(victim, background=True)
+    send(1, lambda sid: sid != victim)
+    thread.join(timeout=300)
+    shard = fleet.shard(victim)
+    if thread.is_alive() or not shard.available or shard.recovery_error is not None:
+        raise AssertionError(f"(b1) shard {victim} did not recover: {shard.recovery_error!r}")
+    if state_fingerprint(shard.engine) != before:
+        raise AssertionError("(b1) the replayed shard's fingerprint differs from before the crash")
+    send(1, lambda sid: sid == victim)
+    recovered = occupancy_overlay(fleet, victim, "wal_recover")
+    # Another shard, rebuilt from a peer.
+    victim2 = next(sid for sid in fleet.shard_ids if sid != victim and (shard_of == sid).any())
+    before2 = state_fingerprint(fleet.shard(victim2).engine)
+    wal_dir = fleet.shard(victim2).wal_dir
+    fleet.crash_shard(victim2)
+    shutil.copytree(wal_dir, root / "peer")
+    replica = DurableEngine(TorchConsensusEngine(
+        StubConsensusSigner(b"replica"), FED_CAPACITY, WAL_VOTERS, device=dev,
+        max_sessions_per_scope=FED_CAPACITY), str(root / "peer"))
+    replica.recover()
+    server = BridgeServer(engine_factory=lambda signer: replica,
+                          signer_factory=StubConsensusSigner)
+    server.start()
+    try:
+        status, out = server.dispatch_frame(P.OP_ADD_PEER, P.u8(32) + b"\x16" * 32)
+        if status != P.STATUS_OK:
+            raise AssertionError(f"(b1) the replica's registration failed: {status}")
+        peer = P.Cursor(out).u32()
+        thread = fleet.catch_up_shard(victim2, *server.address, peer, background=True)
+        send(2, lambda sid: sid != victim2)
+        thread.join(timeout=300)
+        shard2 = fleet.shard(victim2)
+        if thread.is_alive() or not shard2.available or shard2.recovery_error is not None:
+            raise AssertionError(f"(b1) shard {victim2} did not catch up: "
+                                 f"{shard2.recovery_error!r}")
+        fingerprints = {state_fingerprint(shard2.engine), state_fingerprint(replica), before2}
+        if len(fingerprints) != 1:
+            raise AssertionError("(b1) the caught-up shard, its peer and the shard before the "
+                                 "crash differ")
+    finally:
+        server.stop()
+        replica.close()
+    send(2, lambda sid: sid == victim2)
+    send(3)
+    send(4)
+    launches = dict(_build.launches)
+    log_["caught_up"] = occupancy_overlay(fleet, victim2, "catch_up")
+    log_["recovered"] = recovered
+    log_["outcome"] = fed_results(lambda scope: fleet, names, pids, sidx)
+    log_["fingerprints"] = {sid: state_fingerprint(fleet.shard(sid).engine)
+                            for sid in fleet.shard_ids}
+    log_["counts"] = fleet.fleet_state_counts()
+    log_["victims"] = [victim, victim2]
+    fleet.close()
+    return log_, launches
+
+
+def occupancy_overlay(fleet, sid, key):
+    """A shard's recovery provenance from ``occupancy()``, without its
+    wall-clock field."""
+    entry = dict(fleet.occupancy()[sid][key])
+    entry.pop("seconds", None)
+    return entry
+
+
+def federation_run(dev, root):
+    """(b2) on ``dev``: two FleetGroups of two shards over loopback TCP;
+    every proposal's votes go in at one host by its parity, so half ride
+    the fabric; the fabric tally; one migrate_shard from h0 to h1 while a
+    traffic thread votes on the other shards' scopes."""
+    from hashgraph_tpu_torch import StubConsensusSigner, _build
+    from hashgraph_tpu_torch.parallel import (
+        FederationPlacement,
+        FleetGroup,
+        ShardMigratingError,
+        migrate_shard,
+        tally_path,
+    )
+    from hashgraph_tpu_torch.wire import Vote
+
+    placement = FederationPlacement.uniform(["h0", "h1"], 2)
+    groups = {}
+    try:
+        for host in ("h0", "h1"):
+            groups[host] = FleetGroup(
+                host, lambda k: StubConsensusSigner(b"fed-%d" % k), placement=placement,
+                wal_root=str(root), capacity_per_shard=FED_CAPACITY,
+                voter_capacity=WAL_VOTERS, devices=[dev])
+            groups[host].start()
+        for a in groups:
+            for b in groups:
+                if a != b:
+                    groups[a].connect(b, *groups[b].address, groups[b].peer_id)
+
+        def create(scope, reqs, config):
+            host, shard = placement.owner(scope)
+            made = groups[host].adapter.create_proposals(scope, reqs, NOW, config)
+            placement.pin(scope, shard)
+            return made
+
+        names, pids, sidx = fed_plan(create)
+        waves = wire_waves(pids, 164, scope_of=sidx)[:FED_WAVES]
+        n = FED_PROPOSALS
+        votes = [[Vote.decode(row) for row in w[0]] for w in waves]  # row j*n + k: vote j of k
+        shard_of = [placement.owner(names[s])[1] for s in sidx]
+        log_ = {"statuses": []}
+
+        def send(w, keep=lambda k: True, retry=False):
+            for j in range(WAL_PER_WAVE):
+                for parity, host in enumerate(("h0", "h1")):
+                    ks = [k for k in range(parity, n, 2) if keep(k)]
+                    if not ks:
+                        continue
+                    items = [(names[sidx[k]], votes[w][j * n + k]) for k in ks]
+                    while True:
+                        try:
+                            st = groups[host].ingest_votes(items, NOW + 1 + w)
+                            break
+                        except ShardMigratingError as exc:
+                            if not retry:
+                                raise
+                            time.sleep(min(exc.retry_after, 0.05))
+                    log_["statuses"].append((w, j, host, st.tolist()))
+
+        _build.launches.clear()
+        for w in range(FED_WAVES - 1):
+            send(w)
+        log_["tally_path"] = tally_path()
+        counts = [groups[h].federated_state_counts() for h in ("h0", "h1")]
+        local = [groups[h].fleet.fleet_state_counts() for h in ("h0", "h1")]
+        summed = {c: local[0].get(c, 0) + local[1].get(c, 0) for c in counts[0]}
+        if counts[0] != counts[1] or counts[0] != summed:
+            raise AssertionError(f"(b2) fabric tallies {counts} differ or are not the sum of "
+                                 f"the hosts' fleets {local}")
+        log_["counts"] = counts[0]
+        log_["fingerprints"] = [groups[h].state_fingerprint() for h in ("h0", "h1")]
+        shard = max(placement.shards_of("h0"),
+                    key=lambda sid: (len(placement.pins_of_shard(sid)), sid))
+        moving = lambda k: shard_of[k] == shard  # noqa: E731
+        errors = []
+
+        def traffic():
+            try:
+                send(FED_WAVES - 1, keep=lambda k: not moving(k), retry=True)
+            except BaseException as exc:  # surfaced after the join
+                errors.append(exc)
+
+        thread = threading.Thread(target=traffic)
+        thread.start()
+        report = migrate_shard(placement, groups, shard, "h1", retry_after=0.05)
+        thread.join(timeout=300)
+        if thread.is_alive() or errors:
+            raise AssertionError(f"(b2) the traffic thread failed: {errors}")
+        seconds = report.pop("seconds")
+        send(FED_WAVES - 1, keep=moving)
+        launches = dict(_build.launches)
+        log_["statuses"].sort(key=lambda x: (x[0], x[1], x[2], len(x[3])))
+        log_["migration"] = report
+        log_["owners"] = [placement.owner(scope) for scope in names]
+        log_["outcome"] = fed_results(lambda scope: groups[placement.owner(scope)[0]].adapter,
+                                      names, pids, sidx)
+        log_["counts_after"] = groups["h0"].federated_state_counts()
+        log_["fingerprints_after"] = [groups[h].state_fingerprint() for h in ("h0", "h1")]
+        return log_, launches, seconds
+    finally:
+        for group in groups.values():
+            group.close()
+
+
+FLEET_RUNS = (("b1", fleet_recovery_run), ("b2", federation_run))
+
+
+def fleet_twin(root):
+    """(b1) and (b2) on the CPU, the twins of the card's runs, with their
+    logs as one JSON line. Run in a child process (``python3 chip_smoke.py
+    --fleet-twin ROOT``) beside the card's work: the runs are host-bound
+    and deterministic (seeded ids), so a process of their own gives the
+    same logs in less of the phase's wall."""
+    out = {}
+    for label, fn in FLEET_RUNS:
+        t0 = time.perf_counter()
+        result = fn(torch.device("cpu"), Path(root) / label)
+        out[label] = dict(log=result[0], seconds=time.perf_counter() - t0,
+                          migration_seconds=result[2] if len(result) > 2 else None)
+    print(json.dumps(out))
+
+
+def start_fleet_twin(root):
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--fleet-twin", str(root)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_fleet_twin(proc):
+    """The twin's logs; a twin that fails or outlives FED_TIMEOUT (then
+    killed) fails the phase."""
+    try:
+        out, err = proc.communicate(timeout=FED_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU twin of (b) failed:\n{out[-2000:]}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_fleet_recovery(dev, root, twin_proc):
+    """(b): (b1) and (b2) on the card, each against the same run on the CPU
+    (the twin process)."""
+    from hashgraph_tpu_torch.errors import StatusCode
+
+    out = {}
+    for label, fn in FLEET_RUNS:
+        t0 = time.perf_counter()
+        gpu = fn(dev, root / label)
+        out[label] = dict(log=json.loads(json.dumps(gpu[0])), launches=gpu[1],
+                          seconds=time.perf_counter() - t0,
+                          migration_seconds=gpu[2] if len(gpu) > 2 else None)
+        if not gpu[1].get("ingest_scan"):
+            raise AssertionError(f"({label}) launched no ingest_scan: {gpu[1]}")
+    t0 = time.perf_counter()
+    twin = finish_fleet_twin(twin_proc)
+    waited = time.perf_counter() - t0
+    for label, _ in FLEET_RUNS:
+        compare(f"({label}) statuses, results, fingerprints and reports against the CPU run",
+                out[label]["log"], twin[label]["log"])
+    b1, b2 = out["b1"]["log"], out["b2"]["log"]
+    flat = [c for st in b1["wave0"] + b1["wave4"] for c in st]
+    if int(StatusCode.OK) not in flat or b1["recovered"]["records_applied"] == 0 \
+            or b1["caught_up"]["sessions_installed"] == 0:
+        raise AssertionError(f"(b1) no OK rows, or nothing replayed or installed: "
+                             f"{b1['recovered']} {b1['caught_up']}")
+    if b2["tally_path"] != "fabric" or b2["migration"]["sessions"] == 0:
+        raise AssertionError(f"(b2) tally path {b2['tally_path']}, migration {b2['migration']}")
+    codes = [c for _, _, _, st in b2["statuses"] for c in st]
+    by_code = {StatusCode(c).name: codes.count(c) for c in sorted(set(codes))}
+    if "OK" not in by_code or "SESSION_NOT_FOUND" in by_code:
+        raise AssertionError(f"(b2) statuses {by_code}: votes did not reach their sessions")
+    decided = sum(r is True or r is False for r in b2["outcome"][0])
+    log(f"[fleet] (b1) a durable fleet of {FLEET_SHARDS} shards on cuda:0, {FED_PROPOSALS} "
+        f"proposals x {WAL_VOTERS} voters in {FED_SCOPES} scopes as wire rows: shard "
+        f"{b1['victims'][0]} crashed and replayed ({b1['recovered']}) in the background "
+        f"while wave 1 went to the other three, shard {b1['victims'][1]} rebuilt from a peer "
+        f"({b1['caught_up']}) while wave 2 did; fingerprints equal to before each crash and "
+        f"to the peer; statuses, results, stats, every shard's fingerprint and the tally "
+        f"{b1['counts']} equal to the CPU run's; launches {json.dumps(out['b1']['launches'])}; "
+        f"{out['b1']['seconds']:.3f} s on the card, the CPU run {twin['b1']['seconds']:.3f} s "
+        "in the twin process")
+    log(f"[fleet] (b2) two FleetGroups of 2 shards on cuda:0 over loopback TCP, "
+        f"{FED_PROPOSALS} proposals x {WAL_VOTERS} voters in {FED_SCOPES} scopes, "
+        f"{FED_WAVES} waves of {WAL_PER_WAVE} votes a proposal, every proposal's votes in at "
+        f"one host by parity (half ride the fabric): statuses {by_code}, {decided} "
+        f"sessions decided; fabric tally {b2['counts']} equal on both hosts; "
+        f"migrate_shard {b2['migration']['shard']} h0 -> h1 ({b2['migration']['sessions']} "
+        f"sessions, {b2['migration']['scopes']} scopes) in "
+        f"{out['b2']['migration_seconds']:.3f} s under a traffic thread (the CPU run's "
+        f"{twin['b2']['migration_seconds']:.3f} s); statuses, results, host fingerprints "
+        f"and the report equal to the CPU run's; launches "
+        f"{json.dumps(out['b2']['launches'])}; {out['b2']['seconds']:.3f} s on the card, "
+        f"the CPU run {twin['b2']['seconds']:.3f} s in the twin process (waited "
+        f"{waited:.3f} s for it after the card's runs)")
+    return out
+
+
+def phase_fleet_collective():
+    """(c) The federation worker of tests/test_torch_multihost.py: two gloo
+    processes, each a FleetGroup of one shard on cuda:0, and the same pair
+    on the CPU, both pairs at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_multihost as mh
+
+    t0 = time.perf_counter()
+    sides = {"cuda": [], "cpu": []}
+    with ThreadPoolExecutor(2) as pool:
+        futures = {device: pool.submit(mh.run_federation_workers, device, FED_WORKER_SCALE,
+                                       FED_TIMEOUT, sides[device])
+                   for device in ("cuda", "cpu")}
+        observed = {device: f.result() for device, f in futures.items()}
+    for rank, (on_card, on_cpu) in enumerate(zip(observed["cuda"], observed["cpu"])):
+        compare(f"(c) rank {rank}'s observations", on_card, on_cpu)
+        if on_card["tally_path"] != "psum" or on_card["psum"] != on_card["fabric"]:
+            raise AssertionError(f"(c) rank {rank}: tally path {on_card['tally_path']}, "
+                                 f"psum {on_card['psum']} against fabric {on_card['fabric']}")
+    launches = [side["launches"].get("ingest_scan", 0) for side in sides["cuda"]]
+    if 0 in launches or any(side["launches"] for side in sides["cpu"]):
+        raise AssertionError(f"(c) ingest_scan launches {launches} on the card, "
+                             f"{[s['launches'] for s in sides['cpu']]} on the CPU")
+    wall = time.perf_counter() - t0
+    log(f"[fleet] (c) two gloo processes, a FleetGroup of one shard each on cuda:0, "
+        f"{FED_WORKER_SCALE['proposals']} proposals x {FED_WORKER_SCALE['voters']} voters "
+        f"each: tally_path() 'psum' on both, the all-gather's counts "
+        f"{observed['cuda'][0]['psum']} equal to the fabric's OP_FLEET_TALLY sum and to the "
+        f"CPU pair's; ingest_scan launches per process {launches}; {wall:.3f} s for both "
+        "pairs at once")
+    return dict(launches=launches, seconds=wall)
+
+
+def phase_fleet(dev):
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    smi = nvidia_smi()
+    dev = torch.device(dev.type, torch.cuda.current_device())  # the tally's device is cuda:0
+    t0 = time.perf_counter()
+    a = phase_fleet_config3(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as root:
+        # From here the CPU twin of (b) and (c)'s two pairs of processes run
+        # beside the card's work; (a)'s rates above were measured alone.
+        twin = start_fleet_twin(Path(root) / "twin")
+        background = ThreadPoolExecutor(1)
+        collective = background.submit(phase_fleet_collective)
+        try:
+            signed = phase_fleet_signed(dev)
+            torch.cuda.empty_cache()
+            b = phase_fleet_recovery(dev, Path(root) / "card", twin)
+            c = collective.result()
+        finally:
+            if twin.poll() is None:
+                twin.kill()
+                twin.communicate()
+            background.shutdown(wait=False)
+    log(f"[fleet] phase 16 took {time.perf_counter() - t0:.3f} s on {smi}: (a) "
+        f"{a['seconds']:.3f} + {signed['seconds']:.3f}, (b1) {b['b1']['seconds']:.3f}, "
+        f"(b2) {b['b2']['seconds']:.3f}, (c) {c['seconds']:.3f}; one card checks the router, "
+        "the per-shard kernels, the device tally, the fabric and live migration, not shards "
+        "on separate GPUs, NCCL or hosts on separate machines")
+    return dict(a=a, signed=signed, b=b, c=c)
+
+
 PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15")
+          "15", "16")
 
 
 def main() -> int:
@@ -5944,6 +6669,11 @@ def main() -> int:
         # Phase 15's counts are zeroed just before (a)'s sharded run; (b)'s
         # workers are fresh processes.
         placement = phase_placement(dev)
+    if run("16"):
+        # Phase 16's counts are zeroed just before (a)'s fleet run, its signed
+        # deliveries and each of (b)'s card runs; (c)'s workers are fresh
+        # processes.
+        fleet = phase_fleet(dev)
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -5995,6 +6725,12 @@ def main() -> int:
         launches_sharded={"total": placement["a"]["launches"],
                           "per_shard": placement["a"]["per_shard"]},
         launches_multihost=placement["b"]["launches"])
+    kernels[0].update(
+        launches_fleet={"total": fleet["a"]["launches"], "per_shard": fleet["a"]["per_shard"],
+                        "signed": fleet["signed"]["launches"].get("ingest_scan", 0),
+                        "recovery": fleet["b"]["b1"]["launches"].get("ingest_scan", 0)},
+        launches_federation={"fabric": fleet["b"]["b2"]["launches"].get("ingest_scan", 0),
+                             "collective": fleet["c"]["launches"]})
     crypto = [
         ("fe_mul", "fe_mul.cu", fe_mul_timing,
          "one thread per lane, uint32 columns in registers; decompression's products "
@@ -6039,6 +6775,8 @@ def main() -> int:
             "launches_gossip": gossip_14,
             "launches_catchup": catchup_14,
             "launches_sim": sim_14,
+            "launches_fleet": fleet["signed"]["launches"].get(name, 0),
+            "launches_federation": fleet["b"]["b2"]["launches"].get(name, 0),
             "catchup_shape": at_catchup["shape"],
             "catchup_ms": at_catchup["ms"],
             "catchup_bound_ms": at_catchup["bound_ms"],
@@ -6076,7 +6814,10 @@ def stop_children() -> None:
         print(f"chip_smoke: killed child processes still running: {left}", file=sys.stderr)
 
 
-if __name__ == "__main__":
+if __name__ == "__main__" and sys.argv[1:2] == ["--fleet-twin"]:
+    torch.set_num_threads(2)
+    fleet_twin(sys.argv[2])
+elif __name__ == "__main__":
     try:
         code = main()
     except BaseException:

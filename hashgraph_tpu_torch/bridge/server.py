@@ -810,11 +810,15 @@ class BridgeServer:
             daemon=True,
             name="bridge-shm",
         )
+        # Registered and started under one lock: a stop() racing the
+        # attach (its reply is already sent) tears down only started
+        # threads. The JAX package's server starts the thread after the
+        # lock, and its stop() reaches the teardown 5 s later.
         with self._lock:
             self._shm_rings.add((conn, state, rings[0], rings[1], thread))
+            thread.start()
         self._m_shm_attached.inc()
         flight_recorder.record("bridge.shm_attach", c2s=c2s, s2c=s2c)
-        thread.start()
         return True
 
     def _serve_shm_ring(self, conn, state: _ConnState, rx, tx) -> None:

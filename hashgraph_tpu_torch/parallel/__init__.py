@@ -1,19 +1,39 @@
-"""hashgraph_tpu_torch.parallel — multi-device placement, part one.
+"""hashgraph_tpu_torch.parallel — multi-device and multi-host placement.
 
-The mesh (:mod:`.mesh`: a list of devices), the sharded pool
-(:mod:`.sharded`: one block of pool tensors a mesh entry, the
-single-device bodies run block by block) and the multi-host pool
-(:mod:`.multihost`: the slot axis across the processes of a gloo
-process group, with the engine's multi-host branches keyed on it), plus
-the fleet's two shard-availability errors (:mod:`.fleet`), which the
-bridge server answers as ``STATUS_SHARD_MIGRATING``.
+Port of the JAX package's ``parallel/``:
 
-The rest of the JAX package's ``parallel/`` — the fleet itself
-(``ConsensusFleet``, ``FleetShard``, ``ScopePlacement``), ``rollup`` and
-``federation`` — is not ported yet.
+- the mesh (:mod:`.mesh`: a list of devices; an entry may repeat);
+- the sharded pool (:mod:`.sharded`: one block of pool tensors a mesh
+  entry, the single-device bodies run block by block);
+- the multi-host pool (:mod:`.multihost`: the slot axis across the
+  processes of a gloo process group, with the engine's multi-host
+  branches keyed on it);
+- the scope-sharded fleet (:mod:`.fleet`: rendezvous placement, one
+  engine on a one-block :class:`ShardedPool` a shard, the router, the
+  fleet tally reduced on the device, crash recovery and catch-up);
+- the shared rollups (:mod:`.rollup`);
+- the federation (:mod:`.federation`: (host, shard) placement, one
+  bridge peer a host over its fleet, cross-host routing over the gossip
+  fabric, live shard migration).
 """
 
-from .fleet import ShardMigratingError, ShardRecoveringError
+from .federation import (
+    FederationDriver,
+    FederationPlacement,
+    FleetEngineAdapter,
+    FleetGroup,
+    MigrationError,
+    migrate_shard,
+    tally_path,
+)
+from .fleet import (
+    ConsensusFleet,
+    FleetShard,
+    ScopePlacement,
+    ShardMigratingError,
+    ShardRecoveringError,
+    rendezvous_owner,
+)
 from .mesh import PROPOSAL_AXIS, consensus_mesh
 from .multihost import (
     COLLECTIVES_GAP_SIGNATURE,
@@ -39,6 +59,17 @@ __all__ = [
     "collectives_available",
     "is_collectives_gap",
     "COLLECTIVES_GAP_SIGNATURE",
-    "ShardMigratingError",
+    "ConsensusFleet",
+    "FleetShard",
+    "ScopePlacement",
     "ShardRecoveringError",
+    "ShardMigratingError",
+    "rendezvous_owner",
+    "FederationPlacement",
+    "FleetEngineAdapter",
+    "FleetGroup",
+    "FederationDriver",
+    "MigrationError",
+    "migrate_shard",
+    "tally_path",
 ]

@@ -380,7 +380,7 @@ class MultiHostPool(ShardedPool):
     def global_state_counts(self) -> dict[int, int]:
         """Fleet-wide slot-state histogram: this process's blocks counted
         on their devices, then summed over the group (collective)."""
-        counts = torch.from_numpy(self._block_state_counts())
+        counts = self.device_state_counts().cpu()
         if process_count() > 1:
             dist.all_reduce(counts)
         return {code: int(c) for code, c in zip(_STATE_CODES, counts.tolist())}

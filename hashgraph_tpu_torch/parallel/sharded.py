@@ -290,19 +290,24 @@ class ShardedPool(ProposalPool):
         blocks = self._state_host.reshape(self.n_devices, self.local_capacity)
         return (blocks != STATE_FREE).sum(axis=1).astype(int).tolist()
 
-    def _block_state_counts(self) -> np.ndarray:
-        """int64[5] slot-state histogram over this process's blocks, each
-        counted on its device."""
-        total = np.zeros(len(_STATE_CODES), np.int64)
+    def device_state_counts(self) -> torch.Tensor:
+        """int64[5] slot-state histogram over this process's blocks, left on
+        the device: each block counts on its device, and the vectors are
+        summed on the first block's device. No host copy (the fleet tally
+        reduces these vectors across shards before its one copy)."""
+        total = None
         for block in self._blocks:
-            if block is not None:
-                total += torch.stack(
-                    [(block._state == code).sum() for code in _STATE_CODES]
-                ).cpu().numpy()
+            if block is None:
+                continue
+            counts = torch.stack(
+                [(block._state == code).sum() for code in _STATE_CODES]
+            )
+            total = counts if total is None else total + counts.to(total.device)
         return total
 
     def global_state_counts(self) -> dict[int, int]:
         """Device-side global histogram of slot states: each block counts
-        on its device and the host sums the blocks (the JAX pool's psum)."""
-        counts = self._block_state_counts()
+        on its device and the blocks are summed there, with one host copy
+        (the JAX pool's psum)."""
+        counts = self.device_state_counts().cpu().tolist()
         return {code: int(c) for code, c in zip(_STATE_CODES, counts)}

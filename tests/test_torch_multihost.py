@@ -1,10 +1,17 @@
 """Parity: the port's multi-host pool and engine, two processes on a gloo
 group, against the JAX package's under ``jax.distributed``.
 
-Twins of ``tests/test_multihost.py`` (the federation tally-path case
-waits for the port of ``parallel/federation``):
+Twins of ``tests/test_multihost.py``:
 
-- the collectives probe and the gap matcher;
+- the collectives probe and the gap matcher, and the federation's tally
+  path in one process (``"fabric"``);
+- the tally path's collective arm: two gloo processes, each a
+  ``FleetGroup`` of one shard on the fabric with the other, where
+  ``tally_path()`` is ``"psum"`` and ``federated_state_counts`` (one
+  all-gather) equals the fabric sum (``python
+  tests/test_torch_multihost.py --federation-worker DEVICE SCALE_JSON
+  RANK HOST:PORT``; the JAX package's CPU backend reports the collectives
+  gap there, a difference of backend);
 - the two-process ``MultiHostPool``: replicated allocation, process-local
   ingest, the empty collective dispatch, summed stats, the collective
   timeout (each process gets its own slots back);
@@ -502,6 +509,158 @@ def test_collectives_gap_signature_matcher():
 
     assert mh.COLLECTIVES_GAP_SIGNATURE == ref_mh.COLLECTIVES_GAP_SIGNATURE
 
+def test_collectives_probe_drives_federation_tally_path():
+    """The federation's tally-path selector consults the probe: in one
+    process there is no process group, so cross-host tallies ride the
+    gossip fabric's OP_FLEET_TALLY frames, not the collective — as in the
+    JAX package."""
+    from hashgraph_tpu.parallel.federation import tally_path as ref_tally_path
+    from hashgraph_tpu_torch.parallel.federation import tally_path
+    from hashgraph_tpu_torch.parallel.multihost import process_count
+
+    assert process_count() == 1
+    assert tally_path() == "fabric" == ref_tally_path()
+
+
+FEDERATION_SCALE = dict(proposals=20, voters=8)
+
+
+def run_federation_workers(device="cpu", scale=FEDERATION_SCALE, timeout=200, sides=None):
+    """Both ranks' observations from the federation worker (last stdout
+    line); the launches line before it goes to ``sides``."""
+    outs = spawn_pair(
+        [sys.executable, str(Path(__file__).resolve()), "--federation-worker", device,
+         json.dumps(scale)],
+        worker_env("port"), timeout,
+    )
+    observed = []
+    for rank, (rc, out, err) in enumerate(outs):
+        assert rc == 0, f"federation rank {rank} failed:\n{out[-3000:]}\n{err[-6000:]}"
+        lines = out.strip().splitlines()
+        observed.append(json.loads(lines[-1]))
+        if sides is not None:
+            sides.append(json.loads(lines[-2]))
+    return observed
+
+
+def test_two_process_federation_tally_rides_the_collective():
+    """Two gloo processes, one FleetGroup each: ``tally_path()`` is
+    ``"psum"`` (gloo runs the all-gather, on the CPU too), and the
+    collective's counts equal the fabric's OP_FLEET_TALLY sum, on both
+    ranks."""
+    from hashgraph_tpu_torch.ops.decide import STATE_ACTIVE, STATE_REACHED_YES
+
+    observed = run_federation_workers()
+    for obs in observed:
+        assert obs["tally_path"] == "psum"
+        assert obs["psum"] == obs["fabric"]
+        assert obs["psum"] == observed[0]["psum"]
+    counts = observed[0]["psum"]
+    per_host = FEDERATION_SCALE["proposals"]
+    assert counts[str(STATE_REACHED_YES)] == per_host  # the even half, on each host
+    assert counts[str(STATE_ACTIVE)] == per_host
+    from hashgraph_tpu_torch import StatusCode
+
+    snf = int(StatusCode.SESSION_NOT_FOUND)
+    assert [obs["remote"] for obs in observed] == [[snf] * 4] * 2
+
+
+def federation_worker(rank, coordinator, device, proposals, voters):
+    """One rank of the federation worker: a FleetGroup of one shard on
+    ``device``, hosting ``proposals`` sessions of ``voters`` voters in
+    four scopes it owns; the deciding ceil(2n/3) votes of the even
+    sessions and three of the odd ones, wave by wave (a vote after the
+    decision would be absorbed, and the next one would link past it).
+    Returns its observations."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import hashgraph_tpu_torch as pkg
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.parallel import (
+        FederationPlacement,
+        FleetGroup,
+        initialize_distributed,
+        tally_path,
+    )
+    from hashgraph_tpu_torch.parallel.multihost import process_allgather
+
+    initialize_distributed(coordinator, 2, rank)
+    hosts = ["r0", "r1"]
+    me, other = hosts[rank], hosts[1 - rank]
+    placement = FederationPlacement.uniform(hosts, 1)
+    obs = {}
+    with tempfile.TemporaryDirectory() as root:
+        group = FleetGroup(
+            me, lambda k: pkg.StubConsensusSigner(bytes([16 * rank + k + 1]) * 20),
+            placement=placement, wal_root=root, capacity_per_shard=proposals,
+            voter_capacity=voters, fsync_policy="off", devices=[torch.device(device)],
+        )
+        try:
+            group.start()
+            ports = process_allgather(np.array([group.address[1], group.peer_id], np.int64))
+            group.connect(other, "127.0.0.1", int(ports[1 - rank][0]), int(ports[1 - rank][1]))
+            mine = [s for s in (f"fed-{i}" for i in range(1000))
+                    if placement.owner(s)[0] == me][:4]
+            theirs = [s for s in (f"fed-{i}" for i in range(1000))
+                      if placement.owner(s)[0] == other][:4]
+            request = pkg.CreateProposalRequest(
+                name="p", payload=b"", proposal_owner=b"o" * 20,
+                expected_voters_count=voters, expiration_timestamp=3600,
+                liveness_criteria_yes=True,
+            )
+            sessions = []
+            for k in range(proposals):
+                scope = mine[k % 4]
+                proposal = group.adapter.create_proposal(scope, request, NOW)
+                sessions.append((scope, proposal))
+            signers = [pkg.StubConsensusSigner(b"voter-%d" % j) for j in range(voters)]
+            quorum = -(-2 * voters // 3)
+            _build.launches.clear()
+            for j in range(quorum):
+                items = []
+                for k, (scope, proposal) in enumerate(sessions):
+                    if k % 2 == 0 or j < 3:
+                        vote = pkg.build_vote(proposal, True, signers[j], NOW + 1)
+                        proposal.votes.append(vote)
+                        items.append((scope, vote))
+                statuses = group.ingest_votes(items, NOW + 1)
+                assert set(statuses.tolist()) == {0}, (j, statuses.tolist())
+            launches = dict(_build.launches)
+            # A vote for each of the other host's scopes rides the fabric
+            # and comes back SESSION_NOT_FOUND from the owner (no such
+            # session there).
+            probe = pkg.CreateProposalRequest(
+                name="probe", payload=b"", proposal_owner=b"o" * 20,
+                expected_voters_count=3, expiration_timestamp=3600,
+                liveness_criteria_yes=True,
+            )
+            process_allgather(np.ones(1, np.int64))  # both hosts' traffic is in
+            remote = []
+            for scope in theirs:
+                created = pkg.TorchConsensusEngine(
+                    pkg.StubConsensusSigner(b"w" * 20), capacity=4, voter_capacity=4,
+                    device="cpu").create_proposal(scope, probe, NOW)
+                vote = pkg.build_vote(created, True, signers[0], NOW + 2)
+                remote.append(int(group.ingest_votes([(scope, vote)], NOW + 2)[0]))
+            obs["remote"] = remote
+            process_allgather(np.ones(1, np.int64))
+            obs["tally_path"] = tally_path()
+            obs["psum"] = {str(k): v for k, v in group.federated_state_counts().items()}
+            fabric = dict(group.fleet.fleet_state_counts())
+            for counts in group._fabric_tallies().values():
+                for code, count in counts.items():
+                    fabric[code] = fabric.get(code, 0) + count
+            obs["fabric"] = {str(k): v for k, v in fabric.items()}
+            process_allgather(np.ones(1, np.int64))  # both fabric reads are done
+        finally:
+            group.close()
+            dist.destroy_process_group()
+    return obs, {"launches": launches}
+
+
 def test_two_process_multihost_pool():
     """Twin of the JAX package's pool worker: replicated allocation,
     process-local ingest, summed stats, the empty collective dispatch
@@ -640,6 +799,13 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
     rank, coordinator = int(sys.argv[5]), sys.argv[6]
     sys.path.insert(0, str(REPO))
     obs, side = run_worker(kind, rank, coordinator, device, scale)
+    print(json.dumps(side, sort_keys=True))
+    print(json.dumps(obs, sort_keys=True))
+elif __name__ == "__main__" and sys.argv[1:2] == ["--federation-worker"]:
+    device, scale = sys.argv[2], json.loads(sys.argv[3])
+    rank, coordinator = int(sys.argv[4]), sys.argv[5]
+    sys.path.insert(0, str(REPO))
+    obs, side = federation_worker(rank, coordinator, device, **scale)
     print(json.dumps(side, sort_keys=True))
     print(json.dumps(obs, sort_keys=True))
 elif __name__ == "__main__" and sys.argv[1:2] == ["--pool-worker"]:

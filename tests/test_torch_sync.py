@@ -3,10 +3,11 @@ chain verification, bridge sync opcodes, CatchUpClient (install + tail +
 resume) and adversarial sources, over ``hashgraph_tpu_torch`` servers and
 engines built with ``device="cpu"``.
 
-A twin of ``tests/test_sync.py`` without its two fleet tests
+A twin of ``tests/test_sync.py``; its two fleet tests
 (``test_catch_up_shard_recovers_from_peer`` and
-``test_recover_shard_surfaces_wal_recover_stats``): the port has no
-``ConsensusFleet`` yet. Stub signers keep the suite fast; the
+``test_recover_shard_surfaces_wal_recover_stats``) have their twins in
+``tests/test_torch_fleet.py`` beside the fleet's others. Stub signers
+keep the suite fast; the
 cross-package catch-up with real signatures is
 ``tests/test_torch_sync_wire.py``.
 """

@@ -6,10 +6,11 @@ Three parts, all on ``TorchConsensusEngine(device="cpu")``:
    session back in, the reads that go through the tier without promoting,
    the TTL policies of ``lifecycle_sweep`` (also as the end of
    ``sweep_timeouts``), pinned scopes, the per-scope cap counting demoted
-   sessions, and the tier's keys in ``occupancy()``. Left out: the JAX
-   suite's metric-family and fleet-rollup tests and the
-   ``explain_decision`` half of its read test (the port has no ``obs``,
-   ``parallel`` or ``explain_decision`` yet).
+   sessions, and the tier's keys in ``occupancy()``. Left out here: the
+   JAX suite's metric-family test and the ``explain_decision`` half of its
+   read test; the twin of its fleet-rollup test
+   (``test_shared_rollup_carries_tier_keys``) is in
+   ``tests/test_torch_rollup.py``.
 2. ``run_identity_script``: a random create/vote/timeout/sweep script
    through a tiered engine (demotions sprinkled in) and an untiered twin,
    at the JAX suite's 12 seeds; statuses, results, stats, session keys and
