@@ -311,7 +311,41 @@ phase holds:
    fails or outlives ``FED_TIMEOUT`` (then killed) fails the phase. One
    card checks the router, the per-shard kernels, the device tally, the
    fabric and live migration; shards on separate GPUs, NCCL and hosts on
-   separate machines stay unchecked.
+   separate machines stay unchecked;
+17. the example programs (slice 15): every twin under ``examples_torch/``
+   as its own process from the repository root, through the runner
+   (``python3 chip_smoke.py --run-example NAME ARGS...``, which runs the
+   twin's ``__main__`` and then reports that process's kernel launches,
+   whether it initialised CUDA and its device-verification batches and
+   fallbacks on one stderr line; twins a twin spawns go through it too),
+   ``EXAMPLE_WORKERS`` runs at a time. (a) ``batch_engine``,
+   ``bridge_embedder``, ``catchup_smoke``, ``trace_smoke``,
+   ``metrics_smoke`` and ``federation_scrape_smoke`` with ``--device
+   cuda`` and with ``--device cpu``: both exit 0 with stdout equal line
+   for line after ``EXAMPLE_MASKS`` (wall time, random ids and the
+   listening port), the smokes on their ``... OK`` line, every process
+   holding device state on the card having initialised CUDA, the CPU runs
+   launching nothing; ``quickstart`` and ``gossip_simulation`` (host-only)
+   exit 0 without touching CUDA. Two ``federation_host`` twins on the card
+   and two on the CPU each take one decision a host from the port's
+   ``FederationDriver``, move one shard h0 -> h1 over
+   ``EXPORT``/``ADOPT``/``FLIP``/``RETIRE`` with equal fingerprints, take
+   one more decision a host and answer ``TALLY``: tallies and sessions
+   moved equal across devices. A ``gossip_peer`` twin on each device
+   answers the bridge quick-start the same and exits 0 on EOF. (b) Each
+   card run's launches are printed; the phase fails unless
+   ``batch_engine`` launched ``ingest_scan`` at least 4 times, some
+   twin serving a bridge at least once, and each card ``federation_host``
+   (whose chains arrive in two halves, the second on the scan's path) at
+   least once. (c) ``gossip_peer --scheme
+   ed25519 --device cuda`` under ``HASHGRAPH_TPU_DEVICE_VERIFY=1`` and
+   ``--device cpu`` under the host signer take the quick-start on keyed
+   peers, then three outside Ed25519 votes in one frame, the last with a
+   damaged scalar: statuses and results equal, and the card peer's
+   process launched every verification kernel, ran every batch's MSM on
+   the card and fell back to the host blame once (the damaged frame's).
+   A twin that fails, falls back to the CPU or outlives
+   ``EXAMPLE_TIMEOUT`` (then killed) fails the phase.
 
 Phases 3-5b, 7 and 8 run the same traffic on a ``device="cpu"`` port engine
 and require identical statuses, results, events per session and scope
@@ -6509,8 +6543,524 @@ def phase_fleet(dev):
     return dict(a=a, signed=signed, b=b, c=c)
 
 
+# ── Phase 17: the example programs ─────────────────────────────────────
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
+EXAMPLE_TIMEOUT = 300  # seconds a twin's process may run before it is killed
+EXAMPLE_WORKERS = 6  # runs of (a) at once; the card's host has 8 cores
+EXAMPLE_REPORT = "[example-launches] "  # the runner's line on stderr
+HOST_ONLY_EXAMPLES = ("quickstart", "gossip_simulation")  # scalar services, no --device
+SCRIPT_EXAMPLES = ("batch_engine", "bridge_embedder", "catchup_smoke", "trace_smoke",
+                   "metrics_smoke", "federation_scrape_smoke")  # run to their end
+BRIDGE_EXAMPLES = ("bridge_embedder", "catchup_smoke", "trace_smoke", "metrics_smoke")
+# name -> regexes whose groups are masked when two runs' stdout are
+# compared: only fields that wall time, os.urandom or the kernel fill
+# (proposal ids, peer identity hex, trace-id hex, batch_engine's seconds
+# and votes/s, bridge_embedder's listening port).
+EXAMPLE_MASKS = {
+    "quickstart": [r"^proposal (\d+):"],
+    "batch_engine": [r"^\d+ votes in ([\d.]+)s \(([\d,]+) votes/sec"],
+    "gossip_simulation": [r"^proposal (\d+) delivered", r"^one trace \(([0-9a-f]+)…\)"],
+    "bridge_embedder": [r"^bridge listening on [\d.]+:(\d+)$", r"address 0x([0-9a-f]+)$",
+                        r"^proposal (\d+) created$"],
+}
+FED_HOSTS = ("h0", "h1")
+FED_VOTERS = 4  # votes of each decision driven onto a federation host
+
+
+def masked_transcript(name: str, text: str) -> "list[str]":
+    """The lines of ``text`` with the groups of ``EXAMPLE_MASKS[name]``
+    replaced."""
+    out = []
+    for line in text.splitlines():
+        for pattern in EXAMPLE_MASKS.get(name, ()):
+            m = re.search(pattern, line)
+            if m:
+                for g in range(len(m.groups()), 0, -1):
+                    a, b = m.span(g)
+                    line = line[:a] + "<masked>" + line[b:]
+        out.append(line)
+    return out
+
+
+def run_example(name: str, args: "list[str]") -> int:
+    """The runner, ``python3 chip_smoke.py --run-example NAME ARGS...``:
+    runs ``examples_torch/NAME.py`` with ARGS in this process as its own
+    process would, then prints on stderr ``EXAMPLE_REPORT`` and a JSON
+    object: the twin, its arguments, this process's kernel launches,
+    whether it initialised CUDA, and the device-verification batches and
+    host-blame fallbacks it counted. A twin it spawns (the hosts of
+    ``federation_scrape_smoke``) runs through the runner too."""
+    import runpy
+
+    path = EXAMPLES_DIR / f"{name}.py"
+    popen_init = subprocess.Popen.__init__
+
+    def through_runner(self, argv, *a, **kw):
+        if (isinstance(argv, list) and len(argv) > 1
+                and Path(str(argv[1])).resolve().parent == EXAMPLES_DIR):
+            argv = [argv[0], str(Path(__file__).resolve()), "--run-example",
+                    Path(str(argv[1])).stem, *map(str, argv[2:])]
+        popen_init(self, argv, *a, **kw)
+
+    subprocess.Popen.__init__ = through_runner
+    sys.argv = [str(path), *args]
+    code = 0
+    try:
+        runpy.run_path(str(path), run_name="__main__")
+    except SystemExit as exc:
+        code = exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
+    finally:
+        from hashgraph_tpu_torch import _build
+        from hashgraph_tpu_torch.obs import (DEVICE_VERIFY_BATCHES_TOTAL,
+                                             DEVICE_VERIFY_FALLBACKS_TOTAL, registry)
+
+        print(EXAMPLE_REPORT + json.dumps({
+            "example": name, "args": args, "launches": dict(_build.launches),
+            "cuda": torch.cuda.is_initialized(),
+            "verify_batches": registry.counter(DEVICE_VERIFY_BATCHES_TOTAL).value,
+            "verify_fallbacks": registry.counter(DEVICE_VERIFY_FALLBACKS_TOTAL).value,
+        }), file=sys.stderr, flush=True)
+    return code
+
+
+def example_argv(name: str, *args: str) -> "list[str]":
+    return [sys.executable, str(Path(__file__).resolve()), "--run-example", name, *args]
+
+
+def example_env(**changes) -> dict:
+    """The twins' environment: two intra-op threads a process, so the runs
+    of (a) side by side do not oversubscribe the cores; ``None`` removes a
+    variable."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    for key, value in changes.items():
+        if value is None:
+            env.pop(key, None)
+        else:
+            env[key] = value
+    return env
+
+
+def example_reports(stderr: str) -> "list[dict]":
+    return [json.loads(line[len(EXAMPLE_REPORT):]) for line in stderr.splitlines()
+            if line.startswith(EXAMPLE_REPORT)]
+
+
+def run_script_example(name: str, dev: "str | None", tmp: Path) -> dict:
+    """One run of a twin that runs to its end, through the runner, with
+    ``tmp`` as its TMPDIR (the scrape smoke's hosts leave their WAL
+    directories there, as the reference's do): exit code, stdout, the
+    tail of stderr, and every process's report."""
+    args = [] if dev is None else ["--device", dev]
+    t = time.perf_counter()
+    proc = subprocess.run(example_argv(name, *args), cwd=str(EXAMPLES_DIR.parent),
+                          capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT,
+                          env=example_env(TMPDIR=str(tmp)))
+    return dict(rc=proc.returncode, out=proc.stdout, err=proc.stderr[-4000:],
+                reports=example_reports(proc.stderr), seconds=time.perf_counter() - t)
+
+
+class LineProcess:
+    """A program answering line commands on stdin, one line each (its
+    first line is its ``ready`` answer); stdout is read on a thread and
+    stderr kept, each line awaited at most ``timeout`` s; closing stdin is
+    its shutdown signal."""
+
+    def __init__(self, argv, env=None, cwd=None, timeout=EXAMPLE_TIMEOUT):
+        import queue
+
+        self.timeout = timeout
+        self.proc = subprocess.Popen(argv, cwd=cwd or str(EXAMPLES_DIR.parent), env=env,
+                                     text=True, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        self.lines = queue.Queue()
+        self.err: "list[str]" = []
+        threading.Thread(target=self._read, daemon=True).start()
+        self._err_reader = threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
+                                            daemon=True)
+        self._err_reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.strip())
+        self.lines.put("")
+
+    def readline(self) -> str:
+        import queue
+
+        try:
+            return self.lines.get(timeout=self.timeout)
+        except queue.Empty:
+            self.proc.kill()
+            raise AssertionError(f"{self.proc.args} said nothing in {self.timeout} s") from None
+
+    def ready(self) -> "list[str]":
+        return self.readline().split()
+
+    def command(self, line: str) -> str:
+        self.proc.stdin.write(line + "\n")
+        self.proc.stdin.flush()
+        resp = self.readline()
+        if not resp or resp.startswith("ERROR"):
+            raise AssertionError(f"{line!r} -> {resp!r}: {''.join(self.err[-20:])}")
+        return resp
+
+    def close(self) -> int:
+        """Close stdin and return the exit code; a process that outlives
+        it by ``timeout`` is killed and fails."""
+        if not self.proc.stdin.closed:
+            self.proc.stdin.close()
+        try:
+            rc = self.proc.wait(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"{self.proc.args} outlived its stdin by "
+                                 f"{self.timeout} s") from None
+        self._err_reader.join(self.timeout)
+        return rc
+
+    def reports(self) -> "list[dict]":
+        return example_reports("".join(self.err))
+
+
+def bridge_quickstart_answers(client_cls, port: int) -> dict:
+    """The bridge quick-start through ``client_cls`` on three keyed peers
+    (any scheme: the keys are 32-byte seeds); every answer but the
+    proposal id, which the server mints from the wall clock and random
+    bytes."""
+    from hashgraph_tpu_torch.wire import Vote
+
+    with client_cls("127.0.0.1", port, timeout=120.0) as c:
+        out = {"ping": c.ping()}
+        peers = [c.add_peer(bytes([0x31 + i]) * 32) for i in range(3)]
+        out["peers"] = [(p, identity.hex()) for p, identity in peers]
+        ids = [p for p, _ in peers]
+        pid, _ = c.create_proposal(ids[0], "demo", NOW, "genesis-upgrade", b"ship it", 3, 600)
+        # The vote's bytes carry the random ids, so only these fields.
+        vote = Vote.decode(c.cast_vote(ids[0], "demo", pid, True, NOW + 1))
+        out["vote"] = [vote.vote_owner.hex(), vote.proposal_id == pid, vote.timestamp, vote.vote]
+        proposal = c.get_proposal(ids[0], "demo", pid)
+        for peer in ids[1:]:
+            c.process_proposal(peer, "demo", proposal, NOW + 2)
+        statuses = []
+        for i, voter in enumerate(ids[1:]):
+            vote = c.cast_vote(voter, "demo", pid, True, NOW + 3 + i)
+            for other in ids:
+                if other != voter:
+                    try:
+                        c.process_vote(other, "demo", vote, NOW + 4 + i)
+                        statuses.append(0)
+                    except Exception as exc:  # a vote after the decision
+                        statuses.append(getattr(exc, "status", repr(exc)))
+        out["statuses"] = statuses
+        out["results"] = [c.get_result(p, "demo", pid) for p in ids]
+        out["events"] = [[(e.scope, e.kind, e.proposal_id == pid, e.result, e.timestamp)
+                          for e in c.poll_events(p)] for p in ids]
+        out["stats"] = [list(c.get_stats(p, "demo")) for p in ids]
+        verdict = c.explain(ids[0], "demo", pid)
+        out["explain"] = [verdict["status"], verdict["result"], verdict["quorum"],
+                          len(verdict["vote_chain"])]
+    return out
+
+
+def federation_answers(hosts: "dict[str, LineProcess]") -> dict:
+    """Drive a federation of host processes (``federation_host``'s line
+    protocol, ``FED_HOSTS``, two shards each) with the port's
+    ``FederationDriver``: one decision on a scope each host owns (its
+    chain in two halves, drained in turn); one of
+    h0's shards moved to h1 with ``EXPORT``, ``ADOPT``, ``FLIP`` on every
+    host and ``RETIRE``; one more decision a host; then ``TALLY`` on each.
+    Returns whether the exported and adopted fingerprints were equal, the
+    sessions moved and the tallies."""
+    from hashgraph_tpu_torch import build_vote
+    from hashgraph_tpu_torch.bridge import BridgeClient
+    from hashgraph_tpu_torch.parallel.federation import FederationDriver, FederationPlacement
+    from hashgraph_tpu_torch.signing.stub import StubConsensusSigner
+    from hashgraph_tpu_torch.wire import Proposal
+
+    placement = FederationPlacement.uniform(list(FED_HOSTS), 2)
+    driver = FederationDriver(placement)
+    clients, ports, peers = {}, {}, {}
+    try:
+        for host_id, host in hosts.items():
+            word, port_s, peer_s = host.ready()
+            if word != "READY":
+                raise AssertionError(f"{host_id} said {word!r}")
+            ports[host_id], peers[host_id] = int(port_s), int(peer_s)
+            clients[host_id] = BridgeClient("127.0.0.1", ports[host_id], timeout=120.0)
+            driver.connect(host_id, "127.0.0.1", ports[host_id], peers[host_id])
+        signers = [StubConsensusSigner(bytes([0x41 + i]) * 20) for i in range(FED_VOTERS)]
+
+        def decide(tag):
+            scopes, chains, i = {}, {}, 0
+            while len(scopes) < len(FED_HOSTS):
+                owner, _ = placement.owner(f"{tag}-{i}")
+                scopes.setdefault(owner, f"{tag}-{i}")
+                i += 1
+            for owner, scope in scopes.items():
+                _, shard = placement.owner(scope)
+                _, blob = clients[owner].create_proposal(
+                    peers[owner], scope, NOW, "p", b"payload", FED_VOTERS, 3_600)
+                placement.pin(scope, shard)
+                proposal, chains[scope] = Proposal.decode(blob), []
+                for signer in signers:
+                    vote = build_vote(proposal, True, signer, NOW + 1)
+                    proposal.votes.append(vote)
+                    chains[scope].append(vote.encode())
+            # Each chain in two halves, drained in turn: the second half
+            # lands on sessions that already hold votes (the scan's path,
+            # not the fresh one).
+            half = FED_VOTERS // 2
+            for part in (slice(0, half), slice(half, None)):
+                for scope, votes in chains.items():
+                    driver.submit(scope, votes[part], NOW + 1)
+                    driver.pump()
+                report = driver.drain()
+                if report["acked"] != len(FED_HOSTS) * len(signers[part]) or report["rejected"]:
+                    raise AssertionError(f"the federation's drain: {report}")
+            return scopes
+
+        shard = placement.pinned(decide("before")["h0"])
+        driver.begin_shard_migration(shard, retry_after=0.25)
+        _, export_peer, src_fp = hosts["h0"].command(f"EXPORT {shard} 0.25").split()
+        _, sessions, dst_fp = hosts["h1"].command(
+            f"ADOPT {shard} 127.0.0.1 {ports['h0']} {export_peer}").split()
+        for host in hosts.values():
+            host.command(f"FLIP {shard} h1")
+        driver.complete_shard_migration(shard, "h1")
+        hosts["h0"].command(f"RETIRE {shard} {export_peer}")
+        decide("after")
+        tallies = {h: json.loads(host.command("TALLY").split(" ", 1)[1])
+                   for h, host in hosts.items()}
+    finally:
+        driver.close()
+        for client in clients.values():
+            client.close()
+    return dict(fingerprints_equal=src_fp == dst_fp, sessions=int(sessions), tallies=tallies)
+
+
+def example_federation(dev: str, root: Path) -> dict:
+    """Two ``federation_host`` twins on ``dev`` through ``federation_answers``;
+    both must exit 0 on EOF."""
+    common = ["--hosts", ",".join(FED_HOSTS), "--shards-per-host", "2", "--capacity", "32",
+              "--voter-capacity", str(FED_VOTERS + 2), "--device", dev]
+    t = time.perf_counter()
+    hosts = {h: LineProcess(example_argv("federation_host", "--host-id", h, "--wal-root",
+                                         str(root / dev / h), *common), env=example_env())
+             for h in FED_HOSTS}
+    try:
+        out = federation_answers(hosts)
+    finally:
+        codes = [host.close() for host in hosts.values()]
+    if codes != [0, 0]:
+        raise AssertionError(f"(a) federation hosts on {dev} exited {codes}: "
+                             f"{''.join(hosts['h0'].err[-10:] + hosts['h1'].err[-10:])}")
+    out.update(reports=[r for host in hosts.values() for r in host.reports()],
+               seconds=time.perf_counter() - t)
+    return out
+
+
+def stub_peer_answers(port: int) -> dict:
+    from hashgraph_tpu_torch.bridge import BridgeClient
+
+    return bridge_quickstart_answers(BridgeClient, port)
+
+
+def signed_peer_answers(port: int) -> "tuple[dict, dict]":
+    """(c)'s traffic on a ``gossip_peer --scheme ed25519``: the bridge
+    quick-start on three keyed peers, then three Ed25519 votes of outside
+    keys chained on a second proposal, the last with its scalar damaged
+    (a well-formed signature that does not verify, so the batch fails and
+    the host blame runs), in one ``OP_PROCESS_VOTES`` frame; the statuses,
+    results and the server's device-verification counters."""
+    from hashgraph_tpu_torch import build_vote
+    from hashgraph_tpu_torch.bridge import BridgeClient
+    from hashgraph_tpu_torch.obs import DEVICE_VERIFY_BATCHES_TOTAL, DEVICE_VERIFY_FALLBACKS_TOTAL
+    from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
+    from hashgraph_tpu_torch.signing._ed25519 import L
+    from hashgraph_tpu_torch.wire import Proposal
+
+    out = bridge_quickstart_answers(BridgeClient, port)
+    with BridgeClient("127.0.0.1", port, timeout=120.0) as c:
+        pid, blob = c.create_proposal(1, "blame", NOW, "blame", b"", 6, 600)
+        c.process_proposal(2, "blame", blob, NOW + 1)
+        proposal, votes = Proposal.decode(blob), []
+        for k in range(3):
+            signer = Ed25519ConsensusSigner(bytes([0x51 + k]) * 32, device_verify=False)
+            vote = build_vote(proposal, True, signer, NOW + 2)
+            proposal.votes.append(vote)
+            votes.append(vote)
+        s = int.from_bytes(votes[-1].signature[32:], "little")
+        votes[-1].signature = votes[-1].signature[:32] + ((s + 7) % L).to_bytes(32, "little")
+        out["blame_statuses"] = c.process_votes(2, "blame", [v.encode() for v in votes], NOW + 3)
+        out["blame_result"] = c.get_result(2, "blame", pid)
+        out["blame_stats"] = list(c.get_stats(2, "blame"))
+        metrics = c.get_metrics()
+    counters = {}
+    for name in (DEVICE_VERIFY_BATCHES_TOTAL, DEVICE_VERIFY_FALLBACKS_TOTAL):
+        line = next(line for line in metrics.splitlines() if line.startswith(name + " "))
+        counters[name] = float(line.split()[-1])
+    return out, counters
+
+
+def example_peers(scheme: str, traffic) -> dict:
+    """A ``gossip_peer`` twin on the card and one on the CPU, both at once,
+    each taking ``traffic(port)``; with ``ed25519`` the card peer runs
+    under ``HASHGRAPH_TPU_DEVICE_VERIFY=1`` and the CPU peer under the host
+    signer. Both must exit 0 on EOF."""
+    t = time.perf_counter()
+    verify = {"cuda": "1" if scheme == "ed25519" else None, "cpu": None}
+    peers = {dev: LineProcess(example_argv("gossip_peer", "--scheme", scheme, "--device", dev),
+                              env=example_env(HASHGRAPH_TPU_DEVICE_VERIFY=verify[dev]))
+             for dev in ("cuda", "cpu")}
+    try:
+        answers = {}
+        for dev, peer in peers.items():
+            word, port = peer.ready()
+            if word != "PORT":
+                raise AssertionError(f"gossip_peer on {dev} said {word!r}")
+            answers[dev] = traffic(int(port))
+    finally:
+        codes = {dev: peer.close() for dev, peer in peers.items()}
+    if set(codes.values()) != {0}:
+        raise AssertionError(f"gossip_peer --scheme {scheme} exit codes {codes}: "
+                             f"{''.join(peers['cuda'].err[-10:] + peers['cpu'].err[-10:])}")
+    reports = {dev: peer.reports() for dev, peer in peers.items()}
+    return dict(answers=answers, reports=reports, seconds=time.perf_counter() - t)
+
+
+def report_of(reports, name) -> dict:
+    found = [r for r in reports if r["example"] == name]
+    if len(found) != 1:
+        raise AssertionError(f"expected one report of {name}, got {reports}")
+    return found[0]
+
+
+def merge_launches(reports) -> "dict[str, int]":
+    out: "dict[str, int]" = {}
+    for r in reports:
+        for k, n in r["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def phase_examples() -> dict:
+    """Phase 17: every twin under ``examples_torch/`` as its own process
+    through the runner, on the card and on the CPU, side by side."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hashgraph_tpu_torch.errors import StatusCode
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-examples-") as root, \
+            ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        # The long multi-process arms first, then the scripts behind them.
+        fed = {dev: pool.submit(example_federation, dev, Path(root)) for dev in ("cuda", "cpu")}
+        stub_peers = pool.submit(example_peers, "stub", stub_peer_answers)
+        signed = pool.submit(example_peers, "ed25519", signed_peer_answers)
+        runs = {(name, dev): pool.submit(run_script_example, name, dev, Path(root))
+                for name in SCRIPT_EXAMPLES for dev in ("cuda", "cpu")}
+        runs.update({(name, None): pool.submit(run_script_example, name, None, Path(root))
+                     for name in HOST_ONLY_EXAMPLES})
+        runs = {key: f.result() for key, f in runs.items()}
+        fed = {dev: f.result() for dev, f in fed.items()}
+        stub_peers, signed = stub_peers.result(), signed.result()
+
+    failed = {f"{name} {dev}": run for (name, dev), run in runs.items() if run["rc"] != 0}
+    if failed:
+        raise AssertionError("(a) twins failed: " + "; ".join(
+            f"{k}: rc {r['rc']} {r['out'][-1000:]} {r['err'][-2000:]}" for k, r in failed.items()))
+    launches = {}
+    for name in HOST_ONLY_EXAMPLES:
+        run = runs[(name, None)]
+        if report_of(run["reports"], name)["cuda"]:
+            raise AssertionError(f"(a) {name} initialised CUDA: it drives host-only services")
+        log(f"[examples] {name}: exit 0 in {run['seconds']:.3f} s, no device work; "
+            f"{len(run['out'].splitlines())} lines")
+    for name in SCRIPT_EXAMPLES:
+        card, cpu = runs[(name, "cuda")], runs[(name, "cpu")]
+        compare(f"(a) {name}'s masked transcript", masked_transcript(name, card["out"]),
+                masked_transcript(name, cpu["out"]))
+        ok = f"{name.replace('_', '-')} OK"
+        if name.endswith("_smoke") and card["out"].splitlines()[-1:] != [ok]:
+            raise AssertionError(f"(a) {name} did not end on {ok!r}")
+        # The twin's own process holds the device state, but for the
+        # scrape smoke, whose two spawned hosts do.
+        workers = "federation_host" if name == "federation_scrape_smoke" else name
+        card_reports = [r for r in card["reports"] if r["example"] == workers]
+        if len(card_reports) != (2 if workers == "federation_host" else 1) or not all(
+                r["cuda"] for r in card_reports):
+            raise AssertionError(f"(a) {name} on the card: a process with device state "
+                                 f"did not initialise CUDA: {card['reports']}")
+        if any(r["launches"] for r in cpu["reports"]):
+            raise AssertionError(f"(a) {name} on the CPU launched kernels: {cpu['reports']}")
+        launches[name] = merge_launches(card_reports)
+        log(f"[examples] {name}: card and CPU runs exit 0 in {card['seconds']:.3f} and "
+            f"{cpu['seconds']:.3f} s with equal masked transcripts "
+            f"({len(card['out'].splitlines())} lines); launches on the card "
+            f"{launches[name]}" + (" (its two host processes)" if workers != name else ""))
+    if launches["batch_engine"].get("ingest_scan", 0) < 4:
+        raise AssertionError(f"(b) batch_engine launched the scan "
+                             f"{launches['batch_engine'].get('ingest_scan', 0)} times, not 4 or more")
+    if not any(launches[name].get("ingest_scan") for name in BRIDGE_EXAMPLES):
+        raise AssertionError("(b) no twin that runs a bridge server launched the scan")
+
+    for dev, out in fed.items():
+        if not out["fingerprints_equal"] or out["sessions"] < 1:
+            raise AssertionError(f"(a) federation_host on {dev}: migration {out}")
+    compare("(a) federation_host tallies", fed["cuda"]["tallies"], fed["cpu"]["tallies"])
+    compare("(a) federation_host sessions moved", fed["cuda"]["sessions"], fed["cpu"]["sessions"])
+    if len(fed["cuda"]["reports"]) != 2 or not all(
+            r["cuda"] and r["launches"].get("ingest_scan") for r in fed["cuda"]["reports"]):
+        raise AssertionError(f"(a) federation_host on the card: a host did not launch the "
+                             f"scan: {fed['cuda']['reports']}")
+    launches["federation_host"] = merge_launches(fed["cuda"]["reports"])
+    log(f"[examples] federation_host: two hosts on the card and two on the CPU, one decision "
+        f"a host, shard migrated with {fed['cuda']['sessions']} sessions and equal "
+        f"fingerprints, tallies {fed['cuda']['tallies']} equal; {fed['cuda']['seconds']:.3f} "
+        f"and {fed['cpu']['seconds']:.3f} s; launches on the card {launches['federation_host']}")
+
+    compare("(a) gossip_peer answers", stub_peers["answers"]["cuda"], stub_peers["answers"]["cpu"])
+    card = report_of(stub_peers["reports"]["cuda"], "gossip_peer")
+    if not card["cuda"] or stub_peers["answers"]["cuda"]["results"] != [True] * 3:
+        raise AssertionError(f"(a) gossip_peer on the card: {card} {stub_peers['answers']}")
+    launches["gossip_peer"] = card["launches"]
+    log(f"[examples] gossip_peer --scheme stub: the quick-start's answers equal on the card "
+        f"and the CPU, both exit 0 on EOF in {stub_peers['seconds']:.3f} s; launches on the "
+        f"card {card['launches']}")
+
+    (card_answers, card_counters), (cpu_answers, cpu_counters) = (
+        signed["answers"]["cuda"], signed["answers"]["cpu"])
+    compare("(c) statuses and results", card_answers, cpu_answers)
+    want = [int(StatusCode.OK)] * 2 + [int(StatusCode.INVALID_VOTE_SIGNATURE)]
+    if card_answers["blame_statuses"] != want or card_answers["results"] != [True] * 3:
+        raise AssertionError(f"(c) the signed traffic answered {card_answers}")
+    card = report_of(signed["reports"]["cuda"], "gossip_peer")
+    cpu = report_of(signed["reports"]["cpu"], "gossip_peer")
+    require_launches("(c) the device-signer peer", card["launches"], VERIFY_KERNELS)
+    # Every device batch ran its MSM on the card; the one batch carrying
+    # the damaged signature, and only it, fails and runs the host blame.
+    if (card["verify_fallbacks"] != 1 or card["verify_batches"] < 2
+            or card_counters["hashgraph_device_verify_fallbacks_total"] != 1
+            or cpu["verify_batches"] or cpu["launches"]):
+        raise AssertionError(f"(c) device batches: card {card}, {card_counters}; CPU {cpu}")
+    launches["gossip_peer_ed25519"] = card["launches"]
+    seconds = time.perf_counter() - t0
+    log(f"[examples] gossip_peer --scheme ed25519 under HASHGRAPH_TPU_DEVICE_VERIFY=1: "
+        f"statuses and results equal to the host-signer peer on the CPU; "
+        f"{card['verify_batches']:g} device batches, {card['verify_fallbacks']:g} host blame "
+        f"(the damaged signature's); launches {card['launches']}; {signed['seconds']:.3f} s")
+    log(f"[examples] phase 17 took {seconds:.3f} s on {smi}")
+    return dict(launches=launches, seconds=seconds)
+
+
 PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16")
+          "15", "16", "17")
 
 
 def main() -> int:
@@ -6674,6 +7224,9 @@ def main() -> int:
         # deliveries and each of (b)'s card runs; (c)'s workers are fresh
         # processes.
         fleet = phase_fleet(dev)
+    if run("17"):
+        # Phase 17's counts are each twin process's own, read at its end.
+        examples = phase_examples()
     stop_children()
 
     log(f"[done] phases {'all' if only is None else sorted(only)} passed in "
@@ -6731,6 +7284,8 @@ def main() -> int:
                         "recovery": fleet["b"]["b1"]["launches"].get("ingest_scan", 0)},
         launches_federation={"fabric": fleet["b"]["b2"]["launches"].get("ingest_scan", 0),
                              "collective": fleet["c"]["launches"]})
+    kernels[0].update(launches_examples={
+        name: counts.get("ingest_scan", 0) for name, counts in examples["launches"].items()})
     crypto = [
         ("fe_mul", "fe_mul.cu", fe_mul_timing,
          "one thread per lane, uint32 columns in registers; decompression's products "
@@ -6777,6 +7332,7 @@ def main() -> int:
             "launches_sim": sim_14,
             "launches_fleet": fleet["signed"]["launches"].get(name, 0),
             "launches_federation": fleet["b"]["b2"]["launches"].get(name, 0),
+            "launches_examples": examples["launches"]["gossip_peer_ed25519"].get(name, 0),
             "catchup_shape": at_catchup["shape"],
             "catchup_ms": at_catchup["ms"],
             "catchup_bound_ms": at_catchup["bound_ms"],
@@ -6814,7 +7370,9 @@ def stop_children() -> None:
         print(f"chip_smoke: killed child processes still running: {left}", file=sys.stderr)
 
 
-if __name__ == "__main__" and sys.argv[1:2] == ["--fleet-twin"]:
+if __name__ == "__main__" and sys.argv[1:2] == ["--run-example"]:
+    sys.exit(run_example(sys.argv[2], sys.argv[3:]))
+elif __name__ == "__main__" and sys.argv[1:2] == ["--fleet-twin"]:
     torch.set_num_threads(2)
     fleet_twin(sys.argv[2])
 elif __name__ == "__main__":

@@ -10,9 +10,14 @@ imports inside functions, and every string literal of the package outside
 docstrings: none may name the JAX package (``hashgraph_tpu`` as a module
 or ``hashgraph-tpu`` as a distribution), since a ``sys.modules`` key or a
 metadata lookup by that name reaches the JAX package without an import.
+The example programs under ``examples_torch/`` are scanned the same way,
+and none may reach into the JAX package's ``examples/`` (the C embedder
+they build is the shared ``native/bridge_client.c``); three of them also
+run to their end with ``jax`` and ``hashgraph_tpu`` blocked.
 """
 
 import ast
+import os
 import re
 import subprocess
 import sys
@@ -22,6 +27,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "hashgraph_tpu_torch"
+EXAMPLES = sorted((REPO / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "hashgraph_tpu")
 
 CYCLE = r"""
@@ -111,7 +117,7 @@ def test_bridge_gossip_and_parallel_load_no_jax():
     assert "LOADED []" in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_reference_native_paths(path):
     """The port builds and loads its own native runtime: nothing names the
@@ -132,7 +138,8 @@ def _imports(path: Path):
             yield node.module, node.lineno
 
 
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "compare_trees.py"]
+SOURCES = (sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "compare_trees.py"]
+           + EXAMPLES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -187,7 +194,7 @@ def reference_name_strings(path: Path):
     ]
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + EXAMPLES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_string_names_the_reference_package(path):
     bad = reference_name_strings(path)
@@ -209,3 +216,51 @@ def test_string_scan_sees_what_imports_miss(tmp_path):
         '    d = f"{a}hashgraph_tpu_torch"\n'
     )
     assert [line for line, _ in reference_name_strings(src)] == [5, 6, 7]
+
+
+REFERENCE_EXAMPLES = re.compile(r"(?<!\w)examples/")
+
+
+def test_example_twins_are_all_here():
+    assert [p.name for p in EXAMPLES] == sorted(p.name for p in (REPO / "examples").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: str(p.relative_to(REPO)))
+def test_example_twin_reaches_no_reference_example(path):
+    """No path into the JAX package's ``examples/``, in code or text; the
+    one shared file a twin reads is ``native/bridge_client.c``."""
+    text = path.read_text()
+    assert not REFERENCE_EXAMPLES.search(text), REFERENCE_EXAMPLES.search(text)
+    joined = [node.lineno for node in ast.walk(ast.parse(text))
+              if isinstance(node, ast.Constant) and node.value == "examples"]
+    assert not joined, f"a path joined from 'examples' at lines {joined}"
+    shared = set(re.findall(r"native/[\w.]+", text))
+    assert shared <= {"native/bridge_client.c"}, shared
+
+
+BLOCKED_RUN = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["hashgraph_tpu"] = None
+path, *args = sys.argv[1:]
+sys.argv = [path, *args]
+from hashgraph_tpu_torch import native
+native._load()  # built before the twin's server runs, not while its client waits
+runpy.run_path(path, run_name="__main__")
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "jaxlib") or m.startswith("hashgraph_tpu.")))
+print("LOADED", loaded)
+"""
+
+
+@pytest.mark.parametrize("args", [("quickstart.py",), ("gossip_simulation.py",),
+                                  ("bridge_embedder.py", "--device", "cpu")],
+                         ids=lambda a: a[0])
+def test_example_twin_runs_with_jax_blocked(args):
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN, f"examples_torch/{args[0]}", *args[1:]],
+        capture_output=True, text=True, timeout=180, cwd=str(REPO),
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.splitlines()[-1] == "LOADED []"
