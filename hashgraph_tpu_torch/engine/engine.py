@@ -120,6 +120,7 @@ from ..obs import (
     flight_recorder,
     observed_span,
     slo_engine,
+    stage_span,
 )
 from ..obs import health_monitor as default_health_monitor
 from ..obs import registry as default_registry
@@ -172,6 +173,21 @@ from .verify_cache import MISS, VerifiedVoteCache
 Scope = TypeVar("Scope", bound=Hashable)
 
 _U32_MAX = 0xFFFFFFFF
+
+
+def _spanned(name: str):
+    """An entry point timed whole as the tracer span ``name``
+    (:func:`..obs.stage_span`: one attribute check with the tracer off)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            with stage_span(self.tracer, name):
+                return fn(self, *args, **kwargs)
+
+        return wrapper
+
+    return wrap
 
 
 def _canonical_scope_bytes(scope) -> bytes:
@@ -304,14 +320,17 @@ class WireVotePrepass:
 
     ``buf`` caches the frame's vote region as ``bytes`` when the prepass
     sliced it for crypto, so the apply stage (and a durable wrapper's WAL
-    record) reuse one copy."""
+    record) reuse one copy. ``began`` is the ``perf_counter`` at which the
+    prepass started while the tracer was on (None otherwise): the origin
+    of the ``engine.decided`` latencies of the frame's deciding votes."""
 
-    __slots__ = ("pre_status", "crypto_rows", "buf", "_collect_fn", "_result")
+    __slots__ = ("pre_status", "crypto_rows", "buf", "began", "_collect_fn", "_result")
 
-    def __init__(self, pre_status, crypto_rows, collect_fn, buf=None):
+    def __init__(self, pre_status, crypto_rows, collect_fn, buf=None, began=None):
         self.pre_status = pre_status
         self.crypto_rows = crypto_rows
         self.buf = buf
+        self.began = began
         self._collect_fn = collect_fn
         self._result = None
 
@@ -1091,6 +1110,7 @@ class TorchConsensusEngine(Generic[Scope]):
         if source:
             self.health.note_expired(source, now)
 
+    @_spanned("engine.ingest_proposals")
     def ingest_proposals(
         self,
         items: list[tuple[Scope, Proposal]],
@@ -1122,105 +1142,107 @@ class TorchConsensusEngine(Generic[Scope]):
             raise ValueError("configs must supply one entry per item")
         statuses = [int(StatusCode.OK)] * len(items)
 
-        # Items that cannot pass — registered or expired at entry — stay
-        # out of the verify batch and the chain check: redelivered and
-        # expired chains buy no signature work. The final loop's inline
-        # gauntlet gives their statuses (PROPOSAL_ALREADY_EXIST, or
-        # ProposalExpired before any signature work).
-        skip = [
-            (scope, proposal.proposal_id) in self._index
-            or self._tier_has(scope, proposal.proposal_id)
-            or now >= proposal.expiration_timestamp
-            for scope, proposal in items
-        ]
-        flat_votes: list[Vote] = []
-        spans: list[tuple[int, int] | None] = []  # (start, count) per item
-        for i, (_, proposal) in enumerate(items):
-            if skip[i]:
-                spans.append(None)
-                continue
-            spans.append((len(flat_votes), len(proposal.votes)))
-            flat_votes.extend(proposal.votes)
-        # The signature batch is submitted now, the chain check dispatches
-        # while it runs, and the verdicts are collected when both are due.
-        pending_verify = (
-            self._cached_verify_begin(flat_votes) if flat_votes else None
-        )
-
-        chain_errors: dict[int, ConsensusError | None] = {}
-        chain_idx = [
-            i for i, (_, p) in enumerate(items) if not skip[i] and len(p.votes) > 1
-        ]
-        if chain_idx:
-            packed = chain_pack_from_numpy(
-                pack_chains([items[i][1].votes for i in chain_idx]), self.device
+        with stage_span(self.tracer, "engine.proposals.admit"):
+            # Items that cannot pass — registered or expired at entry — stay
+            # out of the verify batch and the chain check: redelivered and
+            # expired chains buy no signature work. The final loop's inline
+            # gauntlet gives their statuses (PROPOSAL_ALREADY_EXIST, or
+            # ProposalExpired before any signature work).
+            skip = [
+                (scope, proposal.proposal_id) in self._index
+                or self._tier_has(scope, proposal.proposal_id)
+                or now >= proposal.expiration_timestamp
+                for scope, proposal in items
+            ]
+            flat_votes: list[Vote] = []
+            spans: list[tuple[int, int] | None] = []  # (start, count) per item
+            for i, (_, proposal) in enumerate(items):
+                if skip[i]:
+                    spans.append(None)
+                    continue
+                spans.append((len(flat_votes), len(proposal.votes)))
+                flat_votes.extend(proposal.votes)
+            # The signature batch is submitted now, the chain check dispatches
+            # while it runs, and the verdicts are collected when both are due.
+            pending_verify = (
+                self._cached_verify_begin(flat_votes) if flat_votes else None
             )
-            with observed_span(
-                self.tracer,
-                "engine.chain_kernel",
-                self._m_chain,
-                chains=len(chain_idx),
-            ):
-                chain_statuses = chain_kernel_batch(
-                    *(packed[k] for k in CHAIN_FIELDS)
-                ).cpu().numpy()
-            for j, i in enumerate(chain_idx):
-                code = first_chain_error(chain_statuses[j])
-                exc_cls = error_for_code(code) if code else None
-                chain_errors[i] = exc_cls() if exc_cls is not None else None
 
-        verdicts: list = []
-        vote_hashes: list = []
-        if pending_verify is not None:
-            verdicts, vote_hashes = pending_verify.collect()
+            chain_errors: dict[int, ConsensusError | None] = {}
+            chain_idx = [
+                i for i, (_, p) in enumerate(items) if not skip[i] and len(p.votes) > 1
+            ]
+            if chain_idx:
+                packed = chain_pack_from_numpy(
+                    pack_chains([items[i][1].votes for i in chain_idx]), self.device
+                )
+                with observed_span(
+                    self.tracer,
+                    "engine.chain_kernel",
+                    self._m_chain,
+                    chains=len(chain_idx),
+                ):
+                    chain_statuses = chain_kernel_batch(
+                        *(packed[k] for k in CHAIN_FIELDS)
+                    ).cpu().numpy()
+                for j, i in enumerate(chain_idx):
+                    code = first_chain_error(chain_statuses[j])
+                    exc_cls = error_for_code(code) if code else None
+                    chain_errors[i] = exc_cls() if exc_cls is not None else None
 
-        for i, (scope, proposal) in enumerate(items):
-            # Re-checked: an earlier item may have registered this pid. A
-            # demoted session is rejected without paging it in.
-            if (scope, proposal.proposal_id) in self._index or self._tier_has(
-                scope, proposal.proposal_id
-            ):
-                statuses[i] = int(StatusCode.PROPOSAL_ALREADY_EXIST)
-                continue
-            if spans[i] is None:
-                # Nothing precomputed: expired at entry, or registered at
-                # entry and evicted by an earlier item's per-scope cap —
-                # the full scalar gauntlet, as a sequential call would run.
-                sv = ch = None
-                chain_error = COMPUTE_CHAIN
-            else:
-                start, count = spans[i]
-                sv = verdicts[start:start + count] if count else None
-                ch = vote_hashes[start:start + count] if count else None
-                chain_error = chain_errors.get(i)
-            try:
-                config = self._resolve_config(
-                    scope, configs[i] if configs is not None else None, proposal
-                )
-                session, transition = ConsensusSession.from_proposal(
-                    proposal.clone(),
-                    self._scheme,
-                    config,
-                    now,
-                    sig_verdicts=sv,
-                    chain_error=chain_error,
-                    computed_hashes=ch,
-                )
-                if transition.is_reached and self._owns_replicated_event():
-                    self._emit(
-                        scope,
-                        ConsensusReached(
-                            proposal_id=proposal.proposal_id,
-                            result=transition.reached,
-                            timestamp=now,
-                        ),
+            verdicts: list = []
+            vote_hashes: list = []
+            if pending_verify is not None:
+                verdicts, vote_hashes = pending_verify.collect()
+
+        with stage_span(self.tracer, "engine.register"):
+            for i, (scope, proposal) in enumerate(items):
+                # Re-checked: an earlier item may have registered this pid. A
+                # demoted session is rejected without paging it in.
+                if (scope, proposal.proposal_id) in self._index or self._tier_has(
+                    scope, proposal.proposal_id
+                ):
+                    statuses[i] = int(StatusCode.PROPOSAL_ALREADY_EXIST)
+                    continue
+                if spans[i] is None:
+                    # Nothing precomputed: expired at entry, or registered at
+                    # entry and evicted by an earlier item's per-scope cap —
+                    # the full scalar gauntlet, as a sequential call would run.
+                    sv = ch = None
+                    chain_error = COMPUTE_CHAIN
+                else:
+                    start, count = spans[i]
+                    sv = verdicts[start:start + count] if count else None
+                    ch = vote_hashes[start:start + count] if count else None
+                    chain_error = chain_errors.get(i)
+                try:
+                    config = self._resolve_config(
+                        scope, configs[i] if configs is not None else None, proposal
                     )
-                self._register_session(scope, session, now)
-                self._note_chain_admitted(proposal.votes, config, now)
-            except ConsensusError as exc:
-                statuses[i] = int(exc.code)
-                if exc.code == StatusCode.PROPOSAL_EXPIRED:
-                    self._note_expired_proposal(proposal, now)
+                    session, transition = ConsensusSession.from_proposal(
+                        proposal.clone(),
+                        self._scheme,
+                        config,
+                        now,
+                        sig_verdicts=sv,
+                        chain_error=chain_error,
+                        computed_hashes=ch,
+                    )
+                    if transition.is_reached and self._owns_replicated_event():
+                        self._emit(
+                            scope,
+                            ConsensusReached(
+                                proposal_id=proposal.proposal_id,
+                                result=transition.reached,
+                                timestamp=now,
+                            ),
+                        )
+                    self._register_session(scope, session, now)
+                    self._note_chain_admitted(proposal.votes, config, now)
+                except ConsensusError as exc:
+                    statuses[i] = int(exc.code)
+                    if exc.code == StatusCode.PROPOSAL_EXPIRED:
+                        self._note_expired_proposal(proposal, now)
         return statuses
 
     def deliver_proposal(
@@ -2150,6 +2172,7 @@ class TorchConsensusEngine(Generic[Scope]):
         rejected with EMPTY_VOTE_OWNER from then on)."""
         return self._pool.voter_gid(owner)
 
+    @_spanned("engine.ingest_columnar")
     def ingest_columnar(
         self,
         scope: Scope,
@@ -2186,13 +2209,15 @@ class TorchConsensusEngine(Generic[Scope]):
         )
         if done:
             return statuses
-        found, slots = self._pid_lookup(scope).lookup(proposal_ids)
-        if self._promote_columnar_misses([scope], None, proposal_ids, found):
+        with stage_span(self.tracer, "engine.resolve"):
             found, slots = self._pid_lookup(scope).lookup(proposal_ids)
+            if self._promote_columnar_misses([scope], None, proposal_ids, found):
+                found, slots = self._pid_lookup(scope).lookup(proposal_ids)
         return self._columnar_finish(
             slots, found, voter_gids, values, now, max_depth, statuses, wire_norm
         )
 
+    @_spanned("engine.ingest_columnar")
     def ingest_columnar_multi(
         self,
         scopes: list,
@@ -2218,7 +2243,8 @@ class TorchConsensusEngine(Generic[Scope]):
         )
         if done:
             return statuses
-        found, slots = self._resolve_slots_multi(scopes, scope_idx, proposal_ids)
+        with stage_span(self.tracer, "engine.resolve"):
+            found, slots = self._resolve_slots_multi(scopes, scope_idx, proposal_ids)
         return self._columnar_finish(
             slots, found, voter_gids, values, now, max_depth, statuses, wire_norm
         )
@@ -2292,6 +2318,7 @@ class TorchConsensusEngine(Generic[Scope]):
         cached = self._fused_pid_cache.get(cache_key)
         if cached is not None:
             return cached
+        self.tracer.count("engine.pid_lookup_rebuilds")
         key_parts: list[np.ndarray] = []
         val_parts: list[np.ndarray] = []
         for k, scope in enumerate(scopes):
@@ -2320,16 +2347,19 @@ class TorchConsensusEngine(Generic[Scope]):
         statuses: np.ndarray,
         wire_norm: "tuple[np.ndarray, np.ndarray] | None",
         wire_validated: bool = False,
+        decided: "list | None" = None,
     ) -> np.ndarray:
         """Shared tail of the columnar paths: apply, then retain the
         accepted rows' wire bytes under their resolved slots.
         ``wire_validated`` marks retention by the guard-ordered wire path,
-        the only kind that keeps a record's chain positional."""
+        the only kind that keeps a record's chain positional. ``decided``
+        collects the emission time of each deciding event."""
         statuses = self._columnar_apply(
-            slots, found, voter_gids, values, now, max_depth, statuses
+            slots, found, voter_gids, values, now, max_depth, statuses, decided
         )
         if wire_norm is not None:
-            self._retain_wire_slots(statuses, slots, wire_norm, wire_validated)
+            with stage_span(self.tracer, "engine.wire.retain"):
+                self._retain_wire_slots(statuses, slots, wire_norm, wire_validated)
         return statuses
 
     @staticmethod
@@ -2380,6 +2410,7 @@ class TorchConsensusEngine(Generic[Scope]):
 
     # ── Validated wire ingest (OP_VOTE_BATCH columns) ──────────────────
 
+    @_spanned("engine.wire_verify_begin")
     def wire_verify_begin(
         self,
         data: np.ndarray,
@@ -2401,6 +2432,7 @@ class TorchConsensusEngine(Generic[Scope]):
         offsets[i] + sign_len]``, so nothing is re-encoded."""
         from ..bridge import columnar as C
 
+        began = time.perf_counter() if self.tracer.enabled else None
         k = len(cols)
         pre = np.zeros(k, np.int32)
         owner_len = cols[:, C.COL_OWNER_LEN]
@@ -2422,7 +2454,7 @@ class TorchConsensusEngine(Generic[Scope]):
             pre[live & (hash_len != 32)] = int(StatusCode.INVALID_VOTE_HASH)
         crypto_rows = np.nonzero(pre == 0)[0]
         if crypto_rows.size == 0:
-            return WireVotePrepass(pre, crypto_rows, lambda: [], buf=buf)
+            return WireVotePrepass(pre, crypto_rows, lambda: [], buf=buf, began=began)
         if buf is None:
             buf = data.tobytes()
         base = np.asarray(offsets, np.int64)[crypto_rows].tolist()
@@ -2435,7 +2467,8 @@ class TorchConsensusEngine(Generic[Scope]):
             payloads.append(buf[start:start + c[C.COL_SIGN_LEN]])
             sigs.append(buf[c[C.COL_SIG_OFF]:c[C.COL_SIG_OFF] + c[C.COL_SIG_LEN]])
         return WireVotePrepass(
-            pre, crypto_rows, self._wire_crypto_begin(owners, payloads, sigs), buf=buf
+            pre, crypto_rows, self._wire_crypto_begin(owners, payloads, sigs), buf=buf,
+            began=began,
         )
 
     def _wire_crypto_begin(self, owners, payloads, sigs):
@@ -2536,81 +2569,90 @@ class TorchConsensusEngine(Generic[Scope]):
         if batch == 0 and not self._multihost:
             return statuses
         pids = np.ascontiguousarray(cols[:, C.COL_PID])
-        found, slots = self._resolve_slots_multi(scopes, scope_idx, pids)
+        with stage_span(self.tracer, "engine.resolve"):
+            found, slots = self._resolve_slots_multi(scopes, scope_idx, pids)
         if self._multihost:
             # Misrouted rows reject BEFORE validation (SESSION_NOT_FOUND),
             # mirroring ingest_votes' precedence: the relay routes on this
             # status and a misrouted-but-invalid vote must look the same
             # as a misrouted-valid one.
             found &= ~self._non_local(found, slots)
-        t0 = time.monotonic()
-        prepass = (
-            _prepass
-            if _prepass is not None
-            else self.wire_verify_begin(data, cols, offsets, buf=_buf)
-        )
-        buf = _buf if _buf is not None else prepass.buf
-        if buf is None:
-            buf = data.tobytes()
-        prepass.buf = buf
-        verdicts = prepass.collect()
-        pre = prepass.pre_status
-        valid = found.copy()
-        fail = found & (pre != 0)
-        statuses[fail] = pre[fail]
-        valid &= pre == 0
-        # Signature verdicts, with validate_vote's injection semantics: an
-        # exception verdict carries its own status code.
-        for row, verdict in zip(prepass.crypto_rows.tolist(), verdicts):
-            if verdict is True or not valid[row]:
-                continue
-            if isinstance(verdict, Exception):
-                statuses[row] = int(getattr(verdict, "code", StatusCode.SIGNATURE_SCHEME))
-            else:
-                statuses[row] = int(StatusCode.INVALID_VOTE_SIGNATURE)
-            valid[row] = False
-        if stage_seconds is not None:
-            stage_seconds["crypto"] = stage_seconds.get("crypto", 0.0) + time.monotonic() - t0
-        t1 = time.monotonic()
-        # Replay and expiry need the session record: one timestamp lookup
-        # per unique slot, then one vectorized compare per rule.
-        ts_u64 = np.ascontiguousarray(cols[:, C.COL_TS]).view(np.uint64)
-        rows_v = np.nonzero(valid)[0]
-        admit_timeout = 0.0
-        if rows_v.size:
-            uniq = np.unique(slots[rows_v])
-            creation = np.empty(len(uniq), np.uint64)
-            expiry = np.empty(len(uniq), np.uint64)
-            for j, slot in enumerate(uniq.tolist()):
-                record = self._records[slot]
-                creation[j] = record.proposal.timestamp
-                expiry[j] = record.proposal.expiration_timestamp
-                if record.config.consensus_timeout > admit_timeout:
-                    admit_timeout = record.config.consensus_timeout
-            pos = np.searchsorted(uniq, slots[rows_v])
-            ts_rows = ts_u64[rows_v]
-            old = ts_rows < creation[pos]
-            expired = ~old & ((ts_rows > expiry[pos]) | (np.uint64(now) > expiry[pos]))
-            statuses[rows_v[old]] = int(StatusCode.TIMESTAMP_OLDER_THAN_CREATION_TIME)
-            statuses[rows_v[expired]] = int(StatusCode.VOTE_EXPIRED)
-            valid[rows_v[old | expired]] = False
-        self._wire_reject_health(buf, cols, found, statuses, now)
-        self._wire_dangling_guard(buf, cols, slots, valid, statuses)
-        # One gid per unique owner, then the shared columnar apply with
-        # wire retention on.
-        gids = self._wire_intern_gids(buf, cols, valid)
-        values = cols[:, C.COL_VALUE] != 0
-        statuses = self._columnar_finish(
-            slots, valid, gids, values, now, max_depth, statuses,
-            (data, offsets), wire_validated=True,
-        )
-        self._wire_track_chain(buf, cols, slots, statuses)
-        self._wire_admit_health(
-            buf, cols, scopes, scope_idx, slots, offsets, statuses,
-            admit_timeout, now,
-        )
-        if stage_seconds is not None:
-            stage_seconds["apply"] = stage_seconds.get("apply", 0.0) + time.monotonic() - t1
+        with stage_span(self.tracer, "engine.wire.crypto", stage_seconds, "crypto"):
+            prepass = (
+                _prepass
+                if _prepass is not None
+                else self.wire_verify_begin(data, cols, offsets, buf=_buf)
+            )
+            buf = _buf if _buf is not None else prepass.buf
+            if buf is None:
+                buf = data.tobytes()
+            prepass.buf = buf
+            verdicts = prepass.collect()
+            pre = prepass.pre_status
+            valid = found.copy()
+            fail = found & (pre != 0)
+            statuses[fail] = pre[fail]
+            valid &= pre == 0
+            # Signature verdicts, with validate_vote's injection semantics: an
+            # exception verdict carries its own status code.
+            for row, verdict in zip(prepass.crypto_rows.tolist(), verdicts):
+                if verdict is True or not valid[row]:
+                    continue
+                if isinstance(verdict, Exception):
+                    statuses[row] = int(getattr(verdict, "code", StatusCode.SIGNATURE_SCHEME))
+                else:
+                    statuses[row] = int(StatusCode.INVALID_VOTE_SIGNATURE)
+                valid[row] = False
+        with stage_span(self.tracer, "engine.wire.apply", stage_seconds, "apply"):
+            # Emission times of the deciding events, when the tracer is on
+            # and the prepass stamped its start.
+            decided = [] if self.tracer.enabled and prepass.began is not None else None
+            with stage_span(self.tracer, "engine.wire.rules"):
+                # Replay and expiry need the session record: one timestamp lookup
+                # per unique slot, then one vectorized compare per rule.
+                ts_u64 = np.ascontiguousarray(cols[:, C.COL_TS]).view(np.uint64)
+                rows_v = np.nonzero(valid)[0]
+                admit_timeout = 0.0
+                if rows_v.size:
+                    uniq = np.unique(slots[rows_v])
+                    creation = np.empty(len(uniq), np.uint64)
+                    expiry = np.empty(len(uniq), np.uint64)
+                    for j, slot in enumerate(uniq.tolist()):
+                        record = self._records[slot]
+                        creation[j] = record.proposal.timestamp
+                        expiry[j] = record.proposal.expiration_timestamp
+                        if record.config.consensus_timeout > admit_timeout:
+                            admit_timeout = record.config.consensus_timeout
+                    pos = np.searchsorted(uniq, slots[rows_v])
+                    ts_rows = ts_u64[rows_v]
+                    old = ts_rows < creation[pos]
+                    expired = ~old & ((ts_rows > expiry[pos]) | (np.uint64(now) > expiry[pos]))
+                    statuses[rows_v[old]] = int(StatusCode.TIMESTAMP_OLDER_THAN_CREATION_TIME)
+                    statuses[rows_v[expired]] = int(StatusCode.VOTE_EXPIRED)
+                    valid[rows_v[old | expired]] = False
+                self._wire_reject_health(buf, cols, found, statuses, now)
+            with stage_span(self.tracer, "engine.wire.guard"):
+                self._wire_dangling_guard(buf, cols, slots, valid, statuses)
+            # One gid per unique owner, then the shared columnar apply with
+            # wire retention on.
+            with stage_span(self.tracer, "engine.wire.intern"):
+                gids = self._wire_intern_gids(buf, cols, valid)
+            values = cols[:, C.COL_VALUE] != 0
+            statuses = self._columnar_finish(
+                slots, valid, gids, values, now, max_depth, statuses,
+                (data, offsets), wire_validated=True, decided=decided,
+            )
+            with stage_span(self.tracer, "engine.wire.chain"):
+                self._wire_track_chain(buf, cols, slots, statuses)
+            with stage_span(self.tracer, "engine.wire.admit_health"):
+                self._wire_admit_health(
+                    buf, cols, scopes, scope_idx, slots, offsets, statuses,
+                    admit_timeout, now,
+                )
+        if decided:
+            self.tracer.event(
+                "engine.decided", latencies_s=[t - prepass.began for t in decided]
+            )
         return statuses
 
     def _wire_dangling_guard(self, buf, cols, slots, valid, statuses) -> None:
@@ -2839,10 +2881,12 @@ class TorchConsensusEngine(Generic[Scope]):
         now: int,
         max_depth: int,
         statuses: np.ndarray,
+        decided: "list | None" = None,
     ) -> np.ndarray:
         """Slot-resolved columnar pipeline: gid filter, lane resolution,
         the dispatch plan (fresh or segmented scan), round bookkeeping and
-        event emission."""
+        event emission (``decided``, when a list, gets the
+        ``perf_counter`` of each deciding ``ConsensusReached``)."""
         if self._multihost:
             # Misrouted rows (device slots another process owns) report the
             # session as not found on this host; the relay routes by
@@ -2900,6 +2944,12 @@ class TorchConsensusEngine(Generic[Scope]):
                 )
                 if event is not None and self._owns_slot(slot):
                     self._emit(record.scope, event)
+                    if (
+                        decided is not None
+                        and was_active
+                        and isinstance(event, ConsensusReached)
+                    ):
+                        decided.append(time.perf_counter())
             found = found & ~host_rows
         dev_rows = np.nonzero(found)[0]
         # Multi-host: an empty local batch still takes part in the fleet's
@@ -3096,32 +3146,35 @@ class TorchConsensusEngine(Generic[Scope]):
             group_of = dict(zip(uniq.tolist(), range(len(uniq))))
             reached_transitions.sort(key=lambda t: seg_of[group_of[t[0]]])
 
-        # Events: one ConsensusReached per deciding transition plus one per
-        # late (ALREADY_REACHED) vote — the scalar path's per-session counts;
-        # cross-session order is per-slot grouped.
-        for slot, new_state in reached_transitions:
-            record = self._records[slot]
-            self._emit(
-                record.scope,
-                ConsensusReached(
-                    proposal_id=record.proposal.proposal_id,
-                    result=new_state == STATE_REACHED_YES,
-                    timestamp=now,
-                ),
-            )
-        ar_m = sorted_statuses == int(StatusCode.ALREADY_REACHED)
-        if ar_m.any():
-            cnt = np.bincount(grp_sorted[ar_m], minlength=len(uniq))
-            for g in np.nonzero(cnt)[0].tolist():
-                slot = int(uniq[g])
+        with stage_span(self.tracer, "engine.apply.events"):
+            # Events: one ConsensusReached per deciding transition plus one per
+            # late (ALREADY_REACHED) vote — the scalar path's per-session counts;
+            # cross-session order is per-slot grouped.
+            for slot, new_state in reached_transitions:
                 record = self._records[slot]
-                event = ConsensusReached(
-                    proposal_id=record.proposal.proposal_id,
-                    result=self._pool.state_of(slot) == STATE_REACHED_YES,
-                    timestamp=now,
+                self._emit(
+                    record.scope,
+                    ConsensusReached(
+                        proposal_id=record.proposal.proposal_id,
+                        result=new_state == STATE_REACHED_YES,
+                        timestamp=now,
+                    ),
                 )
-                for _ in range(int(cnt[g])):
-                    self._emit(record.scope, event)
+                if decided is not None:
+                    decided.append(time.perf_counter())
+            ar_m = sorted_statuses == int(StatusCode.ALREADY_REACHED)
+            if ar_m.any():
+                cnt = np.bincount(grp_sorted[ar_m], minlength=len(uniq))
+                for g in np.nonzero(cnt)[0].tolist():
+                    slot = int(uniq[g])
+                    record = self._records[slot]
+                    event = ConsensusReached(
+                        proposal_id=record.proposal.proposal_id,
+                        result=self._pool.state_of(slot) == STATE_REACHED_YES,
+                        timestamp=now,
+                    )
+                    for _ in range(int(cnt[g])):
+                        self._emit(record.scope, event)
         return statuses
 
     def _drop_pid_cache(self, scope: Scope) -> None:
@@ -3145,6 +3198,7 @@ class TorchConsensusEngine(Generic[Scope]):
         lazily after any membership change."""
         table = self._pid_tables.get(scope)
         if table is None:
+            self.tracer.count("engine.pid_tables_rebuilt")
             scope_slots = self._scopes.get(scope, [])
             pids = np.fromiter(
                 (self._records[s].proposal.proposal_id for s in scope_slots),

@@ -43,7 +43,12 @@ divergences and no others:
   package and its native runtime, in-function imports) name this one.
 - :func:`hashgraph_tpu_torch.tracing.device_profile` is a
   ``torch.profiler`` capture (host and CUDA activity, exported as a
-  Chrome trace), not a ``jax.profiler`` one.
+  Chrome trace, with the tracer's spans as a track of their own), not a
+  ``jax.profiler`` one.
+- Tracer spans start on the profiler's clock
+  (:func:`hashgraph_tpu_torch.tracing.span_clock`), and
+  :func:`stage_span` times the hot calls' host stages once for the tracer
+  and a caller's ``stage_seconds``.
 
 The environment variables keep their names: ``$HASHGRAPH_FLIGHT_DIR``,
 ``$HASHGRAPH_INCIDENT_DIR`` and ``$HASHGRAPH_TPU_PROFILE``.
@@ -138,6 +143,7 @@ import functools
 import re
 import time
 
+from ..tracing import span_clock
 from .flight import FlightRecorder, flight_recorder
 from .accrual import PhiAccrual, phi_from_deviation
 from .health import (
@@ -593,12 +599,14 @@ def observed_span(tracer, name: str, histogram: Histogram, **attrs):
     engine/bridge/WAL spans join a cross-peer causal trace without any
     per-site wiring. One perf_counter pair (plus one contextvar read)
     when nothing is listening — cheap enough for per-batch sites, which
-    is where this is used."""
-    start = time.perf_counter()
+    is where this is used. The tracer span starts on the profiler's clock
+    (:func:`hashgraph_tpu_torch.tracing.span_clock`)."""
+    start = span_clock()
+    t0 = time.perf_counter()
     try:
         yield
     finally:
-        duration = time.perf_counter() - start
+        duration = time.perf_counter() - t0
         histogram.observe(duration)
         if tracer.enabled:
             tracer.record_span(name, start, duration, attrs)
@@ -613,6 +621,41 @@ def observed_span(tracer, name: str, histogram: Histogram, **attrs):
                 parent=ctx.span_id,
                 attrs=attrs,
             )
+
+
+_UNTIMED = contextlib.nullcontext()
+
+
+def stage_span(tracer, name: str, seconds: "dict | None" = None, key: str = "", **attrs):
+    """Time a block once, for whoever listens: a tracer span ``name``
+    (started on :func:`~hashgraph_tpu_torch.tracing.span_clock`) when
+    ``tracer`` is enabled, and the block's seconds added to
+    ``seconds[key]`` when a dict is passed. With the tracer off and no
+    dict it is one attribute check and a shared no-op context."""
+    if seconds is None and not tracer.enabled:
+        return _UNTIMED
+    return _StageSpan(tracer, name, seconds, key, attrs)
+
+
+class _StageSpan:
+    __slots__ = ("tracer", "name", "seconds", "key", "attrs", "start", "t0")
+
+    def __init__(self, tracer, name, seconds, key, attrs):
+        self.tracer, self.name, self.seconds, self.key, self.attrs = (
+            tracer, name, seconds, key, attrs)
+
+    def __enter__(self):
+        self.start = span_clock() if self.tracer.enabled else None
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        duration = time.perf_counter() - self.t0
+        if self.seconds is not None:
+            self.seconds[self.key] = self.seconds.get(self.key, 0.0) + duration
+        if self.start is not None:
+            self.tracer.record_span(self.name, self.start, duration, self.attrs)
+        return False
 
 
 __all__ = [
@@ -655,6 +698,7 @@ __all__ = [
     "registry",
     "report_from_stage_totals",
     "slo_engine",
+    "stage_span",
     "thread_role",
     "trace_store",
     "use_context",

@@ -18,6 +18,12 @@ Disabled by default: a disabled tracer's ``span`` is a no-op context manager
 and ``count``/``event`` return immediately (one attribute check), so the hot
 path pays nothing until someone calls ``tracer.enable()``.
 
+A span's ``start`` is in seconds on the clock that ``torch.profiler`` stamps
+its events with, the epoch clock (:func:`span_clock`), so the program's
+spans and the profiler's kernels share one timeline; its ``duration`` comes
+from ``time.perf_counter``. :func:`device_profile` writes the spans recorded
+during its block into the trace it captures, as a track of their own.
+
 For the always-on production layer — Prometheus-style metrics families,
 decision-latency histograms, scrape endpoints, and the flight recorder —
 see :mod:`hashgraph_tpu_torch.obs`; it layers on this tracer
@@ -33,6 +39,9 @@ tracer unless a component was given its own):
 
 - ``engine.*`` — votes_in / votes_accepted / transitions / host_spills /
   pid_collisions / timeout_sweeps / timeouts_fired / fresh_dispatches;
+  ``engine.pid_lookup_rebuilds`` (the multi-scope pid lookup rebuilt after
+  a membership change cleared it) and ``engine.pid_tables_rebuilt`` (one
+  scope's pid table rebuilt), which explain ``engine.resolve``;
 - ``wal.*`` — the durability subsystem (:mod:`hashgraph_tpu_torch.wal`):
   ``wal.append_records`` and ``wal.append_bytes`` (log growth),
   ``wal.fsync`` (durability syscalls — the throughput/durability dial),
@@ -43,6 +52,39 @@ tracer unless a component was given its own):
   ``wal.recover.dropped_segments`` / ``wal.recover.decode_errors``
   (nonzero dropped_segments/decode_errors = mid-log corruption, not a
   crash tail — acknowledged records were lost).
+
+Well-known spans of the two hot calls (one a call, a batch or a stage,
+never a row; through :func:`hashgraph_tpu_torch.obs.stage_span`):
+
+- proposals: ``engine.ingest_proposals`` (the whole call), inside it
+  ``engine.proposals.admit`` (the signature batch and the chain check)
+  and ``engine.register`` (the per-item loop: session build, LRU
+  eviction, slot writes, events);
+- columnar: ``engine.ingest_columnar`` (the whole ``ingest_columnar`` or
+  ``ingest_columnar_multi``) and ``engine.resolve`` (proposal id to slot,
+  in every columnar entry);
+- wire: ``engine.wire_verify_begin`` (the whole prepass), and in
+  ``ingest_wire_columnar`` ``engine.resolve``, the stages
+  ``engine.wire.crypto`` and ``engine.wire.apply`` (the ``"crypto"`` and
+  ``"apply"`` of ``stage_seconds``), inside the apply stage
+  ``engine.wire.rules`` (replay and expiry, reject health),
+  ``engine.wire.guard`` (the dangling-vote guard), ``engine.wire.intern``,
+  ``engine.wire.retain``, ``engine.wire.chain`` (the chain tracking after
+  the apply) and ``engine.wire.admit_health``;
+- the shared columnar apply: ``engine.device_ingest`` and
+  ``engine.apply.events`` (the event emission);
+- one device signature batch (:mod:`.crypto_device.backend`), each span
+  tagged with the batch's number: ``verify.submit``,
+  ``verify.decompress.enqueue``, ``verify.hash.enqueue``,
+  ``verify.decompress.wait``, ``verify.hash.wait``,
+  ``verify.msm.scalars``, ``verify.msm.nibbles``, ``verify.msm.device``
+  and ``verify.fallback``.
+
+The event ``engine.decided`` (once an ``ingest_wire_columnar`` call that
+decided sessions) carries ``latencies_s``: for each deciding
+``ConsensusReached``, the seconds from the start of the
+``wire_verify_begin`` of the frame that held the deciding vote to the
+event's emission.
 """
 
 from __future__ import annotations
@@ -86,6 +128,13 @@ def atomic_write_text(path: str, text: str) -> None:
         except OSError:
             pass
         raise
+
+
+def span_clock() -> float:
+    """Now, in seconds, on the clock of span starts: ``time.time_ns()``,
+    the epoch clock on which ``torch.profiler`` stamps host and CUDA
+    events."""
+    return time.time_ns() * 1e-9
 
 
 @dataclass
@@ -135,11 +184,12 @@ class Tracer:
         if not self.enabled:
             yield
             return
-        start = time.perf_counter()
+        start = span_clock()
+        t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.record_span(name, start, time.perf_counter() - start, attrs)
+            self.record_span(name, start, time.perf_counter() - t0, attrs)
 
     def record_span(
         self, name: str, start: float, duration: float, attrs: dict
@@ -181,6 +231,13 @@ class Tracer:
             if name is None:
                 return list(self._spans)
             return [s for s in self._spans if s.name == name]
+
+    def events(self, name: str | None = None) -> list[dict]:
+        """The recorded events (``name``, ``ts`` on the epoch clock, and
+        their attributes), oldest first; only those named ``name`` if
+        given."""
+        with self._lock:
+            return [dict(e) for e in self._events if name is None or e["name"] == name]
 
     def span_stats(self, name: str) -> dict[str, float]:
         """count / total / mean / max seconds for one span name."""
@@ -226,11 +283,19 @@ class Tracer:
 tracer = Tracer()
 
 
+PROGRAM_TRACK = "hashgraph_tpu_torch spans"
+
+
 @contextlib.contextmanager
 def device_profile(log_dir: str):
     """Capture a ``torch.profiler`` trace of the host and the GPU around a
     block, and write it into ``log_dir`` as a Chrome trace
     (``device_trace.json``; Perfetto and ``chrome://tracing`` open it).
+
+    The spans that the process-wide :data:`tracer` recorded starting in the
+    block (enable it first) go into the same file, on the profiler's clock,
+    as a track of their own (:data:`PROGRAM_TRACK`): beside the card's
+    timeline they name the host stage that held each idle gap.
 
     On a machine with a GPU the capture records CUDA activity (every
     kernel the block launches, by name, on the card's clock) and waits for
@@ -246,12 +311,37 @@ def device_profile(log_dir: str):
     if on_gpu:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "device_trace.json")
     with profile(activities=activities) as prof:
+        opened = span_clock()
         yield
         if on_gpu:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "device_trace.json"))
+        closed = span_clock()
+    prof.export_chrome_trace(path)
+    _add_program_track(path, [s for s in tracer.spans() if opened <= s.start <= closed])
     if on_gpu and not any(
         e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()
     ):
         raise RuntimeError("device_profile: the capture recorded no CUDA activity")
+
+
+def _add_program_track(path: str, spans: "list[SpanRecord]") -> None:
+    """Append ``spans`` to the Chrome trace at ``path`` as complete events
+    of one thread named :data:`PROGRAM_TRACK`. The trace's timestamps are
+    microseconds after its ``baseTimeNanoseconds`` (0 where it has none)."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), "program"
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                   "args": {"name": PROGRAM_TRACK}})
+    for s in spans:
+        events.append({
+            "ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": tid,
+            "ts": (round(s.start * 1e9) - base) / 1e3, "dur": s.duration * 1e6,
+            "args": {k: v if isinstance(v, (int, float, str, bool)) else repr(v)
+                     for k, v in s.attrs.items()},
+        })
+    atomic_write_text(path, json.dumps(doc))

@@ -31,6 +31,11 @@ counts included); each engine's ``health_report`` and its monitor's counters;
 the flight recorder's notes (kind and fields); and ``adaptive_timeout`` of
 every scope with the learner's snapshot.
 
+Left out by name: the tracer's port-only span and counter names
+(``PORT_ONLY_TRACER``: the hot calls' stage spans, the device batch's
+phase spans and the two pid-resolution counters), which the JAX engine
+does not record.
+
 Masked, because they are wall times, durations or generated ids: the
 timelines' ``first_vote_latency_s`` and ``decision_latency_s`` (their
 presence is kept), the ``traceparent``, ``trace_id`` and ``span_id`` of an
@@ -71,6 +76,23 @@ IGNORED_COUNTERS = ("hashgraph_jax_", "flight_dumps_total")
 WARMED_COUNTERS = (
     "hashgraph_verify_cache_hits_total",
     "hashgraph_verify_cache_negative_hits_total",
+)
+# The tracer names only the port records (ROADMAP queue 3, "Port-only by
+# design"): the spans of the hot calls' host stages and of the device
+# signature batch's phases, and the two pid-resolution counters. Listed one
+# by one, so every other tracer count is still compared.
+PORT_ONLY_SPANS = (
+    "engine.ingest_proposals", "engine.proposals.admit", "engine.register",
+    "engine.ingest_columnar", "engine.resolve", "engine.wire_verify_begin",
+    "engine.wire.crypto", "engine.wire.apply", "engine.wire.rules", "engine.wire.guard",
+    "engine.wire.intern", "engine.wire.retain", "engine.wire.chain",
+    "engine.wire.admit_health", "engine.apply.events",
+    "verify.submit", "verify.decompress.enqueue", "verify.hash.enqueue",
+    "verify.decompress.wait", "verify.hash.wait", "verify.msm.scalars",
+    "verify.msm.nibbles", "verify.msm.device", "verify.fallback",
+)
+PORT_ONLY_TRACER = tuple(f"span.{name}.calls" for name in PORT_ONLY_SPANS) + (
+    "engine.pid_lookup_rebuilds", "engine.pid_tables_rebuilt",
 )
 SIZE_HISTOGRAMS = ("hashgraph_ingest_batch_size", "hashgraph_chain_suffix_length")
 COUNTED_HISTOGRAMS = (
@@ -324,7 +346,8 @@ def observe(side, key):
         "counters": counters,
         "histograms": histograms,
         "tracer": {k: v for k, v in counts.items()
-                   if not k.endswith(".ns") and k != "span.engine.verify_batch.calls"},
+                   if not k.endswith(".ns") and k != "span.engine.verify_batch.calls"
+                   and k not in PORT_ONLY_TRACER},
         "flight": flight,
         "engines": engines,
     }, default=repr))
