@@ -141,6 +141,7 @@ def pool_to_numpy(pool: ProposalPool) -> tuple[dict, dict]:
     """``(arrays, host_meta)`` of a port pool, in the form
     :func:`pool_from_numpy` takes; a sharded pool's blocks are
     concatenated in mesh order (global slot order)."""
+    pool._flush_writes()
     blocks = getattr(pool, "_blocks", [pool])
     arrays = {
         name: np.concatenate([getattr(b, attr).cpu().numpy() for b in blocks])

@@ -1195,7 +1195,11 @@ class TorchConsensusEngine(Generic[Scope]):
             if pending_verify is not None:
                 verdicts, vote_hashes = pending_verify.collect()
 
-        with stage_span(self.tracer, "engine.register"):
+        # Every host decision is made item by item; the pool holds the slot
+        # writes back and makes them once at the loop's end.
+        with stage_span(self.tracer, "engine.register"), self._pool.deferred_writes(
+            self._count_register_flush
+        ):
             for i, (scope, proposal) in enumerate(items):
                 # Re-checked: an earlier item may have registered this pid. A
                 # demoted session is rejected without paging it in.
@@ -1244,6 +1248,15 @@ class TorchConsensusEngine(Generic[Scope]):
                     if exc.code == StatusCode.PROPOSAL_EXPIRED:
                         self._note_expired_proposal(proposal, now)
         return statuses
+
+    def _count_register_flush(self, slots: int, forced: bool) -> None:
+        """Tracer counts of the register loop's deferred slot writes: each
+        flush, the slots it wrote, and the flushes that another pool
+        operation (a vote-carrying session's row load) forced early."""
+        self.tracer.count("engine.register.flushes")
+        self.tracer.count("engine.register.flushed_slots", slots)
+        if forced:
+            self.tracer.count("engine.register.forced_flushes")
 
     def deliver_proposal(
         self,

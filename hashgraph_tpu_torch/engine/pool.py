@@ -6,7 +6,10 @@ as tensors on one device (reference: src/storage.rs:188-194 holds the same
 state as per-scope session maps). The host keeps the irregular bookkeeping
 — the free list, slot↔proposal mapping, owner-bytes→voter-lane tables,
 expiry timestamps and a mirror of every slot's state — exactly as the JAX
-package does; only the ``_dispatch_*`` methods touch the device.
+package does; only the ``_dispatch_*`` methods touch the device. Inside
+:meth:`ProposalPool.deferred_writes` the slot writes of releases and
+allocations are held back and made at the scope's end as one release and
+one activate dispatch, while the host bookkeeping changes at once.
 
 Differences from the JAX pool:
 - the ten device tensors are updated in place by slot id (no donation);
@@ -20,8 +23,10 @@ Differences from the JAX pool:
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Hashable
+from typing import Callable, Hashable
 
 import numpy as np
 import torch
@@ -205,6 +210,15 @@ class ProposalPool(SlotTensors):
     statuses and transitions are returned per call with no global
     readbacks.
     """
+
+    # The slot writes :meth:`deferred_writes` holds back: slot -> [its last
+    # activation's fields (n, req, cap, gossip, liveness) or None, whether a
+    # release came after it]; None while writes are dispatched at once. The
+    # scope belongs to the thread that opened it. Class defaults, so pools
+    # built without __init__ (convert.pool_from_numpy) have them.
+    _deferred: "dict[int, list] | None" = None
+    _deferring_thread: "int | None" = None
+    _on_flush: "Callable[[int, bool], None] | None" = None
 
     def __init__(self, capacity: int, voter_capacity: int, device="cuda"):
         if capacity < 1 or voter_capacity < 1:
@@ -539,6 +553,76 @@ class ProposalPool(SlotTensors):
         values, counts = np.unique(self._state_host, return_counts=True)
         return {int(v): int(c) for v, c in zip(values, counts)}
 
+    # ── Deferred slot writes ───────────────────────────────────────────
+
+    @contextmanager
+    def deferred_writes(self, on_flush: "Callable[[int, bool], None] | None" = None):
+        """Hold back the device writes of :meth:`release` and
+        :meth:`allocate_batch` until the scope ends, then make them as one
+        activate and one release dispatch. The host bookkeeping (free list,
+        mirrors, lanes, metadata) still changes at once, so every slot gets
+        the number immediate writes give it. Every other device operation of
+        the pool flushes first, so nothing reads or overwrites a stale row.
+
+        Exact because an activation writes all ten tensors of its row and a
+        release writes only the row's state: per slot, its last activation
+        followed by a release if one came after it leaves the row that the
+        writes made one by one leave. ``on_flush(slots, forced)`` hears of
+        every flush that writes: the slots written, and whether another
+        operation forced it inside the scope.
+
+        The scope belongs to the thread that opened it, which holds the
+        engine's lock as every writer of the pool does. A reader on another
+        thread (the fleet's tally, which takes no lock) neither flushes nor
+        touches the held writes: it reads the rows as the last flush left
+        them, the state after an earlier item of the loop, as a read between
+        two items did before. A scope opened inside another raises."""
+        if self._deferred is not None:
+            raise RuntimeError("deferred_writes is already open on this pool")
+        self._deferred, self._on_flush = {}, on_flush
+        self._deferring_thread = threading.get_ident()
+        try:
+            yield
+        finally:
+            try:
+                self._flush_writes(forced=False)
+            finally:
+                self._deferred = self._deferring_thread = self._on_flush = None
+
+    def _deferring(self) -> bool:
+        """Whether this thread's slot writes are held back: a scope is open
+        and this thread opened it."""
+        return (
+            self._deferred is not None
+            and self._deferring_thread == threading.get_ident()
+        )
+
+    def _flush_writes(self, forced: bool = True) -> None:
+        """Dispatch the writes a deferral scope holds: the activations
+        first, then the releases that followed them (a no-op with nothing
+        held, and on any thread but the scope's)."""
+        if not self._deferring() or not self._deferred:
+            return
+        pending, self._deferred = self._deferred, {}
+        active = [(slot, fields) for slot, (fields, _) in pending.items() if fields]
+        if active:
+            n, req, cap, gossip, liveness = (
+                np.asarray(column) for column in zip(*(f for _, f in active))
+            )
+            self._dispatch_activate(
+                np.asarray([slot for slot, _ in active], np.int32),
+                n.astype(np.int32),
+                req.astype(np.int32),
+                cap.astype(np.int32),
+                gossip.astype(bool),
+                liveness.astype(bool),
+            )
+        released = [slot for slot, (_, rel) in pending.items() if rel]
+        if released:
+            self._dispatch_release(np.asarray(released, np.int32))
+        if self._on_flush is not None:
+            self._on_flush(len(pending), forced)
+
     # ── Allocation ─────────────────────────────────────────────────────
 
     def allocate_batch(
@@ -578,14 +662,22 @@ class ProposalPool(SlotTensors):
         slots = self._free[-count:][::-1]
         del self._free[-count:]
         slots_arr = np.asarray(slots, np.int32)
-        self._dispatch_activate(
-            slots_arr,
-            n,
-            np.asarray(req, np.int32),
-            np.asarray(cap, np.int32),
-            np.asarray(gossip, bool),
-            np.asarray(liveness, bool),
-        )
+        if self._deferring():
+            pending = self._deferred
+            for slot, fields in zip(slots, zip(
+                n.tolist(), np.asarray(req).tolist(), np.asarray(cap).tolist(),
+                np.asarray(gossip).tolist(), np.asarray(liveness).tolist(),
+            )):
+                pending[slot] = [fields, False]
+        else:
+            self._dispatch_activate(
+                slots_arr,
+                n,
+                np.asarray(req, np.int32),
+                np.asarray(cap, np.int32),
+                np.asarray(gossip, bool),
+                np.asarray(liveness, bool),
+            )
 
         expiry = np.asarray(expiry, np.int64)
         created_at = np.asarray(created_at, np.int64)
@@ -613,6 +705,7 @@ class ProposalPool(SlotTensors):
         if not slots:
             return
         self._check_no_inflight("load_rows")
+        self._flush_writes()
         self._dispatch_load(
             np.asarray(slots, np.int32),
             np.asarray(state, np.int32),
@@ -631,7 +724,15 @@ class ProposalPool(SlotTensors):
         if not slots:
             return
         self._check_no_inflight("release")
-        self._dispatch_release(np.asarray(slots, np.int32))
+        if self._deferring():
+            for slot in slots:
+                entry = self._deferred.get(slot)
+                if entry is None:
+                    self._deferred[slot] = [None, True]
+                else:
+                    entry[1] = True
+        else:
+            self._dispatch_release(np.asarray(slots, np.int32))
         self._retire_lanes(np.asarray(slots, np.int64))
         for slot in slots:
             self._state_host[slot] = STATE_FREE
@@ -642,7 +743,8 @@ class ProposalPool(SlotTensors):
     def _retire_lanes(self, slot_arr: np.ndarray) -> None:
         """Drop the released slots' lane references; evict gids that no live
         slot references anymore."""
-        slot_arr = np.unique(slot_arr)  # a duplicated slot must not double-deref
+        if len(slot_arr) > 1:  # registration retires one slot at a time
+            slot_arr = np.unique(slot_arr)  # a duplicated slot must not double-deref
         rows = self._lane_gids[slot_arr]
         referenced = rows[rows >= 0].astype(np.int64)
         self._lane_gids[slot_arr] = -1
@@ -652,11 +754,12 @@ class ProposalPool(SlotTensors):
         referenced = referenced[referenced < len(self._owners)]
         if referenced.size == 0:
             return
-        gids, counts = np.unique(referenced, return_counts=True)
-        self._gid_refs[gids] -= counts
+        # Unbuffered: a gid referenced by several slots loses one a slot.
+        np.subtract.at(self._gid_refs, referenced, 1)
         # _gid_live gates eviction so synthetic (never-interned) ids and
-        # already-freed ids are skipped.
-        for gid in gids[(self._gid_refs[gids] <= 0) & self._gid_live[gids]].tolist():
+        # already-freed ids are skipped; the dead, rare, go in gid order.
+        dead = referenced[(self._gid_refs[referenced] <= 0) & self._gid_live[referenced]]
+        for gid in np.unique(dead).tolist() if dead.size else ():
             del self._gid_of[self._owners[gid]]
             self._owners[gid] = b""
             self._gid_live[gid] = False
@@ -814,6 +917,7 @@ class ProposalPool(SlotTensors):
 
         expired = self._expiry_host[uniq] <= now
         slot_pack2 = pack_slots(uniq.astype(np.int32), expired)
+        self._flush_writes()
         if fresh:
             out, row_select = self._dispatch_ingest_fresh(
                 slot_pack2, grid, laneless=laneless
@@ -894,6 +998,7 @@ class ProposalPool(SlotTensors):
         if not slots:
             return []
         self._check_no_inflight("timeout")
+        self._flush_writes()
         row_state = self._dispatch_timeout(np.asarray(slots, np.int32))
         out: list[tuple[int, int]] = []
         for i, slot in enumerate(slots):
@@ -903,6 +1008,10 @@ class ProposalPool(SlotTensors):
         return out
 
     # ── Cold query path ────────────────────────────────────────────────
+
+    def read_slots(self, slots) -> dict[str, np.ndarray]:
+        self._flush_writes()
+        return super().read_slots(slots)
 
     def read_slot(self, slot: int) -> dict[str, np.ndarray]:
         """Gather one slot's full row back to host (debug / session export);

@@ -16,8 +16,8 @@ from ..ops.decide import (
     STATE_FAILED,
     STATE_REACHED_NO,
     STATE_REACHED_YES,
-    required_votes_np,
 )
+from ..protocol import calculate_threshold_based_value
 from ..session import ConsensusConfig, ConsensusSession, ConsensusState
 from ..wire import Proposal
 from .pool import ProposalPool
@@ -44,13 +44,13 @@ def allocate_slot(
     n = proposal.expected_voters_count
     return pool.allocate_batch(
         keys=[key],
-        n=np.array([n]),
-        req=required_votes_np(np.array([n]), config.consensus_threshold),
-        cap=np.array([config.max_round_limit(n)]),
-        gossip=np.array([config.use_gossipsub_rounds]),
-        liveness=np.array([proposal.liveness_criteria_yes]),
-        expiry=np.array([proposal.expiration_timestamp]),
-        created_at=np.array([created_at]),
+        n=[n],
+        req=[calculate_threshold_based_value(n, config.consensus_threshold)],
+        cap=[config.max_round_limit(n)],
+        gossip=[config.use_gossipsub_rounds],
+        liveness=[proposal.liveness_criteria_yes],
+        expiry=[proposal.expiration_timestamp],
+        created_at=[created_at],
     )[0]
 
 

@@ -338,6 +338,7 @@ class MultiHostPool(ShardedPool):
         if not slots:
             return []
         self._check_no_inflight("timeout")
+        self._flush_writes()
         slot_arr = np.asarray(slots, np.int64)
         lo, hi = self.local_slots()
         local = (slot_arr >= lo) & (slot_arr < hi)

@@ -266,6 +266,7 @@ class ShardedPool(ProposalPool):
     def read_slots(self, slots) -> dict[str, np.ndarray]:
         """Batched slot rows gathered block by block (arrays indexed [k]
         in ``slots`` order; out-of-range slots clip as the base pool's)."""
+        self._flush_writes()
         slots = np.clip(np.asarray(slots, np.int64), 0, self.capacity - 1)
         parts, select = self._parts(slots, [])
         reads = [self._block(d).read_slots(local) for d, local, _ in parts]
@@ -295,6 +296,7 @@ class ShardedPool(ProposalPool):
         the device: each block counts on its device, and the vectors are
         summed on the first block's device. No host copy (the fleet tally
         reduces these vectors across shards before its one copy)."""
+        self._flush_writes()
         total = None
         for block in self._blocks:
             if block is None:

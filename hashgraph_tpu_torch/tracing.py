@@ -42,6 +42,12 @@ tracer unless a component was given its own):
   ``engine.pid_lookup_rebuilds`` (the multi-scope pid lookup rebuilt after
   a membership change cleared it) and ``engine.pid_tables_rebuilt`` (one
   scope's pid table rebuilt), which explain ``engine.resolve``;
+  ``engine.register.flushes`` (the register loop's held-back slot writes
+  dispatched: one activate and one release at most),
+  ``engine.register.flushed_slots`` (the slots those flushes wrote) and
+  ``engine.register.forced_flushes`` (flushes that a vote-carrying
+  session's row load forced before the loop's end), which explain
+  ``engine.register``;
 - ``wal.*`` — the durability subsystem (:mod:`hashgraph_tpu_torch.wal`):
   ``wal.append_records`` and ``wal.append_bytes`` (log growth),
   ``wal.fsync`` (durability syscalls — the throughput/durability dial),

@@ -228,3 +228,69 @@ def test_allocate_and_load_rows_match_reference(v_cap):
         pool.load_rows(list(slots[::-1]), **{name: value[::-1] for name, value in rows.items()})
         pool.release([slots[2]])
     assert_pools_equal(ref, port)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_deferred_writes_match_reference(seed):
+    """Releases, allocations and lane claims made inside
+    ``deferred_writes`` (a slot claimed, released and claimed again, and
+    claimed then released, in one scope), with a row read and an ingest
+    forcing flushes in some seeds: every array and host mirror equal to the
+    JAX pool's, which writes at once, and the writes made in one activate
+    and one release dispatch a flush. A second scope inside the first
+    raises."""
+    rng = np.random.default_rng(100 + seed)
+    p, v_cap = 12, 8
+    ref, port = RefPool(p, v_cap), ProposalPool(p, v_cap, device="cpu")
+    calls = {"_dispatch_activate": 0, "_dispatch_release": 0}
+    for name in calls:
+        def spy(*args, _name=name, _orig=getattr(port, name)):
+            calls[_name] += 1
+            return _orig(*args)
+        setattr(port, name, spy)
+    flushes = []
+    owners = [bytes([9, i]) for i in range(10)]
+    live: list[int] = []
+    with port.deferred_writes(lambda slots, forced: flushes.append((slots, forced))):
+        with pytest.raises(RuntimeError, match="already open"):
+            with port.deferred_writes():
+                pass
+        for step in range(40):
+            op = rng.choice(["alloc", "release", "lanes", "force"], p=[0.4, 0.3, 0.2, 0.1])
+            if op == "alloc" and ref.free_slots:
+                k = int(rng.integers(1, min(3, ref.free_slots) + 1))
+                n = rng.integers(1, v_cap + 1, k)
+                thr = rng.choice([2 / 3, 0.9, 1.0], k)
+                gossip = rng.random(k) < 0.5
+                req = required_votes_np(n, thr)
+                args = dict(keys=[("s", seed, step, i) for i in range(k)], n=n,
+                            cap=np.where(gossip, 2, req), gossip=gossip,
+                            liveness=rng.random(k) < 0.5, expiry=np.full(k, NOW + 50),
+                            created_at=np.full(k, NOW))
+                slots = ref.allocate_batch(req=req, **args)
+                assert port.allocate_batch(req=req, **args) == slots
+                live.extend(slots)
+            elif op == "release" and live:
+                gone = [live.pop(int(rng.integers(len(live))))
+                        for _ in range(min(len(live), int(rng.integers(1, 3))))]
+                both(ref, port, lambda q: q.release(gone))
+            elif op == "lanes" and live:
+                slot = live[int(rng.integers(len(live)))]
+                for owner in rng.choice(len(owners), 3, replace=False).tolist():
+                    both(ref, port, lambda q: q.lane_for(slot, owners[owner]))
+            elif op == "force" and live and seed % 2:
+                slots = np.asarray(live, np.int64)
+                lanes = np.zeros(len(live), np.int32)
+                vals = rng.random(len(live)) < 0.5
+                ingest = lambda q: q.ingest(slots, lanes, vals, NOW + 1)  # noqa: E731
+                read = lambda q: q.read_slots(list(range(p)))  # noqa: E731
+                for fn in (ingest, read) if step % 2 else (read, ingest):
+                    both(ref, port, fn)
+    assert_pools_equal(ref, port)
+    forced = [f for f in flushes if f[1]]
+    assert len(flushes) - len(forced) <= 1  # the scope's end wrote what was left
+    assert calls["_dispatch_activate"] <= len(flushes)
+    assert calls["_dispatch_release"] <= len(flushes)
+    if seed % 2 == 0:  # nothing forced: one flush of everything, at the end
+        assert not forced and len(flushes) == 1
+        assert calls["_dispatch_activate"] == 1 and calls["_dispatch_release"] <= 1

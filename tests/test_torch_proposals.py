@@ -11,10 +11,16 @@ The scenarios cover ``tests/test_redelivery.py::TestDeliverProposals`` and
 ``tests/test_engine_proposals.py``, sessions decided when they arrive,
 sessions served on the host (too wide, pool full), the per-scope cap,
 ``cast_vote_and_get_proposal``, ``ingest_votes_pipelined`` against
-sequential ``ingest_votes``, and seeded mixed traces at 16 seeds. Statuses,
-exception types, consensus results, events (in emission order), scope
-stats, occupancy and each proposal's vote list (hashes) and round must be
-equal (tolerance: exact).
+sequential ``ingest_votes``, seeded mixed traces at 16 seeds, and batches
+that register in bulk. Statuses, exception types, consensus results, events
+(in emission order), scope stats, occupancy and each proposal's vote list
+(hashes) and round must be equal (tolerance: exact); the bulk batches also
+compare slot numbers and every pool row.
+
+The port's registration in bulk (the slot writes of one ``ingest_proposals``
+call made in one activate and one release dispatch) is also held against
+the same items delivered one a call, with a sharded pool too, and its
+dispatches and tracer counters are counted.
 """
 
 import json
@@ -39,11 +45,14 @@ def port_api():
     from hashgraph_tpu_torch.events import BroadcastEventBus
     from hashgraph_tpu_torch.wire import Proposal
 
-    def make_engine(signer, cache, capacity=32, voter_capacity=16, max_sessions=10_000):
+    def make_engine(signer, cache, capacity=32, voter_capacity=16, max_sessions=10_000,
+                    pool=None):
+        geometry = (None, None) if pool is not None else (capacity, voter_capacity)
         return pkg.TorchConsensusEngine(
-            signer, capacity, voter_capacity,
+            signer, *geometry,
             event_bus=BroadcastEventBus(max_queued_events=1_000_000),
             max_sessions_per_scope=max_sessions, device="cpu", verify_cache=cache,
+            pool=pool,
         )
 
     return SimpleNamespace(pkg=pkg, protocol=protocol, Proposal=Proposal,
@@ -505,6 +514,72 @@ def scenario_mixed(side, seed):
     return log
 
 
+# ── Registration in bulk ──────────────────────────────────────────────
+
+
+def bulk_case(side, case):
+    """One bulk-registration case: the engine, the calls before the batch
+    (every scope of the first call full at the per-scope cap of 3) and the
+    batch."""
+    kwargs = dict(capacity=16, voter_capacity=8, max_sessions=3)
+    prelude = [(s, side.proposal(900 + 10 * k + j, 4)) for k, s in enumerate("st") for j in range(3)]
+    carried_ = [side.grow(side.proposal(200 + k, 4), votes) for k, votes in enumerate((2, 1, 4, 3))]
+    if case == "cap":  # more than the cap to one scope: each evicts, then claims the slot freed
+        batch = [("s", side.proposal(100 + k, 4)) for k in range(5)]
+        batch += [("u", side.proposal(120 + k, 5)) for k in range(4)]
+    elif case in ("mixed", "sharded"):  # each vote-carrying row load flushes the writes first
+        free = [side.proposal(300 + k, 4) for k in range(5)]
+        batch = [("s", free[0]), ("t", carried_[0]), ("s", free[1]), ("s", carried_[1]),
+                 ("t", free[2]), ("u", carried_[2]), ("u", free[3]), ("t", carried_[3]),
+                 ("s", free[4])]
+        if case == "sharded":
+            from hashgraph_tpu_torch.parallel.sharded import ShardedPool
+
+            kwargs = dict(pool=ShardedPool(8, 8, mesh=["cpu", "cpu"]), max_sessions=3)
+    elif case == "full":  # past the free slots, and wider than the lanes: served on the host
+        kwargs["capacity"] = 9
+        batch = [(f"v{k}", side.proposal(400 + k, 12 if k == 1 else 4)) for k in range(6)]
+        batch += [("s", side.proposal(420, 4)), ("t", carried_[0])]
+    else:  # "redelivered": twice in the batch, known before it, and expired
+        batch = [("s", side.proposal(500, 4)), ("s", side.proposal(500, 4)),
+                 ("s", prelude[1][1]), ("t", side.proposal(501, 4, expiry=3)),
+                 ("t", carried_[1]), ("t", carried_[1]), ("u", side.proposal(502, 4)),
+                 ("t", side.proposal(503, 4))]
+    return side.engine(**kwargs), prelude, batch
+
+
+def bulk_run(side, case, one_per_call=False, before_batch=None):
+    """A bulk case's batch in one ``ingest_proposals`` call, or one call an
+    item: statuses, events in order, each key's slot, every pool row and
+    the snapshot. ``before_batch(engine)`` runs after the prelude."""
+    engine, prelude, batch = bulk_case(side, case)
+    w = side.wire
+    log = [engine.ingest_proposals([(s, w(p)) for s, p in prelude], NOW + 1), side.events()]
+    if before_batch is not None:
+        before_batch(engine)
+    items = [(s, w(p)) for s, p in batch]
+    if one_per_call:
+        log.append([engine.ingest_proposals([item], NOW + 5)[0] for item in items])
+    else:
+        log.append(engine.ingest_proposals(items, NOW + 5))
+    keys = sorted({(s, p.proposal_id) for s, p in prelude + batch})
+    pool = engine.pool()
+    rows = pool.read_slots(list(range(pool.capacity)))
+    log += [side.events(), [[s, pid, engine._index.get((s, pid))] for s, pid in keys],
+            {name: np.asarray(value).tolist() for name, value in sorted(rows.items())},
+            snapshot(engine, keys)]
+    return log
+
+
+BULK_CASES = ("cap", "mixed", "full", "sharded", "redelivered")
+
+
+def scenario_bulk(side, seed):
+    """The bulk cases the JAX package can run (all but the sharded pool),
+    each batch in one call."""
+    return [bulk_run(side, case) for case in BULK_CASES if case != "sharded"]
+
+
 SCENARIOS = {
     "deliver": (scenario_deliver, (0,)),
     "ingest": (scenario_ingest, (0, 1)),
@@ -512,6 +587,7 @@ SCENARIOS = {
     "cast": (scenario_cast, (0,)),
     "pipelined": (scenario_pipelined, (0, 1)),
     "mixed": (scenario_mixed, tuple(range(16))),
+    "bulk": (scenario_bulk, (0,)),
 }
 KEYS = [f"{name}-{seed}-{cache}" for name, (_, seeds) in SCENARIOS.items()
         for seed in seeds for cache in CACHES]
@@ -592,6 +668,141 @@ def test_traces_reach_the_paths(port):
     capacity = port["capacity-0-None"]
     assert capacity[2]["occupancy"][2] == 2  # the wide and the overflowing session
     assert capacity[1] and capacity[1][0][1] == "ConsensusReached"
+
+
+@pytest.mark.parametrize("case", BULK_CASES)
+def test_bulk_registration_matches_one_per_call(case):
+    """One ``ingest_proposals`` call of a batch (its slot writes deferred
+    and made at once) against the same items one a call: statuses, events
+    in order, slot numbers, every pool row and the snapshot equal."""
+    api = port_api()
+    runs = []
+    for one_per_call in (False, True):
+        with seeded_ids(api, 30_000):
+            runs.append(json.loads(json.dumps(bulk_run(Side(api, None), case, one_per_call))))
+    assert runs[0] == runs[1]
+    assert runs[0][2].count(0) >= 2  # some of the batch registered
+
+
+@pytest.mark.parametrize("case", ("cap", "sharded"))
+def test_bulk_registration_under_a_foreign_reader(case):
+    """Readers on another thread, which take no lock (the fleet's tally
+    reads ``device_state_counts`` so, and ``pool_to_numpy``), run and are
+    joined after every slot claim of the batch, while its writes are held:
+    they write nothing (every dispatch on the calling thread, one activate
+    and at most one release a flush), raise nothing, read a whole pool,
+    and the batch's statuses, events, slot numbers, every pool row and the
+    snapshot stay equal to one item a call."""
+    import threading
+
+    from hashgraph_tpu_torch.convert import pool_to_numpy
+
+    from hashgraph_tpu_torch.tracing import Tracer
+
+    api = port_api()
+    callers, reads, tracer = [], [], Tracer(enabled=True)
+
+    def foreign_reads(pool):
+        arrays, _ = pool_to_numpy(pool)
+        rows = pool.read_slots(list(range(pool.capacity)))
+        sizes = {pool.capacity, len(arrays["state"]), len(rows["state"])}
+        if hasattr(pool, "device_state_counts"):
+            sizes.add(int(pool.device_state_counts().sum()))
+        reads.append(sizes)
+
+    def with_foreign_readers(engine):
+        engine.tracer = tracer
+        pool = engine.pool()
+        for name in ("_dispatch_activate", "_dispatch_release"):
+            def spy(*args, _name=name, _orig=getattr(pool, name)):
+                callers.append((_name, threading.get_ident()))
+                return _orig(*args)
+            setattr(pool, name, spy)
+        allocate = pool.allocate_batch
+
+        def allocate_then_read(*args, **kwargs):
+            slots = allocate(*args, **kwargs)
+            reader = threading.Thread(target=foreign_reads, args=(pool,))
+            reader.start()
+            reader.join()
+            return slots
+
+        pool.allocate_batch = allocate_then_read
+
+    runs = []
+    for hook in (with_foreign_readers, None):
+        with seeded_ids(api, 30_000):
+            log = bulk_run(Side(api, None), case, before_batch=hook, one_per_call=hook is None)
+            runs.append(json.loads(json.dumps(log)))
+    assert runs[0] == runs[1]
+    assert reads and all(len(sizes) == 1 for sizes in reads)
+    assert {ident for _, ident in callers} == {threading.get_ident()}
+    flushes = tracer.counters()["engine.register.flushes"]
+    assert flushes == 1 if case == "cap" else flushes > 1  # row loads force flushes
+    activates = sum(1 for name, _ in callers if name == "_dispatch_activate")
+    assert 1 <= activates <= flushes and len(callers) - activates <= flushes
+
+
+def spy_writes(pool):
+    """Count the pool's activate and release dispatches."""
+    calls = {"_dispatch_activate": 0, "_dispatch_release": 0}
+    for name in calls:
+        def spy(*args, _name=name, _orig=getattr(pool, name)):
+            calls[_name] += 1
+            return _orig(*args)
+        setattr(pool, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("n_items", [1, 8, 40])
+def test_bulk_registration_writes_once(n_items):
+    """Vote-free proposals into full scopes, each evicting the oldest
+    session, every third too wide for the lanes (its eviction a release
+    alone): one activate and one release dispatch for the call whatever its
+    size, and the tracer's counters read one flush of one slot an item."""
+    from hashgraph_tpu_torch.tracing import Tracer
+
+    api = port_api()
+    side = Side(api, None)
+    with seeded_ids(api, 40_000 + n_items):
+        engine = side.engine(capacity=128, voter_capacity=8, max_sessions=2)
+        scopes = [f"g{k}" for k in range(n_items)]
+        engine.ingest_proposals([(s, side.proposal(1000 + 2 * k + j, 4))
+                                 for k, s in enumerate(scopes) for j in range(2)], NOW + 1)
+        batch = [(s, side.proposal(5000 + k, 12 if k % 3 == 2 else 4))
+                 for k, s in enumerate(scopes)]
+        calls = spy_writes(engine.pool())
+        engine.tracer = Tracer(enabled=True)
+        assert engine.ingest_proposals(batch, NOW + 5) == [0] * n_items
+    wide = sum(1 for k in range(n_items) if k % 3 == 2)
+    assert calls == {"_dispatch_activate": int(n_items > wide), "_dispatch_release": int(wide > 0)}
+    counters = engine.tracer.counters()
+    assert counters["engine.register.flushes"] == 1
+    assert counters["engine.register.flushed_slots"] == n_items
+    assert "engine.register.forced_flushes" not in counters
+    assert engine.occupancy()["host_spilled"] == wide
+
+
+def test_bulk_registration_forced_flush():
+    """A vote-carrying proposal's row load inside the batch flushes the
+    writes held so far (its own activation among them) before it, and the
+    rest go at the loop's end."""
+    from hashgraph_tpu_torch.tracing import Tracer
+
+    api = port_api()
+    side = Side(api, None)
+    with seeded_ids(api, 40_100):
+        engine = side.engine(capacity=16, voter_capacity=8, max_sessions=3)
+        batch = [("s", side.proposal(10, 4)), ("s", side.grow(side.proposal(11, 4), 2)),
+                 ("t", side.proposal(12, 4)), ("t", side.proposal(13, 4))]
+        calls = spy_writes(engine.pool())
+        engine.tracer = Tracer(enabled=True)
+        assert engine.ingest_proposals([(s, side.wire(p)) for s, p in batch], NOW + 5) == [0] * 4
+    assert calls == {"_dispatch_activate": 2, "_dispatch_release": 0}
+    counters = engine.tracer.counters()
+    assert counters["engine.register.flushes"] == 2
+    assert counters["engine.register.forced_flushes"] == 1
+    assert counters["engine.register.flushed_slots"] == 4
 
 
 if __name__ == "__main__" and sys.argv[1:] == ["--reference"]:
