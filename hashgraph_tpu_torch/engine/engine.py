@@ -3359,6 +3359,7 @@ class TorchConsensusEngine(Generic[Scope]):
             )
         raise InsufficientVotesAtTimeout()
 
+    @_spanned("engine.sweep")
     def sweep_timeouts(
         self, now: int, _gc_sink: "list | None" = None
     ) -> list[tuple[Scope, int, bool | None]]:
@@ -3379,21 +3380,22 @@ class TorchConsensusEngine(Generic[Scope]):
         each process returns and emits only the sessions it owns."""
         if self._multihost:
             self._pool.sync_states()
-        self._promote_expired_tier(now)
-        expired: list[int] = []
-        host_expired: list[int] = []
-        for slot, record in self._records.items():
-            if record.session is not None:
-                if (
-                    record.session.state.is_active
-                    and record.proposal.expiration_timestamp <= now
+        with stage_span(self.tracer, "engine.sweep.scan"):
+            self._promote_expired_tier(now)
+            expired: list[int] = []
+            host_expired: list[int] = []
+            for slot, record in self._records.items():
+                if record.session is not None:
+                    if (
+                        record.session.state.is_active
+                        and record.proposal.expiration_timestamp <= now
+                    ):
+                        host_expired.append(slot)
+                elif (
+                    self._pool.state_of(slot) == STATE_ACTIVE
+                    and self._pool.meta(slot).expiry <= now
                 ):
-                    host_expired.append(slot)
-            elif (
-                self._pool.state_of(slot) == STATE_ACTIVE
-                and self._pool.meta(slot).expiry <= now
-            ):
-                expired.append(slot)
+                    expired.append(slot)
         self.tracer.count("engine.timeout_sweeps")
         self.tracer.count("engine.timeouts_fired", len(expired) + len(host_expired))
         self.health.tick(now)  # the watchdog clock advances with the sweeps
@@ -3406,48 +3408,56 @@ class TorchConsensusEngine(Generic[Scope]):
         # which returns this process's slots only), then the host-spilled
         # ones, in the JAX engine's order. Host-spilled sessions advance on
         # every process, but their events and results belong to process 0.
-        swept = [(slot, st, True) for slot, st in self._pool.timeout(expired)] + [
-            (slot, self._host_timeout(self._records[slot]), self._owns_slot(slot))
-            for slot in host_expired
-        ]
+        with stage_span(self.tracer, "engine.sweep.timeout"):
+            swept = [(slot, st, True) for slot, st in self._pool.timeout(expired)] + [
+                (slot, self._host_timeout(self._records[slot]), self._owns_slot(slot))
+                for slot in host_expired
+            ]
+        if self.tracer.enabled:
+            reached = sum(
+                1 for _, st, _ in swept if st in (STATE_REACHED_YES, STATE_REACHED_NO)
+            )
+            self.tracer.count("engine.timeouts_reached", reached)
+            self.tracer.count("engine.timeouts_failed", len(swept) - reached)
         # Fired count and latency observations are ownership-gated like
         # events: a fleet's metrics sum reports each swept session once.
         self._m_timeouts.inc(sum(1 for _, _, owned in swept if owned))
         out: list[tuple[Scope, int, bool | None]] = []
-        for slot, new_state, owned in swept:
-            record = self._records[slot]
-            record.last_activity = now  # the fired timeout (the GC TTL's start)
-            if self._health_live:
-                self._adaptive.on_timeout(
-                    record.scope, self._scope_configs.get(record.scope)
-                )
-            outcome = _OUTCOME_OF_STATE.get(new_state)
-            if outcome is not None:
-                self._timelines.decided(
-                    slot, outcome, now, wall, by_timeout=True, observe=owned
-                )
-                if trace_store.enabled and record.trace is not None:
-                    trace_store.instant(
-                        "consensus.timeout_decided",
-                        record.trace,
-                        peer=self._trace_peer,
-                        attrs={"outcome": outcome},
+        with stage_span(self.tracer, "engine.sweep.emit"):
+            for slot, new_state, owned in swept:
+                record = self._records[slot]
+                record.last_activity = now  # the fired timeout (the GC TTL's start)
+                if self._health_live:
+                    self._adaptive.on_timeout(
+                        record.scope, self._scope_configs.get(record.scope)
                     )
-            if not owned:
-                continue
-            pid = record.proposal.proposal_id
-            if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
-                result = new_state == STATE_REACHED_YES
-                self._emit(
-                    record.scope,
-                    ConsensusReached(proposal_id=pid, result=result, timestamp=now),
-                )
-                out.append((record.scope, pid, result))
-            else:
-                self._emit(
-                    record.scope, ConsensusFailedEvent(proposal_id=pid, timestamp=now)
-                )
-                out.append((record.scope, pid, None))
+                outcome = _OUTCOME_OF_STATE.get(new_state)
+                if outcome is not None:
+                    self._timelines.decided(
+                        slot, outcome, now, wall, by_timeout=True, observe=owned
+                    )
+                    if trace_store.enabled and record.trace is not None:
+                        trace_store.instant(
+                            "consensus.timeout_decided",
+                            record.trace,
+                            peer=self._trace_peer,
+                            attrs={"outcome": outcome},
+                        )
+                if not owned:
+                    continue
+                pid = record.proposal.proposal_id
+                if new_state in (STATE_REACHED_YES, STATE_REACHED_NO):
+                    result = new_state == STATE_REACHED_YES
+                    self._emit(
+                        record.scope,
+                        ConsensusReached(proposal_id=pid, result=result, timestamp=now),
+                    )
+                    out.append((record.scope, pid, result))
+                else:
+                    self._emit(
+                        record.scope, ConsensusFailedEvent(proposal_id=pid, timestamp=now)
+                    )
+                    out.append((record.scope, pid, None))
         self.lifecycle_sweep(now, _gc_sink=_gc_sink)
         return out
 
@@ -4079,6 +4089,7 @@ class TorchConsensusEngine(Generic[Scope]):
         self._pool.release([s for s in slots if s >= 0])
         self._drop_pid_cache(scope)
 
+    @_spanned("engine.lifecycle_sweep")
     def lifecycle_sweep(self, now: int, _gc_sink: "list | None" = None) -> dict:
         """Apply every scope's tier TTLs (``ScopeConfig.demote_after`` and
         ``evict_decided_after``) at the logical clock ``now``: first

@@ -39,6 +39,9 @@ tracer unless a component was given its own):
 
 - ``engine.*`` — votes_in / votes_accepted / transitions / host_spills /
   pid_collisions / timeout_sweeps / timeouts_fired / fresh_dispatches;
+  ``engine.timeouts_reached`` and ``engine.timeouts_failed`` (of the
+  sessions a ``sweep_timeouts`` fired, those the timeout decided YES or NO
+  and those it failed);
   ``engine.pid_lookup_rebuilds`` (the multi-scope pid lookup rebuilt after
   a membership change cleared it) and ``engine.pid_tables_rebuilt`` (one
   scope's pid table rebuilt), which explain ``engine.resolve``;
@@ -79,6 +82,12 @@ never a row; through :func:`hashgraph_tpu_torch.obs.stage_span`):
   the apply) and ``engine.wire.admit_health``;
 - the shared columnar apply: ``engine.device_ingest`` and
   ``engine.apply.events`` (the event emission);
+- timeouts: ``engine.sweep`` (the whole ``sweep_timeouts``), inside it
+  ``engine.sweep.scan`` (the expired set: every live record's state and
+  expiry), ``engine.sweep.timeout`` (the pool's timeout dispatch and its
+  readback), ``engine.sweep.emit`` (each fired session's timeline,
+  adaptive timeout and event) and ``engine.lifecycle_sweep`` (the tier
+  TTLs, also when called alone);
 - one device signature batch (:mod:`.crypto_device.backend`), each span
   tagged with the batch's number: ``verify.submit``,
   ``verify.decompress.enqueue``, ``verify.hash.enqueue``,

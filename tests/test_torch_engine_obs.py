@@ -33,8 +33,9 @@ every scope with the learner's snapshot.
 
 Left out by name: the tracer's port-only span and counter names
 (``PORT_ONLY_TRACER``: the hot calls' stage spans, the device batch's
-phase spans, the two pid-resolution counters and the three counters of
-registration's deferred slot writes), which the JAX engine does not record.
+phase spans, the timeout sweep's spans, the two pid-resolution counters,
+the three counters of registration's deferred slot writes and the sweep's
+reached and failed counters), which the JAX engine does not record.
 
 Masked, because they are wall times, durations or generated ids: the
 timelines' ``first_vote_latency_s`` and ``decision_latency_s`` (their
@@ -78,10 +79,11 @@ WARMED_COUNTERS = (
     "hashgraph_verify_cache_negative_hits_total",
 )
 # The tracer names only the port records (ROADMAP queue 3, "Port-only by
-# design"): the spans of the hot calls' host stages and of the device
-# signature batch's phases, the two pid-resolution counters and the three
-# counters of registration's deferred slot writes. Listed one by one, so
-# every other tracer count is still compared.
+# design"): the spans of the hot calls' host stages, of the device
+# signature batch's phases and of the timeout sweep, the two pid-resolution
+# counters, the three counters of registration's deferred slot writes and
+# the sweep's reached and failed counters. Listed one by one, so every
+# other tracer count is still compared.
 PORT_ONLY_SPANS = (
     "engine.ingest_proposals", "engine.proposals.admit", "engine.register",
     "engine.ingest_columnar", "engine.resolve", "engine.wire_verify_begin",
@@ -91,11 +93,13 @@ PORT_ONLY_SPANS = (
     "verify.submit", "verify.decompress.enqueue", "verify.hash.enqueue",
     "verify.decompress.wait", "verify.hash.wait", "verify.msm.scalars",
     "verify.msm.nibbles", "verify.msm.device", "verify.fallback",
+    "engine.sweep", "engine.sweep.scan", "engine.sweep.timeout", "engine.sweep.emit",
+    "engine.lifecycle_sweep",
 )
 PORT_ONLY_TRACER = tuple(f"span.{name}.calls" for name in PORT_ONLY_SPANS) + (
     "engine.pid_lookup_rebuilds", "engine.pid_tables_rebuilt",
     "engine.register.flushes", "engine.register.flushed_slots",
-    "engine.register.forced_flushes",
+    "engine.register.forced_flushes", "engine.timeouts_reached", "engine.timeouts_failed",
 )
 SIZE_HISTOGRAMS = ("hashgraph_ingest_batch_size", "hashgraph_chain_suffix_length")
 COUNTED_HISTOGRAMS = (
