@@ -50,6 +50,13 @@ phase holds:
    ``tree_counts`` (odd folds, around the block's span, past span^2), at
    every group size tried (1, 4, 8 and 16 threads a point), each timed;
    with times and bounds;
+6c. the SHA-512 kernel (``csrc/sha512.cu``) against its plain version,
+   ``sha512._sha512_blocks`` on the card, and against hashlib, bit for bit:
+   8 lanes of the padding boundaries (1-4 blocks), 16,384 lanes of the
+   signed cell's R || A || M lengths (2 blocks) and 16,384 ragged lanes of
+   0-495 bytes (1-4 blocks), one launch a call; its time at the signed
+   cell's batch beside its bound and the plain version's, and the wrapper's
+   host wall against the plain path's;
 7. validated ingest through device verification (the main path of slices 2
    and 3): a
    GPU engine signed by an ``Ed25519DeviceConsensusSigner`` takes 256
@@ -353,8 +360,9 @@ stats; phases 1-7 build their engines with ``verify_cache=None``. The
 script fails unless the native host runtime builds: the CPU engines and
 the services verify with it, as the JAX package does. Launch counts are reset just before each phase and read just after
 it; phase 7 fails unless the batch launched every verification kernel, the
-MSM exactly one window launch and the tree's two, and ``fe_mul`` at most
-20 times; phase 10 unless the waves and the replay of (a) and the calls of
+MSM exactly one window launch and the tree's two, ``fe_mul`` at most
+20 times and ``sha512`` once a batch, and the hash stage makes at most 4
+PyTorch operator calls; phase 10 unless the waves and the replay of (a) and the calls of
 (b) launched the scan and (c)'s main frame every verification kernel, the
 MSM's window once; phase 11 unless its late call and (b)'s first replay
 launched the scan; phase 12 unless (a)'s GPU run and (e)'s replay launched
@@ -1543,6 +1551,123 @@ def phase_msm(dev, variants):
     return windows_row, reduce_row
 
 
+# ── Phase 6c: the SHA-512 kernel against its plain version ────────────
+
+# Integer instructions a SHA-512 block needs on the card's 32-bit units: a
+# 64-bit rotate is two funnel shifts (SHF), a 64-bit shift two, a 64-bit
+# add two (IADD3 and its carry), a 64-bit three-input XOR or select two
+# LOP3. A round: Sigma1 and Sigma0 three rotates and an XOR each (8 + 8),
+# Ch and Maj a LOP3 a half each (2 + 2), t1 four adds (8), e one add and
+# a two (2 + 4): 34. A schedule step: sigma0 and sigma1 two rotates, a
+# shift and an XOR each (8 + 8), three adds (6): 22. 80 rounds, 64 steps
+# and the 8 feed-forward adds. The message build (byte loads and packing)
+# is left out, so the bound is a floor.
+SHA512_OPS_PER_BLOCK = 80 * 34 + 64 * 22 + 8 * 2
+# The signed cell's R || A || M lengths span 147-193 bytes (two blocks).
+SHA512_SIGNED_LENGTHS = (147, 194)
+
+
+def sha512_cases(lanes, seed):
+    """Seeded messages at ``lanes`` lanes: (label, messages, max_blocks).
+    Eight lanes of the padding boundaries (1-4 blocks); a batch of the
+    signed cell's lengths (2 blocks); a ragged batch of 0-495 bytes (1-4
+    blocks)."""
+    rng = np.random.default_rng(seed)
+
+    def msgs(lengths):
+        return [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lengths]
+
+    if lanes == 8:
+        return [("boundaries", msgs([0, 1, 111, 112, 239, 240, 367, 495]), 4)]
+    return [
+        ("signed lengths", msgs(rng.integers(*SHA512_SIGNED_LENGTHS, lanes)), 2),
+        ("ragged 0-495 B", msgs(rng.integers(0, 496, lanes)), 4),
+    ]
+
+
+def phase_sha512(dev):
+    """The kernel of ``csrc/sha512.cu`` against ``sha512._sha512_blocks``
+    on the card and against hashlib, bit for bit, at 8 and 16,384 lanes of
+    1-4 blocks; its launch count; its time at the signed cell's batch
+    beside its bound and the plain version's time; the wrapper's host time
+    against the plain path's."""
+    import hashlib
+
+    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch.crypto_device import sha512 as sh
+
+    checked = []
+    for lanes, seed in ((8, 90), (MSM_LANES, 91)):
+        for label, messages, max_blocks in sha512_cases(lanes, seed):
+            before = _build.launches[sh.KERNEL]
+            words = sh.sha512_batch_dispatch(messages, max_blocks, dev)
+            torch.cuda.synchronize()
+            if _build.launches[sh.KERNEL] != before + 1:
+                raise AssertionError("sha512_batch_dispatch did not launch the kernel once")
+            nblocks = sh._checked_blocks(sh._lengths(messages), max_blocks)
+            w32 = torch.from_numpy(sh._packed_words(messages, nblocks, max_blocks)).to(dev)
+            plain = sh._sha512_blocks(w32, torch.from_numpy(nblocks).to(dev))
+            if not torch.equal(words, plain):
+                bad = int((words != plain).any(dim=1).sum())
+                raise AssertionError(f"sha512 {label} at {lanes} lanes differs from "
+                                     f"_sha512_blocks in {bad} lanes")
+            digests = sh.digest_bytes(words)
+            wrong = [i for i, m in enumerate(messages)
+                     if digests[i].tobytes() != hashlib.sha512(m).digest()]
+            if wrong:
+                raise AssertionError(f"sha512 {label}: lanes {wrong[:8]} differ from hashlib")
+            checked.append(f"{label} at {lanes} lanes ({int(nblocks.min())}-"
+                           f"{int(nblocks.max())} blocks)")
+    log(f"[sha512] bit-exact against _sha512_blocks on the card and hashlib: "
+        f"{'; '.join(checked)}; one launch a call")
+
+    # The signed cell's batch: 16,384 lanes of two blocks.
+    messages = sha512_cases(MSM_LANES, 92)[0][1]
+    host, head = sh._ragged(messages, sh._lengths(messages))
+    buf = torch.from_numpy(host).to(dev)
+    out = torch.empty((MSM_LANES, 16), dtype=torch.int64, device=dev)
+    kernel = sh._kernel()
+
+    def launch():
+        err = kernel(buf.data_ptr(), buf.data_ptr() + head, out.data_ptr(), MSM_LANES,
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sha512: kernel launch failed (cudaError {err})")
+
+    ms = device_ms(launch, 20)
+    nblocks = sh._checked_blocks(sh._lengths(messages), 2)
+    w32 = torch.from_numpy(sh._packed_words(messages, nblocks, 2)).to(dev)
+    nb = torch.from_numpy(nblocks).to(dev)
+    plain_ms = device_ms(lambda: sh._sha512_blocks(w32, nb), 1)
+    row = kernel_row("sha512", ms, plain_ms, host.nbytes + MSM_LANES * 16 * 8,
+                     int(nblocks.sum()) * SHA512_OPS_PER_BLOCK, 0)
+
+    def wall(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    def plain_path():
+        counts = sh._checked_blocks(sh._lengths(messages), 2)
+        w = torch.from_numpy(sh._packed_words(messages, counts, 2))
+        sh._sha512_blocks(w.to(dev), torch.from_numpy(counts).to(dev))
+
+    row["call_ms"] = wall(lambda: sh.sha512_batch_dispatch(messages, 2, dev), 10)
+    row["plain_call_ms"] = wall(plain_path, 2)
+    sass = sass_functions(_build._target(sh.KERNEL))
+    row["sass_instructions"] = len(next(r for name, r in sass.items() if "sha512" in name))
+    log(f"[sha512] {MSM_LANES} lanes of the signed cell's lengths: the wrapper's call "
+        f"{row['call_ms']:.6f} ms of host wall (join, one copy, one launch) against the plain "
+        f"path's {row['plain_call_ms']:.6f} ms (packing and its operator calls); "
+        f"{SHA512_OPS_PER_BLOCK} instructions a block counted for the bound, "
+        f"{row['sass_instructions']} in the kernel's SASS (the 80 rounds unrolled)")
+    return row
+
+
 # ── Phase 7: validated ingest through device verification ──────────────
 
 VERIFY_PROPOSALS = 256
@@ -1632,9 +1757,9 @@ def torch_ops(fn) -> int:
 
 def stage_ops(dev):
     """PyTorch operator calls of each verification stage at 16 lanes (the
-    count does not depend on the lane count; the MSM's kernels are ctypes
-    launches, so what it counts is the allocations and casts around
-    them)."""
+    count does not depend on the lane count; the MSM's and SHA-512's kernels
+    are ctypes launches, so what it counts is the allocations, copies and
+    casts around them)."""
     from hashgraph_tpu_torch.crypto_device import curve, msm, sha512
 
     enc = torch.zeros((16, 32), dtype=torch.uint8, device=dev)
@@ -1650,7 +1775,7 @@ def stage_ops(dev):
 
 def phase_verify(dev):
     from hashgraph_tpu_torch import _build, native
-    from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm
+    from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm, sha512
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.signing import (
@@ -1712,9 +1837,12 @@ def phase_verify(dev):
                                 ("blame", blame_launches, 1)):
         missing = [k for k in VERIFY_KERNELS if not counts.get(k)]
         msm_counts = [counts.get(k, 0) for k in cuda_msm.KERNELS]
-        if missing or msm_counts != [1, tree] or counts[cuda_field.KERNEL] > 20:
+        if (missing or msm_counts != [1, tree] or counts[cuda_field.KERNEL] > 20
+                or counts.get(sha512.KERNEL) != 1):
             raise AssertionError(f"{label} call: launches {counts}; kernels never launched "
-                                 f"{missing}; MSM launches {msm_counts} (want [1, {tree}])")
+                                 f"{missing}; MSM launches {msm_counts} (want [1, {tree}]); "
+                                 f"SHA-512 launches {counts.get(sha512.KERNEL)} (want 1, one "
+                                 "a batch)")
     if phases_main["fallback"] != 0.0 or not phases_blame["fallback"] > 0.0:
         raise AssertionError(f"blame fallback: main {phases_main}, second call {phases_blame}")
 
@@ -1749,6 +1877,11 @@ def phase_verify(dev):
         raise AssertionError("the native batch verification rejected a valid signature")
 
     ops = stage_ops(dev)
+    # The hash stage is the kernel's wrapper: one copy, one allocation and
+    # a ctypes launch, where the plain version made some 27,500 calls.
+    if ops["hash (2 blocks)"] > 4:
+        raise AssertionError(f"the hash stage made {ops['hash (2 blocks)']} PyTorch operator "
+                             "calls (want at most 4: the kernel's copy and output)")
     rate = len(main_bytes) / phases_main["total"]
     log(f"[verify] {len(main_bytes)} votes in one ingest_votes call on the GPU engine: "
         f"{wall_main:.6f} s wall; device verify {phases_main['total']:.6f} s = {rate:.1f} "
@@ -7059,7 +7192,7 @@ def phase_examples() -> dict:
     return dict(launches=launches, seconds=seconds)
 
 
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "7", "8", "9", "10", "11", "12", "13", "14",
+PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "6c", "7", "8", "9", "10", "11", "12", "13", "14",
           "15", "16", "17")
 
 
@@ -7196,6 +7329,7 @@ def main() -> int:
 
     fe_mul_timing, pow_timing = phase_field(dev, variants) if run("6") else (None, None)
     msm_timings = phase_msm(dev, variants) if run("6b") else None
+    sha512_timing = phase_sha512(dev) if run("6c") else None
     verify = phase_verify(dev) if run("7") else None
     proposals = phase_proposals(dev) if run("8") else None
     if run("9"):
@@ -7346,6 +7480,23 @@ def main() -> int:
         "CUDA-event time of the same kernel in this run: " + "; ".join(
             f"{k['name']} {k['profiled_ms']:.6f} ms against {k['ms']:.6f} ms"
             for k in kernels))
+    kernels.append({
+        "name": "sha512",
+        "route": "cuda",
+        "source": "hashgraph_tpu_torch/csrc/sha512.cu",
+        "replaces": None,
+        "implementation": "hand-written CUDA C++ for sm_90a, one thread per lane padding its "
+                          "own ragged message in registers, state and schedule window as "
+                          "64-bit words in registers, K in constant memory; the JAX package "
+                          "leaves SHA-512 to XLA, the port's plain version is "
+                          "crypto_device/sha512.py::_sha512_blocks",
+        "launches": verify["launches"].get("sha512", 0),
+        "launches_blame_call": verify["launches_blame"].get("sha512", 0),
+        "parity": "bit-exact against _sha512_blocks on the card and hashlib at 8 and 16384 "
+                  "lanes, 1-4 blocks, ragged lengths",
+        "library_ms": None,
+        **sha512_timing,
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,14 @@ the GPU: the MSM as two hand-written CUDA kernels (``csrc/ed_msm.cu``),
 decompression's inverse-square-root chain as one (``csrc/fe_pow22523.cu``)
 and its remaining field products as another (``csrc/fe_mul.cu``), all over
 the shared arithmetic of ``csrc/fe25519.cuh`` and ``csrc/
-fe25519_group.cuh``; the rest is PyTorch.
+fe25519_group.cuh``, and the challenge hashes as one more
+(``csrc/sha512.cu`` over ``csrc/sha512.cuh``); the rest is PyTorch.
 
 Layering:
 
 - :mod:`.field`      — radix-2^16 int64-limb GF(2^255-19) core
 - :mod:`.cuda_field` — the field product's and the chain's kernel wrappers
-- :mod:`.sha512`     — vectorized SHA-512 in 32-bit pairs, ragged batches
+- :mod:`.sha512`     — SHA-512 of ragged batches: the kernel's wrapper, the plain version
 - :mod:`.curve`      — extended-Edwards point ops + batched decompression
 - :mod:`.msm`        — the Straus MSM + cofactored identity test
 - :mod:`.cuda_msm`   — the MSM's kernel wrappers

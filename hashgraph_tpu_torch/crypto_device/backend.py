@@ -5,7 +5,8 @@ one signature batch:
 
 1. **decompress** — A and R encodings for every lane, stacked into one
    ``curve.decompress`` (the shared inverse-sqrt chain);
-2. **hash** — vectorized SHA-512 challenge hashes k_i over R||A||M;
+2. **hash** — SHA-512 challenge hashes k_i over R||A||M (on a CUDA
+   device one launch of ``csrc/sha512.cu``, :mod:`.sha512`);
 3. **msm** — the randomized-linear-combination check, one Straus MSM
    across all lanes (``msm.msm_is_identity``).
 

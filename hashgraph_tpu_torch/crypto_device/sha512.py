@@ -1,28 +1,48 @@
-"""Vectorized SHA-512 over ragged byte rows, in (hi, lo) 32-bit pairs.
+"""SHA-512 over ragged byte rows: the challenge hashes of a device batch.
 
 Port of ``hashgraph_tpu/crypto_device/sha512.py``. The per-signature Ed25519
-challenge hash k = SHA-512(R || A || M) runs every lane's compression in
-lockstep on the device. Each 64-bit word is an (hi, lo) pair of 32-bit
-halves, as in the JAX package, each half held in int64 and masked to 32
-bits after every operation, so the digests match the JAX package word for
-word; the adders carry explicitly.
+challenge hash k = SHA-512(R || A || M) of every lane of a batch is taken
+by :func:`sha512_batch_dispatch`:
 
-Ragged batches pad to a shared block count (bucketed by the caller); a
-lane whose message ends early keeps its state through a per-block mask, so
-one loop serves every length in the batch. Block packing happens on the
-host in numpy. This is PyTorch, not a kernel: the JAX package leaves it to
-XLA.
+- on a CUDA device, one launch of ``csrc/sha512.cu`` (built at first use by
+  :mod:`hashgraph_tpu_torch._build`) on PyTorch's current stream, one lane
+  a thread: the messages go over joined end to end with their offsets, in
+  one host-to-device copy, and each thread pads its own message. The JAX
+  package leaves SHA-512 to XLA, so this kernel replaces no TPU kernel; it
+  replaces the eager version below, whose some 27,500 operator calls a
+  batch the host enqueued one at a time. A launch adds one to
+  ``_build.launches["sha512"]``;
+- elsewhere, the plain version :func:`_sha512_blocks`: every lane's
+  compression in lockstep as PyTorch operators. Each 64-bit word is an
+  (hi, lo) pair of 32-bit halves, as in the JAX package, each half held in
+  int64 and masked to 32 bits after every operation, so the digests match
+  the JAX package word for word; the adders carry explicitly. Ragged
+  batches pad to a shared block count (bucketed by the caller); a lane
+  whose message ends early keeps its state through a per-block mask, so
+  one loop serves every length in the batch. Block packing happens on the
+  host in numpy.
+
+Both return the digest words in one layout, int64[L, 16] of (hi, lo)
+halves, which :func:`digest_bytes` reads. Nothing falls back: a CUDA call
+whose build or launch fails raises.
 
 Constants are derived, not transcribed: K[t] / H0 are the fractional parts
 of cube/square roots of the first primes (FIPS 180-4), computed with
-integer Newton roots at import.
+integer Newton roots at import (``csrc/sha512.cuh`` writes them out; the
+CPU tests hold it against these).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
+from .. import _build
+
+KERNEL = "sha512"
 BLOCK = 128  # bytes per SHA-512 block
 M32 = 0xFFFFFFFF
 
@@ -138,16 +158,20 @@ def blocks_needed(length: int) -> int:
     return (length + 17 + BLOCK - 1) // BLOCK
 
 
-def sha512_batch_dispatch(messages: "list[bytes]", max_blocks: int, device="cpu"):
-    """Pack the batch on the host and enqueue its compression on
-    ``device``; returns the digest words, not yet read back (callers
-    overlap other work, then hand them to :func:`digest_bytes`).
-    ``max_blocks`` is the caller's bucket (>= every message's block
-    count)."""
-    lanes = len(messages)
-    nblocks = np.array([blocks_needed(len(m)) for m in messages], np.int64)
+def _checked_blocks(lengths: np.ndarray, max_blocks: int) -> np.ndarray:
+    """The block count of each message length (:func:`blocks_needed`);
+    raises ``ValueError`` if one needs more than ``max_blocks``."""
+    nblocks = blocks_needed(lengths)
     if int(nblocks.max()) > max_blocks:
         raise ValueError("max_blocks bucket too small for batch")
+    return nblocks
+
+
+def _packed_words(messages: "list[bytes]", nblocks: np.ndarray, max_blocks: int) -> np.ndarray:
+    """The plain path's host packing: every lane padded at its OWN final
+    block, as int64[L, max_blocks, 32] big-endian 32-bit halves of the
+    message words."""
+    lanes = len(messages)
     buf = np.zeros((lanes, max_blocks * BLOCK), np.uint8)
     for i, msg in enumerate(messages):
         n = len(msg)
@@ -156,10 +180,59 @@ def sha512_batch_dispatch(messages: "list[bytes]", max_blocks: int, device="cpu"
         buf[i, n] = 0x80
         buf[i, end - 16:end] = np.frombuffer((n * 8).to_bytes(16, "big"), np.uint8)
     w32 = buf.reshape(lanes, max_blocks, BLOCK // 4, 4).astype(np.int64)
-    w32 = (w32[..., 0] << 24) | (w32[..., 1] << 16) | (w32[..., 2] << 8) | w32[..., 3]
-    return _sha512_blocks(
-        torch.from_numpy(w32).to(device), torch.from_numpy(nblocks).to(device)
-    )
+    return (w32[..., 0] << 24) | (w32[..., 1] << 16) | (w32[..., 2] << 8) | w32[..., 3]
+
+
+def _lengths(messages: "list[bytes]") -> np.ndarray:
+    return np.fromiter(map(len, messages), np.int64, len(messages))
+
+
+def _ragged(messages: "list[bytes]", lengths: np.ndarray) -> "tuple[np.ndarray, int]":
+    """The kernel's input as one host buffer: int64 offsets[L + 1] (message
+    i is bytes offsets[i] .. offsets[i + 1] of the data), then the messages
+    joined end to end. Returns the buffer and the data's start."""
+    head = 8 * (len(messages) + 1)
+    data = b"".join(messages)
+    host = np.empty(head + len(data), np.uint8)
+    offsets = host[:head].view(np.int64)
+    offsets[0] = 0
+    np.cumsum(lengths, out=offsets[1:])
+    host[head:] = np.frombuffer(data, np.uint8)
+    return host, head
+
+
+@functools.cache
+def _kernel():
+    """The bound C entry point, built at first use and bound once."""
+    fn = _build.library(KERNEL).hg_sha512
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sha512_batch_dispatch(messages: "list[bytes]", max_blocks: int, device="cpu"):
+    """Enqueue the batch's hashes on ``device``; returns the digest words,
+    int64[L, 16], not yet read back (callers overlap other work, then hand
+    them to :func:`digest_bytes`). ``max_blocks`` is the caller's bucket
+    (>= every message's block count): the plain path pads every lane to it,
+    the kernel walks each lane's own count."""
+    lengths = _lengths(messages)
+    nblocks = _checked_blocks(lengths, max_blocks)
+    device = torch.device(device)
+    if device.type != "cuda":
+        w32 = _packed_words(messages, nblocks, max_blocks)
+        return _sha512_blocks(
+            torch.from_numpy(w32).to(device), torch.from_numpy(nblocks).to(device)
+        )
+    kernel = _kernel()
+    host, head = _ragged(messages, lengths)
+    buf = torch.from_numpy(host).to(device)
+    out = torch.empty((len(messages), 16), dtype=torch.int64, device=device)
+    _build.launched(KERNEL, kernel(
+        buf.data_ptr(), buf.data_ptr() + head, out.data_ptr(), len(messages),
+        torch.cuda.current_stream(device).cuda_stream,
+    ))
+    return out
 
 
 def digest_bytes(digest_words) -> np.ndarray:
