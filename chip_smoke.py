@@ -9,17 +9,13 @@ points at the size of the README's single-chip engine
 phase holds:
 
 1. build and device: build every CUDA kernel from ``hashgraph_tpu_torch/
-   csrc`` (and, each from a copy of its source with one constant changed,
-   ``msm_windows``, ``msm_reduce`` and ``fe_pow22523`` at each group size
-   tried: ``VARIANTS``), print the
-   toolchain, the card and each kernel's registers and stack, and count the
-   instructions of the compiled crypto routines in the build's SASS
-   (``cuobjdump``) beside the counts that the operation bounds use;
+   csrc`` and the native host runtime, and print the toolchain, the card
+   and each kernel's registers and stack;
 2. kernel against its plain version: the CUDA ingest scan against the plain
    PyTorch scan on the card, for the three packed-grid layouts with pad
    rows, pad rows deeper than the kernel's 32-vote chunk, the main path's
-   shape and config 2's one-row depth-128 call — bit-exact — with times per
-   call;
+   shape and config 2's one-row depth-128 call — bit-exact — each timed
+   alone beside its byte bound;
 3. BASELINE config 3 (the main path): one scope, 10,000 proposals × 64
    voters, half gossipsub and half P2P, voted in four columnar waves of 16
    votes per proposal plus one redelivered wave;
@@ -36,27 +32,24 @@ phase holds:
    ``field._mul_plain`` bit-exact at 16,384 lanes on seeded carried inputs
    plus the boundary and carry-ripple rows, and ``fe_pow22523`` (what
    ``field.pow22523`` launches on the card) against ``field.
-   _pow22523_plain`` at decompression's 8,192 lanes with the boundary rows,
-   at every group size tried (1, 2, 4, 8 and 16 threads a lane), each timed,
-   with times and bounds;
+   _pow22523_plain`` at decompression's 8,192 lanes with the boundary rows;
+   each timed alone beside its bound;
 6b. the MSM kernels against their plain versions at a batch's 16,384 lanes
    of real curve points (seeded multiples of the base point, identity lanes
    and the order-4 point) and seeded nibbles (with all-0 and all-15 rows):
-   ``msm_windows`` against ``msm._windows_plain`` limb for limb at every
-   group size tried (4, 8 and 16 threads a lane), each timed; the root
-   limbs and verdict of ``msm_reduce`` (the tree and the cofactored
-   identity test) against ``msm._reduce_plain`` and ``msm._final_plain``
-   for an accepting and a rejecting combination and at the counts of
-   ``tree_counts`` (odd folds, around the block's span, past span^2), at
-   every group size tried (1, 4, 8 and 16 threads a point), each timed;
-   with times and bounds;
+   ``msm_windows`` against ``msm._windows_plain`` limb for limb, accepting
+   and rejecting; the root limbs and verdict of ``msm_reduce`` (the tree
+   and the cofactored identity test) against ``msm._reduce_plain`` and
+   ``msm._final_plain`` for an accepting and a rejecting combination and at
+   the counts of ``tree_counts`` (odd folds, around the block's span, past
+   span^2); each timed alone beside its bound (the tree's two launches also
+   apart);
 6c. the SHA-512 kernel (``csrc/sha512.cu``) against its plain version,
    ``sha512._sha512_blocks`` on the card, and against hashlib, bit for bit:
    8 lanes of the padding boundaries (1-4 blocks), 16,384 lanes of the
    signed cell's R || A || M lengths (2 blocks) and 16,384 ragged lanes of
    0-495 bytes (1-4 blocks), one launch a call; its time at the signed
-   cell's batch beside its bound and the plain version's, and the wrapper's
-   host wall against the plain path's;
+   cell's batch beside its bound and the plain version's;
 7. validated ingest through device verification (the main path of slices 2
    and 3): a
    GPU engine signed by an ``Ed25519DeviceConsensusSigner`` takes 256
@@ -81,7 +74,8 @@ phase holds:
    one verify batch a wave). (c) The final chains redelivered: all
    PROPOSAL_ALREADY_EXIST with no verification launch. (d) The same traffic
    on a GPU engine with the cache off. (e) The chain check alone at (a)'s
-   chains, at [1,024, 64] and at [1, 1,024], timed. Each verification
+   chains, at [1,024, 64] and at [1, 1,024], against the CPU and, chain by
+   chain, the scalar oracle. Each verification
    kernel is then held against its plain version on the inputs its wrapper
    was given in (a) and (b) on both GPU engines: the field kernels at every
    shape, the MSM kernels at the fewest lanes (a cache-off run of one whole
@@ -105,10 +99,9 @@ phase holds:
    ``InMemoryConsensusStorage`` take the same calls: every outcome, the
    events and stats per scope and every result must be equal, and every
    pooled row read back from the card must equal the row built from the
-   in-memory session in a fresh CPU pool. It prints each service's votes/s,
-   the p50 and p99 of one call, and a call's split into ``eth_verify``, the
-   storage write (and within it the row reload on the card) and the rest.
-   The path launches no hand kernel;
+   in-memory session in a fresh CPU pool, and the native ``eth_verify``
+   must accept every vote the services verified. The path launches no hand
+   kernel;
 10. the wire path and the write-ahead log (slice 8). (a) Config 3's shape
    over wire bytes (2,000 proposals x 64 voters, half gossipsub and half
    P2P; stub-signed votes chained per proposal, parsed by the native
@@ -167,11 +160,10 @@ phase holds:
    histograms' buckets and the count of decision latencies must be equal,
    ``hashgraph_device_ingest_seconds`` must count each call's dispatch, and
    ``explain_decision`` of 10 seeded decided proposals must be equal with
-   wall times and trace ids masked; its votes/s with the hooks is printed
-   beside phase 3's and PR 11's. (b) The same traffic on a fresh GPU engine
-   with the tracer, the trace store, an ambient trace context and the
-   continuous profiler on: outcomes, events and ``state_fingerprint`` equal
-   to (a)'s; its votes/s and ``attribution_report()``; a ``MetricsSidecar``
+   wall times and trace ids masked. (b) The same traffic on a fresh GPU
+   engine with the tracer, the trace store, an ambient trace context and
+   the continuous profiler on: outcomes, events and ``state_fingerprint``
+   equal to (a)'s; ``attribution_report()``; a ``MetricsSidecar``
    on 127.0.0.1:0 whose ``/metrics`` parses and holds every documented
    family, and whose ``/healthz`` answers 200. (c) Phase 7's batch and its
    damaged call on a device-signed GPU engine and a CPU engine: the verified
@@ -209,14 +201,13 @@ phase holds:
    cut to 2,000 proposals must give equal per-row statuses, state
    fingerprints (the CPU arm's over its 2,000 sessions) and scope stats,
    with the wire fallback, bridge error and retry-after counters
-   unmoved; each arm's votes/s, dispatches, rows a dispatch, scan
-   launches, the card's busy share and the wire counters' decode,
-   prepass and apply seconds are printed. Its frames fill a default
+   unmoved; each arm's dispatches, rows a dispatch and scan launches are
+   printed. Its frames fill a default
    reactor window each, which keeps the reactor from merging two frames
    of one connection (a merge across a refused vote changes the chain
    guard's verdict, as in the JAX package). (c) On both servers
    on the card, 2,000 ``OP_PROCESS_VOTE`` frames one at a time, each a
-   first vote on a fresh proposal of 64 voters: p50 and p99 round trips.
+   first vote on a fresh proposal of 64 voters: every one answered OK.
    (d) Phase 7's traffic on a server whose peers verify on the card: one
    ``OP_PROCESS_VOTES`` frame of 4,096 votes; on a fresh peer one
    canonical ``OP_VOTE_BATCH`` frame through a pipelined connection (the
@@ -231,8 +222,7 @@ phase holds:
    over ``OP_SYNC_MANIFEST`` and ``OP_SYNC_CHUNK`` checks every chunk's
    digest and restores a fresh GPU engine to that fingerprint;
    ``OP_WAL_TAIL`` after a mid-log LSN serves exactly the later records.
-   Every figure is printed beside the card's name and power limit, and
-   the phase fails if any frame was answered with a bridge-level error. The
+   The phase fails if any frame was answered with a bridge-level error. The
    kernels are the ones earlier phases hold against their plain versions
    at these shapes;
 14. gossip, catch-up and the chaos simulator (slice 12), at config 3's
@@ -248,8 +238,8 @@ phase holds:
    round repairs nothing; every server must equal the CPU server but for
    sessions failed at the P2P round cap, which a server that learnt them
    by repair holds active on the same chain (the JAX package's fault,
-   ROADMAP queue 3). Aggregate networked votes/s, frames sent, shed and
-   deferred, rounds and scan launches are printed. (b) A durable server
+   ROADMAP queue 3). Frames sent, shed and deferred, rounds and scan
+   launches are printed. (b) A durable server
    (``wal_fsync="batch"``) takes the proposals and three waves of chains
    of 64 Ed25519 votes from 64 keys (signed by the native runtime); a
    fresh GPU joiner with the device signer runs ``CatchUpClient.catch_up``,
@@ -264,8 +254,7 @@ phase holds:
    verification kernel is held against its plain version and timed on the
    batch's inputs; a snapshot with one signature byte flipped must raise
    ``SyncVerificationError``, fall back to the host blame and install
-   nothing. Each joiner's wall is split into download, verify, install and
-   tail. (c) Every scenario of ``SCENARIOS`` at seed 424242 on the card and
+   nothing. (c) Every scenario of ``SCENARIOS`` at seed 424242 on the card and
    on the CPU: every verdict ok and the verdict JSON byte-identical; then
    ``expired-spam-burst`` and ``columnar-wire-storm`` with the device
    signer on the card, equal to the host signer on the CPU;
@@ -275,8 +264,8 @@ phase holds:
    session, ``global_state_counts`` and ``per_device_occupancy`` equal to
    a single-pool engine's on the card and to the same sharded pool's on
    four CPU entries, every pool array equal to the CPU blocks'; the scan
-   must launch once a dispatch on every shard. Votes/s of both GPU engines
-   and the launches per shard are printed. (b) The engine worker of
+   must launch once a dispatch on every shard; the launches per shard are
+   printed. (b) The engine worker of
    ``tests/test_torch_multihost.py`` at 2,000 proposals x 64 voters: two
    processes of one gloo group, each holding a ``MultiHostPool`` block on
    cuda:0, and the same worker on the CPU, both pairs at once; each
@@ -294,8 +283,8 @@ phase holds:
    statuses, results, scope stats and events equal to one engine on the
    card and to the same fleet on the CPU, the scan launched on every
    shard, and ``fleet_state_counts`` reduced on the card from the four
-   shards' device vectors, equal to the host mirrors; votes/s of the
-   fleet and the engine are printed. Then phase 8's Ed25519 chains
+   shards' device vectors, equal to the host mirrors. Then phase 8's
+   Ed25519 chains
    through ``deliver_proposals`` on a fleet whose shards verify on the
    card, equal to a fleet of host signers on the CPU, with no device batch
    falling back to the host blame and each verification kernel held
@@ -380,18 +369,21 @@ fails unless (a) launched every verification kernel in one batch, every batch of
 the host blame, (c) launched none, and the cache-on engine verified each
 unique vote once. The plain versions
 that the kernels are held against run with ``field.mul`` routed to
-``field._mul_plain``, so they touch no kernel. The last lines are the
-kernel table as JSON, the card's name and power limit, and ``{"ok": true,
-"device": {...}}``. ``--only`` runs phase 1 and the named phases and prints
-no result lines. Without a GPU, or without the package beside it, the
-script exits non-zero and prints no result.
+``field._mul_plain``, so they touch no kernel. A kernel's bound is the
+larger of its bytes over the memory rate and its integer instructions over
+the issue rate, both rates from ``portbench/counts/peaks.py``;
+``msm_windows``' instructions and ``ingest_scan``'s bytes are the
+benchmark's own counts (``portbench/counts/``), so this table and the
+benchmark's roofline metrics divide by the same work. The last lines are
+the kernel table as JSON, the card's name and power limit, and ``{"ok":
+true, "device": {...}}``. ``--only`` runs phase 1 and the named phases and
+prints no result lines. Without a GPU, or without the package beside it,
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import functools
 import json
 import random
 import re
@@ -404,19 +396,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from portbench.counts import ingest_scan as ingest_scan_counts
+from portbench.counts import msm_windows as msm_windows_counts
+from portbench.counts import peaks
+
 NOW = 1_700_000_000
 CAPACITY = 100_000
 VOTER_CAPACITY = 1024
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
-# H100 SXM integer instruction rate. Each of the 132 SMs has 4 schedulers,
-# and each issues one warp instruction (32 lanes) per clock to whichever
-# pipe takes it: the ALU (logic, shifts, adds; 64 lanes per SM) or the FMA
-# pipe (IMAD, and the adds, left shifts and moves that ptxas issues there as
-# IMAD.IADD, IMAD.SHL and IMAD.MOV). At the 1.98 GHz implied by the data
-# sheet's 67 TFLOP/s float32 (132 x 128 lanes x 2 per FMA x 1.98e9), that
-# is 132 x 4 x 32 x 1.98e9 = 67e12 / 2 lane-instructions per second, the
-# most any integer mix can reach.
-INT_OPS_PER_S = 67e12 / 2
 
 
 def log(msg: str) -> None:
@@ -529,31 +515,20 @@ def restored_ms(fn, restore, reps):
     return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
-def scan_bytes(pool, slot_pack, grid):
-    """Bytes the scan must move for these inputs: slot ids and grid read
-    once; per real row its scalars read (state, yes, tot, n, req, cap as
-    int32; gossip, liveness as bytes) and state, yes, tot written; one mask
-    byte read per valid vote and a mask and a value byte written per
-    accepted vote; the int8 output written. Returns the parts by name."""
+def scan_work(pool, slot_pack, grid):
+    """(sessions, votes, applied) of these inputs, as
+    ``portbench/counts/ingest_scan.py`` counts a call: the real rows (each
+    a distinct session), the valid votes they carry and the votes the
+    plain scan applies."""
     from hashgraph_tpu_torch.ops.ingest import _unpack_cells, ingest_body
 
-    s, depth = grid.shape
     real = (slot_pack & ((1 << 30) - 1)) < pool[0].shape[0]
-    n_real = int(real.sum())
     _, _, valid = _unpack_cells(torch.from_numpy(np.ascontiguousarray(
         grid.view(np.int16) if grid.dtype == np.uint16 else grid)))
     tensors, sp, g = to_device(pool, slot_pack, grid, "cpu")
     out = ingest_body(*tensors, sp, g)[-1].numpy()
-    accepted = int((out[:, :-1][real] == 0).sum())
-    return {
-        "slot ids": slot_pack.nbytes,
-        "grid": grid.nbytes,
-        f"row scalars read ({n_real} rows x 26)": n_real * (6 * 4 + 2),
-        f"state/yes/tot written ({n_real} rows x 12)": n_real * 3 * 4,
-        "mask byte per valid vote": int(valid.numpy()[real].sum()),
-        f"mask+value bytes per accepted vote (2 x {accepted})": 2 * accepted,
-        "int8 output": s * (depth + 1),
-    }
+    return (int(real.sum()), int(valid.numpy()[real].sum()),
+            int((out[:, :-1][real] == 0).sum()))
 
 
 def phase_kernel(dev):
@@ -619,11 +594,13 @@ def phase_kernel(dev):
         ms = restored_ms(call, restore, 20)
         call_ms = event_ms(call, restore, 20)
         plain_ms = event_ms(lambda: ingest_body(*work, sp, g), restore, 5)
-        parts = scan_bytes(pool, slot_pack, grid)
-        bound = sum(parts.values()) / HBM_BYTES_PER_S * 1e3
+        work_counts = scan_work(pool, slot_pack, grid)
+        n_bytes = ingest_scan_counts.bytes_needed(*work_counts)
+        bound = n_bytes / peaks.HBM_BYTES_PER_S * 1e3
         log(f"[kernel] {label}: {ms:.6f} ms device time a call, {call_ms:.6f} ms with the "
-            f"host's enqueue, inputs put back before every call (plain {plain_ms:.6f} ms, byte bound {bound:.6f} ms = "
-            f"{sum(parts.values())} B / 3.35 TB/s: {parts})")
+            f"host's enqueue, inputs put back before every call (plain {plain_ms:.6f} ms, byte "
+            f"bound {bound:.6f} ms = {n_bytes} B / 3.35 TB/s for (sessions, votes, applied) "
+            f"{work_counts})")
         timing[label] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound)
     return timing
 
@@ -697,46 +674,6 @@ def compare(label, gpu, cpu):
         raise AssertionError(f"{label}: the GPU engine differs from the CPU engine")
 
 
-class Timer:
-    """Wraps the pool's dispatch functions to time them with CUDA events
-    (for the kernel's share of wall time) and to count fresh dispatches."""
-
-    def __init__(self):
-        from hashgraph_tpu_torch.engine import pool as pool_mod
-
-        self.pool_mod = pool_mod
-        self.scan = pool_mod.ingest_scan
-        self.fresh = pool_mod.fresh_ingest_body
-
-    def _wrap(self, kind, fn):
-        def timed(*args, **kwargs):
-            if args[0].device.type != "cuda":
-                return fn(*args, **kwargs)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.events[kind].append((start, end))
-            return out
-
-        return timed
-
-    def __enter__(self):
-        self.events = {"scan": [], "fresh": []}
-        self.pool_mod.ingest_scan = self._wrap("scan", self.scan)
-        self.pool_mod.fresh_ingest_body = self._wrap("fresh", self.fresh)
-        return self
-
-    def __exit__(self, *exc):
-        self.pool_mod.ingest_scan = self.scan
-        self.pool_mod.fresh_ingest_body = self.fresh
-
-    def ms(self, kind):
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events[kind])
-
-
 def config3_calls(run, seed):
     """Config 3's proposals on ``run``'s engine, and the arguments of its
     five ``ingest_columnar`` calls (see :func:`config3_traffic`)."""
@@ -765,26 +702,10 @@ def config3_calls(run, seed):
 
 def config3_traffic(run, seed):
     """10,000 proposals × 64 voters, half gossipsub and half P2P; four
-    columnar waves of 16 votes per proposal, then wave 2 redelivered."""
-    statuses = []
-    wall = 0.0
-    calls = config3_calls(run, seed)
-    for args in calls:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = run.engine.ingest_columnar(*args, max_depth=8)
-        torch.cuda.synchronize()
-        wall += time.perf_counter() - t0
-        statuses.append(st.tolist())
-    return statuses, wall, sum(len(args[1]) for args in calls)
-
-
-def config3_ops(dev):
-    """PyTorch operator calls of each of config 3's five ``ingest_columnar``
-    calls (no ``wire_votes``) on a fresh engine."""
-    run = Run(make_engine(dev))
-    return [torch_ops(lambda: run.engine.ingest_columnar(*args, max_depth=8))
-            for args in config3_calls(run, 3)]
+    columnar waves of 16 votes per proposal, then wave 2 redelivered.
+    Returns each call's statuses."""
+    return [run.engine.ingest_columnar(*args, max_depth=8).tolist()
+            for args in config3_calls(run, seed)]
 
 
 def config2_traffic(run, seed):
@@ -797,16 +718,12 @@ def config2_traffic(run, seed):
     gids = np.array([run.engine.voter_gid(b"peer-%d" % i) for i in range(1024)])
     vals = np.random.default_rng(seed).random(1024) < 0.9
     statuses = []
-    sync = torch.cuda.synchronize if run.engine.device.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
     for c in range(8):
         sl = slice(128 * c, 128 * (c + 1))
         st = run.engine.ingest_columnar(
             scope, np.full(128, pid), gids[sl], vals[sl], NOW + 1 + c, max_depth=8)
         statuses.extend(st.tolist())
-    sync()
-    return statuses, time.perf_counter() - t0
+    return statuses
 
 
 def timeout_traffic(run, seed):
@@ -852,12 +769,10 @@ def spill_traffic(run, seed):
     ingest_columnar call (1,400 votes a wide proposal, 16 a pooled one) and
     one pre-validated ingest_votes call of chained Vote objects; then a
     second engine whose pool of 64 slots overflows by 32 sessions; then
-    sweep_timeouts on both. Returns (log, votes of the mixed calls, their
-    wall seconds)."""
+    sweep_timeouts on both. Returns the log of answers."""
     from hashgraph_tpu_torch import ConsensusConfig, StubConsensusSigner, build_vote
 
     engine = run.engine
-    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
     scope = "spill"
     wide_at = set(range(0, SPILL_POOLED + SPILL_WIDE, (SPILL_POOLED + SPILL_WIDE) // SPILL_WIDE))
     reqs = requests(SPILL_POOLED + SPILL_WIDE, 64, 60, lambda i: i % 3 != 0)
@@ -875,12 +790,8 @@ def spill_traffic(run, seed):
                              np.tile(np.arange(16), len(pooled))])
     order = rng.permutation(len(rows_p))
     vals = rng.random(len(rows_p)) < 0.6
-    sync()
-    t0 = time.perf_counter()
     log_.append(engine.ingest_columnar(scope, pids[rows_p[order]], gids[rows_v[order]],
                                        vals, NOW + 1).tolist())
-    sync()
-    wall = time.perf_counter() - t0
     # Pre-validated object votes: 2 wide and 500 pooled proposals, chained,
     # by voters the columnar call did not use.
     targets = [int(wide[0]), int(wide[1])] * 100 + [int(k) for k in pooled[:500]] * 4
@@ -891,16 +802,11 @@ def spill_traffic(run, seed):
         vote = build_vote(shadows[k], bool(rng.random() < 0.7), signer, NOW + 2)
         shadows[k].votes.append(vote)
         items.append((scope, vote))
-    sync()
-    t0 = time.perf_counter()
     log_.append(engine.ingest_votes(items, NOW + 2, pre_validated=True).tolist())
-    sync()
-    wall += time.perf_counter() - t0
-    n_votes = len(rows_p) + len(items)
     index = {pid: k for k, pid in enumerate(run.pids[scope])}
     log_.append(sorted((index[pid], r) for _, pid, r in engine.sweep_timeouts(NOW + 60)))
     log_.append(engine.occupancy()["host_spilled"])
-    return log_, n_votes, wall
+    return log_
 
 
 def overflow_traffic(run, seed):
@@ -944,8 +850,8 @@ def phase_spill(dev):
     from hashgraph_tpu_torch.errors import StatusCode
 
     gpu, cpu = Run(make_engine(dev)), Run(make_engine("cpu"))
-    gpu_log, n_votes, wall = spill_traffic(gpu, 51)
-    cpu_log, _, _ = spill_traffic(cpu, 51)
+    gpu_log = spill_traffic(gpu, 51)
+    cpu_log = spill_traffic(cpu, 51)
     compare("spill statuses", gpu_log, cpu_log)
     compare("spill results", gpu.outcome("spill"), cpu.outcome("spill"))
     compare("spill events", gpu.events_by_session(), cpu.events_by_session())
@@ -967,53 +873,27 @@ def phase_spill(dev):
     flat = gpu_log[1] + gpu_log[2]
     codes = {StatusCode(c).name: flat.count(c) for c in sorted(set(flat))}
     log(f"[spill] {SPILL_WIDE} proposals x 2000 voters on the host among {SPILL_POOLED} "
-        f"pooled x 64: {n_votes} votes in one ingest_columnar and one pre-validated "
-        f"ingest_votes call, {wall:.6f} s = {n_votes / wall:.1f} votes/s on the GPU engine; "
+        f"pooled x 64, voted in one ingest_columnar and one pre-validated ingest_votes call: "
         f"statuses {codes}; wide results {[results[k] for k in wide]}; swept "
         f"{len(gpu_log[3])}; host_spilled {gpu_log[-1]}")
     log(f"[spill] pool of 64 took 96 proposals: host_spilled {o_gpu[0]}, swept {len(o_gpu[2])}; "
         "statuses, results, events, scope stats and spill counts identical to the CPU engine")
-    return dict(votes=n_votes, seconds=wall)
 
 
 # ── Phase 6: the field-multiply kernel against its plain version ───────
 
 MSM_LANES = 16_384  # the MSM's lane bucket for one batch of 4,096 signatures
 DECOMPRESS_LANES = 8_192  # A and R of 4,096 signatures
-# Integer instructions per lane that the field and point routines need,
-# counted at the granularity of the card's instructions, each of a kind that
-# ptxas emits for this code (sass_counts reads the build): IMAD (multiply,
-# or multiply and add), LOP3 (a mask), LEA.HI (a shift and an add in one)
-# and IADD3 (a three-input add). A carry pass is per limb a mask and the
-# neighbour's carry shifted and added by one LEA.HI, and one IMAD for the
-# x38 fold into limb 0 (with its shift): 4 passes of 16 * 2 + 1.
-FE_CARRY_OPS = 4 * (16 * 2 + 1)
-# A product: per limb product an IMAD, a mask for the low half, one LEA.HI
-# adding the high half to its column and half an IADD3 adding the low half
-# to its own (one IADD3 takes two), so 256 * 7 / 2; the 2^256 fold is one
-# IMAD per limb (16); the carry.
-FE_MUL_OPS_PER_LANE = 256 * 7 // 2 + 16 + FE_CARRY_OPS
-# A squaring gets the same columns from 136 limb products: the 16 squares
-# and the 120 cross products a_i * a_j (i < j), whose halves gather in
-# columns of their own that one IMAD per column doubles into the squares'
-# (32); then the fold and the carry as in a product.
-FE_SQR_OPS_PER_LANE = 136 * 7 // 2 + 32 + 16 + FE_CARRY_OPS
-FE_ADD_OPS = 16 + FE_CARRY_OPS  # 16 limb adds, the carry
-FE_SUB_OPS = 16 + FE_CARRY_OPS  # a + (pad - b): one IADD3 a limb, the carry
-# curve.add: 9 products, 5 adds, 4 subs; curve.dbl: 4 squarings, 4
-# products, 2 adds, 6 subs.
-ED_ADD_OPS = 9 * FE_MUL_OPS_PER_LANE + 5 * FE_ADD_OPS + 4 * FE_SUB_OPS
-ED_DBL_OPS = (4 * FE_SQR_OPS_PER_LANE + 4 * FE_MUL_OPS_PER_LANE + 2 * FE_ADD_OPS
-              + 6 * FE_SUB_OPS)
-# msm_windows per lane: 15 table adds, then per window 4 doublings and 1 add.
-MSM_WINDOWS_OPS_PER_LANE = 15 * ED_ADD_OPS + 64 * (4 * ED_DBL_OPS + ED_ADD_OPS)
+# Integer instructions a lane, built from the field and point costs of
+# ``portbench/counts/msm_windows.py`` (its FE_*, POINT_ADD and POINT_DBL).
 # canon: two conditional subtracts of p, each per limb an IADD3 (limb,
 # constant, borrow), a mask, a shift and the borrow's 1 - x, and 16 selects;
-# is_zero adds an OR of 16 limbs (8 three-input LOP3); is_identity is one
-# sub and two is_zero.
+# is_zero adds an OR of 16 limbs (8 three-input LOP3); the final test is
+# three doublings (8 * root), one sub and two is_zero.
 FE_IS_ZERO_OPS = 2 * (16 * 4 + 16) + 8
-MSM_FINAL_OPS = 3 * ED_DBL_OPS + FE_SUB_OPS + 2 * FE_IS_ZERO_OPS
-POW22523_OPS_PER_LANE = 251 * FE_SQR_OPS_PER_LANE + 11 * FE_MUL_OPS_PER_LANE
+MSM_FINAL_OPS = (3 * msm_windows_counts.POINT_DBL + msm_windows_counts.FE_SUB
+                 + 2 * FE_IS_ZERO_OPS)
+POW22523_OPS_PER_LANE = 251 * msm_windows_counts.FE_SQR + 11 * msm_windows_counts.FE_MUL
 FE_MUL_BYTES_PER_LANE = 3 * 16 * 8  # two int64 operands read, one written
 POINT_BYTES = 4 * 16 * 8  # one int64 [4, 16] point
 
@@ -1030,82 +910,6 @@ def sass_functions(lib) -> "dict[str, list[tuple[int, str]]]":
     return {name: [(int(a, 16), ins.strip()) for a, ins in
                    re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
             for name, body in zip(parts[1::2], parts[2::2])}
-
-
-def sass_loops(rows) -> "list[tuple[int, int]]":
-    """(first, last) instruction addresses of each loop: every backward
-    branch and its target."""
-    return sorted((int(t, 16), a) for a, ins in rows
-                  for t in re.findall(r"BRA\S*\s+(0x[0-9a-f]+)", ins) if int(t, 16) < a)
-
-
-def call_body(rows, entry) -> int:
-    """Instructions of a subroutine, from its entry to its RET."""
-    ret = next(a for a, ins in rows if a >= entry and ins.startswith("RET"))
-    return (ret - entry) // 16 + 1
-
-
-def sass_counts(variants):
-    """Instructions of the compiled routines, counted in this build's SASS
-    and logged beside the counts that the bounds use: the one-thread ed_add
-    and ed_dbl (the calls of msm_reduce's kernels built one thread a point,
-    each from its entry to its RET); msm_windows and msm_reduce's two
-    kernels at each size built (``variants``: (source, constant) -> value ->
-    (library, nvcc output)); a squaring of the chain at each size (the body
-    of fe_pow22523's loops, its loop control included); and fe_mul's
-    kernel, loads and stores included."""
-    from hashgraph_tpu_torch import _build
-
-    def kernel(word, lib):
-        return next(rows for name, rows in sass_functions(lib).items() if word in name)
-
-    def called(rows):
-        return list(dict.fromkeys(int(m, 16) for _, ins in rows
-                                  for m in re.findall(r"CALL\.REL\S*\s+(0x[0-9a-f]+)", ins)))
-
-    def describe(rows):
-        return (f"{len(rows)} instructions, {sum(1 for _, ins in rows if ins.startswith('SHFL'))} "
-                f"shuffles, {len(sass_loops(rows))} backward branches, "
-                f"{sum(1 for _, ins in rows if ins.startswith('CALL'))} calls")
-
-    # Built one thread a point, the span kernel calls ed_add alone and the
-    # root kernel ed_add and ed_dbl (addresses count from each kernel's
-    # start, so ed_dbl is the root kernel's callee of another length).
-    one_thread = variants[("ed_msm", "kTreeGroup")][1][0]
-    span_rows, root_rows = kernel("tree_span", one_thread), kernel("tree_root", one_thread)
-    add_calls = called(span_rows)
-    if len(add_calls) != 1:
-        raise AssertionError(f"the one-thread span kernel calls {add_calls}, not ed_add alone")
-    body = {"ed_add": call_body(span_rows, add_calls[0])}
-    others = [n for n in (call_body(root_rows, e) for e in called(root_rows)) if n != body["ed_add"]]
-    if len(others) != 1:
-        raise AssertionError(f"the one-thread root kernel's callees are {others} besides ed_add")
-    body["ed_dbl"] = others[0]
-    out = dict(body, windows={}, tree={}, pow_squaring={})
-    for (source, name), built in variants.items():
-        for value, (lib, _) in built.items():
-            if source == "ed_msm" and name == "kGroup":
-                rows = kernel("msm_windows", lib)
-                out["windows"][value] = len(rows)
-                log(f"[sass] msm_windows, {value} threads a lane: {describe(rows)}")
-            elif source == "ed_msm":
-                rows = kernel("tree_span", lib) + kernel("tree_root", lib)
-                out["tree"][value] = len(rows)
-                log(f"[sass] msm_reduce's two kernels, {value} threads a point: {describe(rows)}")
-            else:
-                # The squaring loops are the kernel's shortest: a group's rare
-                # carry pass, laid out after the chain, branches back from afar.
-                rows = kernel("pow22523", lib)
-                loop = min((last - first) // 16 + 1 for first, last in sass_loops(rows))
-                out["pow_squaring"][value] = loop
-                log(f"[sass] fe_pow22523, {value} threads a lane: {describe(rows)}; a squaring "
-                    f"of the chain {loop} instructions a thread with its loop control, "
-                    f"{value * loop} a lane (one thread needs {FE_SQR_OPS_PER_LANE})")
-    out["fe_mul_kernel"] = len(kernel("fe_mul", _build._target("fe_mul")))
-    log(f"[sass] one thread: ed_add {body['ed_add']} instructions (the bound counts "
-        f"{ED_ADD_OPS}), ed_dbl {body['ed_dbl']} ({ED_DBL_OPS}); fe_mul's kernel "
-        f"{out['fe_mul_kernel']} with its loads and stores ({FE_MUL_OPS_PER_LANE})")
-    return out
 
 
 def field_rows(seed, lanes):
@@ -1158,7 +962,7 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_field(dev, variants):
+def phase_field(dev):
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.crypto_device import cuda_field, field
 
@@ -1202,47 +1006,34 @@ def phase_field(dev, variants):
         "(plain multiply; boundary and ripple rows included), and so is the chain "
         f"through the fe_mul kernel; max_abs_err {pow_err}")
 
-    # Every group size of the chain, each bit-exact and timed; the port's
-    # build is the one kept.
-    pow_kept = kept_value("fe_pow22523", "kPowGroup")
-    pow_group_ms = {}
-    for group, (lib_path, _) in variants[("fe_pow22523", "kPowGroup")].items():
-        if group == pow_kept:
-            chain = functools.partial(cuda_field.fe_pow22523, z)
-        else:
-            chain = functools.partial(variant_pow, variant_lib(lib_path), z)
-        if not torch.equal(chain(), chain_plain):
-            raise AssertionError(f"fe_pow22523 with {group} threads a lane differs from "
-                                 "_pow22523_plain")
-        pow_group_ms[group] = device_ms(chain, 20)
-    log(f"[field] fe_pow22523 at {DECOMPRESS_LANES} lanes, bit-exact at every group size; ms "
-        f"by threads a lane {json.dumps(pow_group_ms)}; kept {pow_kept}")
-
     ms = device_ms(lambda: cuda_field.fe_mul(a, b), 20)
     plain_ms = device_ms(lambda: field._mul_plain(a, b), 5)
     fe_mul_row = kernel_row("fe_mul", ms, plain_ms, MSM_LANES * FE_MUL_BYTES_PER_LANE,
-                            MSM_LANES * FE_MUL_OPS_PER_LANE, max_err)
+                            MSM_LANES * msm_windows_counts.FE_MUL, max_err)
     pow_ms = device_ms(lambda: cuda_field.fe_pow22523(z), 20)
     with plain_field_mul():
         pow_plain_ms = device_ms(lambda: field._pow22523_plain(z), 1)
     pow_row = kernel_row("fe_pow22523", pow_ms, pow_plain_ms, DECOMPRESS_LANES * 2 * 16 * 8,
                          DECOMPRESS_LANES * POW22523_OPS_PER_LANE, pow_err)
-    pow_row["threads_per_lane"] = pow_kept
-    pow_row["ms_by_threads_per_lane"] = pow_group_ms
     return fe_mul_row, pow_row
 
 
+def bound_of(n_bytes, n_ops):
+    """(bound ms, what sets it): the larger of ``n_bytes`` over the memory
+    rate and ``n_ops`` integer instructions over the issue rate, both of
+    ``portbench/counts/peaks.py``."""
+    bytes_ms = n_bytes / peaks.HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / peaks.INT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def kernel_row(name, ms, plain_ms, n_bytes, n_ops, max_err):
-    """Log one kernel's time against its bound (the larger of its bytes over
-    the memory rate and the integer instructions it needs over the issue
-    rate) and return the timing keys of its row in the kernel table."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / INT_OPS_PER_S * 1e3
-    bound = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    """Log one kernel's time against its bound (:func:`bound_of`) and
+    return the timing keys of its row in the kernel table."""
+    bound, bound_by = bound_of(n_bytes, n_ops)
     log(f"[{name}] {ms:.6f} ms (plain {plain_ms:.6f} ms); bound {bound:.6f} ms by "
-        f"{bound_by}: {n_bytes} B / 3.35 TB/s = {bytes_ms:.6f} ms, {n_ops} integer "
-        f"instructions / {INT_OPS_PER_S:.4g}/s = {ops_ms:.6f} ms; {ms / bound:.2f}x the bound")
+        f"{bound_by}: {n_bytes} B / 3.35 TB/s, {n_ops} integer instructions / "
+        f"{peaks.INT_OPS_PER_S:.4g}/s; {ms / bound:.2f}x the bound")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=max_err)
 
@@ -1290,127 +1081,6 @@ def msm_inputs(seed, lanes, dev):
     return pts, torch.from_numpy(nib).to(dev), last
 
 
-# Sizes timed for the kernels that build at more than one: (source,
-# constant) -> the values tried. The port's build keeps one (the constant's
-# line in the source); the others are built here, each from a copy of the
-# source with that line changed, for phases 6 and 6b to hold and time
-# beside the kept one.
-VARIANTS = {
-    ("ed_msm", "kGroup"): (4, 8, 16),  # msm_windows: threads a lane
-    ("ed_msm", "kTreeGroup"): (1, 4, 8, 16),  # msm_reduce: threads a point
-    ("fe_pow22523", "kPowGroup"): (1, 2, 4, 8, 16),  # fe_pow22523: threads a lane
-}
-
-
-def constant_line(name):
-    return re.compile(rf"^constexpr int {name} = (\d+);$", re.M)
-
-
-def kept_value(source, name) -> int:
-    from hashgraph_tpu_torch import _build
-
-    return int(constant_line(name).search((_build.CSRC / f"{source}.cu").read_text()).group(1))
-
-
-def start_variants():
-    """Start one ``nvcc`` for each variant that the port's build does not
-    keep; returns (source, constant, value) -> (process, library path)."""
-    from hashgraph_tpu_torch import _build
-
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for (source, name), values in VARIANTS.items():
-        text = (_build.CSRC / f"{source}.cu").read_text()
-        for value in values:
-            if value == kept_value(source, name):
-                continue
-            copy = out_dir / f"{source}_{name}_{value}.cu"
-            copy.write_text(constant_line(name).sub(f"constexpr int {name} = {value};", text,
-                                                    count=1))
-            lib = out_dir / f"lib{source}_{name}_{value}.so"
-            procs[(source, name, value)] = (subprocess.Popen(
-                [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
-                 str(copy)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    return procs
-
-
-def finish_variants(procs):
-    """Wait for the variant builds; returns (source, constant) -> value ->
-    (library path, nvcc's output), the kept value included (the port's own
-    build)."""
-    from hashgraph_tpu_torch import _build
-
-    built = {key: {kept_value(*key): (_build._target(key[0]), _build.build_log(key[0]))}
-             for key in VARIANTS}
-    for (source, name, value), (proc, lib) in procs.items():
-        output, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"{source}.cu with {name} = {value} (nvcc exit "
-                                 f"{proc.returncode}):\n{output}")
-        built[(source, name)][value] = (lib, output)
-    return {key: dict(sorted(v.items())) for key, v in built.items()}
-
-
-def variant_lib(path):
-    """A variant build's C entry points, bound as the port's wrappers bind
-    them."""
-    lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("hg_msm_table_lanes", [i32]),
-                       ("hg_msm_windows", [ptr] * 4 + [i32, i32, ptr]),
-                       ("hg_msm_tree_span", []),
-                       ("hg_msm_tree_partials", [ptr, ptr, i32, ptr]),
-                       ("hg_msm_tree_root", [ptr, i32, ptr, ptr, ptr]),
-                       ("hg_fe_pow22523", [ptr, ptr, i32, ptr])):
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def variant_windows(lib, pts, nib):
-    """msm_windows through a variant build's C entry point, as
-    ``cuda_msm.msm_windows`` calls the port's build (it counts no launch:
-    a variant is not on the main path)."""
-    lanes = pts.shape[0]
-    table = torch.empty((lib.hg_msm_table_lanes(lanes), 16, 64), dtype=torch.int16,
-                        device=pts.device)
-    out = torch.empty_like(pts)
-    err = lib.hg_msm_windows(pts.data_ptr(), nib.data_ptr(), table.data_ptr(), out.data_ptr(),
-                             lanes, nib.shape[1], _stream())
-    if err != 0:
-        raise AssertionError(f"msm_windows variant: launch failed (cudaError {err})")
-    return out
-
-
-def variant_reduce(lib, acc):
-    """msm_reduce through a variant build's C entry points, in the wrapper's
-    schedule (``cuda_msm._tree``); counts no launch. Returns (root,
-    verdict)."""
-    from hashgraph_tpu_torch.crypto_device import cuda_msm
-
-    def launched(err):
-        if err != 0:
-            raise AssertionError(f"msm_reduce variant: launch failed (cudaError {err})")
-
-    return cuda_msm._tree(lib, acc, launched)
-
-
-def variant_pow(lib, z):
-    """fe_pow22523 through a variant build's C entry point; counts no
-    launch."""
-    out = torch.empty_like(z)
-    err = lib.hg_fe_pow22523(z.data_ptr(), out.data_ptr(), z.shape[0], _stream())
-    if err != 0:
-        raise AssertionError(f"fe_pow22523 variant: launch failed (cudaError {err})")
-    return out
-
-
 def tree_counts(span):
     """Lane counts the tree is held at beside the batch's: the odd folds,
     below, at and across the block's span and its odd folds, and one past
@@ -1426,10 +1096,11 @@ def tree_bound_counts(lanes):
     from hashgraph_tpu_torch.crypto_device import msm
 
     adds = sum((n + 1) // 2 for n in msm.reduce_levels(lanes))
-    return lanes * POINT_BYTES + POINT_BYTES + 4, adds * ED_ADD_OPS + MSM_FINAL_OPS
+    return (lanes * POINT_BYTES + POINT_BYTES + 4,
+            adds * msm_windows_counts.POINT_ADD + MSM_FINAL_OPS)
 
 
-def phase_msm(dev, variants):
+def phase_msm(dev):
     from hashgraph_tpu_torch.crypto_device import cuda_msm, msm
 
     pts, nib, last = msm_inputs(61, MSM_LANES, dev)
@@ -1478,45 +1149,19 @@ def phase_msm(dev, variants):
     if not bool(msm.msm_is_identity(pts, nib)) or bool(msm.msm_is_identity(pts, bad_nib)):
         raise AssertionError("msm.msm_is_identity gave the wrong verdict")
 
-    # Every tree group size, each held at every case and timed at the batch;
-    # the port's build is the one kept.
-    tree_kept = kept_value("ed_msm", "kTreeGroup")
-    tree_ms, reduce_err = {}, 0
-    for group, (lib_path, _) in variants[("ed_msm", "kTreeGroup")].items():
-        if group == tree_kept:
-            reduce = cuda_msm.msm_reduce
-        else:
-            reduce = functools.partial(variant_reduce, variant_lib(lib_path))
-        for label, (kernel_in, _) in cases.items():
-            root, verdict = reduce(kernel_in)
-            want_root, want_verdict = want[label]
-            if not torch.equal(root, want_root) or int(verdict) != want_verdict:
-                raise AssertionError(
-                    f"msm_reduce with {group} threads a point, {label} "
-                    f"({kernel_in.shape[0]} lanes): root equal {torch.equal(root, want_root)}, "
-                    f"verdict {int(verdict)} against plain {want_verdict}")
-            reduce_err = max(reduce_err, int((root - want_root).abs().max()))
-        tree_ms[group] = device_ms(lambda: reduce(acc), 20)
-    log(f"[msm] msm_reduce root limbs and verdict equal to _reduce_plain and _final_plain at "
-        f"every group size, accepting and rejecting at {MSM_LANES} lanes and at "
-        f"{tree_counts(span)} lanes (span {span}); ms at {MSM_LANES} lanes by threads a point "
-        f"{json.dumps(tree_ms)}; kept {tree_kept}")
-
-    # Every window group size, each against the plain window stage, timed in
-    # this call; the port's build is the one kept.
-    kept = kept_value("ed_msm", "kGroup")
-    group_ms = {}
-    for group, (lib_path, _) in variants[("ed_msm", "kGroup")].items():
-        if group == kept:
-            windows = functools.partial(cuda_msm.msm_windows, pts, nib)
-        else:
-            windows = functools.partial(variant_windows, variant_lib(lib_path), pts, nib)
-        if not torch.equal(windows(), acc_plain):
-            raise AssertionError(f"msm_windows with {group} threads a lane differs from "
-                                 "_windows_plain")
-        group_ms[group] = device_ms(windows, 3)
-    log(f"[msm] msm_windows at {MSM_LANES} lanes, bit-exact at every group size; ms by "
-        f"threads a lane {json.dumps(group_ms)}; kept {kept}")
+    reduce_err = 0
+    for label, (kernel_in, _) in cases.items():
+        root, verdict = cuda_msm.msm_reduce(kernel_in)
+        want_root, want_verdict = want[label]
+        if not torch.equal(root, want_root) or int(verdict) != want_verdict:
+            raise AssertionError(
+                f"msm_reduce, {label} ({kernel_in.shape[0]} lanes): root equal "
+                f"{torch.equal(root, want_root)}, verdict {int(verdict)} against plain "
+                f"{want_verdict}")
+        reduce_err = max(reduce_err, int((root - want_root).abs().max()))
+    log(f"[msm] msm_reduce root limbs and verdict equal to _reduce_plain and _final_plain, "
+        f"accepting and rejecting at {MSM_LANES} lanes and at {tree_counts(span)} lanes "
+        f"(span {span})")
 
     windows_ms = device_ms(lambda: cuda_msm.msm_windows(pts, nib), 3)
     reduce_ms = device_ms(lambda: cuda_msm.msm_reduce(acc), 20)
@@ -1525,18 +1170,14 @@ def phase_msm(dev, variants):
         reduce_plain_ms = device_ms(lambda: msm._final_plain(msm._reduce_plain(acc_plain)), 2)
     windows_row = kernel_row(
         "msm_windows", windows_ms, windows_plain_ms,
-        MSM_LANES * (2 * POINT_BYTES + 4 * msm.WINDOWS), MSM_LANES * MSM_WINDOWS_OPS_PER_LANE,
-        windows_err)
+        MSM_LANES * (2 * POINT_BYTES + 4 * msm.WINDOWS),
+        MSM_LANES * msm_windows_counts.PER_POINT, windows_err)
     reduce_row = kernel_row("msm_reduce", reduce_ms, reduce_plain_ms,
                             *tree_bound_counts(MSM_LANES), reduce_err)
-    windows_row["threads_per_lane"] = kept
-    windows_row["ms_by_threads_per_lane"] = group_ms
-    reduce_row["threads_per_point"] = tree_kept
     reduce_row["points_per_block"] = span
-    reduce_row["ms_by_threads_per_point"] = tree_ms
     reduce_row["launches_per_call"] = len(cuda_msm.tree_passes(MSM_LANES, span))
     # The call's two launches apart: the span pass, then the root block.
-    lib, stream = cuda_msm._lib(), _stream()
+    lib, stream = cuda_msm._lib(), torch.cuda.current_stream().cuda_stream
     partials = torch.empty((MSM_LANES // span, 4, 16), dtype=torch.int64, device=dev)
     root = torch.empty((4, 16), dtype=torch.int64, device=dev)
     verdict = torch.empty((), dtype=torch.int32, device=dev)
@@ -1589,8 +1230,7 @@ def phase_sha512(dev):
     """The kernel of ``csrc/sha512.cu`` against ``sha512._sha512_blocks``
     on the card and against hashlib, bit for bit, at 8 and 16,384 lanes of
     1-4 blocks; its launch count; its time at the signed cell's batch
-    beside its bound and the plain version's time; the wrapper's host time
-    against the plain path's."""
+    beside its bound and the plain version's time."""
     import hashlib
 
     from hashgraph_tpu_torch import _build
@@ -1641,30 +1281,11 @@ def phase_sha512(dev):
     plain_ms = device_ms(lambda: sh._sha512_blocks(w32, nb), 1)
     row = kernel_row("sha512", ms, plain_ms, host.nbytes + MSM_LANES * 16 * 8,
                      int(nblocks.sum()) * SHA512_OPS_PER_BLOCK, 0)
-
-    def wall(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / reps * 1e3
-
-    def plain_path():
-        counts = sh._checked_blocks(sh._lengths(messages), 2)
-        w = torch.from_numpy(sh._packed_words(messages, counts, 2))
-        sh._sha512_blocks(w.to(dev), torch.from_numpy(counts).to(dev))
-
-    row["call_ms"] = wall(lambda: sh.sha512_batch_dispatch(messages, 2, dev), 10)
-    row["plain_call_ms"] = wall(plain_path, 2)
     sass = sass_functions(_build._target(sh.KERNEL))
     row["sass_instructions"] = len(next(r for name, r in sass.items() if "sha512" in name))
-    log(f"[sha512] {MSM_LANES} lanes of the signed cell's lengths: the wrapper's call "
-        f"{row['call_ms']:.6f} ms of host wall (join, one copy, one launch) against the plain "
-        f"path's {row['plain_call_ms']:.6f} ms (packing and its operator calls); "
-        f"{SHA512_OPS_PER_BLOCK} instructions a block counted for the bound, "
-        f"{row['sass_instructions']} in the kernel's SASS (the 80 rounds unrolled)")
+    log(f"[sha512] {MSM_LANES} lanes of the signed cell's lengths: {SHA512_OPS_PER_BLOCK} "
+        f"instructions a block counted for the bound, {row['sass_instructions']} in the "
+        f"kernel's SASS (the 80 rounds unrolled)")
     return row
 
 
@@ -1755,29 +1376,10 @@ def torch_ops(fn) -> int:
     return count.calls
 
 
-def stage_ops(dev):
-    """PyTorch operator calls of each verification stage at 16 lanes (the
-    count does not depend on the lane count; the MSM's and SHA-512's kernels
-    are ctypes launches, so what it counts is the allocations, copies and
-    casts around them)."""
-    from hashgraph_tpu_torch.crypto_device import curve, msm, sha512
-
-    enc = torch.zeros((16, 32), dtype=torch.uint8, device=dev)
-    enc[:, 0] = 1
-    points = curve.identity((16,), dev).clone()
-    nibbles = torch.zeros((16, msm.WINDOWS), dtype=torch.int64, device=dev)
-    return {
-        "decompress": torch_ops(lambda: curve.decompress(enc)),
-        "hash (2 blocks)": torch_ops(lambda: sha512.sha512_batch_dispatch([b"m" * 150] * 8, 2, dev)),
-        "msm": torch_ops(lambda: msm.msm_is_identity(points, nibbles)),
-    }
-
-
 def phase_verify(dev):
     from hashgraph_tpu_torch import _build, native
     from hashgraph_tpu_torch.crypto_device import cuda_field, cuda_msm, sha512
     from hashgraph_tpu_torch.errors import StatusCode
-    from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.signing import (
         Ed25519ConsensusSigner,
         Ed25519DeviceConsensusSigner,
@@ -1798,21 +1400,12 @@ def phase_verify(dev):
     if gpu.pids != cpu.pids:
         raise AssertionError("the two engines minted different proposal ids")
     pids = gpu.pids[scope]
-    t0 = time.perf_counter()
     main_bytes = signed_votes(gpu.engine, scope, pids[:n_main], keys, 72)
     blame_bytes = signed_votes(gpu.engine, scope, pids[n_main:], keys, 73,
                                corrupt={0: "scalar", 1: "s>=L", 2: "bad-A", 3: "R-sign"})
-    log(f"[verify] signed {len(main_bytes) + len(blame_bytes)} votes with the native "
-        f"runtime in {time.perf_counter() - t0:.3f} s (outside the timed window)")
 
     def ingest(run, data, now):
-        items = [(scope, Vote.decode(b)) for b in data]
-        sync = torch.cuda.synchronize if run.engine.device.type == "cuda" else (lambda: None)
-        sync()
-        t = time.perf_counter()
-        statuses = run.engine.ingest_votes(items, now)
-        sync()
-        return statuses.tolist(), time.perf_counter() - t
+        return run.engine.ingest_votes([(scope, Vote.decode(b)) for b in data], now).tolist()
 
     # Warm the pipeline (allocator, first launches) on a batch of its own.
     warm = [Vote.decode(b) for b in blame_bytes[:32]]
@@ -1822,12 +1415,11 @@ def phase_verify(dev):
 
     # The main path: counts are zeroed just before it and read just after.
     _build.launches.clear()
-    st_main, wall_main = ingest(gpu, main_bytes, NOW + 2)
+    st_main = ingest(gpu, main_bytes, NOW + 2)
     phases_main = Ed25519DeviceConsensusSigner.device_phase_seconds()
     main_launches = dict(_build.launches)
-    scan_main = _build.launches[cuda_ingest.KERNEL]
     _build.launches.clear()
-    st_blame, wall_blame = ingest(gpu, blame_bytes, NOW + 3)
+    st_blame = ingest(gpu, blame_bytes, NOW + 3)
     phases_blame = Ed25519DeviceConsensusSigner.device_phase_seconds()
     blame_launches = dict(_build.launches)
     # One MSM a batch: one window launch and the tree's, exactly (the main
@@ -1846,8 +1438,8 @@ def phase_verify(dev):
     if phases_main["fallback"] != 0.0 or not phases_blame["fallback"] > 0.0:
         raise AssertionError(f"blame fallback: main {phases_main}, second call {phases_blame}")
 
-    cpu_main, cpu_wall_main = ingest(cpu, main_bytes, NOW + 2)
-    cpu_blame, _ = ingest(cpu, blame_bytes, NOW + 3)
+    cpu_main = ingest(cpu, main_bytes, NOW + 2)
+    cpu_blame = ingest(cpu, blame_bytes, NOW + 3)
     compare("verify statuses", [st_main, st_blame], [cpu_main, cpu_blame])
     compare("verify results", gpu.outcome(scope), cpu.outcome(scope))
     compare("verify events", gpu.events_by_session(), cpu.events_by_session())
@@ -1857,48 +1449,34 @@ def phase_verify(dev):
         raise AssertionError(f"the valid batch was not accepted: {codes}")
     if blame_codes.get("INVALID_VOTE_SIGNATURE") != 4:
         raise AssertionError(f"the damaged votes were not all rejected: {blame_codes}")
-    results, stats = gpu.outcome(scope)
+    _, stats = gpu.outcome(scope)
 
-    # The host verifiers' rates on this machine: the twin on a slice of the
-    # same batch, the native runtime's batch verification on all of it.
+    # The host verifiers accept the batch: the twin a slice of it, the
+    # native runtime's batch verification all of it.
     sample = [Vote.decode(b) for b in main_bytes[:256]]
-    t = time.perf_counter()
-    twin_ok = [twin.verify(v.vote_owner, v.signing_payload(), v.signature) for v in sample]
-    twin_rate = len(sample) / (time.perf_counter() - t)
-    if not all(twin_ok):
+    if not all(twin.verify(v.vote_owner, v.signing_payload(), v.signature) for v in sample):
         raise AssertionError("the twin rejected a valid signature")
     everything = [Vote.decode(b) for b in main_bytes]
-    batch = ([v.vote_owner for v in everything], [v.signing_payload() for v in everything],
-             [v.signature for v in everything])
-    t = time.perf_counter()
-    native_ok = native.ed25519_verify_batch(*batch)
-    native_rate = len(everything) / (time.perf_counter() - t)
+    native_ok = native.ed25519_verify_batch(
+        [v.vote_owner for v in everything], [v.signing_payload() for v in everything],
+        [v.signature for v in everything])
     if native_ok is None or not native_ok.all():
         raise AssertionError("the native batch verification rejected a valid signature")
 
-    ops = stage_ops(dev)
     # The hash stage is the kernel's wrapper: one copy, one allocation and
     # a ctypes launch, where the plain version made some 27,500 calls.
-    if ops["hash (2 blocks)"] > 4:
-        raise AssertionError(f"the hash stage made {ops['hash (2 blocks)']} PyTorch operator "
+    hash_ops = torch_ops(lambda: sha512.sha512_batch_dispatch([b"m" * 150] * 8, 2, dev))
+    if hash_ops > 4:
+        raise AssertionError(f"the hash stage made {hash_ops} PyTorch operator "
                              "calls (want at most 4: the kernel's copy and output)")
-    rate = len(main_bytes) / phases_main["total"]
-    log(f"[verify] {len(main_bytes)} votes in one ingest_votes call on the GPU engine: "
-        f"{wall_main:.6f} s wall; device verify {phases_main['total']:.6f} s = {rate:.1f} "
-        f"signatures/s; phases {json.dumps(phases_main)}; launches per kernel "
-        f"{json.dumps(main_launches)} (scan launches {scan_main}); statuses {codes}")
-    log(f"[verify] second call, 64 votes with 4 damaged: {wall_blame:.6f} s wall; phases "
-        f"{json.dumps(phases_blame)}; launches per kernel {json.dumps(blame_launches)}; "
-        f"statuses {blame_codes}")
-    log(f"[verify] host verifiers on this machine's CPU: the native runtime's batch "
-        f"verification {native_rate:.1f} signatures/s, the pure-Python twin {twin_rate:.1f}; "
-        f"the CPU engine (native batch verification) took {cpu_wall_main:.6f} s for the "
-        f"{len(main_bytes)}-vote call against the GPU engine's {wall_main:.6f} s; stats "
-        f"(total, active, failed, reached) {stats}; identical statuses, results and events")
-    log(f"[verify] PyTorch operator calls per stage at 16 lanes: {ops}")
-    return dict(launches=main_launches, launches_blame=blame_launches, rate=rate,
-                twin_rate=twin_rate, native_rate=native_rate, phases=phases_main,
-                phases_blame=phases_blame)
+    log(f"[verify] {len(main_bytes)} votes in one ingest_votes call on the GPU engine, one "
+        f"device batch: launches per kernel {json.dumps(main_launches)}; statuses {codes}")
+    log(f"[verify] second call, 64 votes with 4 damaged, the host blame: launches per kernel "
+        f"{json.dumps(blame_launches)}; statuses {blame_codes}")
+    log(f"[verify] the twin and the native batch verification accept the batch; the hash "
+        f"stage makes {hash_ops} PyTorch operator calls; stats (total, active, failed, "
+        f"reached) {stats}; statuses, results and events identical to the CPU engine's")
+    return dict(launches=main_launches, launches_blame=blame_launches)
 
 
 # ── Phase 8: proposals from peers (ingest, delivery, redelivery) ───────
@@ -1916,8 +1494,8 @@ PROPOSAL_KERNELS = VERIFY_KERNELS + ("ingest_scan",)
 def counting_device_signer():
     """The device Ed25519 scheme, counting each (payload, signature) it is
     asked to verify and keeping every batch's phase seconds (with its item
-    count, its wall from submit to collected, and the kernel launches, of
-    every thread, in that time) as the batch is collected."""
+    count and the kernel launches, of every thread, from submit to
+    collected) as the batch is collected."""
     from collections import Counter
 
     from hashgraph_tpu_torch import _build
@@ -1930,14 +1508,13 @@ def counting_device_signer():
         @classmethod
         def verify_batch_submit(cls, identities, payloads, signatures):
             cls.submitted.update(p + s for p, s in zip(payloads, signatures))
-            before, t = dict(_build.launches), time.perf_counter()
+            before = dict(_build.launches)
             pending = super().verify_batch_submit(identities, payloads, signatures)
 
             def collect():
                 out = pending.collect()
                 cls.batches.append(dict(
                     cls.device_phase_seconds(), items=len(payloads),
-                    seconds=time.perf_counter() - t,
                     launches={k: v - before.get(k, 0) for k, v in _build.launches.items()
                               if v != before.get(k, 0)}))
                 return out
@@ -2265,8 +1842,8 @@ def proposal_traffic(run, data):
     """Phase 8's deliveries on one engine: (a) one ingest_proposals call,
     (b) two deliver_proposals waves, (c) the final chains redelivered.
     Returns the statuses and events of each stage, the final state, and
-    per stage its wall time, kernel launches, signatures submitted and
-    device batches (each batch's phase seconds)."""
+    per stage its kernel launches, signatures submitted and device batches
+    (each batch's phase seconds)."""
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.wire import Proposal
 
@@ -2274,20 +1851,16 @@ def proposal_traffic(run, data):
     scheme = type(engine.signer())
     submitted = getattr(scheme, "submitted", None)
     batches = getattr(scheme, "batches", None)
-    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
     log, stages = [], []
 
     def stage(fn, payload, now):
         items = [(scope, Proposal.decode(b)) for scope, b in payload]
         n0 = sum(submitted.values()) if submitted is not None else 0
         b0 = len(batches) if batches is not None else 0
-        sync()
         _build.launches.clear()
-        t = time.perf_counter()
         out = fn(items, now)
-        sync()
         stages.append(dict(
-            wall=time.perf_counter() - t, launches=dict(_build.launches),
+            launches=dict(_build.launches),
             verified=sum(submitted.values()) - n0 if submitted is not None else None,
             batches=batches[b0:] if batches is not None else None,
         ))
@@ -2324,12 +1897,11 @@ def stub_chains(n_votes, distinct):
     return chains
 
 
-def chain_check_timing(dev, chains, n_chains):
+def chain_check(dev, chains, n_chains):
     """The chain check alone on ``chains``, tiled to ``n_chains`` and packed
     on the card: statuses against the same function on the CPU and, chain
-    by chain, against the scalar oracle; device time by CUDA events, host
-    wall a call, PyTorch operator count, and the bytes its inputs and
-    output take over the memory rate."""
+    by chain, against the scalar oracle. Returns the shape and the
+    statuses."""
     from hashgraph_tpu_torch.convert import chain_pack_from_numpy
     from hashgraph_tpu_torch.errors import ConsensusError
     from hashgraph_tpu_torch.ops.chain import (
@@ -2360,17 +1932,7 @@ def chain_check_timing(dev, chains, n_chains):
     got = [first_chain_error(s) for s in plain[:len(chains)].numpy()]
     if got != codes or (len(chains) >= 4 and (not any(codes) or all(codes))):
         raise AssertionError(f"chain check at {shape}: {got}, oracle {codes}")
-    ms = device_ms(lambda: chain_kernel_batch(*args), 20)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(20):
-        chain_kernel_batch(*args)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) / 20 * 1e3
-    ops = torch_ops(lambda: chain_kernel_batch(*args))
-    n_bytes = sum(a.numel() * a.element_size() for a in args) + statuses.numel() * 4
-    return dict(shape=shape, ms=ms, wall_ms=wall_ms, torch_ops=ops, bytes=n_bytes,
-                bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3, codes=got)
+    return shape, got
 
 
 def phase_proposals(dev):
@@ -2383,10 +1945,7 @@ def phase_proposals(dev):
     )
     from hashgraph_tpu_torch.wire import Proposal
 
-    t_phase = time.perf_counter()
-    t0 = time.perf_counter()
     data = proposal_traffic_data()
-    sign_s = time.perf_counter() - t0
     rng = random.Random(86)
     on = ProposalRun(proposal_engine(dev, counting_device_signer()(rng.randbytes(32)),
                                      "default"))
@@ -2395,24 +1954,17 @@ def phase_proposals(dev):
                                       "default"))
     # Warm the pipeline (allocator, first launches at (a)'s lane buckets)
     # and the chain check outside the engines, which keep their caches cold.
-    t = time.perf_counter()
     warm = [v for _, p in data["a"] for v in Proposal.decode(p).votes]
     Ed25519DeviceConsensusSigner.verify_batch(
         [v.vote_owner for v in warm], [v.signing_payload() for v in warm],
         [v.signature for v in warm])
     packed = chain_pack_from_numpy(pack_chains([warm[:PROP_FIRST]]), dev)
     chain_kernel_batch(*(packed[k] for k in CHAIN_FIELDS)).cpu()
-    warm_s = time.perf_counter() - t
     captured = KernelInputs()
-    t = time.perf_counter()
     with captured.active():
         on_log, on_state, on_stages = proposal_traffic(on, data)
-        on_s = time.perf_counter() - t
         off_log, off_state, off_stages = proposal_traffic(off, data)
-        off_s = time.perf_counter() - t - on_s
-    t = time.perf_counter()
-    cpu_log, cpu_state, cpu_stages = proposal_traffic(cpu, data)
-    cpu_s = time.perf_counter() - t
+    cpu_log, cpu_state, _ = proposal_traffic(cpu, data)
     compare("proposal statuses and events", on_log, cpu_log)
     compare("proposal sessions, votes and stats", on_state, cpu_state)
     compare("proposal statuses and events, cache off", off_log, on_log)
@@ -2442,9 +1994,7 @@ def phase_proposals(dev):
                 if batch["fallback"] != 0.0 or not batch["msm"] > 0.0:
                     raise AssertionError(f"({name}, {label}): batch {batch} fell back to the "
                                          "host blame or ran no MSM")
-    t_hold = time.perf_counter()
     held = hold_captured(captured)
-    hold_s = time.perf_counter() - t_hold
     if set(held) != set(VERIFY_KERNELS) or min(x[0] for x in held["msm_windows"]) > 128:
         raise AssertionError(f"kernel inputs captured on the path: {held}")
     if set(on_log[6]) != {int(StatusCode.PROPOSAL_ALREADY_EXIST)}:
@@ -2467,76 +2017,51 @@ def phase_proposals(dev):
     # (e): the chain check alone, at (a)'s chains (the items (a) does not
     # leave out, as ingest_proposals packs them), at [1,024, 64] and at one
     # 1,024-vote chain.
-    t_e = time.perf_counter()
     a_items = [Proposal.decode(b) for _, b in data["a"]]
     a_chains = [p.votes for p in a_items if NOW + 100 < p.expiration_timestamp and len(p.votes) > 1]
-    chains = {}
     for label, chain_votes, n_chains in (("(a)'s chains", a_chains, len(a_chains)),
                                          ("stub chains", stub_chains(64, 16), 1024),
                                          ("one stub chain", stub_chains(1024, 1), 1)):
-        e = chain_check_timing(dev, chain_votes, n_chains)
-        chains[label] = e
-        log(f"[proposals] (e) chain check at {e['shape']} ({label}): {e['ms']:.6f} ms device "
-            f"(CUDA events), {e['wall_ms']:.6f} ms wall a call, {e['torch_ops']} PyTorch "
-            f"operator calls; inputs and output {e['bytes']} B / 3.35 TB/s = "
-            f"{e['bytes_ms']:.6f} ms; statuses equal to the CPU's and the oracle's "
-            f"{sorted(set(e['codes']))}")
-    e_s = time.perf_counter() - t_e
+        shape, codes = chain_check(dev, chain_votes, n_chains)
+        log(f"[proposals] (e) chain check at {shape} ({label}): statuses equal to the CPU's "
+            f"and the oracle's {sorted(set(codes))}")
 
     launches = {}
     for s in on_stages:
         for k, n in s["launches"].items():
             launches[k] = launches.get(k, 0) + n
-    n_items = len(data["a"])
     b_votes = [sum(data["lengths"][w][k] - data["lengths"][w - 1][k] for k in range(PROP_MAIN))
                for w in (1, 2)]
     codes_a = {StatusCode(x).name: on_log[0].count(x) for x in sorted(set(on_log[0]))}
     codes_b = [{StatusCode(x).name: st.count(x) for x in sorted(set(st))}
                for st in (on_log[2], on_log[4])]
-    verify_a = a["batches"][0]
-    chain_a = chains["(a)'s chains"]
     log(f"[proposals] senders: {PROP_MAIN} proposals x {PROP_VOTERS} voters ({PROP_KEYS} "
-        f"Ed25519 keys), {data['signed']} votes built and signed with the native runtime "
-        f"in {sign_s:.3f} s (outside the timed windows); chain lengths after (a), (b1), (b2): "
-        f"{[sum(x) for x in data['lengths']]} votes in all")
-    log(f"[proposals] (a) one ingest_proposals call of {n_items} proposals: "
-        f"{a['wall']:.6f} s = {n_items / a['wall']:.1f} proposals/s; device verify "
-        f"{verify_a['total']:.6f} s ({a['verified']} signatures, one batch, phases "
-        f"{json.dumps(verify_a)}); chain check {chain_a['wall_ms'] / 1e3:.6f} s (wall a call "
-        f"at {chain_a['shape']}, from (e)); the rest (vote hashes, packing, replay and "
-        f"registration) {a['wall'] - verify_a['total'] - chain_a['wall_ms'] / 1e3:.6f} s; "
-        f"launches {json.dumps(a['launches'])}; statuses {codes_a}")
+        f"Ed25519 keys), {data['signed']} votes built and signed with the native runtime; "
+        f"chain lengths after (a), (b1), (b2): {[sum(x) for x in data['lengths']]} votes in all")
+    log(f"[proposals] (a) one ingest_proposals call of {len(data['a'])} proposals: "
+        f"{a['verified']} signatures in one device batch; launches "
+        f"{json.dumps(a['launches'])}; statuses {codes_a}")
     for w, (s, votes, codes) in enumerate(zip((b1, b2), b_votes, codes_b)):
         log(f"[proposals] (b{w + 1}) deliver_proposals of {PROP_MAIN} chains adding "
-            f"{votes} votes: {s['wall']:.6f} s = {votes / s['wall']:.1f} votes/s; "
-            f"{s['verified']} signatures verified in one batch, phases "
-            f"{json.dumps(s['batches'][0])}; launches {json.dumps(s['launches'])}; "
-            f"statuses {codes}")
-    log(f"[proposals] (c) {len(data['c'])} full chains redelivered: {c['wall']:.6f} s = "
-        f"{len(data['c']) / c['wall']:.1f} deliveries/s settled, all PROPOSAL_ALREADY_EXIST, "
-        f"launches {json.dumps(c['launches'])}, signatures verified {c['verified']}")
+            f"{votes} votes: {s['verified']} signatures verified in one batch; launches "
+            f"{json.dumps(s['launches'])}; statuses {codes}")
+    log(f"[proposals] (c) {len(data['c'])} full chains redelivered: all "
+        f"PROPOSAL_ALREADY_EXIST, launches {json.dumps(c['launches'])}, signatures verified "
+        f"{c['verified']}")
     log(f"[proposals] (d) cache off: the same statuses, events, sessions and votes; "
         f"{sum(off_counts.values())} signatures verified against {sum(on_counts.values())} "
-        f"unique with the cache on (each once); walls a/b1/b2/c "
-        f"{[round(s['wall'], 6) for s in off_stages]} s against "
-        f"{[round(s['wall'], 6) for s in on_stages]}; batches of (b1) and (b2) "
+        f"unique with the cache on (each once); batches of (b1) and (b2) "
         f"{[[x['items'] for x in s['batches']] for s in off_stages[1:3]]}")
     log(f"[proposals] every device batch of (a) and (b) on both GPU engines "
         f"({len(a['batches']) + len(b1['batches']) + len(b2['batches'])} and "
         f"{sum(len(st['batches']) for st in off_stages)}) ran the MSM "
         f"and none fell back to the host blame; each kernel held against its plain version "
         f"on the inputs the path gave it (both GPU engines), at {json.dumps(held)}; the MSM kernels "
-        f"also rejecting with lane 0's last window changed; {hold_s:.3f} s")
-    log(f"[proposals] CPU engine (native batch verification): {cpu_s:.3f} s, walls "
-        f"{[round(s['wall'], 6) for s in cpu_stages]} s; identical statuses, events, "
+        f"also rejecting with lane 0's last window changed")
+    log(f"[proposals] CPU engine (native batch verification): identical statuses, events, "
         f"results, votes, scope stats and spill count; {decided} of {PROP_MAIN} main "
-        f"sessions decided")
-    log(f"[proposals] the phase took {time.perf_counter() - t_phase:.3f} s: senders and "
-        f"signing {sign_s:.3f}, warming {warm_s:.3f}, the cache-on engine {on_s:.3f}, "
-        f"the cache-off engine "
-        f"{off_s:.3f}, the CPU engine {cpu_s:.3f}, (e) {e_s:.3f}; "
-        f"launches over (a)-(c) {json.dumps(launches)}")
-    return dict(launches=launches, stages=on_stages, chains=chains)
+        f"sessions decided; launches over (a)-(c) {json.dumps(launches)}")
+    return dict(launches=launches)
 
 
 # ── Phase 9: the service layer (ConsensusService over TorchBackedStorage) ──
@@ -2772,18 +2297,11 @@ def expected_rows(storage, memory_storage):
             yield (scope, pid), name, arrays[name][slot], want[name][row]
 
 
-def percentile(values, q):
-    ordered = sorted(values)
-    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
-
-
 def phase_service(dev):
     import hashgraph_tpu_torch as ht
     from hashgraph_tpu_torch import _build, native
     from hashgraph_tpu_torch.convert import DEVICE_ARRAYS
     from hashgraph_tpu_torch.ops.decide import STATE_REACHED_YES
-
-    t_phase = time.perf_counter()
 
     # (a) The README quick-start through the port: three peers share one
     # storage on the card and one event bus.
@@ -2818,44 +2336,17 @@ def phase_service(dev):
     # (b) The backlog.
     plan = backlog_plan(91)
     keys = [ht.EthereumConsensusSigner(rng.randbytes(32)) for _ in range(SERVICE_KEYS)]
-    t = time.perf_counter()
     proposals = backlog_proposals(ht, plan, 92)
     wire = backlog_votes(ht, plan, proposals, keys, lambda jobs: native_eth_sign(
         [(keys[k].private_key_bytes(), payload) for k, payload in jobs]))
-    sign_s = time.perf_counter() - t
     signer_seed = rng.randbytes(32)
 
     def run(storage):
-        """One service over ``storage`` takes the plan; the storage's writes
-        and row reloads are timed on the host clock."""
+        """One service over ``storage`` takes the plan."""
         service = backlog_service(ht, storage, ht.EthereumConsensusSigner(signer_seed))
         events = service.event_bus().subscribe()
-        spent = {"write": 0.0, "writes": 0, "reload": 0.0, "reloads": 0}
-
-        def timed(fn, key):
-            def wrapper(*args, **kwargs):
-                t = time.perf_counter()
-                try:
-                    return fn(*args, **kwargs)
-                finally:
-                    spent[key] += time.perf_counter() - t
-                    spent[key + "s"] += 1
-            return wrapper
-
-        storage.update_session = timed(storage.update_session, "write")
-        if hasattr(storage, "_sync_slot"):
-            storage._sync_slot = timed(storage._sync_slot, "reload")
-        on_card = hasattr(storage, "pool") and storage.pool().device.type == "cuda"
-        sync = torch.cuda.synchronize if on_card else (lambda: None)
-        sync()
-        t = time.perf_counter()
-        outcomes, seconds, pids = drive_backlog(ht, service, plan, wire, 92)
-        sync()
-        wall = time.perf_counter() - t
-        del storage.update_session
-        if hasattr(storage, "_sync_slot"):
-            del storage._sync_slot
-        return dict(outcomes=outcomes, seconds=seconds, pids=pids, wall=wall, spent=spent,
+        outcomes, _, pids = drive_backlog(ht, service, plan, wire, 92)
+        return dict(outcomes=outcomes, pids=pids,
                     state=backlog_state(service, plan, pids, events))
 
     card_storage = ht.TorchBackedStorage(SERVICE_CAPACITY, SERVICE_VOTER_CAPACITY, device=dev)
@@ -2881,25 +2372,18 @@ def phase_service(dev):
             raise AssertionError(f"session {key}: the card's {name} row {got} differs from "
                                  f"the row built from the in-memory session {want}")
         rows += name == "state"
-    # A row reload's PyTorch operator calls, on one pooled session (it
-    # reloads the same row into the same slot).
-    key = next(iter(card_storage._slots))
-    reload_ops = torch_ops(lambda: card_storage._sync_slot(
-        key[0], card_storage._sessions[key[0]][key[1]]))
     wide_keys = [(plan["scopes"][plan["props"][p][0]]["name"], card["pids"][p])
                  for p, prop in enumerate(plan["props"]) if prop[1] > SERVICE_VOTER_CAPACITY]
     wide_live = [k for k in wide_keys if card_storage.get_session(*k) is not None]
     if not wide_live or any(card_storage.device_state_of(*k) is not None for k in wide_live):
         raise AssertionError(f"host-only sessions: {len(wide_live)} live, some pooled")
 
-    # The split of a call: the native eth_verify alone over the votes the
-    # services verified (all but those for evicted sessions).
+    # The native eth_verify accepts every vote the services verified (all
+    # but those for evicted sessions).
     decoded = [ht.Vote.decode(b) for b in wire]
     verified = [decoded[o[1]] for o in card["outcomes"]
                 if o[0] == "vote" and o[2] != "SessionNotFound"]
-    t = time.perf_counter()
     codes = [native.eth_verify(v.vote_owner, v.signing_payload(), v.signature) for v in verified]
-    verify_s = time.perf_counter() - t
     if set(codes) != {1}:
         raise AssertionError(f"eth_verify rejected a signed vote: {sorted(set(codes))}")
 
@@ -2907,37 +2391,14 @@ def phase_service(dev):
     for o in card["outcomes"]:
         label = o[0] if o[0] == "create" else f"{o[0]}:{o[2]}"
         kinds[label] = kinds.get(label, 0) + 1
-    n_calls = len(card["seconds"])
-    report = {}
-    for label, r in (("card", card), ("memory", memory)):
-        s = r["spent"]
-        report[label] = dict(
-            votes_per_s=n_calls / r["wall"], wall=r["wall"], reload_ops=reload_ops,
-            p50_ms=percentile(r["seconds"], 0.5) * 1e3, p99_ms=percentile(r["seconds"], 0.99) * 1e3,
-            call_us=sum(r["seconds"]) / n_calls * 1e6, verify_us=verify_s / n_calls * 1e6,
-            write_us=s["write"] / max(s["writes"], 1) * 1e6, writes=s["writes"],
-            reload_us=s["reload"] / max(s["reloads"], 1) * 1e6, reloads=s["reloads"])
-        rep = report[label]
-        rest = rep["call_us"] - rep["verify_us"] - rep["write_us"] * s["writes"] / n_calls
-        log(f"[service] (b) {label} service: {n_calls} process_incoming_vote calls in "
-            f"{r['wall']:.6f} s (with the creations and timeouts) = {rep['votes_per_s']:.1f} "
-            f"votes/s; one call p50 {rep['p50_ms']:.6f} ms, p99 {rep['p99_ms']:.6f} ms, mean "
-            f"{rep['call_us']:.3f} us = eth_verify {rep['verify_us']:.3f} us (timed alone) + "
-            f"storage write {rep['write_us']:.3f} us x {s['writes']} writes / {n_calls} calls"
-            + (f" (row reload on the card {rep['reload_us']:.3f} us x {s['reloads']} reloads, "
-               f"creations' trims included; {reload_ops} PyTorch operator calls a reload)"
-               if label == "card" else "")
-            + f" + the rest {rest:.3f} us")
     log(f"[service] (b) {SERVICE_SCOPES} scopes x {SERVICE_PROPOSALS} proposals x "
         f"{SERVICE_VOTERS} voters ({SERVICE_VOTES} votes each) + {SERVICE_WIDE} of "
         f"{SERVICE_WIDE_VOTERS} voters ({SERVICE_WIDE_VOTES} votes, host-only), "
         f"{SERVICE_KEYS} Ethereum keys: {len(wire)} votes signed by the native runtime on 8 "
-        f"threads in {sign_s:.3f} s; outcomes {json.dumps(kinds, sort_keys=True)}; "
+        f"threads; outcomes {json.dumps(kinds, sort_keys=True)}; "
         f"identical outcomes, events, stats and results on both services; {rows} pooled rows "
         f"equal to the rows built from the in-memory sessions; {len(wide_live)} host-only "
         f"sessions; hand-kernel launches {card_launches}")
-    log(f"[service] the phase took {time.perf_counter() - t_phase:.3f} s")
-    return report
 
 
 # ── Phase 10: the wire path and the write-ahead log ─────────────────
@@ -3084,20 +2545,11 @@ def config3_proposals(engine):
     return np.asarray(pids, np.int64)
 
 
-def config3_wire(engine, frames, stages=None):
-    """The waves through ``ingest_wire_columnar``: statuses and walls;
-    ``stages`` (a dict) sums the calls' crypto and apply seconds."""
-    sync = sync_of(engine.device)
-    statuses, walls = [], []
-    for w, (data, offsets, cols) in enumerate(frames):
-        sync()
-        t = time.perf_counter()
-        st = engine.ingest_wire_columnar(["config3"], np.zeros(len(cols), np.int64), cols,
-                                         data, offsets, NOW + 1 + w, stage_seconds=stages)
-        sync()
-        walls.append(time.perf_counter() - t)
-        statuses.append(st.tolist())
-    return statuses, walls
+def config3_wire(engine, frames):
+    """The waves through ``ingest_wire_columnar``: each call's statuses."""
+    return [engine.ingest_wire_columnar(["config3"], np.zeros(len(cols), np.int64), cols,
+                                        data, offsets, NOW + 1 + w).tolist()
+            for w, (data, offsets, cols) in enumerate(frames)]
 
 
 def sync_of(dev):
@@ -3125,9 +2577,9 @@ def wal_child(root, dev, sizes):
     frames = [parse_frame(w[0]) for w in wire_waves(pids, 102)]
     sync_of(dev)()
     _build.launches.clear()
-    statuses, walls = config3_wire(durable, frames)
+    statuses = config3_wire(durable, frames)
     (root / "child.json").write_text(json.dumps(dict(
-        statuses=statuses, walls=walls, launches=dict(_build.launches),
+        statuses=statuses, launches=dict(_build.launches),
         stats={k: v for k, v in tracer.counters().items() if k.startswith("wal.")})))
     os._exit(CHILD_EXIT)
 
@@ -3136,15 +2588,12 @@ def wal_snapshot(engine):
     """``save_to_storage`` into an InMemoryConsensusStorage, as comparable
     data: per scope its config and, per proposal id, the session's state
     (active, reached, result) and the rest (proposal bytes, signed votes,
-    tallies, created_at and config); with the seconds the save took and
-    the storage."""
+    tallies, created_at and config)."""
     from hashgraph_tpu_torch import InMemoryConsensusStorage
     from hashgraph_tpu_torch.wal import format as F
 
     storage = InMemoryConsensusStorage()
-    t = time.perf_counter()
     engine.save_to_storage(storage)
-    save_s = time.perf_counter() - t
     out = {}
     for scope in storage.list_scopes() or []:
         config = storage.get_scope_config(scope)
@@ -3157,7 +2606,7 @@ def wal_snapshot(engine):
                  tuple(sorted(s.tallies.items())), s.created_at,
                  F.encode_consensus_config(s.config)))
              for s in storage.list_scope_sessions(scope) or []})
-    return out, save_s, storage
+    return out
 
 
 def pooled_rows(engine):
@@ -3216,8 +2665,8 @@ def compare_recovered(label, recovered, live, lost, rows=True):
     likewise. Returns (sessions, rows) compared."""
     from hashgraph_tpu_torch.wal import format as F
 
-    rec, _, _ = wal_snapshot(recovered)
-    ref, _, _ = wal_snapshot(live)
+    rec = wal_snapshot(recovered)
+    ref = wal_snapshot(live)
     if rec.keys() != ref.keys():
         raise AssertionError(f"{label}: the scopes differ")
     lost_by_scope = {}
@@ -3255,43 +2704,36 @@ def segment_files(path):
 
 def wal_recover(dev, path, storage=None):
     """A fresh GPU engine recovered from the log at ``path`` (and
-    ``storage``); the replay's stats and seconds. The durable wrapper
-    stays open: the caller closes it."""
+    ``storage``), and the replay's stats. The durable wrapper stays open:
+    the caller closes it."""
     from hashgraph_tpu_torch.wal import DurableEngine
 
     durable = DurableEngine(wal_engine(dev), path, fsync_policy="batch")
-    sync_of(dev)()
-    t = time.perf_counter()
-    stats = durable.recover(storage)
-    sync_of(dev)()
-    return durable, stats, time.perf_counter() - t
+    return durable, durable.recover(storage)
 
 
 def phase_wal_config3(dev, root):
     """(a): config 3 over wire bytes with a real crash, against a CPU
     engine; the same waves on a bare GPU engine and on durable ones at
-    ``fsync_policy="batch"`` and ``"always"`` for the WAL's cost. The
-    parent times nothing while the crashing child runs."""
+    ``fsync_policy="batch"`` and ``"always"``."""
     import subprocess
 
-    from hashgraph_tpu_torch import _build
+    from hashgraph_tpu_torch import InMemoryConsensusStorage, _build
+    from hashgraph_tpu_torch.bridge.columnar import COL_PID
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.wal import DurableEngine
     from hashgraph_tpu_torch.wal.segment import list_segments
 
-    t_phase = time.perf_counter()
     child = subprocess.Popen(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(Path(__file__).resolve().parent)!r}); "
          f"import chip_smoke; chip_smoke.wal_child({str(root)!r}, {str(dev)!r}, "
          f"{ {name: globals()[name] for name in WAL_SIZES}!r})"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        t = time.perf_counter()
         cpu = DurableEngine(wal_engine("cpu"), root / "cpu", fsync_policy="batch")
         pids = config3_proposals(cpu)
         frames = config3_frames(pids)
-        build_s = time.perf_counter() - t
         out, err = child.communicate(timeout=300)
     finally:
         if child.poll() is None:
@@ -3300,19 +2742,15 @@ def phase_wal_config3(dev, root):
     if child.returncode != CHILD_EXIT:
         raise AssertionError(f"the crashing child exited {child.returncode}: {err[-3000:]}")
     n_votes = sum(len(f[2]) for f in frames)
-    cpu_st, cpu_walls = config3_wire(cpu, frames)
+    cpu_st = config3_wire(cpu, frames)
     bare = wal_engine(dev)
     config3_proposals(bare)
-    stages = {}
-    with Timer() as timer:
-        bare_st, bare_walls = config3_wire(bare, frames, stages)
-        device_ms = timer.ms("scan") + timer.ms("fresh")
+    bare_st = config3_wire(bare, frames)
     del bare
-    durable_walls = {}
     for policy in ("batch", "always"):
         durable = DurableEngine(wal_engine(dev), root / policy, fsync_policy=policy)
         config3_proposals(durable)
-        st, durable_walls[policy] = config3_wire(durable, frames)
+        st = config3_wire(durable, frames)
         durable.close()
         compare(f"(a) statuses, durable GPU engine ({policy})", st, cpu_st)
         del durable
@@ -3331,16 +2769,13 @@ def phase_wal_config3(dev, root):
 
     # Recovery of the crashed node into a fresh GPU engine.
     _build.launches.clear()
-    rec, stats, replay_s = wal_recover(dev, root / "crashed")
+    rec, stats = wal_recover(dev, root / "crashed")
     replay_launches = dict(_build.launches)
     if stats.errors or stats.torn:
         raise AssertionError(f"(a) recovery: {stats}")
     require_launches("(a) the replay", replay_launches, [cuda_ingest.KERNEL])
-    from hashgraph_tpu_torch.bridge.columnar import COL_PID
-
     lost = round_cap_failures([(f[2][:, COL_PID], None) for f in frames], cpu_st, "config3")
     n_sessions, n_rows = compare_recovered("(a) recovered", rec.engine, cpu.engine, lost)
-    _, cpu_save_s, _ = wal_snapshot(cpu.engine)
     # A recovered vote of a session still active on both engines, again.
     data, offsets, cols = frames[0]
     active = {p.proposal_id for p in cpu.engine.get_active_proposals("config3")}
@@ -3352,68 +2787,39 @@ def phase_wal_config3(dev, root):
     if again != [[int(StatusCode.DUPLICATE_VOTE)]] * 2:
         raise AssertionError(f"(a) a recovered vote re-ingested gave {again}")
     wal_bytes = sum(len(b) for b in segment_files(root / "crashed").values())
-    t = time.perf_counter()
-    from hashgraph_tpu_torch import InMemoryConsensusStorage
-
     storage = InMemoryConsensusStorage()
     rec.checkpoint(storage)
-    sync_of(dev)()
-    ckpt_s = time.perf_counter() - t
     if len(list_segments(str(root / "crashed"))) != 1:
         raise AssertionError("(a) the checkpoint left more than one segment")
     rec.close()
     loaded = wal_engine(dev)
-    t = time.perf_counter()
     loaded.load_from_storage(storage)
-    sync_of(dev)()
-    load_s = time.perf_counter() - t
     compare_recovered("(a) loaded", loaded, rec.engine, set())
     del loaded
 
-    gpu_rate = n_votes / sum(bare_walls)
-    log(f"[wal] (a) the GPU engine's wire calls: crypto {stages['crypto']:.6f} s (vote hashes, "
-        f"the stub signatures, their byte slices), apply {stages['apply']:.6f} s (replay and "
-        f"expiry, the dangling guard, interning, the columnar apply, retention, chain "
-        f"tracking) of {sum(bare_walls):.6f} s; the scan and fresh dispatches' device time "
-        f"{device_ms:.6f} ms = {device_ms / (1e3 * sum(bare_walls)):.6f} of the wall")
     log(f"[wal] (a) config 3 over wire bytes: {WAL_PROPOSALS} proposals x {WAL_VOTERS} voters, "
-        f"{n_votes} stub-signed votes in {len(frames)} ingest_wire_columnar calls "
-        f"(built and parsed natively in {build_s:.3f} s, outside the timed calls); statuses "
-        f"{codes}")
-    log(f"[wal] (a) wire votes/s: GPU engine {gpu_rate:.1f} (walls "
-        f"{[round(x, 6) for x in bare_walls]} s); CPU engine under the WAL at batch "
-        f"{n_votes / sum(cpu_walls):.1f}; durable over bare on the GPU: batch "
-        f"{sum(durable_walls['batch']) / sum(bare_walls):.6f}, always "
-        f"{sum(durable_walls['always']) / sum(bare_walls):.6f} (walls "
-        f"{[round(x, 6) for x in durable_walls['always']]} s); the crashed child at always, "
-        f"run alone: walls {[round(x, 6) for x in crashed['walls']]} s, launches "
-        f"{json.dumps(crashed['launches'])}")
+        f"{n_votes} stub-signed votes in {len(frames)} ingest_wire_columnar calls, built and "
+        f"parsed natively; statuses {codes}, equal on the bare GPU engine, the durable ones "
+        f"at batch and always and the crashed child at always (launches "
+        f"{json.dumps(crashed['launches'])})")
     log(f"[wal] (a) the child died with exit {child.returncode} after its last acknowledged "
         f"call; its log ({wal_bytes} B in {len(segment_files(root / 'cpu'))} segment(s), "
         f"writer stats {json.dumps(crashed['stats'])}) equals the CPU engine's byte for byte; "
         f"recovery into a fresh GPU engine replayed {stats.records_applied} records, "
-        f"{stats.votes_replayed} votes in {replay_s:.6f} s = {stats.votes_replayed / replay_s:.1f} "
-        f"votes/s, launches {json.dumps(replay_launches)}; {n_sessions} sessions and {n_rows} "
-        f"pooled rows equal to the CPU engine's but for the state of the {len(lost)} "
-        f"sessions failed live by a MAX_ROUNDS_EXCEEDED row, which the log does not hold "
-        f"(active after recovery, as in the JAX package); a recovered vote re-ingested: "
-        f"DUPLICATE_VOTE; "
-        f"checkpoint {ckpt_s:.6f} s (one segment left); load_from_storage into a fresh GPU "
-        f"engine {load_s:.6f} s, same snapshot and rows; the CPU engine's save "
-        f"{cpu_save_s:.6f} s; the step took {time.perf_counter() - t_phase:.3f} s")
-    return dict(launches=crashed["launches"], replay_launches=replay_launches,
-                gpu_rate=gpu_rate, cpu_rate=n_votes / sum(cpu_walls),
-                batch_ratio=sum(durable_walls["batch"]) / sum(bare_walls),
-                always_ratio=sum(durable_walls["always"]) / sum(bare_walls),
-                replay_rate=stats.votes_replayed / replay_s, ckpt_s=ckpt_s,
-                wal_bytes=wal_bytes)
+        f"{stats.votes_replayed} votes, launches {json.dumps(replay_launches)}; {n_sessions} "
+        f"sessions and {n_rows} pooled rows equal to the CPU engine's but for the state of "
+        f"the {len(lost)} sessions failed live by a MAX_ROUNDS_EXCEEDED row, which the log "
+        f"does not hold (active after recovery, as in the JAX package); a recovered vote "
+        f"re-ingested: DUPLICATE_VOTE; checkpoint left one segment; load_from_storage into a "
+        f"fresh GPU engine: same snapshot and rows")
+    return dict(launches=crashed["launches"], replay_launches=replay_launches)
 
 
 def multi_traffic(engine):
     """(b)'s calls on ``engine`` (durable): create_proposals_multi over
     MULTI_SCOPES scopes, two waves of ingest_columnar_multi with the rows'
     bytes, two scopes deleted, a sweep, a checkpoint, two more waves.
-    Returns statuses, walls and the checkpoint's storage."""
+    Returns statuses and the checkpoint's storage."""
     from hashgraph_tpu_torch import InMemoryConsensusStorage
 
     scopes = [f"m{i}" for i in range(MULTI_SCOPES)]
@@ -3427,31 +2833,22 @@ def multi_traffic(engine):
     scope_of = np.repeat(np.arange(MULTI_SCOPES), MULTI_PROPOSALS)
     waves = wire_waves(pids, 104, scope_of)
     gids = np.asarray([engine.voter_gid(b"voter-%d" % i) for i in range(WAL_VOTERS)])
-    sync = sync_of(engine.device)
-    log_, walls = [], []
+    log_ = []
     storage = InMemoryConsensusStorage()
     tail = []  # (pids, scope index) of the waves after the checkpoint
     for w, (rows, sidx, row_pid, owner, values) in enumerate(waves[:WAL_WAVES]):
         if w == 2:
             engine.delete_scopes(scopes[-MULTI_DELETED:])
             log_.append(sorted((s, p, r) for s, p, r in engine.sweep_timeouts(NOW + 40)))
-            sync()
-            t = time.perf_counter()
             engine.checkpoint(storage)
-            sync()
-            walls.append(("checkpoint", time.perf_counter() - t))
         offsets = np.zeros(len(rows) + 1, np.int64)
         np.cumsum([len(r) for r in rows], out=offsets[1:])
-        sync()
-        t = time.perf_counter()
         st = engine.ingest_columnar_multi(scopes, sidx, row_pid, gids[owner], values,
                                           NOW + 1 + w, wire_votes=(b"".join(rows), offsets))
-        sync()
-        walls.append(("wave", time.perf_counter() - t))
         log_.append(st.tolist())
         if w >= 2:
             tail.append(((row_pid, sidx), st.tolist()))
-    return log_, walls, storage, sum(len(w[0]) for w in waves[:WAL_WAVES]), (scopes, tail)
+    return log_, storage, sum(len(w[0]) for w in waves[:WAL_WAVES]), (scopes, tail)
 
 
 def phase_wal_multi(dev, root):
@@ -3462,38 +2859,32 @@ def phase_wal_multi(dev, root):
     from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.wal import DurableEngine
 
-    t_phase = time.perf_counter()
     cpu = DurableEngine(wal_engine("cpu"), root / "multi-cpu", fsync_policy="batch")
-    cpu_log, cpu_walls, _, n_votes, (scopes, tail) = multi_traffic(cpu)
+    cpu_log, _, n_votes, (scopes, tail) = multi_traffic(cpu)
     cpu.close()
     gpu = DurableEngine(wal_engine(dev), root / "multi-gpu", fsync_policy="batch")
     _build.launches.clear()
-    gpu_log, gpu_walls, storage, _, _ = multi_traffic(gpu)
+    gpu_log, storage, _, _ = multi_traffic(gpu)
     launches = dict(_build.launches)
     gpu.abandon()
     compare("(b) statuses and sweep", gpu_log, cpu_log)
     if segment_files(root / "multi-gpu") != segment_files(root / "multi-cpu"):
         raise AssertionError("(b) the GPU engine's log differs from the CPU engine's")
     require_launches("(b)", launches, [cuda_ingest.KERNEL])
-    rec, stats, replay_s = wal_recover(dev, root / "multi-gpu", storage)
+    rec, stats = wal_recover(dev, root / "multi-gpu", storage)
     rec.close()
     lost = round_cap_failures([f for f, _ in tail], [st for _, st in tail], scopes=scopes)
     n_sessions, n_rows = compare_recovered("(b) recovered", rec.engine, cpu.engine, lost)
     flat = np.concatenate([np.asarray(s) for s in gpu_log if s and isinstance(s[0], int)])
     codes = {StatusCode(c).name: int((flat == c).sum()) for c in np.unique(flat)}
-    wave_s = sum(s for kind, s in gpu_walls if kind == "wave")
     log(f"[wal] (b) {MULTI_SCOPES} scopes x {MULTI_PROPOSALS} proposals x {WAL_VOTERS} voters "
         f"through create_proposals_multi and {WAL_WAVES} ingest_columnar_multi calls with "
-        f"wire_votes ({n_votes} votes, {n_votes / wave_s:.1f} votes/s on the GPU engine under "
-        f"the WAL at batch, {n_votes / sum(s for k, s in cpu_walls if k == 'wave'):.1f} on the "
-        f"CPU engine); {MULTI_DELETED} scopes deleted, a sweep deciding "
-        f"{len(gpu_log[2])} sessions, one checkpoint "
-        f"({[round(s, 6) for k, s in gpu_walls if k == 'checkpoint'][0]} s); statuses {codes}; "
+        f"wire_votes ({n_votes} votes) under the WAL at batch; {MULTI_DELETED} scopes deleted, "
+        f"a sweep deciding {len(gpu_log[2])} sessions, one checkpoint; statuses {codes}; "
         f"launches {json.dumps(launches)}; logs byte-identical; recovered from the "
-        f"checkpoint and {stats.records_applied} records in {replay_s:.6f} s to the CPU "
-        f"engine's {n_sessions} sessions and {n_rows} pooled rows but for the state of the "
-        f"{len(lost)} sessions failed by MAX_ROUNDS_EXCEEDED after the checkpoint; "
-        f"{time.perf_counter() - t_phase:.3f} s")
+        f"checkpoint and {stats.records_applied} records to the CPU engine's {n_sessions} "
+        f"sessions and {n_rows} pooled rows but for the state of the {len(lost)} sessions "
+        f"failed by MAX_ROUNDS_EXCEEDED after the checkpoint")
     return dict(launches=launches)
 
 
@@ -3523,26 +2914,21 @@ def phase_wal_verify(dev):
 
     def ingest(run, frame, now):
         data, offsets, cols = frame
-        sync = sync_of(run.engine.device)
-        sync()
-        t = time.perf_counter()
-        st = run.engine.ingest_wire_columnar([scope], np.zeros(len(cols), np.int64), cols,
-                                             data, offsets, now)
-        sync()
-        return st.tolist(), time.perf_counter() - t
+        return run.engine.ingest_wire_columnar([scope], np.zeros(len(cols), np.int64), cols,
+                                               data, offsets, now).tolist()
 
     captured = KernelInputs()
     _build.launches.clear()
     with captured.active():
-        st_main, wall_main = ingest(gpu, main_frame, NOW + 2)
+        st_main = ingest(gpu, main_frame, NOW + 2)
     main_launches = dict(_build.launches)
     main_batches = list(signer_cls.batches)
     _build.launches.clear()
-    st_blame, wall_blame = ingest(gpu, blame_frame, NOW + 3)
+    st_blame = ingest(gpu, blame_frame, NOW + 3)
     blame_launches = dict(_build.launches)
     blame_batches = signer_cls.batches[len(main_batches):]
-    cpu_main, cpu_wall = ingest(cpu, main_frame, NOW + 2)
-    cpu_blame, _ = ingest(cpu, blame_frame, NOW + 3)
+    cpu_main = ingest(cpu, main_frame, NOW + 2)
+    cpu_blame = ingest(cpu, blame_frame, NOW + 3)
     compare("(c) statuses", [st_main, st_blame], [cpu_main, cpu_blame])
     compare("(c) results", gpu.outcome(scope), cpu.outcome(scope))
     compare("(c) events", gpu.events_by_session(), cpu.events_by_session())
@@ -3562,19 +2948,15 @@ def phase_wal_verify(dev):
     blame_codes = {StatusCode(c).name: st_blame.count(c) for c in sorted(set(st_blame))}
     if set(codes) - {"OK", "ALREADY_REACHED"} or blame_codes.get("INVALID_VOTE_SIGNATURE") != 4:
         raise AssertionError(f"(c) statuses {codes}, damaged frame {blame_codes}")
-    t = time.perf_counter()
     held = hold_captured(captured)
     if set(held) != set(VERIFY_KERNELS):
         raise AssertionError(f"(c) kernel inputs captured on the path: {held}")
     log(f"[wal] (c) {len(main_frame[2])} Ed25519-signed wire rows in one ingest_wire_columnar "
-        f"call on the GPU engine: {wall_main:.6f} s = {len(main_frame[2]) / wall_main:.1f} "
-        f"votes/s, one device batch (phases {json.dumps(main_batches[0])}), launches "
-        f"{json.dumps(main_launches)}, statuses {codes}; the CPU engine (native batch) "
-        f"{cpu_wall:.6f} s; the damaged frame: {wall_blame:.6f} s, launches "
-        f"{json.dumps(blame_launches)}, statuses {blame_codes}, host blame after the MSM "
-        f"rejected its batch; identical statuses, results and events; each kernel held "
-        f"against its plain version on the frame's inputs at {json.dumps(held)} in "
-        f"{time.perf_counter() - t:.3f} s")
+        f"call on the GPU engine: one device batch, launches {json.dumps(main_launches)}, "
+        f"statuses {codes}; the damaged frame: launches {json.dumps(blame_launches)}, "
+        f"statuses {blame_codes}, host blame after the MSM rejected its batch; statuses, "
+        f"results and events identical to the CPU engine's (native batch); each kernel held "
+        f"against its plain version on the frame's inputs at {json.dumps(held)}")
     return dict(launches=main_launches, launches_blame=blame_launches)
 
 
@@ -3582,7 +2964,6 @@ def phase_wal(dev):
     """Phase 10: (a), (b) and (c), their logs under WAL_DIR (removed after)."""
     import shutil
 
-    t = time.perf_counter()
     shutil.rmtree(WAL_DIR, ignore_errors=True)
     WAL_DIR.mkdir()
     try:
@@ -3591,7 +2972,6 @@ def phase_wal(dev):
     finally:
         shutil.rmtree(WAL_DIR, ignore_errors=True)
     c = phase_wal_verify(dev)
-    log(f"[wal] phase 10 took {time.perf_counter() - t:.3f} s on {nvidia_smi()}")
     return dict(a=a, b=b, c=c)
 
 
@@ -3740,78 +3120,31 @@ def tier_view(run):
             keys, *tier_fingerprints(engine)]
 
 
-class TierClock:
-    """Wall seconds and calls of the tier's stages on one engine, by
-    wrapping the engine's and its pool's methods on the instance: the
-    demotion (``_demote_records``), its gather (``read_slots`` and
-    ``states_of``), the shared teardown and the promotion (``_promote_key``)."""
-
-    def __init__(self, engine):
-        self.seconds, self.calls = {}, {}
-        pool = engine.pool()
-        for owner, name, label in ((engine, "_demote_records", "demote"),
-                                   (pool, "read_slots", "gather"),
-                                   (pool, "states_of", "gather"),
-                                   (engine, "_drop_live_slots", "teardown"),
-                                   (engine, "_promote_key", "promote")):
-            setattr(owner, name, self._timed(getattr(owner, name), label))
-
-    def _timed(self, fn, label):
-        def timed(*args, **kwargs):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t
-                self.calls[label] = self.calls.get(label, 0) + 1
-        return timed
-
-    def take(self):
-        out = (dict(self.seconds), dict(self.calls))
-        self.seconds.clear()
-        self.calls.clear()
-        return out
-
-
 def tier_steps(run, plan, until=None):
     """Phase 11's steps on one engine (bare or durable). Yields (label,
-    answer, wall seconds) after each step, before the next starts, so the
-    caller can read the engine between steps; stops after the step
-    ``until``."""
+    answer) after each step, before the next starts, so the caller can read
+    the engine between steps; stops after the step ``until``."""
     engine = run.engine
-    sync = sync_of(engine.pool().device)
     pids = plan.pids
-
-    def timed(fn, *args, **kwargs):
-        sync()
-        t = time.perf_counter()
-        out = fn(*args, **kwargs)
-        sync()
-        return out, time.perf_counter() - t
-
     gids = plan.gids(engine)
-    answers, walls = [], []
+    answers = []
     for w, call in enumerate(plan.calls):
         for p, v, val, wire in call:
             if len(p) == 0:
                 continue
-            st, wall = timed(engine.ingest_columnar, TIER_SCOPE, pids[p], gids[v], val,
-                             NOW + 1 + w, wire_votes=wire)
-            answers.append(st.tolist())
-            walls.append(wall)
-    yield "waves", answers, sum(walls)
+            answers.append(engine.ingest_columnar(TIER_SCOPE, pids[p], gids[v], val,
+                                                  NOW + 1 + w, wire_votes=wire).tolist())
+    yield "waves", answers
     # Pinned, the scope is left alone; unpinned, the sweep demotes.
     engine.pin_scope(TIER_SCOPE)
     pinned = engine.lifecycle_sweep(NOW + 120)
     engine.unpin_scope(TIER_SCOPE)
-    yield "pinned", pinned, 0.0
-    swept, wall = timed(engine.sweep_timeouts, NOW + 120)
-    yield "sweep 120", sorted(swept), wall
+    yield "pinned", pinned
+    yield "sweep 120", sorted(engine.sweep_timeouts(NOW + 120))
     p, v, val = plan.late
-    st, wall = timed(engine.ingest_columnar, TIER_SCOPE, pids[p], plan.gids(engine)[v], val,
-                     NOW + 130, wire_votes=plan.late_wire)
-    yield "late votes 130", st.tolist(), wall
-    t = time.perf_counter()
+    yield "late votes 130", engine.ingest_columnar(
+        TIER_SCOPE, pids[p], plan.gids(engine)[v], val, NOW + 130,
+        wire_votes=plan.late_wire).tolist()
     reads = []
     for i in plan.reads.tolist():
         reads.append(engine.get_proposal(TIER_SCOPE, int(pids[i])).encode())
@@ -3819,13 +3152,11 @@ def tier_steps(run, plan, until=None):
             reads.append(engine.get_consensus_result(TIER_SCOPE, int(pids[i])))
         except Exception as exc:  # the exception type is the answer compared
             reads.append(type(exc).__name__)
-    yield "reads", reads, time.perf_counter() - t
+    yield "reads", reads
     if until == "reads":
         return
-    swept, wall = timed(engine.sweep_timeouts, NOW + 400)
-    yield "sweep 400", sorted(swept), wall
-    swept, wall = timed(engine.sweep_timeouts, NOW + 1000)
-    yield "sweep 1000", sorted(swept), wall
+    yield "sweep 400", sorted(engine.sweep_timeouts(NOW + 400))
+    yield "sweep 1000", sorted(engine.sweep_timeouts(NOW + 1000))
 
 
 def phase_tier_compare(dev):
@@ -3834,17 +3165,14 @@ def phase_tier_compare(dev):
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.errors import StatusCode
     from hashgraph_tpu_torch.ops import cuda_ingest
+    from hashgraph_tpu_torch.sync import state_fingerprint
 
-    t_phase = time.perf_counter()
     runs = {"tiered": tier_engine(dev, True), "twin": tier_engine(dev, False),
             "cpu": tier_engine("cpu", True)}
     pids = {name: tier_create(run, TIER_PROPOSALS) for name, run in runs.items()}
     if not pids["tiered"] == pids["twin"] == pids["cpu"]:
         raise AssertionError("(a) the engines minted different proposal ids")
-    t = time.perf_counter()
     plan = TierPlan(pids["tiered"], 122)
-    build_s = time.perf_counter() - t
-    clock = TierClock(runs["tiered"].engine)
     steps = {name: tier_steps(run, plan) for name, run in runs.items()}
     report = {}
     while True:
@@ -3855,12 +3183,10 @@ def phase_tier_compare(dev):
             out[name] = next(gen, None)
             if name == "tiered":
                 launches = dict(_build.launches)
-                stages, stage_calls = clock.take()
         if out["tiered"] is None:
             break
-        label, answer, wall = out["tiered"]
+        label, answer = out["tiered"]
         views = {name: tier_view(run) for name, run in runs.items()}
-        clock.take()  # the views' own gathers are no step's
         for name in ("twin", "cpu"):
             compare(f"(a) {label}: answers, {name}", out[name][1], answer)
             # The twin's scope config differs: its sessions' digest only.
@@ -3869,9 +3195,7 @@ def phase_tier_compare(dev):
                     views[name][:held] + views[name][4:], views["tiered"][:held]
                     + views["tiered"][4:])
         occ = runs["tiered"].engine.occupancy()
-        report[label] = dict(answer=answer, wall=wall, twin_wall=out["twin"][2], occ=occ,
-                             launches=launches, stages=stages, stage_calls=stage_calls,
-                             stats=views["tiered"][1])
+        report[label] = dict(answer=answer, occ=occ, launches=launches, stats=views["tiered"][1])
         if label == "pinned" and (answer != {"demoted": 0, "gc_live": 0, "gc_tier": 0}
                                   or occ["tier_sessions"] != 0):
             raise AssertionError(f"(a) a pinned scope was swept: {answer}, {occ}")
@@ -3879,8 +3203,6 @@ def phase_tier_compare(dev):
                                          and occ["live_sessions"] == 0
                                          and occ["device_slots_used"] == 0):
             raise AssertionError(f"(a) the sweep at NOW + 120 left {occ}")
-    from hashgraph_tpu_torch.sync import state_fingerprint
-
     if state_fingerprint(runs["tiered"].engine) != tier_fingerprints(runs["tiered"].engine)[0]:
         raise AssertionError("(a) tier_fingerprints disagrees with state_fingerprint")
     del runs, steps
@@ -3894,43 +3216,22 @@ def phase_tier_compare(dev):
     if final["tier_gc_total"] == 0 or report["sweep 400"]["occ"]["tier_promotions_total"] <= (
             late["occ"]["tier_promotions_total"]):
         raise AssertionError(f"(a) the sweeps neither promoted nor collected: {final}")
-    n_rows = len(plan.late[0])
-    gather = demote["stages"].get("gather", 0.0)
-    teardown = demote["stages"].get("teardown", 0.0)
-    encode = demote["stages"]["demote"] - gather - teardown
-    n_promoted = late["stage_calls"].get("promote", 0)
-    promote_s = late["stages"].get("promote", 0.0)
     tier_bytes = demote["occ"]["tier_bytes"]
     log(f"[tier] (a) {TIER_PROPOSALS} proposals x {TIER_VOTERS} voters (half gossipsub, half "
         f"P2P; {int(plan.wire.sum())} retaining their rows' bytes), demote_after "
-        f"{TIER_DEMOTE:g} s, evict_decided_after {TIER_EVICT:g} s; the traffic built in "
-        f"{build_s:.3f} s; every step equal on the tiered GPU engine, the untiered GPU twin "
-        f"and the tiered CPU engine (answers, events per session, stats, session keys, "
-        f"state_fingerprint); pin_scope held the sweep, unpin_scope released it")
-    log(f"[tier] (a) the sweep at NOW + 120 demoted {TIER_PROPOSALS} sessions in "
-        f"{demote['wall']:.6f} s = {TIER_PROPOSALS / demote['wall']:.1f} demotions/s (the "
-        f"twin's sweep {demote['twin_wall']:.6f} s): lifecycle {demote['stages']['demote']:.6f} "
-        f"s = gather {gather:.6f} s ({demote['stage_calls'].get('gather', 0)} calls) + encode "
-        f"{encode:.6f} s + teardown {teardown:.6f} s; tier_bytes {tier_bytes} = "
-        f"{tier_bytes / TIER_PROPOSALS:.1f} B a session")
-    log(f"[tier] (a) the late call at NOW + 130: {n_rows} rows, statuses {codes}; {n_promoted} "
-        f"promotions in {promote_s:.6f} s = {n_promoted / promote_s:.1f} promotions/s "
-        f"({late['occ']['device_slots_used']} sessions back in pool slots, "
-        f"{late['occ']['host_spilled']} on the host); the call {late['wall']:.6f} s = "
-        f"{n_rows / late['wall']:.1f} votes/s against the twin's {late['twin_wall']:.6f} s = "
-        f"{n_rows / late['twin_wall']:.1f}; launches {json.dumps(late['launches'])}")
-    log(f"[tier] (a) reads of 100 demoted sessions {report['reads']['wall']:.6f} s; sweeps: "
-        f"NOW + 400 {report['sweep 400']['wall']:.6f} s (twin "
-        f"{report['sweep 400']['twin_wall']:.6f} s; occupancy "
-        f"{json.dumps(report['sweep 400']['occ'])}), NOW + 1000 "
-        f"{report['sweep 1000']['wall']:.6f} s (twin {report['sweep 1000']['twin_wall']:.6f} "
-        f"s; occupancy {json.dumps(final)}); stats after each step "
-        f"{[(k, report[k]['stats']) for k in report]}; the step took "
-        f"{time.perf_counter() - t_phase:.3f} s")
-    return dict(launches=late["launches"], demotions_per_s=TIER_PROPOSALS / demote["wall"],
-                promotions_per_s=n_promoted / promote_s,
-                bytes_per_session=tier_bytes / TIER_PROPOSALS,
-                late_rate=n_rows / late["wall"], twin_rate=n_rows / late["twin_wall"])
+        f"{TIER_DEMOTE:g} s, evict_decided_after {TIER_EVICT:g} s; every step equal on the "
+        f"tiered GPU engine, the untiered GPU twin and the tiered CPU engine (answers, events "
+        f"per session, stats, session keys, state_fingerprint); pin_scope held the sweep, "
+        f"unpin_scope released it")
+    log(f"[tier] (a) the sweep at NOW + 120 demoted {TIER_PROPOSALS} sessions: tier_bytes "
+        f"{tier_bytes} = {tier_bytes / TIER_PROPOSALS:.1f} B a session")
+    log(f"[tier] (a) the late call at NOW + 130: {len(plan.late[0])} rows, statuses {codes}; "
+        f"{late['occ']['device_slots_used']} sessions back in pool slots, "
+        f"{late['occ']['host_spilled']} on the host; launches {json.dumps(late['launches'])}")
+    log(f"[tier] (a) occupancy after the sweep at NOW + 400 "
+        f"{json.dumps(report['sweep 400']['occ'])}, after NOW + 1000 {json.dumps(final)}; "
+        f"stats after each step {[(k, report[k]['stats']) for k in report]}")
+    return dict(launches=late["launches"])
 
 
 def phase_tier_durable(dev, root):
@@ -3947,13 +3248,12 @@ def phase_tier_durable(dev, root):
     from hashgraph_tpu_torch.wal import format as F
     from hashgraph_tpu_torch.wal import scan
 
-    t_phase = time.perf_counter()
     path = root / "tier"
     live = tier_engine(dev, True, path)
     plan = TierPlan(tier_create(live, TIER_DURABLE_PROPOSALS), 123, all_wire=True)
     calls = [part for call in plan.calls for part in call if len(part[0])] + [plan.late]
     answers = []
-    for label, answer, _ in tier_steps(live, plan, until="reads"):
+    for label, answer in tier_steps(live, plan, until="reads"):
         if label in ("waves", "late votes 130"):
             answers += answer if label == "waves" else [answer]
     late_st = answers[-1]
@@ -3964,7 +3264,7 @@ def phase_tier_durable(dev, root):
     live_fp = tier_fingerprints(live.engine.engine, skip=lost)
     live.engine.abandon()
     _build.launches.clear()
-    rec, stats1, replay1 = wal_recover(dev, path)
+    rec, stats1 = wal_recover(dev, path)
     launches = dict(_build.launches)
     compare_recovered("(b) the first recovery", rec.engine, live.engine.engine, lost,
                       rows=False)
@@ -3991,30 +3291,29 @@ def phase_tier_durable(dev, root):
     live_fp = state_fingerprint(rec)
     n_live = len(rec.session_keys())
     rec.abandon()
-    rec2, stats2, replay2 = wal_recover(dev, path)
+    rec2, stats2 = wal_recover(dev, path)
     if stats2.errors or state_fingerprint(rec2) != live_fp:
         raise AssertionError(f"(b) the second recovery differs from the live engine: {stats2}")
     compare_recovered("(b) the second recovery", rec2.engine, rec.engine, set(), rows=False)
     rec2.close()
     log(f"[tier] (b) {TIER_DURABLE_PROPOSALS} proposals, the same traffic under DurableEngine "
         f"at batch, every row with its bytes (a durable engine logs columnar rows so); "
-        f"abandoned after the reads and recovered on the card in {replay1:.6f} s "
+        f"abandoned after the reads and recovered on the card "
         f"({stats1.records_applied} records, launches {json.dumps(launches)}) to the live "
         f"engine's sessions and its state_fingerprint over every session "
         f"but the {len(lost)} a MAX_ROUNDS_EXCEEDED row failed live (active after recovery, "
         f"as in the JAX package); two recovered late votes re-ingested: DUPLICATE_VOTE; then "
         f"sweep_timeouts at NOW + 400 and lifecycle_sweep at NOW + 700 ({swept}), abandoned "
         f"again and recovered from the whole log ({stats2.records_applied} records, kinds "
-        f"{sorted(set(F.KIND_NAMES[k] for k in kinds))}) in {replay2:.6f} s to the live "
-        f"state_fingerprint ({n_live} sessions left); {time.perf_counter() - t_phase:.3f} s")
-    return dict(recover_s=[replay1, replay2], launches=launches)
+        f"{sorted(set(F.KIND_NAMES[k] for k in kinds))}) to the live "
+        f"state_fingerprint ({n_live} sessions left)")
+    return dict(launches=launches)
 
 
 def phase_tier(dev):
     """Phase 11: (a) and (b), (b)'s log under TIER_DIR (removed after)."""
     import shutil
 
-    t = time.perf_counter()
     a = phase_tier_compare(dev)
     shutil.rmtree(TIER_DIR, ignore_errors=True)
     TIER_DIR.mkdir()
@@ -4022,14 +3321,12 @@ def phase_tier(dev):
         b = phase_tier_durable(dev, TIER_DIR)
     finally:
         shutil.rmtree(TIER_DIR, ignore_errors=True)
-    log(f"[tier] phase 11 took {time.perf_counter() - t:.3f} s on {nvidia_smi()}")
     return dict(a=a, b=b)
 
 
 # ── Phase 12: observability on the card ───────────────────────────────
 
 OBS_EXPLAINED = 10  # seeded decided proposals explained on both engines
-PR11_CONFIG3_VOTES_PER_S = 224_811.4  # PR 11's full run (PERF.md §5)
 # Kernel table name -> the names its launches carry in a profiler trace.
 PROFILED_KERNELS = {
     "ingest_scan": ("ingest_scan_kernel",),
@@ -4124,7 +3421,7 @@ def profiled_kernels(path):
     return out, len(kernels)
 
 
-def phase_obs_config3(dev, phase3_rate):
+def phase_obs_config3(dev):
     """(a) config 3 on a GPU and a CPU engine, registry deltas and explains
     equal; (b) again on a GPU engine with the tracer, the trace store, an
     ambient trace context and the profiler on, and a sidecar scrape."""
@@ -4141,9 +3438,9 @@ def phase_obs_config3(dev, phase3_rate):
         before = registry.export_state()
         _build.launches.clear()
         with seeded_ids(120):
-            statuses, wall, n_votes = config3_traffic(run, 3)
+            statuses = config3_traffic(run, 3)
         launches = dict(_build.launches)
-        runs[label] = dict(run=run, statuses=statuses, wall=wall, n_votes=n_votes,
+        runs[label] = dict(run=run, statuses=statuses,
                            delta=registry_delta(before, registry.export_state()),
                            launches=launches)
     gpu, cpu = runs["gpu"], runs["cpu"]
@@ -4175,15 +3472,10 @@ def phase_obs_config3(dev, phase3_rate):
         compare(f"(a) explain_decision of proposal {k}",
                 masked_explain(gpu["run"].engine, "config3", pids[k]),
                 masked_explain(cpu["run"].engine, "config3", pids[k]))
-    rate = gpu["n_votes"] / gpu["wall"]
-    log(f"[obs] (a) config 3 with the hooks: {gpu['n_votes']} votes in {gpu['wall']:.6f} s = "
-        f"{rate:.1f} votes/s on the GPU engine (phase 3 in this run: "
-        f"{'not run' if phase3_rate is None else f'{phase3_rate:.1f}'}; PR 11's full run "
-        f"{PR11_CONFIG3_VOTES_PER_S:,.1f}); the CPU engine {cpu['n_votes'] / cpu['wall']:.1f}; "
-        f"counter deltas equal on both engines {json.dumps(g_counters, sort_keys=True)}; "
-        f"batch-size buckets equal; {latency} decision latencies on each (p50 "
-        f"{registry.histogram(obs.DECISION_LATENCY).quantile(0.5):.6f} s over the process); "
-        f"device-ingest spans {calls}; {OBS_EXPLAINED} explains equal")
+    log(f"[obs] (a) config 3 with the hooks on a GPU and a CPU engine: counter deltas equal "
+        f"{json.dumps(g_counters, sort_keys=True)}; batch-size buckets equal; {latency} "
+        f"decision latencies on each; device-ingest spans {calls}; {OBS_EXPLAINED} explains "
+        f"equal")
 
     # (b) the same traffic with every listener on.
     run_b = Run(obs_engine(dev))
@@ -4198,7 +3490,7 @@ def phase_obs_config3(dev, phase3_rate):
     root = TraceContext.generate()
     try:
         with seeded_ids(120), use_context(root):
-            statuses_b, wall_b, n_votes_b = config3_traffic(run_b, 3)
+            statuses_b = config3_traffic(run_b, 3)
     finally:
         profiler.stop()
         tracer.disable()
@@ -4225,17 +3517,15 @@ def phase_obs_config3(dev, phase3_rate):
     if missing or health[0] != 200:
         raise AssertionError(f"(b) the scrape lacks {missing}, /healthz {health}")
     snap = profiler.snapshot()
-    log(f"[obs] (b) with the tracer, the trace store and the profiler on: {n_votes_b} votes "
-        f"in {wall_b:.6f} s = {n_votes_b / wall_b:.1f} votes/s; outcomes, events and "
-        f"state_fingerprint equal to (a); tracer counts {json.dumps(counts, sort_keys=True)}; "
+    log(f"[obs] (b) with the tracer, the trace store and the profiler on: outcomes, events "
+        f"and state_fingerprint equal to (a); tracer counts {json.dumps(counts, sort_keys=True)}; "
         f"{len(spans)} spans on the ambient trace; profiler {snap['samples']} samples at "
         f"{snap['rate_hz']} Hz; /metrics holds all {len(obs.documented_families())} documented "
         f"families ({len(names)} sample names), /healthz {health[0]}")
     log(f"[obs] (b) attribution_report(): {json.dumps(report, sort_keys=True)}")
     tracer.reset()
     trace_store.clear()
-    return dict(rate=rate, rate_b=n_votes_b / wall_b, latencies=latency,
-                launches=gpu["launches"], counters=g_counters)
+    return dict(launches=gpu["launches"])
 
 
 def equivocate(run, key, now):
@@ -4340,15 +3630,13 @@ def phase_obs_profile(dev, main_bytes, root):
     items = [("verify", Vote.decode(b)) for b in main_bytes]
     torch.cuda.synchronize()
     _build.launches.clear()
-    t = time.perf_counter()
     with tracing.device_profile(str(root)):
         run.engine.ingest_columnar(*calls[1], max_depth=8)
         verifier.engine.ingest_votes(items, NOW + 2)
-    wall = time.perf_counter() - t
     launches = dict(_build.launches)
     require_launches("(d) the profiled calls", launches, list(PROFILED_KERNELS))
     profiled, n_events = profiled_kernels(Path(root) / "device_trace.json")
-    log(f"[obs] (d) device_profile: {n_events} CUDA kernel events in {wall:.3f} s; per kernel "
+    log(f"[obs] (d) device_profile: {n_events} CUDA kernel events; per kernel "
         f"(trace launches, device ms a launch; wrapper launches): " + "; ".join(
             f"{k} ({n}, {ms / n:.6f}; {launches.get(k, 0)})" for k, (n, ms) in profiled.items()))
     return {k: dict(launches=n, ms=ms / n, wrapper_launches=launches.get(k, 0))
@@ -4374,9 +3662,7 @@ def phase_obs_recovery(dev, root):
     recovering = DurableEngine(fresh, Path(root) / "wal", fsync_policy="batch")
     before = obs.registry.export_state()
     _build.launches.clear()
-    t = time.perf_counter()
     stats = recovering.recover()
-    seconds = time.perf_counter() - t
     launches = dict(_build.launches)
     replayed, hist = registry_delta(before, obs.registry.export_state())
     recovering.close()
@@ -4390,28 +3676,26 @@ def phase_obs_recovery(dev, root):
     report = fresh.health_report()
     if report["peers"] or report["evidence"] or report["alerts"]["firing"]:
         raise AssertionError(f"(e) the recovered engine's monitor is not clean: {report}")
-    log(f"[obs] (e) recovery of {stats.records_applied} records in {seconds:.3f} s under replay "
+    log(f"[obs] (e) recovery of {stats.records_applied} records under replay "
         f"mode: decisions and timeouts held still ({held}; the live run decided "
         f"{live[obs.DECISIONS_TOTAL]}), votes counted {replayed.get(obs.VOTES_TOTAL, 0)}, "
         f"wal_recover_seconds one observation, the recovered monitor clean")
     return dict(launches=launches)
 
 
-def phase_obs(dev, phase3_rate=None):
+def phase_obs(dev):
     import shutil
     import tempfile
 
-    t = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="chip-smoke-obs-"))
     try:
-        out = phase_obs_config3(dev, phase3_rate)
+        out = phase_obs_config3(dev)
         verify = phase_obs_verify(dev)
         out["profile"] = phase_obs_profile(dev, verify["main_bytes"], root / "profile")
         out["verify_launches"] = verify["launches"]
         out["recovery"] = phase_obs_recovery(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(f"[obs] phase 12 passed in {time.perf_counter() - t:.3f} s")
     return out
 
 
@@ -4430,9 +3714,7 @@ BRIDGE_PEER = 1  # the first ADD_PEER of a fresh server
 # limit (3/4 of its 256-frame window), so no frame is shed (retry-after).
 BRIDGE_INFLIGHT = 128
 BRIDGE_COUNTERS = ("WIRE_FALLBACK_FRAMES_TOTAL", "BRIDGE_ERRORS_TOTAL", "BRIDGE_RETRY_AFTER_TOTAL",
-                   "WIRE_DEVICE_DISPATCHES_TOTAL", "WIRE_APPLY_ROWS_TOTAL",
-                   "REACTOR_WINDOWS_TOTAL", "WIRE_DECODE_SECONDS_TOTAL",
-                   "WIRE_CRYPTO_SECONDS_TOTAL", "WIRE_APPLY_SECONDS_TOTAL")
+                   "WIRE_DEVICE_DISPATCHES_TOTAL", "WIRE_APPLY_ROWS_TOTAL")
 
 
 def bridge_factory(dev, capacity=CAPACITY, voter_capacity=VOTER_CAPACITY):
@@ -4558,8 +3840,7 @@ def send_proposals(server, items, now=NOW):
 
 def send_vote_frames(server, frames, dev):
     """One pipelined connection a list of ``frames``, all sending at once;
-    returns the statuses per connection (flattened in send order) and the
-    wall from the first send to the last answer."""
+    returns the statuses per connection (flattened in send order)."""
     from hashgraph_tpu_torch.bridge import PipelinedBridgeClient
     from hashgraph_tpu_torch.bridge import protocol as P
     from hashgraph_tpu_torch.bridge.client import parse_status_list
@@ -4580,18 +3861,14 @@ def send_vote_frames(server, frames, dev):
     threads = [threading.Thread(target=run, args=(c,)) for c in range(len(frames))]
     for t in threads:
         t.start()
-    sync_of(dev)()
     start.wait()
-    t0 = time.perf_counter()
     for t in threads:
         t.join()
-    sync_of(dev)()
-    wall = time.perf_counter() - t0
     for c in clients:
         c.close()
     if errors:
         raise AssertionError(f"a vote frame failed: {errors[0]!r}")
-    return out, wall
+    return out
 
 
 def phase_bridge_arm(dev, frames, proposals, reactor):
@@ -4608,14 +3885,10 @@ def phase_bridge_arm(dev, frames, proposals, reactor):
         peer, _ = client.add_peer(b"\x13" * 32)
     if peer != BRIDGE_PEER:
         raise AssertionError(f"(b) the first peer is {peer}")
-    t = time.perf_counter()
     send_proposals(server, proposals)
-    proposals_s = time.perf_counter() - t
     before, hist = bridge_counters(), registry.histogram(REACTOR_ROWS_PER_DISPATCH).snapshot()
     _build.launches.clear()
-    with Timer() as timer:
-        statuses, wall = send_vote_frames(server, frames, dev)
-        busy = (timer.ms("scan") + timer.ms("fresh")) if torch.device(dev).type == "cuda" else 0.0
+    statuses = send_vote_frames(server, frames, dev)
     launches = dict(_build.launches)
     after, hist_after = bridge_counters(), registry.histogram(REACTOR_ROWS_PER_DISPATCH).snapshot()
     moved = {k: after[k] - before[k] for k in after}
@@ -4630,7 +3903,7 @@ def phase_bridge_arm(dev, frames, proposals, reactor):
     reactor_rows = hist_after["sum"] - hist["sum"]
     reactor_windows = hist_after["count"] - hist["count"]
     return server, dict(
-        statuses=statuses, wall=wall, n_rows=n_rows, busy_ms=busy, proposals_s=proposals_s,
+        statuses=statuses, n_rows=n_rows,
         launches=launches, scan=launches.get(cuda_ingest.KERNEL, 0), moved=moved,
         stats=stats, fingerprint=fingerprint, dispatches=dispatches,
         rows_per_dispatch=moved["WIRE_APPLY_ROWS_TOTAL"] / max(dispatches, 1),
@@ -4639,8 +3912,8 @@ def phase_bridge_arm(dev, frames, proposals, reactor):
 
 def small_calls(server, seed):
     """(c): fresh proposals of 64 voters, then one OP_PROCESS_VOTE frame a
-    proposal, each sent after the previous answered. Returns the round
-    trips (seconds), the statuses and the launches of the calls."""
+    proposal, each sent after the previous answered. Returns the statuses
+    and the launches of the calls."""
     from hashgraph_tpu_torch import StubConsensusSigner, _build, build_vote, protocol
     from hashgraph_tpu_torch.bridge import BridgeClient, BridgeError
     from hashgraph_tpu_torch.wire import Proposal
@@ -4659,18 +3932,16 @@ def small_calls(server, seed):
     finally:
         protocol.set_id_entropy(None)
     send_proposals(server, [("small", p.encode()) for p in props])
-    trips, codes = [], []
+    codes = []
     _build.launches.clear()
     with BridgeClient(*server.address, timeout=300) as client:
         for vote in votes:
-            t = time.perf_counter()
             try:
                 client.process_vote(BRIDGE_PEER, "small", vote, NOW + 1)
                 codes.append(0)
             except BridgeError as exc:
                 codes.append(exc.status)
-            trips.append(time.perf_counter() - t)
-    return dict(trips=trips, codes=codes, launches=dict(_build.launches))
+    return dict(codes=codes, launches=dict(_build.launches))
 
 
 def phase_bridge_quickstart(dev):
@@ -4696,16 +3967,13 @@ def phase_bridge_quickstart(dev):
         raise AssertionError(f"(a) the C client did not build: {built.stderr[-2000:]}")
     _build.launches.clear()
     with BridgeServer(device=dev) as server:
-        t = time.perf_counter()
         proc = subprocess.run([str(binary), *map(str, server.address)], capture_output=True,
                               text=True, timeout=120)
-        c_s = time.perf_counter() - t
         if proc.returncode != 0 or "QUICKSTART PASS" not in proc.stdout or not all(
                 f"{name}: consensus YES" in proc.stdout for name in ("alice", "bob", "carol")):
             raise AssertionError(f"(a) the C client: {proc.returncode} {proc.stdout[-2000:]} "
                                  f"{proc.stderr[-2000:]}")
         with BridgeClient(*server.address) as cl:
-            t = time.perf_counter()
             peers = [cl.add_peer()[0] for _ in range(3)]
             pid, _ = cl.create_proposal(peers[0], "qs", NOW, "upgrade", b"ship", 3, 600)
             cl.cast_vote(peers[0], "qs", pid, True, NOW + 1)
@@ -4721,7 +3989,6 @@ def phase_bridge_quickstart(dev):
                         except Exception as exc:  # the last vote lands after the decision
                             if getattr(exc, "status", None) != 28:
                                 raise
-            py_s = time.perf_counter() - t
             for peer in peers:
                 engine = server.peer_engine(peer)
                 if engine.pool().device.type != torch.device(dev).type:
@@ -4739,7 +4006,7 @@ def phase_bridge_quickstart(dev):
                     or "bridge_errors_total" not in metrics or sum(tally.values()) != 256
                     or fingerprint != state_fingerprint(server.peer_engine(peers[0]))):
                 raise AssertionError("(a) a read opcode answered wrong")
-    return dict(launches=dict(_build.launches), c_s=c_s, py_s=py_s)
+    return dict(launches=dict(_build.launches))
 
 
 def phase_bridge_config3(dev):
@@ -4757,7 +4024,6 @@ def phase_bridge_config3(dev):
     # the arms' statuses would differ.
     if BRIDGE_FRAME_ROWS < ApplyReactor().max_rows:
         raise AssertionError("(b) a frame must fill a default reactor window")
-    t = time.perf_counter()
     traffic = bridge_traffic()
     frames = bridge_frames(traffic)
     share = traffic["share"]
@@ -4765,13 +4031,9 @@ def phase_bridge_config3(dev):
     q = BRIDGE_PROPOSALS // BRIDGE_CONNECTIONS
     items = [(scope_of(k // q), blob) for k, blob in enumerate(traffic["proposals"])]
     cut_items = [items[c * q + k] for c in range(BRIDGE_CONNECTIONS) for k in range(share)]
-    build_s = time.perf_counter() - t
     arms, small = {}, {}
     for name, reactor in (("off", False), ("on", True)):
         server, arms[name] = phase_bridge_arm(dev, frames, items, reactor)
-        log(f"[bridge] (b) reactor {name}: the arm's votes took {arms[name]['wall']:.3f} s, "
-            f"its proposals {arms[name]['proposals_s']:.3f} s; "
-            f"{time.perf_counter() - t:.3f} s into (b)")
         try:
             if name == "off":
                 skip = {(scope_of(k // q), traffic["pids"][k]) for k in range(BRIDGE_PROPOSALS)
@@ -4811,7 +4073,7 @@ def phase_bridge_config3(dev):
     for name, calls in small.items():
         if set(calls["codes"]) != {0}:
             raise AssertionError(f"(c) reactor {name}: statuses {sorted(set(calls['codes']))}")
-    return dict(arms=arms, cpu=cpu, small=small, codes=codes, build_s=build_s,
+    return dict(arms=arms, cpu=cpu, small=small, codes=codes,
                 n_frames=sum(len(f) for f in frames),
                 cut_traffic=(cut_items, bridge_frames(traffic, traffic["cut"], waves=2,
                                                       rows_a_frame=share)))
@@ -4864,23 +4126,14 @@ def phase_bridge_verify(dev):
                     for blob in blobs:
                         cl.process_proposal(peer, scope, blob, NOW)
                 res = {}
-                sync = sync_of(server.peer_engine(peers[0]).device)
                 batches0 = len(signer_cls.batches)
                 _build.launches.clear()
-                sync()
-                t = time.perf_counter()
                 res["process_votes"] = cl.process_votes(peers[0], scope, main_bytes, NOW + 2)
-                sync()
-                res["process_votes_s"] = time.perf_counter() - t
                 res["process_votes_launches"] = dict(_build.launches)
                 _build.launches.clear()
-                sync()
-                t = time.perf_counter()
                 res["vote_batch"] = parse_status_list(pc.submit(
                     P.OP_VOTE_BATCH, P.encode_vote_batch(NOW + 2, [(peers[1], scope, main_bytes)]),
                 ).result(300))
-                sync()
-                res["vote_batch_s"] = time.perf_counter() - t
                 res["vote_batch_launches"] = dict(_build.launches)
                 _build.launches.clear()
                 res["damaged"] = parse_status_list(pc.submit(
@@ -4892,8 +4145,7 @@ def phase_bridge_verify(dev):
                           for rows in conc]
             if side == "gpu":
                 _build.launches.clear()
-                statuses, wall = send_vote_frames(server, frames, dev)
-                res["concurrent"], res["concurrent_s"] = statuses, wall
+                res["concurrent"] = send_vote_frames(server, frames, dev)
                 res["concurrent_launches"] = dict(_build.launches)
                 res["concurrent_batches"] = list(signer_cls.batches[batches0 + len(res["batches"]):])
             else:
@@ -4962,20 +4214,16 @@ def phase_bridge_durable(dev, traffic_cut):
         try:
             _build.launches.clear()
             with BridgeClient(*server.address, timeout=600) as cl:
-                t = time.perf_counter()
                 peer2, identity2 = cl.add_peer(key)
-                recovery_s = time.perf_counter() - t
                 recovery_launches = dict(_build.launches)
                 stats = server.recovery_stats(identity2)
                 if identity2 != identity or stats is None or stats.segments_dropped or stats.errors:
                     raise AssertionError(f"(e) recovery: {stats}")
                 after = cl.state_fingerprint(peer2)
                 compare("(e) fingerprint after recovery", after, before)
-                t = time.perf_counter()
                 manifest = cl.sync_manifest(peer2, 1 << 20)
                 chunks = [cl.sync_chunk(peer2, manifest["snapshot_id"], i)
                           for i in range(manifest["chunk_count"])]
-                sync_s = time.perf_counter() - t
                 if [hashlib.sha256(c).digest() for c in chunks] != manifest["digests"] or sum(
                         map(len, chunks)) != manifest["total_bytes"]:
                     raise AssertionError("(e) a snapshot chunk does not match its digest")
@@ -5005,8 +4253,8 @@ def phase_bridge_durable(dev, traffic_cut):
                                          f"served, {len(on_disk)} in the log")
         finally:
             server.stop()
-    return dict(recovery_s=recovery_s, recovery_launches=recovery_launches,
-                sync_s=sync_s, sync_bytes=manifest["total_bytes"], chunks=manifest["chunk_count"],
+    return dict(recovery_launches=recovery_launches,
+                sync_bytes=manifest["total_bytes"], chunks=manifest["chunk_count"],
                 sessions=len(sessions), records=stats.records_applied, tail=len(served),
                 last_lsn=last_lsn, mid=mid)
 
@@ -5031,16 +4279,14 @@ def bridge_launches(bridge, kernel):
 
 def phase_bridge(dev):
     """Phase 13: the bridge on the card ((a)-(e), see the module doc)."""
-    t_phase = time.perf_counter()
-    smi = nvidia_smi()
     errors_before = bridge_counters()["BRIDGE_ERRORS_TOTAL"]
     quick = phase_bridge_quickstart(dev)
     log(f"[bridge] (a) the C embedder (native/bridge_client.c, built with cc) ran the "
-        f"quick-start against a port server on the card in {quick['c_s']:.3f} s: QUICKSTART "
-        f"PASS, alice/bob/carol consensus YES; the port's BridgeClient in {quick['py_s']:.3f} s, "
-        f"EVENT_REACHED on all three; OP_EXPLAIN, OP_HEALTH, GET_METRICS, OP_STATE_FINGERPRINT "
-        f"(equal to sync.state_fingerprint of the peer's engine) and OP_FLEET_TALLY answered; "
-        f"launches {json.dumps(quick['launches'])}")
+        f"quick-start against a port server on the card: QUICKSTART PASS, alice/bob/carol "
+        f"consensus YES; the port's BridgeClient: EVENT_REACHED on all three; OP_EXPLAIN, "
+        f"OP_HEALTH, GET_METRICS, OP_STATE_FINGERPRINT (equal to sync.state_fingerprint of "
+        f"the peer's engine) and OP_FLEET_TALLY answered; launches "
+        f"{json.dumps(quick['launches'])}")
     b = phase_bridge_config3(dev)
     for name in ("off", "on"):
         arm = b["arms"][name]
@@ -5048,55 +4294,41 @@ def phase_bridge(dev):
                if arm["reactor_rows_per_dispatch"] is not None else "")
         log(f"[bridge] (b) reactor {name}: {arm['n_rows']} votes in {b['n_frames']} OP_VOTE_BATCH "
             f"frames of up to {BRIDGE_FRAME_ROWS} rows from {BRIDGE_CONNECTIONS} pipelined "
-            f"connections in {arm['wall']:.6f} s = {arm['n_rows'] / arm['wall']:.1f} votes/s over "
-            f"the socket; ingest_wire_columnar dispatches {arm['dispatches']} "
+            f"connections after {BRIDGE_PROPOSALS} proposals as OP_PROCESS_PROPOSAL frames; "
+            f"ingest_wire_columnar dispatches {arm['dispatches']} "
             f"({arm['rows_per_dispatch']:.1f} rows a dispatch){rpd}; ingest_scan launches "
-            f"{arm['scan']}; the scan and fresh dispatches' device time {arm['busy_ms']:.6f} ms = "
-            f"{arm['busy_ms'] / (1e3 * arm['wall']):.6f} of the wall; the wire counters: frame "
-            f"decode {arm['moved']['WIRE_DECODE_SECONDS_TOTAL']:.6f} s and the signature "
-            f"prepass {arm['moved']['WIRE_CRYPTO_SECONDS_TOTAL']:.6f} s on the reader threads, "
-            f"apply {arm['moved']['WIRE_APPLY_SECONDS_TOTAL']:.6f} s; {BRIDGE_PROPOSALS} "
-            f"proposals as OP_PROCESS_PROPOSAL frames in {arm['proposals_s']:.3f} s; {smi}")
+            f"{arm['scan']}")
     cpu = b["cpu"]
     log(f"[bridge] (b) CPU engine (device='cpu'), cut to {BRIDGE_CUT} proposals: {cpu['n_rows']} "
-        f"votes in {cpu['wall']:.6f} s = {cpu['n_rows'] / cpu['wall']:.1f} votes/s, dispatches "
-        f"{cpu['dispatches']} ({cpu['rows_per_dispatch']:.1f} rows a dispatch); per-row statuses "
-        f"equal across the three arms (the CPU arm on its rows), state fingerprints equal (the "
-        f"CPU arm's to the card's over the same {BRIDGE_CUT} sessions), scope stats "
-        f"{b['arms']['off']['stats']} equal on and off; statuses {b['codes']}; wire fallback "
-        f"frames and bridge errors unmoved; traffic built in {b['build_s']:.3f} s")
+        f"votes, dispatches {cpu['dispatches']} ({cpu['rows_per_dispatch']:.1f} rows a "
+        f"dispatch); per-row statuses equal across the three arms (the CPU arm on its rows), "
+        f"state fingerprints equal (the CPU arm's to the card's over the same {BRIDGE_CUT} "
+        f"sessions), scope stats {b['arms']['off']['stats']} equal on and off; statuses "
+        f"{b['codes']}; wire fallback frames and bridge errors unmoved")
     for name, calls in b["small"].items():
-        trips, launches = calls["trips"], calls["launches"]
-        log(f"[bridge] (c) reactor {name}: {len(trips)} OP_PROCESS_VOTE round trips, each a "
-            f"first vote on a fresh proposal of 64 voters: p50 {percentile(trips, 0.5) * 1e3:.6f} ms, "
-            f"p99 {percentile(trips, 0.99) * 1e3:.6f} ms, mean "
-            f"{sum(trips) / len(trips) * 1e3:.6f} ms; launches {json.dumps(launches)}; {smi}")
+        log(f"[bridge] (c) reactor {name}: {len(calls['codes'])} OP_PROCESS_VOTE frames one at a "
+            f"time, each a first vote on a fresh proposal of 64 voters, all OK; launches "
+            f"{json.dumps(calls['launches'])}")
     d = phase_bridge_verify(dev)
     log(f"[bridge] (d) {d['n']} Ed25519-signed votes on a server whose peers verify on the card: "
-        f"one OP_PROCESS_VOTES frame {d['process_votes_s']:.6f} s = "
-        f"{d['n'] / d['process_votes_s']:.1f} signatures/s (launches "
-        f"{json.dumps(d['process_votes_launches'])}); one OP_VOTE_BATCH frame on a fresh peer "
-        f"{d['vote_batch_s']:.6f} s = {d['n'] / d['vote_batch_s']:.1f} signatures/s (launches "
-        f"{json.dumps(d['vote_batch_launches'])}); each one device batch of {d['n']} with no "
+        f"one OP_PROCESS_VOTES frame (launches {json.dumps(d['process_votes_launches'])}) and "
+        f"one OP_VOTE_BATCH frame on a fresh peer (launches "
+        f"{json.dumps(d['vote_batch_launches'])}), each one device batch of {d['n']} with no "
         f"fallback; the damaged frame's batch fell back to the host blame, "
         f"{d['damaged_codes']}; four pipelined connections at once, one frame of 1,024 each: "
-        f"{d['concurrent_s']:.6f} s = {d['n'] / d['concurrent_s']:.1f} signatures/s, 4 device "
-        f"batches, none fell back; every status equal to a CPU-engine server with the host "
-        f"signer; {smi}")
+        f"4 device batches, none fell back; every status equal to a CPU-engine server with "
+        f"the host signer")
     e = phase_bridge_durable(dev, b["cut_traffic"])
     log(f"[bridge] (e) a durable peer ({BRIDGE_CUT} proposals, waves 1-2) recovered by a new "
-        f"server on its WAL in {e['recovery_s']:.6f} s ({e['records']} records, launches "
+        f"server on its WAL ({e['records']} records, launches "
         f"{json.dumps(e['recovery_launches'])}) to the fingerprint before the stop; "
         f"OP_SYNC_MANIFEST and {e['chunks']} OP_SYNC_CHUNKs ({e['sessions']} sessions, "
-        f"{e['sync_bytes']} B) in {e['sync_s']:.6f} s = {e['sync_bytes'] / e['sync_s']:.1f} B/s, "
-        f"every chunk's digest checked, restored into a fresh GPU engine to the same "
-        f"fingerprint; OP_WAL_TAIL after LSN {e['mid']} of {e['last_lsn']} served exactly the "
-        f"{e['tail']} later records; {smi}")
+        f"{e['sync_bytes']} B), every chunk's digest checked, restored into a fresh GPU engine "
+        f"to the same fingerprint; OP_WAL_TAIL after LSN {e['mid']} of {e['last_lsn']} served "
+        f"exactly the {e['tail']} later records")
     errors = bridge_counters()["BRIDGE_ERRORS_TOTAL"] - errors_before
     if errors:
         raise AssertionError(f"phase 13 answered {errors} frames with a bridge-level error")
-    log(f"[bridge] phase 13 took {time.perf_counter() - t_phase:.3f} s with no bridge-level "
-        f"error answered, on {smi}")
     return dict(quick=quick, b=b, d=d, e=e)
 
 
@@ -5212,9 +4444,8 @@ def gossip_counters():
 
 
 def gossip_arm(dev, traffic, fanout, repair):
-    """One arm of (a) on fresh servers: the proposals to every server
-    (untimed), then every chunk through a ``GossipNode``, timed to the end
-    of its drain. Arm 1 (``repair`` False): a driver with no engine fans
+    """One arm of (a) on fresh servers: the proposals to every server, then
+    every chunk through a ``GossipNode`` to the end of its drain. Arm 1 (``repair`` False): a driver with no engine fans
     out to all the servers. Arm 2: the node owns the first server's engine
     (applying on this thread), samples ``fanout`` of the others, and runs
     anti-entropy rounds until the fingerprints agree."""
@@ -5224,10 +4455,8 @@ def gossip_arm(dev, traffic, fanout, repair):
     servers = [gossip_server(dev)[0] for _ in range(GOSSIP_PEERS)]
     node = transport = None
     try:
-        t_setup = time.perf_counter()
         for server in servers:
             send_proposals(server, traffic["items"])
-        setup_s = time.perf_counter() - t_setup
         engine = servers[0].peer_engine(BRIDGE_PEER) if repair else None
         targets = servers[1:] if repair else servers
         transport = GossipTransport(max_queue_bytes=GOSSIP_QUEUE_BYTES)
@@ -5237,18 +4466,13 @@ def gossip_arm(dev, traffic, fanout, repair):
             node.add_peer(f"peer{i}", *server.address, BRIDGE_PEER)
         before = gossip_counters()
         _build.launches.clear()
-        sync_of(dev)()
-        t0 = time.perf_counter()
         for wave in traffic["chunks"]:
             for k, chunk in enumerate(wave):
                 node.submit_votes(traffic["scopes"][k], traffic["pids"][k], chunk, NOW + 1,
                                   local=repair)
         report = node.drain(timeout=600)
-        sync_of(dev)()
-        wall = time.perf_counter() - t0
-        rounds, repair_s = 0, 0.0
+        rounds = 0
         prints = [fingerprint_of(s) for s in servers]
-        t1 = time.perf_counter()
         while repair and len(set(prints)) > 1 and rounds < 8:
             done = node.anti_entropy(NOW + 1, max_sessions=GOSSIP_PROPOSALS, window=64,
                                      timeout=600)
@@ -5256,7 +4480,6 @@ def gossip_arm(dev, traffic, fanout, repair):
             prints = [fingerprint_of(s) for s in servers]
             if not done["created_or_extended"]:
                 break  # nothing left that a chain can repair
-        repair_s = time.perf_counter() - t1
         launches = dict(_build.launches)
         after = gossip_counters()
         states = [session_states(s.peer_engine(BRIDGE_PEER)) for s in servers]
@@ -5269,8 +4492,7 @@ def gossip_arm(dev, traffic, fanout, repair):
             server.stop()
     if report["failed_frames"] or (not repair and report["shed_total"]):
         raise AssertionError(f"(a) gossip frames failed or shed: {report}")
-    return dict(wall=wall, report=report, rounds=rounds, repair_s=repair_s, setup_s=setup_s,
-                fingerprints=prints, launches=launches, states=states,
+    return dict(report=report, rounds=rounds, fingerprints=prints, launches=launches, states=states,
                 moved={k: after[k] - before[k] for k in after})
 
 
@@ -5289,20 +4511,16 @@ def gossip_cpu_arm(traffic):
                 groups = [(BRIDGE_PEER, traffic["scopes"][k], wave[k])
                           for k in range(lo, min(lo + GOSSIP_CPU_FRAME_SESSIONS, n))]
                 frames.append(P.encode_vote_batch(NOW + 1, groups))
-        t = time.perf_counter()
         send_vote_frames(server, [frames], "cpu")
-        wall = time.perf_counter() - t
-        return fingerprint_of(server), session_states(server.peer_engine(BRIDGE_PEER)), wall
+        return fingerprint_of(server), session_states(server.peer_engine(BRIDGE_PEER))
     finally:
         server.stop()
 
 
 def phase_gossip(dev):
     """(a): the gossip fabric over 4 port servers on the card."""
-    t = time.perf_counter()
     traffic = gossip_traffic()
-    build_s = time.perf_counter() - t
-    want, want_states, cpu_s = gossip_cpu_arm(traffic)
+    want, want_states = gossip_cpu_arm(traffic)
     arms = {"fanout_all": gossip_arm(dev, traffic, GOSSIP_PEERS, False),
             "fanout_2_anti_entropy": gossip_arm(dev, traffic, 2, True)}
     full = arms["fanout_all"]
@@ -5319,7 +4537,7 @@ def phase_gossip(dev):
     for name, arm in arms.items():
         require_launches(f"(a) {name}", arm["launches"], ("ingest_scan",))
     failed = sum(1 for kind, _ in want_states.values() if kind.name == "FAILED")
-    return dict(arms=arms, cpu_s=cpu_s, build_s=build_s, fingerprint=want, failed=failed)
+    return dict(arms=arms, fingerprint=want, failed=failed)
 
 
 def catchup_traffic(seed=141):
@@ -5334,7 +4552,6 @@ def catchup_traffic(seed=141):
     from hashgraph_tpu_torch.bridge import protocol as P
     from hashgraph_tpu_torch.wire import Proposal
 
-    t = time.perf_counter()
     traffic = gossip_traffic(seed)
     rng = random.Random(seed)
     keys = [Ed25519ConsensusSigner(rng.randbytes(32)) for _ in range(CATCHUP_KEYS)]
@@ -5350,8 +4567,6 @@ def catchup_traffic(seed=141):
                                                unsigned[(k + j) % CATCHUP_KEYS], NOW + 1))
     finally:
         protocol.set_id_entropy(None)
-    build_s = time.perf_counter() - t
-    t = time.perf_counter()
     votes = [v for shadow in shadows for v in shadow.votes]
     with ThreadPoolExecutor(8) as pool:
         sigs = list(pool.map(lambda v: native.ed25519_sign(seed_of[v.vote_owner],
@@ -5361,7 +4576,6 @@ def catchup_traffic(seed=141):
         raise AssertionError("the native runtime did not sign")
     for vote, sig in zip(votes, sigs):
         vote.signature = sig
-    sign_s = time.perf_counter() - t
     waves = []
     for w in range(WAL_WAVES):
         frames = []
@@ -5372,45 +4586,35 @@ def catchup_traffic(seed=141):
             frames += [P.encode_vote_batch(NOW + 1, [(BRIDGE_PEER, scope, rows[i:i + 1024])])
                        for i in range(0, len(rows), 1024)]
         waves.append(frames)
-    return dict(items=traffic["items"], waves=waves, signed=len(votes), sign_s=sign_s,
-                build_s=build_s)
+    return dict(items=traffic["items"], waves=waves, signed=len(votes))
 
 
-class TimedBridge:
+class SourceBridge:
     """The catch-up client's transport to the source: a ``BridgeClient``
-    whose sync calls are timed. ``after_chunks`` runs once, when the last
-    chunk of the snapshot has arrived (more votes reach the source there,
-    after the snapshot's watermark, so that the tail is not empty); its
-    time is kept apart from the download's."""
+    whose ``after_chunks`` runs once, when the last chunk of the snapshot
+    has arrived (more votes reach the source there, after the snapshot's
+    watermark, so that the tail is not empty)."""
 
     def __init__(self, address, after_chunks=None):
         from hashgraph_tpu_torch.bridge import BridgeClient
 
         self.client = BridgeClient(*address, timeout=600)
         self.after_chunks = after_chunks
-        self.seconds = {"download": 0.0, "tail_fetch": 0.0, "after_chunks": 0.0}
         self.manifest = None
 
-    def _timed(self, key, fn, *args):
-        t = time.perf_counter()
-        try:
-            return fn(*args)
-        finally:
-            self.seconds[key] += time.perf_counter() - t
-
     def sync_manifest(self, peer, max_chunk_bytes=0):
-        self.manifest = self._timed("download", self.client.sync_manifest, peer, max_chunk_bytes)
+        self.manifest = self.client.sync_manifest(peer, max_chunk_bytes)
         return self.manifest
 
     def sync_chunk(self, peer, snapshot_id, index):
-        data = self._timed("download", self.client.sync_chunk, peer, snapshot_id, index)
+        data = self.client.sync_chunk(peer, snapshot_id, index)
         if index == self.manifest["chunk_count"] - 1 and self.after_chunks is not None:
             hook, self.after_chunks = self.after_chunks, None
-            self._timed("after_chunks", hook)
+            hook()
         return data
 
     def wal_tail(self, peer, after_lsn, max_bytes=0):
-        return self._timed("tail_fetch", self.client.wal_tail, peer, after_lsn, max_bytes)
+        return self.client.wal_tail(peer, after_lsn, max_bytes)
 
     def close(self):
         self.client.close()
@@ -5462,59 +4666,21 @@ def tampered_stream(chunks):
         sessions), sum(1 for kind, _ in frames if kind == S.ITEM_SCOPE_CONFIG)
 
 
-@contextlib.contextmanager
-def catchup_stages(client, engine):
-    """Seconds a catch-up spends verifying the snapshot (``verify_sessions``),
-    installing it (``load_from_storage``) and in its tail (``_tail``)."""
-    from hashgraph_tpu_torch.sync import client as sync_client
-
-    stages = dict(verify=0.0, install=0.0, tail=0.0)
-
-    def timed(key, fn):
-        def run(*args, **kwargs):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                stages[key] += time.perf_counter() - t
-
-        return run
-
-    saved = sync_client.verify_sessions
-    sync_client.verify_sessions = timed("verify", saved)
-    engine.load_from_storage = timed("install", engine.load_from_storage)
-    client._tail = timed("tail", client._tail)
-    try:
-        yield stages
-    finally:
-        sync_client.verify_sessions = saved
-        del engine.load_from_storage
-        del client._tail
-
-
 def run_catchup(dev, signer, source, how, after_chunks=None):
     """A fresh joiner on ``dev`` signed by ``signer`` catches up from the
     source's peer through ``how`` (``catch_up`` or ``full_replay``).
-    Returns its engine, the report and the split of its wall."""
+    Returns its engine, the report and the launches."""
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.sync import CatchUpClient
 
     engine = gossip_factory(dev)(signer)
-    bridge = TimedBridge(source.address, after_chunks)
-    client = CatchUpClient("", 0, BRIDGE_PEER, timeout=600, bridge=bridge)
+    client = CatchUpClient("", 0, BRIDGE_PEER, timeout=600,
+                           bridge=SourceBridge(source.address, after_chunks))
     _build.launches.clear()
-    with catchup_stages(client, engine) as stages:
-        sync_of(dev)()
-        t = time.perf_counter()
-        report = getattr(client, how)(engine)
-        sync_of(dev)()
-        wall = time.perf_counter() - t
+    report = getattr(client, how)(engine)
     launches = dict(_build.launches)
     client.close()
-    stages["download"] = bridge.seconds["download"]
-    stages["tail_fetch"] = bridge.seconds["tail_fetch"]
-    stages["after_chunks"] = bridge.seconds["after_chunks"]
-    return engine, report, dict(stages, wall=wall - stages["after_chunks"]), launches
+    return engine, report, launches
 
 
 def retained_votes(engine):
@@ -5559,20 +4725,19 @@ def catchup_kernel_times(captured, msm_lanes):
         lanes = shape[0]
         if name == "fe_mul":
             ms = device_ms(lambda: cuda_field.fe_mul(*args), 20)
-            n_bytes, n_ops = lanes * FE_MUL_BYTES_PER_LANE, lanes * FE_MUL_OPS_PER_LANE
+            n_bytes, n_ops = lanes * FE_MUL_BYTES_PER_LANE, lanes * msm_windows_counts.FE_MUL
         elif name == "fe_pow22523":
             ms = device_ms(lambda: cuda_field.fe_pow22523(*args), 5)
             n_bytes, n_ops = lanes * 2 * 16 * 8, lanes * POW22523_OPS_PER_LANE
         elif name == "msm_windows":
             ms = device_ms(lambda: cuda_msm.msm_windows(*args), 3)
             n_bytes = lanes * (2 * POINT_BYTES + 4 * msm.WINDOWS)
-            n_ops = lanes * MSM_WINDOWS_OPS_PER_LANE
+            n_ops = lanes * msm_windows_counts.PER_POINT
         else:
             ms = device_ms(lambda: cuda_msm.msm_reduce(*args), 10)
             n_bytes, n_ops = tree_bound_counts(lanes)
-        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT_OPS_PER_S * 1e3
-        out[name] = dict(shape=list(shape), ms=ms, bound_ms=max(bytes_ms, ops_ms),
-                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        bound, bound_by = bound_of(n_bytes, n_ops)
+        out[name] = dict(shape=list(shape), ms=ms, bound_ms=bound, bound_by=bound_by)
     if out["msm_windows"]["shape"][0] != msm_lanes:
         raise AssertionError(f"(b) the MSM ran at {out['msm_windows']['shape']}, not "
                              f"{msm_lanes} lanes")
@@ -5599,12 +4764,10 @@ def phase_catchup(dev):
                                          wal_dir=root, wal_fsync="batch")
         try:
             send_proposals(source, traffic["items"])
-            t = time.perf_counter()
             for w in range(CATCHUP_TAIL_WAVE):
-                statuses, _ = send_vote_frames(source, [traffic["waves"][w]], dev)
+                statuses = send_vote_frames(source, [traffic["waves"][w]], dev)
                 if bad & set(statuses[0]):
                     raise AssertionError("(b) the source refused a signature")
-            source_s = time.perf_counter() - t
             source_engine = source.peer_engine(BRIDGE_PEER)
             retained_at_snapshot = retained_votes(source_engine)
 
@@ -5614,7 +4777,7 @@ def phase_catchup(dev):
                 from hashgraph_tpu_torch import _build
 
                 before = dict(_build.launches)
-                statuses, _ = send_vote_frames(source, [traffic["waves"][CATCHUP_TAIL_WAVE]], dev)
+                statuses = send_vote_frames(source, [traffic["waves"][CATCHUP_TAIL_WAVE]], dev)
                 hook_launches.update({k: v - before.get(k, 0) for k, v in _build.launches.items()})
                 if bad & set(statuses[0]):
                     raise AssertionError("(b) the source refused a signature")
@@ -5624,7 +4787,7 @@ def phase_catchup(dev):
             captured = KernelInputs()
             fallbacks = registry.counter(DEVICE_VERIFY_FALLBACKS_TOTAL).value
             with captured.active():
-                gpu, gpu_report, gpu_stages, gpu_launches = run_catchup(
+                gpu, gpu_report, gpu_launches = run_catchup(
                     dev, signer_cls(b"\x21" * 32), source, "catch_up", tail_votes)
             if registry.counter(DEVICE_VERIFY_FALLBACKS_TOTAL).value != fallbacks:
                 raise AssertionError("(b) the snapshot's device batch fell back to the host")
@@ -5634,10 +4797,10 @@ def phase_catchup(dev):
             signer_cls.batches.clear()
             want = fingerprint_of(source)
             retained = retained_votes(source_engine)
-            replay, replay_report, replay_stages, replay_launches = run_catchup(
+            replay, replay_report, replay_launches = run_catchup(
                 dev, signer_cls(b"\x22" * 32), source, "full_replay")
             replay_batches = len(signer_cls.batches)
-            cpu, cpu_report, cpu_stages, _ = run_catchup(
+            cpu, cpu_report, _ = run_catchup(
                 "cpu", Ed25519ConsensusSigner(b"\x23" * 32), source, "catch_up")
             prints = {"source": want, "gpu_catch_up": state_fingerprint(gpu),
                       "cpu_catch_up": state_fingerprint(cpu)}
@@ -5666,9 +4829,7 @@ def phase_catchup(dev):
     lanes = require_one_batch(batches, replay_batches, retained_at_snapshot)
     require_launches("(b) catch_up", gpu_launches, VERIFY_KERNELS + ("ingest_scan",))
     require_launches("(b) full_replay", replay_launches, ("ingest_scan",))
-    t = time.perf_counter()
     held = hold_captured(captured)
-    hold_s = time.perf_counter() - t
     times = catchup_kernel_times(captured, lanes)
 
     # A snapshot with one signature byte flipped: nothing installed.
@@ -5679,14 +4840,12 @@ def phase_catchup(dev):
         data, watermark, n_sessions, n_configs))
     signer_cls.batches.clear()
     _build.launches.clear()
-    t = time.perf_counter()
     try:
         client.catch_up(joiner)
     except SyncVerificationError as exc:
         tamper_error = str(exc)
     else:
         raise AssertionError("(b) the tampered snapshot was installed")
-    tamper_s = time.perf_counter() - t
     tamper_launches = dict(_build.launches)
     if state_fingerprint(joiner) != empty or joiner.occupancy().get("live_sessions", 0):
         raise AssertionError("(b) the tampered snapshot left state behind")
@@ -5694,17 +4853,14 @@ def phase_catchup(dev):
         raise AssertionError(f"(b) the tampered snapshot's batch did not fail on the card and "
                              f"fall back to the host blame: {signer_cls.batches}")
     return dict(
-        signed=traffic["signed"], sign_s=traffic["sign_s"], build_s=traffic["build_s"],
-        source_s=source_s, hold_s=hold_s, tamper_s=tamper_s,
-        retained_at_snapshot=retained_at_snapshot, retained=retained, lanes=lanes,
-        gpu=dict(report=gpu_report, stages=gpu_stages, launches=gpu_launches),
-        replay=dict(report=replay_report, stages=replay_stages, launches=replay_launches),
-        cpu=dict(report=cpu_report, stages=cpu_stages),
+        signed=traffic["signed"], retained_at_snapshot=retained_at_snapshot,
+        retained=retained, lanes=lanes,
+        gpu=dict(report=gpu_report, launches=gpu_launches),
+        replay=dict(report=replay_report, launches=replay_launches),
+        cpu=dict(report=cpu_report),
         batch=snapshot_batch, held=held, times=times, fingerprint=want,
         replay_misses=replay_misses, source_failed=source_failed,
-        replay_fingerprint=state_fingerprint(replay),
-        tamper_error=tamper_error, tamper_launches=tamper_launches,
-        tamper_fallback=signer_cls.batches[0]["fallback"])
+        tamper_error=tamper_error, tamper_launches=tamper_launches)
 
 
 def phase_sim(dev):
@@ -5716,40 +4872,29 @@ def phase_sim(dev):
     from hashgraph_tpu_torch.sim import SCENARIOS, run_scenario
 
     def verdict_json(name, device, **kwargs):
-        t = time.perf_counter()
         result = run_scenario(name, SIM_SEED, device=device, **kwargs)
-        sync_of(device)()
-        wall = time.perf_counter() - t
         if not result["passed"] or not all(v["ok"] for v in result["verdicts"].values()):
             raise AssertionError(f"(c) {name} on {device}: {result['verdicts']} "
                                  f"{result['checks']}")
-        return json.dumps(result, sort_keys=True), wall
+        return json.dumps(result, sort_keys=True)
 
-    walls = {}
     _build.launches.clear()
-    on_card = {}
-    for name in SCENARIOS:
-        on_card[name], walls[(name, "cuda")] = verdict_json(name, dev)
+    on_card = {name: verdict_json(name, dev) for name in SCENARIOS}
     corpus_launches = dict(_build.launches)
     for name in SCENARIOS:
-        cpu_json, walls[(name, "cpu")] = verdict_json(name, "cpu")
-        compare(f"(c) {name}'s verdict JSON", on_card[name], cpu_json)
+        compare(f"(c) {name}'s verdict JSON", on_card[name], verdict_json(name, "cpu"))
     signer_cls = counting_device_signer()
     signer_cls.batches.clear()
     _build.launches.clear()
-    device_signed = {}
-    for name in SIM_DEVICE_SIGNER:
-        device_signed[name], walls[(name, "cuda, device signer")] = verdict_json(
-            name, dev, signer_factory=signer_cls)
+    device_signed = {name: verdict_json(name, dev, signer_factory=signer_cls)
+                     for name in SIM_DEVICE_SIGNER}
     signer_launches = dict(_build.launches)
     for name in SIM_DEVICE_SIGNER:
-        host_json, walls[(name, "cpu, host signer")] = verdict_json(
-            name, "cpu", signer_factory=Ed25519ConsensusSigner)
         compare(f"(c) {name}'s verdict JSON, device signer against host", device_signed[name],
-                host_json)
+                verdict_json(name, "cpu", signer_factory=Ed25519ConsensusSigner))
     require_launches("(c) the corpus", corpus_launches, ("ingest_scan",))
     require_launches("(c) the device signer", signer_launches, VERIFY_KERNELS + ("ingest_scan",))
-    return dict(walls=walls, corpus_launches=corpus_launches, signer_launches=signer_launches,
+    return dict(corpus_launches=corpus_launches, signer_launches=signer_launches,
                 batches=len(signer_cls.batches),
                 fallbacks=sum(1 for b in signer_cls.batches if b["fallback"]),
                 n=len(SCENARIOS))
@@ -5758,78 +4903,48 @@ def phase_sim(dev):
 def phase_gossip_sync(dev):
     """Phase 14: gossip, catch-up and the chaos simulator on the card
     ((a)-(c), see the module doc)."""
-    t_phase = time.perf_counter()
-    smi = nvidia_smi()
     a = phase_gossip(dev)
     n_votes = GOSSIP_PROPOSALS * WAL_VOTERS
     for name, arm in a["arms"].items():
         rep, moved = arm["report"], arm["moved"]
-        rate = (f" = {n_votes * GOSSIP_PEERS / arm['wall']:.1f} aggregate networked votes/s "
-                f"({GOSSIP_PROPOSALS} x {WAL_VOTERS} x {GOSSIP_PEERS} peers / wall)"
-                if name == "fanout_all" else "")
         log(f"[gossip] (a) {name}: {n_votes} votes in chunks of {GOSSIP_CHUNK} through a "
-            f"GossipNode in {arm['wall']:.6f} s{rate}; acked {rep['acked']}, rejected "
-            f"{rep['rejected']}, frames sent {moved['GOSSIP_FRAMES_SENT_TOTAL']}, shed "
-            f"{moved['GOSSIP_FRAMES_SHED_TOTAL']}, deferred {moved['GOSSIP_FRAMES_DEFERRED_TOTAL']}"
-            f"; the proposals to every server first, untimed above: {arm['setup_s']:.3f} s"
-            f"; anti-entropy rounds {arm['rounds']} ({arm['repair_s']:.6f} s, "
-            f"{moved['GOSSIP_ANTI_ENTROPY_SESSIONS_TOTAL']} sessions pushed); ingest_scan "
-            f"launches {arm['launches'].get('ingest_scan', 0)}; "
+            f"GossipNode; acked {rep['acked']}, rejected {rep['rejected']}, frames sent "
+            f"{moved['GOSSIP_FRAMES_SENT_TOTAL']}, shed {moved['GOSSIP_FRAMES_SHED_TOTAL']}, "
+            f"deferred {moved['GOSSIP_FRAMES_DEFERRED_TOTAL']}; anti-entropy rounds "
+            f"{arm['rounds']} ({moved['GOSSIP_ANTI_ENTROPY_SESSIONS_TOTAL']} sessions pushed); "
+            f"ingest_scan launches {arm['launches'].get('ingest_scan', 0)}; "
             + (f"{GOSSIP_PEERS} fingerprints equal to the CPU server's" if "misses" not in arm
                else f"sessions differing from the CPU server by a round-cap failure that "
                     f"repair cannot carry, per server: {arm['misses']} (of its {a['failed']} "
-                    f"failed sessions); every other session equal")
-            + f"; {smi}")
-    log(f"[gossip] (a) the CPU server (device='cpu') took the same chunks directly in "
-        f"{a['cpu_s']:.6f} s; traffic built in {a['build_s']:.3f} s; the servers are in this "
-        f"process and share one GIL with the driver")
+                    f"failed sessions); every other session equal"))
     b = phase_catchup(dev)
-    batch = phases = b["batch"]
-    log(f"[catchup] (b) the source took {b['signed']} Ed25519 votes (chains built in "
-        f"{b['build_s']:.3f} s, signed by the native runtime on 8 threads in "
-        f"{b['sign_s']:.3f} s; waves 1-{CATCHUP_TAIL_WAVE} in "
-        f"{b['source_s']:.3f} s) and retains {b['retained_at_snapshot']} at the snapshot, "
-        f"{b['retained']} at the end; {smi}")
+    batch = b["batch"]
+    log(f"[catchup] (b) the source took {b['signed']} Ed25519 votes (signed by the native "
+        f"runtime on 8 threads) and retains {b['retained_at_snapshot']} at the snapshot, "
+        f"{b['retained']} at the end")
     for name in ("gpu", "replay", "cpu"):
-        rep, st = b[name]["report"], b[name]["stages"]
+        rep = b[name]["report"]
         log(f"[catchup] (b) {name} joiner ({'full_replay' if name == 'replay' else 'catch_up'})"
-            f": wall {st['wall']:.6f} s = download {st['download']:.6f} s + verify "
-            f"{st['verify']:.6f} s + install {st['install']:.6f} s + tail {st['tail']:.6f} s "
-            f"(of it fetching {st['tail_fetch']:.6f} s); {rep.sessions_installed} sessions, "
-            f"{rep.votes_verified} signatures verified, {rep.tail_records} tail records "
-            f"({rep.tail_votes} votes), {rep.snapshot_bytes} snapshot bytes in "
-            f"{rep.chunks_fetched} chunks")
-    gpu_v, cpu_v = b["gpu"]["stages"]["verify"], b["cpu"]["stages"]["verify"]
-    log(f"[catchup] (b) the snapshot's {batch['items']} signatures in one device batch "
-        f"({batch['seconds']:.6f} s: submit {phases['submit']:.6f}, decompress "
-        f"{phases['decompress']:.6f}, hash {phases['hash']:.6f}, msm {phases['msm']:.6f}, "
-        f"fallback {phases['fallback']:.6f}) at {b['lanes']} MSM lanes, launches "
-        f"{json.dumps(batch['launches'])}; verify_sessions {b['retained_at_snapshot'] / gpu_v:.1f} "
-        f"signatures/s on the card against {b['retained'] / cpu_v:.1f} with the native host "
-        f"batch; the source's and both catch_up joiners' fingerprints equal; the full replay's "
-        f"sessions equal the source's but for {b['replay_misses']} of its {b['source_failed']} "
-        f"sessions failed at the P2P round cap, active on the same chain after replay; {smi}")
+            f": {rep.sessions_installed} sessions, {rep.votes_verified} signatures verified, "
+            f"{rep.tail_records} tail records ({rep.tail_votes} votes), {rep.snapshot_bytes} "
+            f"snapshot bytes in {rep.chunks_fetched} chunks")
+    log(f"[catchup] (b) the snapshot's {batch['items']} signatures in one device batch at "
+        f"{b['lanes']} MSM lanes, launches {json.dumps(batch['launches'])}; the source's and "
+        f"both catch_up joiners' fingerprints equal; the full replay's sessions equal the "
+        f"source's but for {b['replay_misses']} of its {b['source_failed']} sessions failed "
+        f"at the P2P round cap, active on the same chain after replay")
     for name, t in b["times"].items():
         log(f"[catchup] (b) {name} at {t['shape']}: {t['ms']:.6f} ms, bound {t['bound_ms']:.6f} "
             f"ms by {t['bound_by']}; held against its plain version at {b['held'].get(name)}")
-    log(f"[catchup] (b) holding the kernels against their plain versions took "
-        f"{b['hold_s']:.3f} s")
-    log(f"[catchup] (b) a snapshot with one signature byte flipped ({b['tamper_s']:.3f} s): "
-        f"SyncVerificationError "
+    log(f"[catchup] (b) a snapshot with one signature byte flipped: SyncVerificationError "
         f"({b['tamper_error'][:120]}...), nothing installed; its batch fell back to the host "
-        f"blame in {b['tamper_fallback']:.6f} s; launches {json.dumps(b['tamper_launches'])}")
+        f"blame; launches {json.dumps(b['tamper_launches'])}")
     c = phase_sim(dev)
-    walls = c["walls"]
     log(f"[sim] (c) {c['n']} scenarios at seed {SIM_SEED}, every verdict ok and the verdict "
-        f"JSON equal on the card and the CPU: " + "; ".join(
-            f"{name} {walls[(name, 'cuda')]:.3f} s / {walls[(name, 'cpu')]:.3f} s"
-            for name, dev_ in walls if dev_ == "cuda") + f"; launches {json.dumps(c['corpus_launches'])}")
+        f"JSON equal on the card and the CPU; launches {json.dumps(c['corpus_launches'])}")
     log(f"[sim] (c) with the device signer on the card, equal to the host signer on the CPU: "
-        + "; ".join(f"{name} {walls[(name, 'cuda, device signer')]:.3f} s / "
-                    f"{walls[(name, 'cpu, host signer')]:.3f} s" for name in SIM_DEVICE_SIGNER)
-        + f"; {c['batches']} device batches, {c['fallbacks']} fell back to the host blame; "
-        f"launches {json.dumps(c['signer_launches'])}; {smi}")
-    log(f"[gossip] phase 14 took {time.perf_counter() - t_phase:.3f} s on {smi}")
+        f"{', '.join(SIM_DEVICE_SIGNER)}; {c['batches']} device batches, {c['fallbacks']} fell "
+        f"back to the host blame; launches {json.dumps(c['signer_launches'])}")
     return dict(a=a, b=b, c=c)
 
 
@@ -5889,17 +5004,16 @@ def phase_sharded(dev):
     from hashgraph_tpu_torch.convert import DEVICE_ARRAYS, pool_to_numpy
     from hashgraph_tpu_torch.ops import cuda_ingest
 
-    t0 = time.perf_counter()
     single = Run(make_engine(dev))
-    single_st, single_wall, n_votes = config3_traffic(single, 3)
+    single_st = config3_traffic(single, 3)
     gpu = Run(sharded_engine([torch.device("cuda", 0)] * SHARDS))
     # The main path of the phase: counts are zeroed just before it.
     _build.launches.clear()
-    gpu_st, gpu_wall, _ = config3_traffic(gpu, 3)
+    gpu_st = config3_traffic(gpu, 3)
     launches = _build.launches[cuda_ingest.KERNEL]
     per_shard = list(gpu.engine.pool().scan_dispatches)
     cpu = Run(sharded_engine([torch.device("cpu")] * SHARDS))
-    cpu_st, _, _ = config3_traffic(cpu, 3)
+    cpu_st = config3_traffic(cpu, 3)
     runs = {"single GPU pool": single, "sharded CPU pool": cpu}
     seen = {label: (r.outcome("config3"), r.events_by_session()) for label, r in runs.items()}
     mine = (gpu.outcome("config3"), gpu.events_by_session())
@@ -5927,16 +5041,12 @@ def phase_sharded(dev):
     if launches == 0 or launches != sum(per_shard) or 0 in per_shard:
         raise AssertionError(f"sharded config 3: {launches} ingest_scan launches, per shard "
                              f"{per_shard} (every shard must launch, once a dispatch)")
-    wall = time.perf_counter() - t0
     log(f"[placement] (a) config 3 on ShardedPool({CAPACITY // SHARDS}, {VOTER_CAPACITY}, "
-        f"mesh=[cuda:0] * {SHARDS}): {n_votes} votes in {gpu_wall:.6f} s = "
-        f"{n_votes / gpu_wall:.1f} votes/s; the single-pool engine {single_wall:.6f} s = "
-        f"{n_votes / single_wall:.1f} votes/s; ingest_scan launches {launches}, per shard "
+        f"mesh=[cuda:0] * {SHARDS}): ingest_scan launches {launches}, per shard "
         f"{per_shard}; statuses, results, stats, events, global counts {counts}, "
         f"occupancy {occupancy} equal to the single pool's and the CPU blocks', every "
-        f"pool array equal to the CPU blocks'; {wall:.3f} s")
-    return dict(launches=launches, per_shard=per_shard, votes_per_s=n_votes / gpu_wall,
-                single_votes_per_s=n_votes / single_wall, seconds=wall)
+        f"pool array equal to the CPU blocks'")
+    return dict(launches=launches, per_shard=per_shard)
 
 
 def phase_multihost():
@@ -5948,7 +5058,6 @@ def phase_multihost():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import test_torch_multihost as mh
 
-    t0 = time.perf_counter()
     sides = {"cuda": [], "cpu": []}
     with ThreadPoolExecutor(2) as pool:
         futures = {device: pool.submit(mh.run_engine_workers, "port", device, MULTIHOST_SCALE,
@@ -5967,26 +5076,22 @@ def phase_multihost():
                              f"{dispatches}")
     if any(side["launches"] for side in sides["cpu"]):
         raise AssertionError(f"the CPU workers launched kernels: {sides['cpu']}")
-    wall = time.perf_counter() - t0
     log(f"[placement] (b) two gloo processes, one MultiHostPool block each on cuda:0, "
         f"{MULTIHOST_SCALE['proposals']} proposals x {MULTIHOST_SCALE['voters']} voters: "
         f"observations equal to the CPU pair's, rank by rank (created pid "
         f"{observed['cuda'][0]['created_pid']}, checkpoint digest "
         f"{observed['cuda'][0]['digest'][:16]}); owned {len(owned[0])} and {len(owned[1])} "
         f"sessions, disjoint; ingest_scan launches per process {launches} (fresh "
-        f"processes: their counts start at 0); {wall:.3f} s for both pairs at once")
-    return dict(launches=launches, owned=[len(o) for o in owned], seconds=wall)
+        f"processes: their counts start at 0)")
+    return dict(launches=launches, owned=[len(o) for o in owned])
 
 
 def phase_placement(dev):
-    smi = nvidia_smi()
-    t0 = time.perf_counter()
     a = phase_sharded(dev)
     torch.cuda.empty_cache()
     b = phase_multihost()
-    log(f"[placement] phase 15 took {time.perf_counter() - t0:.3f} s on {smi}; one card "
-        "checks routing, per-block kernels, summed stats and the gloo control plane, not "
-        "placement across GPUs or NCCL")
+    log("[placement] one card checks routing, per-block kernels, summed stats and the gloo "
+        "control plane, not placement across GPUs or NCCL")
     return dict(a=a, b=b)
 
 
@@ -6068,19 +5173,12 @@ def spread_calls(run, seed, gid_of, scopes=FLEET_SCOPES, n=10_000):
 
 
 def spread_traffic(run, seed, gid_of):
-    """:func:`spread_calls` through ``run``'s engine or fleet: statuses,
-    wall and votes."""
+    """:func:`spread_calls` through ``run``'s engine or fleet: the scope
+    names and each call's statuses."""
     names, calls = spread_calls(run, seed, gid_of)
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-    statuses, wall = [], 0.0
-    for sidx, pids, gids, vals, now in calls:
-        sync()
-        t0 = time.perf_counter()
-        st = run.engine.ingest_columnar_multi(names, sidx, pids, gids, vals, now, max_depth=8)
-        sync()
-        wall += time.perf_counter() - t0
-        statuses.append(st.tolist())
-    return names, statuses, wall, sum(len(c[1]) for c in calls)
+    return names, [run.engine.ingest_columnar_multi(names, sidx, pids, gids, vals, now,
+                                                    max_depth=8).tolist()
+                   for sidx, pids, gids, vals, now in calls]
 
 
 def fleet_outcomes(run, names):
@@ -6095,9 +5193,8 @@ def phase_fleet_config3(dev):
     from hashgraph_tpu_torch.ops import cuda_ingest
     from hashgraph_tpu_torch.parallel import ShardedPool
 
-    t0 = time.perf_counter()
     single = Run(make_engine(dev))
-    names, single_st, single_wall, n_votes = spread_traffic(
+    names, single_st = spread_traffic(
         single, 16, lambda scope, owner: single.engine.voter_gid(owner))
     fleet = fleet_of(dev, CAPACITY // FLEET_SHARDS, VOTER_CAPACITY)
     gpu = FleetRun(fleet)
@@ -6106,12 +5203,12 @@ def phase_fleet_config3(dev):
         raise AssertionError(f"the 64 scopes land on shards {owners} only")
     # The main path of the phase: counts are zeroed just before it.
     _build.launches.clear()
-    _, gpu_st, gpu_wall, _ = spread_traffic(gpu, 16, fleet.voter_gid)
+    _, gpu_st = spread_traffic(gpu, 16, fleet.voter_gid)
     launches = _build.launches[cuda_ingest.KERNEL]
     per_shard = [fleet.shard(sid).pool().scan_dispatches[0] for sid in fleet.shard_ids]
     cpu_fleet = fleet_of(torch.device("cpu"), CAPACITY // FLEET_SHARDS, VOTER_CAPACITY)
     cpu = FleetRun(cpu_fleet)
-    _, cpu_st, _, _ = spread_traffic(cpu, 16, cpu_fleet.voter_gid)
+    _, cpu_st = spread_traffic(cpu, 16, cpu_fleet.voter_gid)
     mine = (fleet_outcomes(gpu, names), gpu.events_by_session())
     for label, other, st in (("single GPU engine", single, single_st),
                              ("CPU fleet", cpu, cpu_st)):
@@ -6152,19 +5249,15 @@ def phase_fleet_config3(dev):
     occupancy = [fleet.occupancy()[sid]["live_sessions"] for sid in fleet.shard_ids]
     fleet.close()
     cpu_fleet.close()
-    wall = time.perf_counter() - t0
     log(f"[fleet] (a) config 3 over {FLEET_SCOPES} scopes on ConsensusFleet("
         f"n_shards={FLEET_SHARDS}, devices=[{dev}], capacity_per_shard="
         f"{CAPACITY // FLEET_SHARDS}, voter_capacity={VOTER_CAPACITY}), five "
-        f"ingest_columnar_multi calls: {n_votes} votes in {gpu_wall:.6f} s = "
-        f"{n_votes / gpu_wall:.1f} votes/s; one engine on the card {single_wall:.6f} s = "
-        f"{n_votes / single_wall:.1f} votes/s; ingest_scan launches {launches}, per shard "
+        f"ingest_columnar_multi calls: ingest_scan launches {launches}, per shard "
         f"{per_shard}; sessions per shard {occupancy}; statuses, results, stats and events "
         f"equal to the single engine's and the CPU fleet's; fleet tally {tally} reduced on "
         f"the card from {len(reduced)} shard vectors, equal to the host mirrors, the CPU "
-        f"fleet's and the single pool's; {wall:.3f} s")
-    return dict(launches=launches, per_shard=per_shard, votes_per_s=n_votes / gpu_wall,
-                single_votes_per_s=n_votes / single_wall, seconds=wall)
+        f"fleet's and the single pool's")
+    return dict(launches=launches, per_shard=per_shard)
 
 
 def fleet_deliveries(fleet, data):
@@ -6176,18 +5269,13 @@ def fleet_deliveries(fleet, data):
     from hashgraph_tpu_torch.wire import Proposal
 
     run = ProposalRun(FleetEngineAdapter(fleet))
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-    log_, walls = [], []
+    log_ = []
     for payload, now in ((data["a"], NOW + 100), (data["b"][0], NOW + 101),
                          (data["b"][1], NOW + 102), (data["c"], NOW + 103)):
         items = [(scope, Proposal.decode(b)) for scope, b in payload]
-        sync()
-        t = time.perf_counter()
         log_.append(fleet.deliver_proposals(items, now))
-        sync()
-        walls.append(time.perf_counter() - t)
         log_.append(sorted(run.events(), key=repr))
-    return log_, run.state(data["chain_pids"]), walls
+    return log_, run.state(data["chain_pids"])
 
 
 def phase_fleet_signed(dev):
@@ -6197,9 +5285,7 @@ def phase_fleet_signed(dev):
     from hashgraph_tpu_torch import _build
     from hashgraph_tpu_torch.signing import Ed25519ConsensusSigner
 
-    t0 = time.perf_counter()
     data = proposal_traffic_data()
-    sign_s = time.perf_counter() - t0
     rng = random.Random(161)
     seeds = [rng.randbytes(32) for _ in range(FLEET_SHARDS)]
     device_signer = counting_device_signer()
@@ -6219,14 +5305,10 @@ def phase_fleet_signed(dev):
         raise AssertionError(f"the signed scopes share a shard: {shards}")
     captured = KernelInputs()
     _build.launches.clear()
-    t = time.perf_counter()
     with captured.active():
-        gpu_log, gpu_state, gpu_walls = fleet_deliveries(fleets["gpu"], data)
-    gpu_s = time.perf_counter() - t
+        gpu_log, gpu_state = fleet_deliveries(fleets["gpu"], data)
     launches = dict(_build.launches)
-    t = time.perf_counter()
-    cpu_log, cpu_state, cpu_walls = fleet_deliveries(fleets["cpu"], data)
-    cpu_s = time.perf_counter() - t
+    cpu_log, cpu_state = fleet_deliveries(fleets["cpu"], data)
     compare("signed fleet statuses and events", gpu_log, cpu_log)
     compare("signed fleet sessions, votes and stats", gpu_state, cpu_state)
     never = [k for k in VERIFY_KERNELS if not launches.get(k)]
@@ -6238,26 +5320,20 @@ def phase_fleet_signed(dev):
         if batch["fallback"] != 0.0 or not batch["msm"] > 0.0:
             raise AssertionError(f"signed fleet: batch {batch} fell back to the host blame "
                                  "or ran no MSM")
-    t = time.perf_counter()
     held = hold_captured(captured)
-    hold_s = time.perf_counter() - t
     if set(held) != set(VERIFY_KERNELS):
         raise AssertionError(f"signed fleet: kernel inputs captured on the path: {held}")
     for fleet in fleets.values():
         fleet.close()
     codes = sorted(set(gpu_log[0]))
-    wall = time.perf_counter() - t0
     log(f"[fleet] (a) phase 8's {PROP_MAIN} x {PROP_VOTERS} Ed25519 chains (and its extra "
         f"items) through fleet.deliver_proposals on {FLEET_SHARDS} shards of {dev} with "
-        f"device signers (scopes on shards {shards}): stage walls "
-        f"{[round(x, 6) for x in gpu_walls]} s against the CPU fleet's "
-        f"{[round(x, 6) for x in cpu_walls]} s (host batch verification); {len(batches)} "
-        f"device batches, none fell back to the host blame; launches {json.dumps(launches)}; "
-        f"statuses {codes} of stage (a), events, results, votes and stats equal to the CPU "
-        f"fleet's; each kernel held against its plain version on the path's inputs at "
-        f"{json.dumps(held)} ({hold_s:.3f} s); signing {sign_s:.3f} s, the GPU fleet "
-        f"{gpu_s:.3f} s, the CPU fleet {cpu_s:.3f} s; {wall:.3f} s")
-    return dict(launches=launches, batches=len(batches), seconds=wall)
+        f"device signers (scopes on shards {shards}): {len(batches)} device batches, none "
+        f"fell back to the host blame; launches {json.dumps(launches)}; statuses {codes} of "
+        f"stage (a), events, results, votes and stats equal to the CPU fleet's (host batch "
+        f"verification); each kernel held against its plain version on the path's inputs at "
+        f"{json.dumps(held)}")
+    return dict(launches=launches, batches=len(batches))
 
 
 def fed_plan(create, seed=162):
@@ -6496,7 +5572,7 @@ def federation_run(dev, root):
         thread.join(timeout=300)
         if thread.is_alive() or errors:
             raise AssertionError(f"(b2) the traffic thread failed: {errors}")
-        seconds = report.pop("seconds")
+        report.pop("seconds")  # wall clock: not compared
         send(FED_WAVES - 1, keep=moving)
         launches = dict(_build.launches)
         log_["statuses"].sort(key=lambda x: (x[0], x[1], x[2], len(x[3])))
@@ -6506,7 +5582,7 @@ def federation_run(dev, root):
                                       names, pids, sidx)
         log_["counts_after"] = groups["h0"].federated_state_counts()
         log_["fingerprints_after"] = [groups[h].state_fingerprint() for h in ("h0", "h1")]
-        return log_, launches, seconds
+        return log_, launches
     finally:
         for group in groups.values():
             group.close()
@@ -6521,12 +5597,8 @@ def fleet_twin(root):
     --fleet-twin ROOT``) beside the card's work: the runs are host-bound
     and deterministic (seeded ids), so a process of their own gives the
     same logs in less of the phase's wall."""
-    out = {}
-    for label, fn in FLEET_RUNS:
-        t0 = time.perf_counter()
-        result = fn(torch.device("cpu"), Path(root) / label)
-        out[label] = dict(log=result[0], seconds=time.perf_counter() - t0,
-                          migration_seconds=result[2] if len(result) > 2 else None)
+    out = {label: dict(log=fn(torch.device("cpu"), Path(root) / label)[0])
+           for label, fn in FLEET_RUNS}
     print(json.dumps(out))
 
 
@@ -6557,16 +5629,11 @@ def phase_fleet_recovery(dev, root, twin_proc):
 
     out = {}
     for label, fn in FLEET_RUNS:
-        t0 = time.perf_counter()
         gpu = fn(dev, root / label)
-        out[label] = dict(log=json.loads(json.dumps(gpu[0])), launches=gpu[1],
-                          seconds=time.perf_counter() - t0,
-                          migration_seconds=gpu[2] if len(gpu) > 2 else None)
+        out[label] = dict(log=json.loads(json.dumps(gpu[0])), launches=gpu[1])
         if not gpu[1].get("ingest_scan"):
             raise AssertionError(f"({label}) launched no ingest_scan: {gpu[1]}")
-    t0 = time.perf_counter()
     twin = finish_fleet_twin(twin_proc)
-    waited = time.perf_counter() - t0
     for label, _ in FLEET_RUNS:
         compare(f"({label}) statuses, results, fingerprints and reports against the CPU run",
                 out[label]["log"], twin[label]["log"])
@@ -6589,22 +5656,17 @@ def phase_fleet_recovery(dev, root, twin_proc):
         f"while wave 1 went to the other three, shard {b1['victims'][1]} rebuilt from a peer "
         f"({b1['caught_up']}) while wave 2 did; fingerprints equal to before each crash and "
         f"to the peer; statuses, results, stats, every shard's fingerprint and the tally "
-        f"{b1['counts']} equal to the CPU run's; launches {json.dumps(out['b1']['launches'])}; "
-        f"{out['b1']['seconds']:.3f} s on the card, the CPU run {twin['b1']['seconds']:.3f} s "
-        "in the twin process")
+        f"{b1['counts']} equal to the CPU run's (the twin process); launches "
+        f"{json.dumps(out['b1']['launches'])}")
     log(f"[fleet] (b2) two FleetGroups of 2 shards on cuda:0 over loopback TCP, "
         f"{FED_PROPOSALS} proposals x {WAL_VOTERS} voters in {FED_SCOPES} scopes, "
         f"{FED_WAVES} waves of {WAL_PER_WAVE} votes a proposal, every proposal's votes in at "
         f"one host by parity (half ride the fabric): statuses {by_code}, {decided} "
         f"sessions decided; fabric tally {b2['counts']} equal on both hosts; "
         f"migrate_shard {b2['migration']['shard']} h0 -> h1 ({b2['migration']['sessions']} "
-        f"sessions, {b2['migration']['scopes']} scopes) in "
-        f"{out['b2']['migration_seconds']:.3f} s under a traffic thread (the CPU run's "
-        f"{twin['b2']['migration_seconds']:.3f} s); statuses, results, host fingerprints "
-        f"and the report equal to the CPU run's; launches "
-        f"{json.dumps(out['b2']['launches'])}; {out['b2']['seconds']:.3f} s on the card, "
-        f"the CPU run {twin['b2']['seconds']:.3f} s in the twin process (waited "
-        f"{waited:.3f} s for it after the card's runs)")
+        f"sessions, {b2['migration']['scopes']} scopes) under a traffic thread; statuses, "
+        f"results, host fingerprints and the report equal to the CPU run's (the twin "
+        f"process); launches {json.dumps(out['b2']['launches'])}")
     return out
 
 
@@ -6617,7 +5679,6 @@ def phase_fleet_collective():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import test_torch_multihost as mh
 
-    t0 = time.perf_counter()
     sides = {"cuda": [], "cpu": []}
     with ThreadPoolExecutor(2) as pool:
         futures = {device: pool.submit(mh.run_federation_workers, device, FED_WORKER_SCALE,
@@ -6633,28 +5694,24 @@ def phase_fleet_collective():
     if 0 in launches or any(side["launches"] for side in sides["cpu"]):
         raise AssertionError(f"(c) ingest_scan launches {launches} on the card, "
                              f"{[s['launches'] for s in sides['cpu']]} on the CPU")
-    wall = time.perf_counter() - t0
     log(f"[fleet] (c) two gloo processes, a FleetGroup of one shard each on cuda:0, "
         f"{FED_WORKER_SCALE['proposals']} proposals x {FED_WORKER_SCALE['voters']} voters "
         f"each: tally_path() 'psum' on both, the all-gather's counts "
         f"{observed['cuda'][0]['psum']} equal to the fabric's OP_FLEET_TALLY sum and to the "
-        f"CPU pair's; ingest_scan launches per process {launches}; {wall:.3f} s for both "
-        "pairs at once")
-    return dict(launches=launches, seconds=wall)
+        f"CPU pair's; ingest_scan launches per process {launches}")
+    return dict(launches=launches)
 
 
 def phase_fleet(dev):
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
-    smi = nvidia_smi()
     dev = torch.device(dev.type, torch.cuda.current_device())  # the tally's device is cuda:0
-    t0 = time.perf_counter()
     a = phase_fleet_config3(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as root:
         # From here the CPU twin of (b) and (c)'s two pairs of processes run
-        # beside the card's work; (a)'s rates above were measured alone.
+        # beside the card's work.
         twin = start_fleet_twin(Path(root) / "twin")
         background = ThreadPoolExecutor(1)
         collective = background.submit(phase_fleet_collective)
@@ -6668,11 +5725,9 @@ def phase_fleet(dev):
                 twin.kill()
                 twin.communicate()
             background.shutdown(wait=False)
-    log(f"[fleet] phase 16 took {time.perf_counter() - t0:.3f} s on {smi}: (a) "
-        f"{a['seconds']:.3f} + {signed['seconds']:.3f}, (b1) {b['b1']['seconds']:.3f}, "
-        f"(b2) {b['b2']['seconds']:.3f}, (c) {c['seconds']:.3f}; one card checks the router, "
-        "the per-shard kernels, the device tally, the fabric and live migration, not shards "
-        "on separate GPUs, NCCL or hosts on separate machines")
+    log("[fleet] one card checks the router, the per-shard kernels, the device tally, the "
+        "fabric and live migration, not shards on separate GPUs, NCCL or hosts on separate "
+        "machines")
     return dict(a=a, signed=signed, b=b, c=c)
 
 
@@ -6787,12 +5842,11 @@ def run_script_example(name: str, dev: "str | None", tmp: Path) -> dict:
     directories there, as the reference's do): exit code, stdout, the
     tail of stderr, and every process's report."""
     args = [] if dev is None else ["--device", dev]
-    t = time.perf_counter()
     proc = subprocess.run(example_argv(name, *args), cwd=str(EXAMPLES_DIR.parent),
                           capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT,
                           env=example_env(TMPDIR=str(tmp)))
     return dict(rc=proc.returncode, out=proc.stdout, err=proc.stderr[-4000:],
-                reports=example_reports(proc.stderr), seconds=time.perf_counter() - t)
+                reports=example_reports(proc.stderr))
 
 
 class LineProcess:
@@ -6980,7 +6034,6 @@ def example_federation(dev: str, root: Path) -> dict:
     both must exit 0 on EOF."""
     common = ["--hosts", ",".join(FED_HOSTS), "--shards-per-host", "2", "--capacity", "32",
               "--voter-capacity", str(FED_VOTERS + 2), "--device", dev]
-    t = time.perf_counter()
     hosts = {h: LineProcess(example_argv("federation_host", "--host-id", h, "--wal-root",
                                          str(root / dev / h), *common), env=example_env())
              for h in FED_HOSTS}
@@ -6991,8 +6044,7 @@ def example_federation(dev: str, root: Path) -> dict:
     if codes != [0, 0]:
         raise AssertionError(f"(a) federation hosts on {dev} exited {codes}: "
                              f"{''.join(hosts['h0'].err[-10:] + hosts['h1'].err[-10:])}")
-    out.update(reports=[r for host in hosts.values() for r in host.reports()],
-               seconds=time.perf_counter() - t)
+    out.update(reports=[r for host in hosts.values() for r in host.reports()])
     return out
 
 
@@ -7044,7 +6096,6 @@ def example_peers(scheme: str, traffic) -> dict:
     each taking ``traffic(port)``; with ``ed25519`` the card peer runs
     under ``HASHGRAPH_TPU_DEVICE_VERIFY=1`` and the CPU peer under the host
     signer. Both must exit 0 on EOF."""
-    t = time.perf_counter()
     verify = {"cuda": "1" if scheme == "ed25519" else None, "cpu": None}
     peers = {dev: LineProcess(example_argv("gossip_peer", "--scheme", scheme, "--device", dev),
                               env=example_env(HASHGRAPH_TPU_DEVICE_VERIFY=verify[dev]))
@@ -7062,7 +6113,7 @@ def example_peers(scheme: str, traffic) -> dict:
         raise AssertionError(f"gossip_peer --scheme {scheme} exit codes {codes}: "
                              f"{''.join(peers['cuda'].err[-10:] + peers['cpu'].err[-10:])}")
     reports = {dev: peer.reports() for dev, peer in peers.items()}
-    return dict(answers=answers, reports=reports, seconds=time.perf_counter() - t)
+    return dict(answers=answers, reports=reports)
 
 
 def report_of(reports, name) -> dict:
@@ -7088,8 +6139,6 @@ def phase_examples() -> dict:
 
     from hashgraph_tpu_torch.errors import StatusCode
 
-    smi = nvidia_smi()
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-examples-") as root, \
             ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
         # The long multi-process arms first, then the scripts behind them.
@@ -7113,8 +6162,7 @@ def phase_examples() -> dict:
         run = runs[(name, None)]
         if report_of(run["reports"], name)["cuda"]:
             raise AssertionError(f"(a) {name} initialised CUDA: it drives host-only services")
-        log(f"[examples] {name}: exit 0 in {run['seconds']:.3f} s, no device work; "
-            f"{len(run['out'].splitlines())} lines")
+        log(f"[examples] {name}: exit 0, no device work; {len(run['out'].splitlines())} lines")
     for name in SCRIPT_EXAMPLES:
         card, cpu = runs[(name, "cuda")], runs[(name, "cpu")]
         compare(f"(a) {name}'s masked transcript", masked_transcript(name, card["out"]),
@@ -7133,8 +6181,7 @@ def phase_examples() -> dict:
         if any(r["launches"] for r in cpu["reports"]):
             raise AssertionError(f"(a) {name} on the CPU launched kernels: {cpu['reports']}")
         launches[name] = merge_launches(card_reports)
-        log(f"[examples] {name}: card and CPU runs exit 0 in {card['seconds']:.3f} and "
-            f"{cpu['seconds']:.3f} s with equal masked transcripts "
+        log(f"[examples] {name}: card and CPU runs exit 0 with equal masked transcripts "
             f"({len(card['out'].splitlines())} lines); launches on the card "
             f"{launches[name]}" + (" (its two host processes)" if workers != name else ""))
     if launches["batch_engine"].get("ingest_scan", 0) < 4:
@@ -7155,8 +6202,8 @@ def phase_examples() -> dict:
     launches["federation_host"] = merge_launches(fed["cuda"]["reports"])
     log(f"[examples] federation_host: two hosts on the card and two on the CPU, one decision "
         f"a host, shard migrated with {fed['cuda']['sessions']} sessions and equal "
-        f"fingerprints, tallies {fed['cuda']['tallies']} equal; {fed['cuda']['seconds']:.3f} "
-        f"and {fed['cpu']['seconds']:.3f} s; launches on the card {launches['federation_host']}")
+        f"fingerprints, tallies {fed['cuda']['tallies']} equal; launches on the card "
+        f"{launches['federation_host']}")
 
     compare("(a) gossip_peer answers", stub_peers["answers"]["cuda"], stub_peers["answers"]["cpu"])
     card = report_of(stub_peers["reports"]["cuda"], "gossip_peer")
@@ -7164,8 +6211,7 @@ def phase_examples() -> dict:
         raise AssertionError(f"(a) gossip_peer on the card: {card} {stub_peers['answers']}")
     launches["gossip_peer"] = card["launches"]
     log(f"[examples] gossip_peer --scheme stub: the quick-start's answers equal on the card "
-        f"and the CPU, both exit 0 on EOF in {stub_peers['seconds']:.3f} s; launches on the "
-        f"card {card['launches']}")
+        f"and the CPU, both exit 0 on EOF; launches on the card {card['launches']}")
 
     (card_answers, card_counters), (cpu_answers, cpu_counters) = (
         signed["answers"]["cuda"], signed["answers"]["cpu"])
@@ -7183,17 +6229,11 @@ def phase_examples() -> dict:
             or cpu["verify_batches"] or cpu["launches"]):
         raise AssertionError(f"(c) device batches: card {card}, {card_counters}; CPU {cpu}")
     launches["gossip_peer_ed25519"] = card["launches"]
-    seconds = time.perf_counter() - t0
     log(f"[examples] gossip_peer --scheme ed25519 under HASHGRAPH_TPU_DEVICE_VERIFY=1: "
         f"statuses and results equal to the host-signer peer on the CPU; "
         f"{card['verify_batches']:g} device batches, {card['verify_fallbacks']:g} host blame "
-        f"(the damaged signature's); launches {card['launches']}; {signed['seconds']:.3f} s")
-    log(f"[examples] phase 17 took {seconds:.3f} s on {smi}")
-    return dict(launches=launches, seconds=seconds)
-
-
-PHASES = ("1", "2", "3", "4", "5", "5b", "6", "6b", "6c", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17")
+        f"(the damaged signature's); launches {card['launches']}")
+    return dict(launches=launches)
 
 
 def main() -> int:
@@ -7218,56 +6258,37 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log(f"[build] device {props.name}: {props.multi_processor_count} SMs, "
         f"{props.total_memory / 2**30:.1f} GiB; nvidia-smi: {smi}")
-    t0 = time.perf_counter()
     # The native host runtime builds with g++ beside the nvcc builds.
-    native_s = []
-    native_build = threading.Thread(target=lambda: native_s.append(
-        (native.available(), time.perf_counter() - t0)))
+    native_ok = []
+    native_build = threading.Thread(target=lambda: native_ok.append(native.available()))
     native_build.start()
-    variant_builds = start_variants()
     try:
         _build.build()
-    except BaseException:
-        for proc, _ in variant_builds.values():
-            proc.kill()
-        raise
     finally:
         native_build.join()
-    variants = finish_variants(variant_builds)
-    if not native_s or not native_s[0][0]:
+    if native_ok != [True]:
         raise AssertionError("the native host runtime did not build: the CPU engines and "
                              "the services would measure the pure-Python path")
-    log(f"[build] kernels {_build.sources()} and the variants "
-        f"{ {f'{src}.{name}': sorted(v) for (src, name), v in variants.items()} } built in "
-        f"{time.perf_counter() - t0:.3f} s; the native host runtime "
-        f"({native._load()._name}) in {native_s[0][1]:.3f} s")
-    builds = [(name, _build.build_log(name)) for name in _build.sources()]
-    builds += [(f"{src} with {name} = {value}", output)
-               for (src, name), built in variants.items()
-               for value, (_, output) in built.items() if value != kept_value(src, name)]
-    for name, output in builds:
-        for line in output.splitlines():
+    log(f"[build] kernels {_build.sources()} and the native host runtime "
+        f"({native._load()._name}) built")
+    for name in _build.sources():
+        for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"[build] {name}: {line.strip()}")
-    sass_counts(variants)
 
     timing = phase_kernel(dev) if run("2") else None
 
     gpu, cpu = Run(make_engine(dev)), Run(make_engine("cpu"))
-    phase3_rate = None
     if run("3"):
         # Phase 3, the main path: counts are zeroed just before it.
         _build.launches.clear()
         grid_before = cuda_ingest.grid_launches
-        with Timer() as timer:
-            gpu_st, wall, n_votes = config3_traffic(gpu, 3)
-            scan_ms, fresh_ms = timer.ms("scan"), timer.ms("fresh")
-            n_scan_calls, n_fresh = len(timer.events["scan"]), len(timer.events["fresh"])
+        gpu_st = config3_traffic(gpu, 3)
         main_launches = _build.launches[cuda_ingest.KERNEL]
         per_call = (cuda_ingest.grid_launches - grid_before) / max(main_launches, 1)
         if main_launches == 0:
             raise AssertionError("config 3 never launched the CUDA scan")
-        cpu_st, _, _ = config3_traffic(cpu, 3)
+        cpu_st = config3_traffic(cpu, 3)
         compare("config 3 statuses", gpu_st, cpu_st)
         compare("config 3 results", gpu.outcome("config3"), cpu.outcome("config3"))
         compare("config 3 events", gpu.events_by_session(), cpu.events_by_session())
@@ -7275,25 +6296,16 @@ def main() -> int:
         codes = {StatusCode(c).name: int((flat == c).sum()) for c in np.unique(flat)}
         if not {"OK", "DUPLICATE_VOTE", "ALREADY_REACHED"} <= set(codes):
             raise AssertionError(f"config 3 did not reach the expected statuses: {codes}")
-        results, stats = gpu.outcome("config3")
-        ops3 = config3_ops(dev)
-        log(f"[config3] PyTorch operator calls of each ingest_columnar call without "
-            f"wire_votes (a fresh engine, the same five calls): {ops3}")
-        phase3_rate = n_votes / wall
-        log(f"[config3] {n_votes} votes in {wall:.6f} s = {n_votes / wall:.1f} votes/s on the "
-            f"GPU engine; scan launches {main_launches} ({n_scan_calls} wrapper calls, "
-            f"{per_call:g} device launches a call), fresh dispatches {n_fresh}; scan "
-            f"{scan_ms:.6f} ms + fresh {fresh_ms:.6f} ms of device time = "
-            f"{(scan_ms + fresh_ms) / (wall * 1e3):.6f} of wall "
-            f"(scan alone {scan_ms / (wall * 1e3):.6f})")
-        log(f"[config3] statuses {codes}; stats (total, active, failed, reached) {stats}; "
-            "identical to the CPU engine")
+        _, stats = gpu.outcome("config3")
+        log(f"[config3] scan launches {main_launches} ({per_call:g} device launches a call); "
+            f"statuses {codes}; stats (total, active, failed, reached) {stats}; identical to "
+            "the CPU engine")
 
     if run("4"):
         _build.launches.clear()
-        gpu_st2, wall2 = config2_traffic(gpu, 4)
+        gpu_st2 = config2_traffic(gpu, 4)
         launches2 = _build.launches[cuda_ingest.KERNEL]
-        cpu_st2, _ = config2_traffic(cpu, 4)
+        cpu_st2 = config2_traffic(cpu, 4)
         compare("config 2 statuses", gpu_st2, cpu_st2)
         compare("config 2 results", gpu.outcome("config2"), cpu.outcome("config2"))
         compare("config 2 events", gpu.events_by_session(), cpu.events_by_session())
@@ -7303,7 +6315,7 @@ def main() -> int:
                                  f"{gpu.outcome('config2')[0]}, {launches2} scan wrapper "
                                  "calls (at most 7)")
         log(f"[config2] decided YES at vote {ok_votes} of 1024; scan wrapper calls {launches2}; "
-            f"8 calls in {wall2:.6f} s wall; identical to the CPU engine")
+            f"identical to the CPU engine")
 
     if run("5"):
         _build.launches.clear()
@@ -7324,11 +6336,11 @@ def main() -> int:
 
     if run("5b"):
         _build.launches.clear()
-        spill = phase_spill(dev)
-        spill["scan_launches"] = _build.launches[cuda_ingest.KERNEL]
+        phase_spill(dev)
+        spill_launches = _build.launches[cuda_ingest.KERNEL]
 
-    fe_mul_timing, pow_timing = phase_field(dev, variants) if run("6") else (None, None)
-    msm_timings = phase_msm(dev, variants) if run("6b") else None
+    fe_mul_timing, pow_timing = phase_field(dev) if run("6") else (None, None)
+    msm_timings = phase_msm(dev) if run("6b") else None
     sha512_timing = phase_sha512(dev) if run("6c") else None
     verify = phase_verify(dev) if run("7") else None
     proposals = phase_proposals(dev) if run("8") else None
@@ -7342,7 +6354,7 @@ def main() -> int:
         tier = phase_tier(dev)
     if run("12"):
         # Phase 12's counts are zeroed just before each of its steps.
-        obs_out = phase_obs(dev, phase3_rate)
+        obs_out = phase_obs(dev)
     if run("13"):
         # Phase 13's counts are zeroed just before each of its steps.
         bridge = phase_bridge(dev)
@@ -7381,7 +6393,7 @@ def main() -> int:
         "launches_per_call": per_call,
         "launches_config2": launches2,
         "launches_timeouts": launches5,
-        "launches_spill": spill["scan_launches"],
+        "launches_spill": spill_launches,
         "launches_proposals": proposals["launches"].get("ingest_scan", 0),
         "launches_wal": {
             "config3_wire_crashed_node": wal["a"]["launches"].get("ingest_scan", 0),
@@ -7426,24 +6438,21 @@ def main() -> int:
          "outside the chain",
          "bit-exact against field._mul_plain at [16384, 16] (boundary and ripple rows)"),
         ("fe_pow22523", "fe_pow22523.cu", pow_timing,
-         f"a group of {pow_timing['threads_per_lane']} threads per lane running the "
-         "262-product chain in registers, each holding its limbs of every element",
-         "bit-exact against field._pow22523_plain at [8192, 16] (boundary and ripple rows) "
-         "for 1, 2, 4, 8 and 16 threads a lane"),
+         "a group of kPowGroup threads per lane running the 262-product chain in "
+         "registers, each holding its limbs of every element",
+         "bit-exact against field._pow22523_plain at [8192, 16] (boundary and ripple rows)"),
         ("msm_windows", "ed_msm.cu", msm_timings[0],
-         f"a group of {msm_timings[0]['threads_per_lane']} threads per lane, each holding "
-         "its limbs of the accumulator and exchanging operand limbs by shuffles; the "
-         "16-entry table (uint16, lane-major, in L2) and 64 windows",
-         "bit-exact against msm._windows_plain at [16384, 4, 16] for 4, 8 and 16 threads "
-         "a lane"),
+         "a group of kGroup threads per lane, each holding its limbs of the accumulator "
+         "and exchanging operand limbs by shuffles; the 16-entry table (uint16, "
+         "lane-major, in L2) and 64 windows",
+         "bit-exact against msm._windows_plain at [16384, 4, 16], accepting and rejecting"),
         ("msm_reduce", "ed_msm.cu", msm_timings[1],
          f"the tree and the cofactored identity test: blocks of "
          f"{msm_timings[1]['points_per_block']} points run their levels in shared memory, "
-         f"a group of {msm_timings[1]['threads_per_point']} threads a point, and one "
-         "single-block launch runs the rest, 8 * root and the test; ms is the whole call",
+         "a group of kTreeGroup threads a point, and one single-block launch runs the "
+         "rest, 8 * root and the test; ms is the whole call",
          "root limbs and verdict equal to msm._reduce_plain and msm._final_plain at 16384 "
-         "lanes (accepting and rejecting) and at odd and block-crossing counts, for 1, 4, 8 "
-         "and 16 threads a point"),
+         "lanes (accepting and rejecting) and at odd and block-crossing counts"),
     ]
     for name, source, t, design, parity in crypto:
         gossip_14, catchup_14, sim_14 = gossip_sync_launches(gossip_sync, name)

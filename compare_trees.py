@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's scan kernel and its small-call path for the package of
-one tree, so that two trees can be compared on the same GPU.
+"""Time the port's scan kernel and count its small-call path's scan calls
+for the package of one tree, so that two trees can be compared on the same
+GPU.
 
     python3 compare_trees.py TREE
 
@@ -21,15 +22,11 @@ and prints one JSON line:
   bit-exact against the plain scan;
 - ``config2``: one P2P proposal x 1,024 voters in 8 columnar calls of 128
   votes (``chip_smoke.config2_traffic``) on a fresh GPU engine, after one
-  warm-up run: scan wrapper calls and the wall seconds of each of 3 runs;
-- ``config3_votes_per_s``: ``chip_smoke.config3_traffic`` on a fresh GPU
-  engine;
-- ``config3_torch_ops``: the PyTorch operator calls of each of config 3's
-  five ``ingest_columnar`` calls (``chip_smoke.config3_ops``), on a fresh
-  GPU engine.
+  warm-up run: the scan wrapper calls of each of 3 runs.
 
-Run it once for each tree on one machine, back to back in the order A, B,
-B, A, and compare only runs made together. It needs a CUDA device.
+End-to-end speed is the benchmark's (``portbench/``). Run this once for
+each tree on one machine, back to back in the order A, B, B, A, and compare
+only runs made together. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -95,22 +92,17 @@ def main() -> int:
                            empty_kernel_ms=cs.restored_ms(lambda: torch.cuda._sleep(0),
                                                           restore, 20))
 
-    walls, calls = [], []
+    calls = []
     for rep in range(4):
         run = cs.Run(cs.make_engine(dev))
         before = _build.launches[cuda_ingest.KERNEL]
-        _, wall = cs.config2_traffic(run, 4)
+        cs.config2_traffic(run, 4)
         if rep > 0:
-            walls.append(wall)
             calls.append(_build.launches[cuda_ingest.KERNEL] - before)
         del run
-    _, wall3, n_votes = cs.config3_traffic(cs.Run(cs.make_engine(dev)), 3)
-    ops3 = cs.config3_ops(dev)
 
     print(json.dumps({"tree": str(tree), "device": cs.nvidia_smi(), "scan": scan,
-                      "config2": {"scan_wrapper_calls": calls, "wall_s": walls},
-                      "config3_votes_per_s": n_votes / wall3,
-                      "config3_torch_ops": ops3}))
+                      "config2": {"scan_wrapper_calls": calls}}))
     return 0
 
 

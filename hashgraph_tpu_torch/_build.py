@@ -202,6 +202,20 @@ def host_library(source: Path) -> Path:
         raise BuildError(f"cannot build {source}:\n" + "\n".join(failures))
 
 
+def resolve_device(device):
+    """``device`` as a ``torch.device``. ``"cuda"`` needs a visible GPU:
+    there is no silent move to the CPU, which callers (tests) must ask for."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU"
+        )
+    return device
+
+
 def check_operand(kernel: str, label: str, t, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what a kernel's raw pointer needs."""

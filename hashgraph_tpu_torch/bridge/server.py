@@ -35,8 +35,8 @@ from struct import error as struct_error
 
 import numpy as np
 
+from .._build import resolve_device
 from ..engine import TorchConsensusEngine, VerifiedVoteCache
-from ..engine.pool import resolve_device
 from ..errors import ConsensusError
 from ..events import BroadcastEventBus, EventReceiver
 from ..obs import (

@@ -21,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .engine.pool import ProposalPool, SlotMeta, SlotTensors, resolve_device
+from ._build import resolve_device
+from .engine.pool import ProposalPool, SlotMeta, SlotTensors
 from .ops.chain import CHAIN_FIELDS
 
 # Device arrays: name -> (pool attribute, dtype).

@@ -50,6 +50,7 @@ import secrets
 import numpy as np
 import torch
 
+from .._build import resolve_device
 from ..obs import (
     DEVICE_VERIFY_BATCHES_TOTAL,
     DEVICE_VERIFY_FALLBACKS_TOTAL,
@@ -100,7 +101,6 @@ def verify_batch_begin(
     the returned zero-arg collect yields one bool per item, and its
     ``phases`` attribute holds this batch's phase seconds. Lengths must
     be pre-checked by the seam."""
-    from ..engine.pool import resolve_device
     from . import curve, sha512
 
     device = resolve_device(device)

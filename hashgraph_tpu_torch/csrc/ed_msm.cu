@@ -41,11 +41,12 @@
 // stores and loads only its own limbs of an entry, so a group's gather of
 // one entry is one 128-byte line. Of 4, 8 and 16 threads a lane, 4 was the
 // fastest, the larger groups paying more in shuffles than they gain in warps
-// (chip_smoke.py phase 6b builds the other sizes from a copy of this file
-// and times them; PERF.md keeps the times). Per lane it does 15 + 64 point
-// additions and 256 doublings, 2,891,416 needed integer instructions
-// (chip_smoke.py's MSM_WINDOWS_OPS_PER_LANE), against 1,280 bytes moved:
-// operations bound it.
+// (each size built from this file and timed on the H100; PERF.md's findings
+// keep the result). Per lane it does 15 + 64 point additions and 256
+// doublings; the work any window stage needs is 2,848,752 integer
+// instructions a point (portbench/counts/msm_windows.py's PER_POINT: 14
+// table additions, 63 windows of 4 doublings, 64 additions), against 1,280
+// bytes moved: operations bound it.
 //
 // The tree. Its time is a chain of ceil(log2 n) + 3 dependent point
 // formulas (17 at 16,384 lanes), not bytes (8 MB in) nor operations (0.005
@@ -67,8 +68,8 @@
 // no pair at all skips the level. Of 1, 4, 8 and 16 threads a point, 8 was
 // the fastest at 16,384 lanes (16 is held to 64 registers and spills; 4
 // does twice the products a thread; one thread a point runs each link at
-// the one-thread formulas' latency); chip_smoke.py phase 6b builds the
-// other sizes from a copy of this file and times them.
+// the one-thread formulas' latency), each size built from this file and
+// timed on the H100.
 
 #include "fe25519.cuh"
 #include "fe25519_group.cuh"

@@ -23,8 +23,8 @@
 // routines of the window kernel); the price is the shuffles, the carry
 // across the group and a squaring done as a full product. With G = 1 the
 // lane is one thread, whose squaring takes 136 limb products.
-// chip_smoke.py phase 6 builds every size of 1, 2, 4, 8 and 16 from a copy of
-// this file with kPowGroup changed and times them; PERF.md keeps the times.
+// Every size of 1, 2, 4, 8 and 16 was built from this file with kPowGroup
+// changed and timed on the H100 (PERF.md's findings keep the result):
 // 4 was the fastest at 8,192 lanes, one thread a lane (with the cheaper
 // squaring) a close second.
 // Blocks of 128 threads; the grid is padded to whole blocks, and the

@@ -31,6 +31,7 @@ from typing import Callable, Hashable
 import numpy as np
 import torch
 
+from .._build import resolve_device
 from ..ops.cuda_ingest import ingest_scan
 from ..ops.decide import STATE_ACTIVE, STATE_FREE, timeout_body
 from ..ops.ingest import (
@@ -55,18 +56,6 @@ def _bucket(size: int, floor: int = 8) -> int:
     """Power-of-two round-up the JAX pool pads its dispatches to; kept for
     the fresh-path cell budget so the port routes batches identically."""
     return max(floor, 1 << max(size - 1, 0).bit_length())
-
-
-def resolve_device(device) -> torch.device:
-    """The pool's device. ``"cuda"`` needs a visible GPU: there is no
-    silent move to the CPU, which callers (tests) must ask for."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the port "
-            "on the CPU"
-        )
-    return device
 
 
 @dataclass

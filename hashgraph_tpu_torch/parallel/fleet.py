@@ -59,7 +59,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..engine.pool import resolve_device
+from .._build import resolve_device
 from ..errors import StatusCode
 from ..obs import (
     FLEET_ROUTED_VOTES_TOTAL,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.pool import resolve_device
+from .._build import resolve_device
 
 __all__ = ["PROPOSAL_AXIS", "consensus_mesh"]
 

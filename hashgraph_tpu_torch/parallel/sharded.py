@@ -32,7 +32,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..engine.pool import ProposalPool, SlotTensors, _bucket, resolve_device
+from .._build import resolve_device
+from ..engine.pool import ProposalPool, SlotTensors, _bucket
 from ..ops.decide import (
     STATE_ACTIVE,
     STATE_FAILED,

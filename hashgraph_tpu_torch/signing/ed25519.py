@@ -23,6 +23,7 @@ import os
 import secrets
 
 from .. import native
+from .._build import resolve_device
 from ..errors import ConsensusSchemeError
 from . import ConsensusSignatureScheme, PendingVerdicts
 from . import _ed25519 as _py
@@ -228,8 +229,6 @@ class Ed25519DeviceConsensusSigner(Ed25519ConsensusSigner):
     device = "cuda"
 
     def __init__(self, seed: bytes, device_verify: "bool | None" = None):
-        from ..engine.pool import resolve_device
-
         resolve_device(type(self).device)
         super().__init__(seed)
 
