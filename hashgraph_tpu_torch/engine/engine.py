@@ -81,6 +81,7 @@ from dataclasses import dataclass, field
 from typing import Generic, Hashable, TypeVar
 
 import numpy as np
+from numpy.lib.stride_tricks import sliding_window_view
 
 from ..errors import (
     ConsensusError,
@@ -270,6 +271,13 @@ class SessionRecord(Generic[Scope]):
     wire_tail: bytes | None = None
     wire_seen: "set[bytes] | None" = None
     wire_sync: "tuple[int, int] | None" = None
+    # The accepted owners of each retained chunk, in its row order: (width,
+    # owners end to end) where the wire path retained it, else None until
+    # the equivocation probe reads them (then a list). The probe's index
+    # of prior votes.
+    retained_owners: "list[tuple[int, bytes] | list[bytes] | None]" = field(
+        default_factory=list
+    )
     # True while every retained chunk came from the validated wire path
     # (its accepts are guard-ordered, so the merged chain stays
     # positional); pre-validated columnar retention clears it.
@@ -298,6 +306,180 @@ class SessionRecord(Generic[Scope]):
                 self.proposal.round = 2
         else:
             self.proposal.round = min(self.proposal.round + accepted, _U32_MAX)
+
+
+_GUARD_WALK, _GUARD_ON, _GUARD_OFF = 0, 1, 2
+_BLOOM_WORDS = 16  # 1,024 bits a session
+
+
+def _bloom_bits(owner_bytes: np.ndarray) -> np.ndarray:
+    """The seen-owner filter's bit (0..1023) of owners given as an [N, w]
+    byte matrix (w >= 1): their first two bytes, the second 0 if none."""
+    bits = owner_bytes[:, 0].astype(np.int64)
+    if owner_bytes.shape[1] > 1:
+        bits |= owner_bytes[:, 1].astype(np.int64) << 8
+    return bits & 1023
+
+
+class _WireSlotColumns:
+    """What the validated wire path reads of each pooled session, as
+    columns indexed by slot, so a clean frame's rules, dangling guard and
+    chain tracking never visit a record row by row.
+
+    ``rules`` marks slots whose proposal ``created`` and ``expiry``
+    timestamps and ``timeout`` (consensus_timeout) are held here. ``guard``
+    is the dangling guard's view: ``_GUARD_ON`` guarded, starting from the
+    chain tail ``tail`` (``tail_len`` 0 or 32 bytes) with every owner of
+    the session's seen set in the 1,024-bit filter ``bloom`` (no false
+    negatives); ``_GUARD_OFF`` retention from pre-validated ingest, left
+    unguarded; ``_GUARD_WALK`` anything else (host rows, state another
+    path changed since), decided by the exact per-row walk and rebuilt
+    from the record after it. Written where a record is tracked,
+    released, or changed by another path."""
+
+    def __init__(self, size: int):
+        self.rules = np.zeros(size, bool)
+        self.created = np.zeros(size, np.uint64)
+        self.expiry = np.zeros(size, np.uint64)
+        self.timeout = np.zeros(size, np.float64)
+        self.guard = np.zeros(size, np.int8)
+        self.tail = np.zeros((size, 32), np.uint8)
+        self.tail_len = np.zeros(size, np.int8)
+        self.bloom = np.zeros((size, _BLOOM_WORDS), np.uint64)
+
+    def fit(self, slot: int) -> None:
+        size = len(self.rules)
+        if slot < size:
+            return
+        grow = max(slot + 1, 2 * size)
+        for name in ("rules", "created", "expiry", "timeout", "guard", "tail", "tail_len", "bloom"):
+            old = getattr(self, name)
+            new = np.zeros((grow,) + old.shape[1:], old.dtype)
+            new[:size] = old
+            setattr(self, name, new)
+
+    def track(self, record: "SessionRecord") -> None:
+        slot = record.slot
+        self.fit(slot)
+        ts = record.proposal.timestamp
+        exp = record.proposal.expiration_timestamp
+        timeout = record.config.consensus_timeout
+        ok = (
+            type(ts) is int and type(exp) is int and 0 <= ts < 2**64 and 0 <= exp < 2**64
+            and type(timeout) in (int, float) and timeout == timeout  # not NaN
+        )
+        self.rules[slot] = ok
+        if ok:
+            self.created[slot] = ts
+            self.expiry[slot] = exp
+            self.timeout[slot] = timeout
+        self.rebuild(record)
+
+    def release(self, slots: "list[int]") -> None:
+        slots = [s for s in slots if 0 <= s < len(self.rules)]
+        self.rules[slots] = False
+        self.guard[slots] = _GUARD_WALK
+
+    def rebuild(self, record: "SessionRecord") -> None:
+        """The guard's view of a pooled record from its host state: what
+        the per-row walk would start from, or ``_GUARD_WALK``."""
+        slot = record.slot
+        self.guard[slot] = _GUARD_WALK
+        if not (record.retained_wire or record.votes or record.proposal.votes):
+            # A session no vote reached yet (every new one): no tail, no owner.
+            self.tail[slot] = 0
+            self.tail_len[slot] = 0
+            self.bloom[slot] = 0
+            self.guard[slot] = _GUARD_ON
+            return
+        if record.retained_wire:
+            if not record.wire_only:
+                self.guard[slot] = _GUARD_OFF
+                return
+            if record.wire_seen is None or record.wire_sync != (
+                len(record.retained_wire), len(record.scalar_seqs)
+            ):
+                return
+            # The filter also holds the scalar votes' owners, so that no
+            # prior vote of the session escapes it (the equivocation probe).
+            tail, seen = record.wire_tail or b"", [*record.wire_seen, *record.votes]
+        else:
+            votes = record.proposal.votes
+            tail, seen = (votes[-1].vote_hash if votes else b""), record.votes
+        if len(tail) not in (0, 32):
+            return
+        self.tail[slot] = np.frombuffer(tail.ljust(32, b"\0"), np.uint8)
+        self.tail_len[slot] = len(tail)
+        bloom = self.bloom[slot]
+        bloom[:] = 0
+        heads = [owner[:2].ljust(2, b"\0") for owner in seen if owner]
+        if heads:
+            bits = _bloom_bits(np.frombuffer(b"".join(heads), np.uint8).reshape(-1, 2))
+            np.bitwise_or.at(bloom, bits >> 6, np.uint64(1) << (bits & 63).astype(np.uint64))
+        self.guard[slot] = _GUARD_ON
+
+    def guard_of(self, slots: np.ndarray) -> np.ndarray:
+        """The guard state of each slot; host slots (negative) walk."""
+        kind = np.full(len(slots), _GUARD_WALK, np.int8)
+        pooled = (slots >= 0) & (slots < len(self.guard))
+        kind[pooled] = self.guard[slots[pooled]]
+        return kind
+
+
+def _gather_bytes(buf: bytes, starts: np.ndarray, width: int) -> np.ndarray:
+    """``width`` bytes of ``buf`` from each of ``starts``, as a C-ordered
+    [N, width] array: one row copy a start from a window view of ``buf``."""
+    starts = np.asarray(starts, np.int64)
+    if len(starts) == 0:
+        return np.zeros((0, width), np.uint8)
+    return sliding_window_view(np.frombuffer(buf, np.uint8), width)[starts]
+
+
+def _unique_keys(matrix: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
+    """``np.unique`` of the rows of a [N, width] byte matrix as fixed-width
+    keys (byte-lexicographic order) and the inverse. Sorted first by the
+    leading 8 bytes as one big-endian integer; that order is the
+    lexicographic one unless two different keys share those bytes, and
+    then the general sort runs."""
+    width = matrix.shape[1]
+    keys = np.ascontiguousarray(matrix).view(np.dtype((np.void, width))).reshape(-1)
+    if width >= 8:
+        prefix = np.ascontiguousarray(matrix[:, :8]).view(">u8").reshape(-1)
+        order = np.argsort(prefix, kind="stable")
+        by_key = keys[order]
+        by_prefix = prefix[order]
+        new = np.ones(len(keys), bool)
+        new[1:] = by_key[1:] != by_key[:-1]
+        if not (new[1:] & (by_prefix[1:] == by_prefix[:-1])).any():
+            inverse = np.empty(len(keys), np.int64)
+            inverse[order] = np.cumsum(new) - 1
+            return by_key[new], inverse
+    unique, inverse = np.unique(keys, return_inverse=True)
+    return unique, inverse.reshape(-1)
+
+
+class _FrameOwners:
+    """A wire frame's live-row owners as one fixed-width key column:
+    ``index`` maps each frame row to its owner's place among the sorted
+    unique keys ``objs`` (bytes; -1 for rows that were not live),
+    ``matrix`` holds the same keys as [N, width] bytes and ``bits`` their
+    seen-filter bits."""
+
+    __slots__ = ("index", "objs", "bits", "matrix", "width")
+
+    def __init__(self, index: np.ndarray, unique: np.ndarray, width: int):
+        self.index = index
+        self.width = width
+        self.objs = unique.astype(object)
+        self.matrix = unique.view(np.uint8).reshape(-1, width)
+        self.bits = _bloom_bits(self.matrix)
+
+    def in_bloom(self, bloom: np.ndarray, slots: np.ndarray, owner: np.ndarray) -> np.ndarray:
+        """Whether each (slot, owner index) pair's bit is set in the slots'
+        seen filters: False means the owner is not in that seen set."""
+        bit = self.bits[owner]
+        word = bloom[slots, bit >> 6]
+        return ((word >> (bit & 63).astype(np.uint64)) & np.uint64(1)) != 0
 
 
 class PendingVoteVerdicts(PendingVerdicts):
@@ -537,6 +719,7 @@ class TorchConsensusEngine(Generic[Scope]):
         # entry points funnel into ingest_votes.
         self._lock = threading.RLock()
         self._records: dict[int, SessionRecord[Scope]] = {}  # slot -> record
+        self._wire_cols = _WireSlotColumns(int(getattr(self._pool, "capacity", 0)))
         self._index: dict[tuple[Scope, int], int] = {}  # (scope, pid) -> slot
         self._scopes: dict[Scope, list[int]] = {}  # scope -> slots (insertion order)
         self._scope_configs: dict[Scope, ScopeConfig] = {}
@@ -1005,6 +1188,7 @@ class TorchConsensusEngine(Generic[Scope]):
         if record.session is not None:
             return  # host-backed: the session IS the state
         record.votes = {k: v.clone() for k, v in session.votes.items()}
+        self._wire_cols.rebuild(record)
         if session.votes or not session.state.is_active:
             if not load_session_rows(self._pool, record.slot, session):
                 raise RuntimeError("a session that fits the lanes did not load")
@@ -1013,6 +1197,8 @@ class TorchConsensusEngine(Generic[Scope]):
         scope = record.scope
         record.last_activity = record.created_at
         self._records[record.slot] = record
+        if record.slot >= 0:
+            self._wire_cols.track(record)
         self._index[(scope, record.proposal.proposal_id)] = record.slot
         self._scopes.setdefault(scope, []).append(record.slot)
         self._timelines.created(
@@ -2034,6 +2220,7 @@ class TorchConsensusEngine(Generic[Scope]):
                 record.votes[stored.vote_owner] = stored
                 record.proposal.votes.append(stored)
                 record.scalar_seqs.append(record.next_arrival_seq())
+                self._wire_cols.guard[record.slot] = _GUARD_WALK
                 record.bump_round(1)
                 admit_counts[stored.vote_owner] = (
                     admit_counts.get(stored.vote_owner, 0) + 1
@@ -2361,18 +2548,22 @@ class TorchConsensusEngine(Generic[Scope]):
         wire_norm: "tuple[np.ndarray, np.ndarray] | None",
         wire_validated: bool = False,
         decided: "list | None" = None,
+        owners: "_FrameOwners | None" = None,
     ) -> np.ndarray:
         """Shared tail of the columnar paths: apply, then retain the
         accepted rows' wire bytes under their resolved slots.
         ``wire_validated`` marks retention by the guard-ordered wire path,
         the only kind that keeps a record's chain positional. ``decided``
-        collects the emission time of each deciding event."""
+        collects the emission time of each deciding event; ``owners``, the
+        frame's owner column, is kept beside each chunk."""
         statuses = self._columnar_apply(
             slots, found, voter_gids, values, now, max_depth, statuses, decided
         )
         if wire_norm is not None:
             with stage_span(self.tracer, "engine.wire.retain"):
-                self._retain_wire_slots(statuses, slots, wire_norm, wire_validated)
+                self._retain_wire_slots(
+                    statuses, slots, wire_norm, wire_validated, owners
+                )
         return statuses
 
     @staticmethod
@@ -2387,9 +2578,11 @@ class TorchConsensusEngine(Generic[Scope]):
         slots: np.ndarray,
         wire_norm: "tuple[np.ndarray, np.ndarray]",
         wire_validated: bool = False,
+        owners: "_FrameOwners | None" = None,
     ) -> None:
         """Attach the accepted rows' verbatim vote bytes to their session
-        records as one chunk a touched session (rows in arrival order)."""
+        records as one chunk a touched session (rows in arrival order),
+        with the chunk's owners where the frame's owner column is given."""
         ok_rows = np.nonzero(statuses == int(StatusCode.OK))[0]
         if ok_rows.size == 0:
             return
@@ -2411,6 +2604,11 @@ class TorchConsensusEngine(Generic[Scope]):
             + np.repeat(starts, lens)
         )
         blob = data_arr[gather].tobytes()
+        width = owners.width if owners is not None else 0
+        if owners is not None:
+            owner_blob = owners.matrix[owners.index[rows]].tobytes()
+        if not wire_validated:
+            self._wire_cols.guard[uniq[uniq >= 0]] = _GUARD_WALK
         for k, slot in enumerate(uniq.tolist()):
             lo, hi = int(seg_bounds[k]), int(seg_bounds[k + 1])
             record = self._records[slot]
@@ -2420,6 +2618,9 @@ class TorchConsensusEngine(Generic[Scope]):
                 blob[int(out_off[lo]):int(out_off[hi])],
                 out_off[lo:hi + 1] - out_off[lo],
             ))
+            record.retained_owners.append(
+                (width, owner_blob[lo * width:hi * width]) if width else None
+            )
 
     # ── Validated wire ingest (OP_VOTE_BATCH columns) ──────────────────
 
@@ -2621,46 +2822,27 @@ class TorchConsensusEngine(Generic[Scope]):
             # and the prepass stamped its start.
             decided = [] if self.tracer.enabled and prepass.began is not None else None
             with stage_span(self.tracer, "engine.wire.rules"):
-                # Replay and expiry need the session record: one timestamp lookup
-                # per unique slot, then one vectorized compare per rule.
-                ts_u64 = np.ascontiguousarray(cols[:, C.COL_TS]).view(np.uint64)
-                rows_v = np.nonzero(valid)[0]
-                admit_timeout = 0.0
-                if rows_v.size:
-                    uniq = np.unique(slots[rows_v])
-                    creation = np.empty(len(uniq), np.uint64)
-                    expiry = np.empty(len(uniq), np.uint64)
-                    for j, slot in enumerate(uniq.tolist()):
-                        record = self._records[slot]
-                        creation[j] = record.proposal.timestamp
-                        expiry[j] = record.proposal.expiration_timestamp
-                        if record.config.consensus_timeout > admit_timeout:
-                            admit_timeout = record.config.consensus_timeout
-                    pos = np.searchsorted(uniq, slots[rows_v])
-                    ts_rows = ts_u64[rows_v]
-                    old = ts_rows < creation[pos]
-                    expired = ~old & ((ts_rows > expiry[pos]) | (np.uint64(now) > expiry[pos]))
-                    statuses[rows_v[old]] = int(StatusCode.TIMESTAMP_OLDER_THAN_CREATION_TIME)
-                    statuses[rows_v[expired]] = int(StatusCode.VOTE_EXPIRED)
-                    valid[rows_v[old | expired]] = False
+                admit_timeout = self._wire_rules(cols, slots, valid, statuses, now)
                 self._wire_reject_health(buf, cols, found, statuses, now)
             with stage_span(self.tracer, "engine.wire.guard"):
-                self._wire_dangling_guard(buf, cols, slots, valid, statuses)
+                owners = self._wire_owner_column(buf, cols, valid)
+                walked = self._wire_dangling_guard(buf, cols, slots, valid, statuses, owners)
             # One gid per unique owner, then the shared columnar apply with
             # wire retention on.
             with stage_span(self.tracer, "engine.wire.intern"):
-                gids = self._wire_intern_gids(buf, cols, valid)
+                gids = self._wire_intern_gids(buf, cols, valid, owners)
             values = cols[:, C.COL_VALUE] != 0
             statuses = self._columnar_finish(
                 slots, valid, gids, values, now, max_depth, statuses,
                 (data, offsets), wire_validated=True, decided=decided,
+                owners=owners,
             )
             with stage_span(self.tracer, "engine.wire.chain"):
-                self._wire_track_chain(buf, cols, slots, statuses)
+                self._wire_track_chain(buf, cols, slots, statuses, owners, walked)
             with stage_span(self.tracer, "engine.wire.admit_health"):
                 self._wire_admit_health(
                     buf, cols, scopes, scope_idx, slots, offsets, statuses,
-                    admit_timeout, now,
+                    admit_timeout, now, owners,
                 )
         if decided:
             self.tracer.event(
@@ -2668,28 +2850,208 @@ class TorchConsensusEngine(Generic[Scope]):
             )
         return statuses
 
-    def _wire_dangling_guard(self, buf, cols, slots, valid, statuses) -> None:
-        """The ingest_votes dangling-vote guard over columns: a first-time
-        voter whose received_hash does not name the session's effective
-        tail is rejected (the in-batch tail walk included). The guard
-        stays armed across frames through the record's wire continuity
-        state (:meth:`_wire_track_chain`); a session whose retained wire
-        came from pre-validated columnar ingest stays permissive."""
+    def _wire_rules(self, cols, slots, valid, statuses, now) -> float:
+        """Replay and expiry of the live rows against their sessions'
+        timestamps, gathered from the slot columns (one lookup a unique
+        slot where a row's session is host-served or not held there).
+        Returns the largest consensus_timeout among the rows' sessions
+        (0.0 if none is larger), the admission health's timeout hint."""
+        from ..bridge import columnar as C
+
+        rows_v = np.nonzero(valid)[0]
+        admit_timeout = 0.0
+        if rows_v.size == 0:
+            return admit_timeout
+        ts_rows = np.ascontiguousarray(cols[rows_v, C.COL_TS]).view(np.uint64)
+        slots_v = slots[rows_v]
+        wc = self._wire_cols
+        if slots_v.min() >= 0 and slots_v.max() < len(wc.rules) and wc.rules[slots_v].all():
+            creation = wc.created[slots_v]
+            expiry = wc.expiry[slots_v]
+            timeouts = wc.timeout[slots_v]
+            top = timeouts.max()
+            if top > 0.0:
+                # The loop's pick: the lowest slot holding the largest value.
+                slot = int(slots_v[timeouts == top].min())
+                admit_timeout = self._records[slot].config.consensus_timeout
+        else:
+            uniq = np.unique(slots_v)
+            created_u = np.empty(len(uniq), np.uint64)
+            expiry_u = np.empty(len(uniq), np.uint64)
+            for j, slot in enumerate(uniq.tolist()):
+                record = self._records[slot]
+                created_u[j] = record.proposal.timestamp
+                expiry_u[j] = record.proposal.expiration_timestamp
+                if record.config.consensus_timeout > admit_timeout:
+                    admit_timeout = record.config.consensus_timeout
+            pos = np.searchsorted(uniq, slots_v)
+            creation = created_u[pos]
+            expiry = expiry_u[pos]
+        old = ts_rows < creation
+        expired = ~old & ((ts_rows > expiry) | (np.uint64(now) > expiry))
+        statuses[rows_v[old]] = int(StatusCode.TIMESTAMP_OLDER_THAN_CREATION_TIME)
+        statuses[rows_v[expired]] = int(StatusCode.VOTE_EXPIRED)
+        valid[rows_v[old | expired]] = False
+        return admit_timeout
+
+    def _wire_owner_column(self, buf, cols, valid) -> "_FrameOwners | None":
+        """The live rows' owners as one fixed-width key column with a
+        frame-local index (sorted, as the gid interning has always
+        ordered them), or None where widths differ (the guard then walks
+        every row)."""
         from ..bridge import columnar as C
 
         rows = np.nonzero(valid)[0]
         if rows.size == 0:
-            return
+            return None
+        lens = cols[rows, C.COL_OWNER_LEN]
+        width = int(lens[0])
+        if (lens != width).any():
+            return None
+        keys, inverse = _unique_keys(_gather_bytes(buf, cols[rows, C.COL_OWNER_OFF], width))
+        index = np.full(len(cols), -1, np.int64)
+        index[rows] = inverse
+        return _FrameOwners(index, keys, width)
+
+    def _wire_dangling_guard(self, buf, cols, slots, valid, statuses, owners) -> np.ndarray:
+        """The ingest_votes dangling-vote guard over columns: a first-time
+        voter whose received_hash does not name the session's effective
+        tail is rejected (the in-batch tail walk included). A session whose
+        slot columns hold its guard state is decided with array passes
+        (the seen filter, then :meth:`_wire_chain_links`) unless an owner
+        shows twice among its rows; the rest go through the exact per-row
+        walk (:meth:`_wire_guard_walk`). Returns the walked sessions'
+        slots."""
+        from ..bridge import columnar as C
+
+        rows = np.nonzero(valid)[0]
+        if rows.size == 0:
+            return rows
         order = np.argsort(slots[rows], kind="stable")
+        srows = rows[order]
+        ss = slots[srows]
+        start = np.ones(len(ss), bool)
+        np.not_equal(ss[1:], ss[:-1], out=start[1:])
+        seg = np.cumsum(start) - 1
+        uslots = ss[start]
+        wc = self._wire_cols
+        walk = np.ones(len(uslots), bool)
+        if owners is not None:
+            kind = wc.guard_of(uslots)
+            walk = kind == _GUARD_WALK
+            on = np.nonzero(kind[seg] == _GUARD_ON)[0]  # sorted positions
+            if on.size:
+                o = owners.index[srows[on]]
+                # An owner twice in one session's rows: the walk decides
+                # (so does a hash of another width, which the prepass
+                # refuses).
+                pair = np.sort(seg[on] * len(owners.objs) + o)
+                twice = pair[1:][pair[1:] == pair[:-1]] // len(owners.objs)
+                walk[twice] = True
+                walk[seg[on][cols[srows[on], C.COL_HASH_LEN] != 32]] = True
+                keep = ~walk[seg[on]]
+                on, o = on[keep], o[keep]
+            if on.size:
+                fslot = ss[on]
+                seen = owners.in_bloom(wc.bloom, fslot, o)
+                for j in np.nonzero(seen)[0].tolist():
+                    record = self._records[int(fslot[j])]
+                    held = record.wire_seen if record.retained_wire else record.votes
+                    seen[j] = owners.objs[o[j]] in held
+                fresh = on[~seen]
+                refused = fresh[~self._wire_chain_links(buf, cols, srows[fresh], seg[fresh], uslots)]
+                if refused.size:
+                    statuses[srows[refused]] = int(StatusCode.RECEIVED_HASH_MISMATCH)
+                    valid[srows[refused]] = False
+                    self.tracer.count("engine.dangling_votes_rejected", len(refused))
+        walked = walk[seg]
+        self.tracer.count("engine.wire.walked_rows", int(walked.sum()))
+        if walked.any():
+            self._wire_guard_walk(buf, cols, slots, valid, statuses, srows[walked])
+        return uslots[walk]
+
+    def _wire_chain_links(self, buf, cols, rows, seg, uslots) -> np.ndarray:
+        """Which first-time voters of guarded sessions the chain rule
+        admits: ``rows`` in slot-sorted frame order, ``seg`` their
+        session's place in ``uslots``, no owner twice in a session. A row
+        passes when its received hash is empty or names the last passing
+        row's hash before it in its session (the session's tail for
+        none); a refused row leaves that tail where it was. Row k's
+        verdict depends only on the rows before it, so iterating from
+        "all pass" fixes one more row of every session each round and
+        stops at the walk's own answer."""
+        from ..bridge import columnar as C
+
+        wc = self._wire_cols
+        n = len(rows)
+        if n == 0:
+            return np.ones(0, bool)
+        first = np.ones(n, bool)
+        np.not_equal(seg[1:], seg[:-1], out=first[1:])
+        seg_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+        recv_len = cols[rows, C.COL_RECV_LEN]
+        named = np.nonzero(recv_len > 0)[0]
+        ok = np.ones(n, bool)
+        if named.size == 0:
+            return ok
+        # 32-byte hashes as four 64-bit words; a received hash of any other
+        # length than 32 names no row.
+        hashes = _gather_bytes(buf, cols[rows, C.COL_HASH_OFF], 32).view(np.uint64)
+        full = recv_len[named] == 32
+        recv = np.zeros((len(named), 4), np.uint64)
+        recv[full] = _gather_bytes(
+            buf, cols[rows[named[full]], C.COL_RECV_OFF], 32
+        ).view(np.uint64)
+        tail_slots = uslots[seg[named]]
+        tail_ok = full & (wc.tail_len[tail_slots] == 32)
+        tails = np.ascontiguousarray(wc.tail[tail_slots]).view(np.uint64)
+        # The received hash against the session's tail and against the row
+        # just before are fixed; only which row is "last passing" moves
+        # between rounds, and it is rarely further back.
+        named_start = seg_start[named]
+        against_tail = tail_ok & (recv == tails).all(axis=1)
+        prev = named - 1
+        inner = prev >= named_start
+        against_prev = np.zeros(len(named), bool)
+        against_prev[inner] = full[inner] & (recv[inner] == hashes[prev[inner]]).all(axis=1)
+        passed = np.ones(n, bool)
+        idx = np.arange(n)
+        while True:
+            # The last passing row strictly before each row, in its session.
+            last = np.maximum.accumulate(np.where(passed, idx, -1))
+            before = np.full(len(named), -1, np.int64)
+            before[inner] = last[prev[inner]]
+            before[before < named_start] = -1
+            near = inner & (before == prev)
+            ok_named = np.where(near, against_prev, against_tail)
+            far = np.nonzero((before >= 0) & ~near)[0]
+            if far.size:
+                ok_named[far] = full[far] & (recv[far] == hashes[before[far]]).all(axis=1)
+            ok = np.ones(n, bool)
+            ok[named] = ok_named
+            if np.array_equal(ok, passed):
+                return ok
+            passed = ok
+
+    def _wire_guard_walk(self, buf, cols, slots, valid, statuses, rows) -> None:
+        """The dangling guard row by row over ``rows`` (slot-sorted, frame
+        order within a slot): the exact rule every session can take. The
+        guard stays armed across frames through the record's wire
+        continuity state (:meth:`_wire_track_chain`); a session whose
+        retained wire came from pre-validated columnar ingest stays
+        permissive."""
+        from ..bridge import columnar as C
+
         # -1 as "no slot yet", as the JAX engine has it: -1 is also the
         # first host-spilled session's slot, so when that session holds
         # the frame's lowest slot its rows go unguarded there too (kept
-        # for parity; ROADMAP queue 3 records it).
+        # for parity; ROADMAP queue 3 records it). Host rows always walk,
+        # so the walked rows start where the frame's sorted rows do.
         prev_slot = -1
         guard = False
         tail = b""
         seen: set = set()
-        for i in rows[order].tolist():
+        for i in rows.tolist():
             slot = int(slots[i])
             if slot != prev_slot:
                 prev_slot = slot
@@ -2762,44 +3124,66 @@ class TorchConsensusEngine(Generic[Scope]):
 
     def _wire_admit_health(
         self, buf, cols, scopes, scope_idx, slots, offsets, statuses,
-        admit_timeout, now,
+        admit_timeout, now, owners,
     ) -> None:
         """Post-apply health flush of the wire path: batched admission
-        counts for the accepted rows, then the equivocation probe over the
-        duplicate-shaped rejections, the prior vote recovered from the
-        session's scalar votes or its retained wire chunks."""
+        counts for the accepted rows (owners in order of first
+        acceptance), then the equivocation probe over the duplicate-shaped
+        rejections. A probed owner the session's seen filter does not
+        hold has no prior vote there; the others take it from the
+        session's scalar votes or its retained-owner index."""
         if not self._health_live:
             return
         from ..bridge import columnar as C
 
         ok = statuses == int(StatusCode.OK)
         if ok.any():
-            admit_counts: dict[bytes, int] = {}
-            for row in np.nonzero(ok)[0].tolist():
-                c = cols[row]
-                owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
-                admit_counts[owner] = admit_counts.get(owner, 0) + 1
-            self.health.note_admitted(admit_counts, now, timeout_hint=admit_timeout)
-        cand = statuses == self._EQUIVOCATION_PROBE_CODES[0]
-        for code in self._EQUIVOCATION_PROBE_CODES[1:]:
-            cand |= statuses == code
-        for row in np.nonzero(cand)[0].tolist():
+            if owners is not None:
+                o = owners.index[np.nonzero(ok)[0]]
+                uniq, first = np.unique(o, return_index=True)
+                by_arrival = uniq[np.argsort(first)]
+                admit_counts = dict(zip(
+                    owners.objs[by_arrival].tolist(),
+                    np.bincount(o)[by_arrival].tolist(),
+                ))
+            else:
+                admit_counts: dict[bytes, int] = {}
+                for row in np.nonzero(ok)[0].tolist():
+                    c = cols[row]
+                    owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+                    admit_counts[owner] = admit_counts.get(owner, 0) + 1
+            skipped = self.health.note_admitted(
+                admit_counts, now, timeout_hint=admit_timeout
+            )
+            self.tracer.count("engine.wire.admit_cards_skipped", skipped or 0)
+        probe = np.nonzero(np.isin(statuses, self._EQUIVOCATION_PROBE_CODES))[0]
+        if probe.size == 0:
+            return
+        # In a guarded session every owner with a vote there is in the
+        # seen filter, and in wire_seen or the scalar votes.
+        guarded = np.zeros(len(probe), bool)
+        if owners is not None:
+            guarded = self._wire_cols.guard_of(slots[probe]) == _GUARD_ON
+            on = np.nonzero(guarded)[0]
+            unseen = ~owners.in_bloom(
+                self._wire_cols.bloom, slots[probe[on]], owners.index[probe[on]]
+            )
+            probe, guarded = np.delete(probe, on[unseen]), np.delete(guarded, on[unseen])
+        for row, on_guard in zip(probe.tolist(), guarded.tolist()):
             record = self._records[int(slots[row])]
             c = cols[row]
             owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+            if on_guard and owner not in record.votes and owner not in (record.wire_seen or ()):
+                continue
             vote_hash = buf[c[C.COL_HASH_OFF]:c[C.COL_HASH_OFF] + c[C.COL_HASH_LEN]]
             prior = record.votes.get(owner)
             prior_bytes = None
             if prior is not None and prior.vote_hash != vote_hash:
                 prior_bytes = prior.encode()
             elif prior is None:
-                for _seq, chunk in self._decoded_retained(record):
-                    for v in chunk:
-                        if v.vote_owner == owner:
-                            if v.vote_hash != vote_hash:
-                                prior_bytes = v.encode()
-                            break
-                    if prior_bytes is not None:
+                for vote in self._retained_votes_of(record, owner):
+                    if vote.vote_hash != vote_hash:
+                        prior_bytes = vote.encode()
                         break
             if prior_bytes is not None:
                 self.health.note_equivocation(
@@ -2810,6 +3194,39 @@ class TorchConsensusEngine(Generic[Scope]):
                     owner,
                     now,
                 )
+
+    def _retained_votes_of(self, record: SessionRecord[Scope], owner: bytes):
+        """``owner``'s first vote in each retained chunk, in chunk order,
+        found in the chunks' owner index (a chunk retained without it is
+        read once, from its parsed columns, and indexed then)."""
+        from ..bridge import columnar as C
+
+        index = record.retained_owners
+        for ci, (_seq, blob, offs) in enumerate(record.retained_wire):
+            held = index[ci]
+            if held is None:
+                offs64 = np.asarray(offs, np.int64)
+                cols, canonical = C.parse_vote_columns(np.frombuffer(blob, np.uint8), offs64)
+                if canonical.all():
+                    spans = cols[:, [C.COL_OWNER_OFF, C.COL_OWNER_LEN]].tolist()
+                    held = index[ci] = [blob[a:a + b] for a, b in spans]
+                else:
+                    held = index[ci] = [
+                        Vote.decode(blob[offs64[k]:offs64[k + 1]]).vote_owner
+                        for k in range(len(offs64) - 1)
+                    ]
+            if isinstance(held, list):
+                k = held.index(owner) if owner in held else -1
+            else:
+                width, owners_blob = held
+                k = -1
+                if len(owner) == width:
+                    pos = owners_blob.find(owner)
+                    while pos > 0 and pos % width:
+                        pos = owners_blob.find(owner, pos + 1)
+                    k = pos // width if pos >= 0 else -1
+            if k >= 0:
+                yield Vote.decode(blob[int(offs[k]):int(offs[k + 1])])
 
     def _accepted_vote_chain(self, record: SessionRecord[Scope]) -> list[Vote]:
         """The session's accepted votes in arrival order, retained wire
@@ -2832,57 +3249,104 @@ class TorchConsensusEngine(Generic[Scope]):
         record.wire_seen = {vote.vote_owner for vote in chain}
         record.wire_tail = chain[-1].vote_hash if chain else b""
         record.wire_sync = (len(record.retained_wire), len(record.scalar_seqs))
+        if record.slot >= 0:
+            self._wire_cols.guard[record.slot] = _GUARD_WALK
 
-    def _wire_track_chain(self, buf, cols, slots, statuses) -> None:
+    def _wire_track_chain(self, buf, cols, slots, statuses, owners, walked) -> None:
         """Fold each session's accepted rows (frame order) into its wire
-        continuity state: tail hash, accepted owners and the sync stamp
-        that shows no other path touched the record since."""
+        continuity state, once a session: tail hash, accepted owners and
+        the sync stamp that shows no other path touched the record since.
+        The slot columns follow: a guarded session's tail and seen filter
+        take the rows; a walked one, or one whose filter bits are not at
+        hand, is rebuilt from its record."""
         from ..bridge import columnar as C
 
+        wc = self._wire_cols
+        # A walked session the columns already guarded stays guarded: the
+        # walk and the tracking move its state as they move the columns.
+        rebuild = walked[walked >= 0]
+        rebuild = rebuild[wc.guard[rebuild] != _GUARD_ON]
         ok_rows = np.nonzero(statuses == int(StatusCode.OK))[0]
-        if ok_rows.size == 0:
-            return
-        order = np.argsort(slots[ok_rows], kind="stable")
-        for i in ok_rows[order].tolist():
-            record = self._records[int(slots[i])]
-            if record.wire_seen is None:
-                record.wire_seen = set(record.votes)
-            c = cols[i]
-            record.wire_seen.add(
-                buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
-            )
-            record.wire_tail = buf[c[C.COL_HASH_OFF]:c[C.COL_HASH_OFF] + c[C.COL_HASH_LEN]]
-            record.wire_sync = (len(record.retained_wire), len(record.scalar_seqs))
+        if ok_rows.size:
+            rows = ok_rows[np.argsort(slots[ok_rows], kind="stable")]
+            s = slots[rows]
+            start = np.ones(len(s), bool)
+            np.not_equal(s[1:], s[:-1], out=start[1:])
+            bounds = np.append(np.nonzero(start)[0], len(s))
+            uniq = s[start]
+            last = rows[bounds[1:] - 1]
+            if owners is not None:
+                accepted = owners.objs[owners.index[rows]].tolist()
+            else:
+                accepted = [
+                    buf[a:a + b]
+                    for a, b in cols[rows][:, [C.COL_OWNER_OFF, C.COL_OWNER_LEN]].tolist()
+                ]
+            hash_len = cols[last, C.COL_HASH_LEN]
+            if (hash_len == 32).all():
+                tail_matrix = _gather_bytes(buf, cols[last, C.COL_HASH_OFF], 32)
+                tails = tail_matrix.view(np.dtype((np.void, 32))).reshape(-1).tolist()
+            else:
+                tail_matrix = None
+                tails = [
+                    buf[a:a + b]
+                    for a, b in zip(cols[last, C.COL_HASH_OFF].tolist(), hash_len.tolist())
+                ]
+            lo = 0
+            for record, hi, tail in zip(
+                map(self._records.__getitem__, uniq.tolist()), bounds[1:].tolist(), tails
+            ):
+                seen = record.wire_seen
+                if seen is None:
+                    seen = record.wire_seen = set(record.votes)
+                if hi - lo == 1:
+                    seen.add(accepted[lo])
+                else:
+                    seen.update(accepted[lo:hi])
+                record.wire_tail = tail
+                record.wire_sync = (len(record.retained_wire), len(record.scalar_seqs))
+                lo = hi
+            kind = wc.guard_of(uniq)
+            on = kind == _GUARD_ON
+            if owners is None or tail_matrix is None:
+                rebuild = np.concatenate([rebuild, uniq[on]])
+            else:
+                on_slots = uniq[on]
+                wc.tail[on_slots] = tail_matrix[on]
+                wc.tail_len[on_slots] = 32
+                row_on = on[np.cumsum(start) - 1]
+                bits = owners.bits[owners.index[rows[row_on]]]
+                np.bitwise_or.at(
+                    wc.bloom, (s[row_on], bits >> 6),
+                    np.uint64(1) << (bits & 63).astype(np.uint64),
+                )
+            rebuild = np.concatenate([rebuild, uniq[(uniq >= 0) & ~on]])
+        for slot in np.unique(rebuild).tolist():
+            wc.rebuild(self._records[slot])
 
-    def _wire_intern_gids(self, buf, cols, valid) -> np.ndarray:
+    def _wire_intern_gids(self, buf, cols, valid, owners) -> np.ndarray:
         """The gid column of the apply stage: each unique owner interned
-        once. Fixed-width identities dedupe in one ``np.unique`` over an
-        [N, width] byte matrix; mixed widths go through a memo dict."""
+        once. Fixed-width identities dedupe through the frame's owner
+        column, in key order; mixed widths go through a memo dict."""
         from ..bridge import columnar as C
 
         gids = np.zeros(len(cols), np.int64)
         rows = np.nonzero(valid)[0]
         if rows.size == 0:
             return gids
-        lens = cols[rows, C.COL_OWNER_LEN]
-        width = int(lens[0])
-        if (lens == width).all():
-            gather = cols[rows, C.COL_OWNER_OFF, None] + np.arange(width, dtype=np.int64)
-            matrix = np.frombuffer(buf, np.uint8)[gather]
-            uniq, inverse = np.unique(matrix, axis=0, return_inverse=True)
-            uniq_gids = np.array(
-                [self._pool.voter_gid(row.tobytes()) for row in uniq], np.int64
-            )
+        if owners is not None:
+            uniq, inverse = np.unique(owners.index[rows], return_inverse=True)
+            uniq_gids = self._pool.voter_gids(owners.objs[uniq].tolist())
             gids[rows] = uniq_gids[inverse.reshape(-1)]
-        else:
-            memo: dict[bytes, int] = {}
-            for i in rows.tolist():
-                c = cols[i]
-                owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
-                gid = memo.get(owner)
-                if gid is None:
-                    gid = memo[owner] = self._pool.voter_gid(owner)
-                gids[i] = gid
+            return gids
+        memo: dict[bytes, int] = {}
+        for i in rows.tolist():
+            c = cols[i]
+            owner = buf[c[C.COL_OWNER_OFF]:c[C.COL_OWNER_OFF] + c[C.COL_OWNER_LEN]]
+            gid = memo.get(owner)
+            if gid is None:
+                gid = memo[owner] = self._pool.voter_gid(owner)
+            gids[i] = gid
         return gids
 
     def _columnar_apply(
@@ -3859,6 +4323,7 @@ class TorchConsensusEngine(Generic[Scope]):
                 self._timelines.forget(slot)
             # A host-spilled record holds no pool slot to release.
             all_slots.extend(s for s in slots if s >= 0)
+            self._wire_cols.release(slots)
             self._scope_configs.pop(scope, None)
             self._drop_pid_cache(scope)
             # The scope's demoted sessions go with it.
@@ -4082,6 +4547,7 @@ class TorchConsensusEngine(Generic[Scope]):
             record = self._records.pop(slot)
             del self._index[(scope, record.proposal.proposal_id)]
             self._timelines.forget(slot)
+        self._wire_cols.release(slots)
         live = self._scopes.get(scope)
         if live is not None:
             self._scopes[scope] = [s for s in live if s not in gone]

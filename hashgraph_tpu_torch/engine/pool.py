@@ -26,6 +26,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
+from itertools import repeat
 from typing import Callable, Hashable
 
 import numpy as np
@@ -284,6 +285,18 @@ class ProposalPool(SlotTensors):
             self._gid_live[gid] = True
             self._gid_of[owner] = gid
         return (int(self._gid_gen[gid]) << 32) | gid
+
+    def voter_gids(self, owners: "list[bytes]") -> np.ndarray:
+        """:meth:`voter_gid` of each owner, in order: the same gids, and new
+        owners interned in the same order. Known owners resolve in one
+        dict pass (a lookup changes nothing), the rest one at a time."""
+        index = np.array(list(map(self._gid_of.get, owners, repeat(-1))), np.int64)
+        gids = np.empty(len(owners), np.int64)
+        known = index >= 0
+        gids[known] = (self._gid_gen[index[known]] << 32) | index[known]
+        for i in np.nonzero(~known)[0].tolist():
+            gids[i] = self.voter_gid(owners[i])
+        return gids
 
     def owner_of_gid(self, gid: int) -> bytes:
         """Owner bytes for a gid the caller has checked via gids_live

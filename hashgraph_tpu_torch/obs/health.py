@@ -52,6 +52,9 @@ import hashlib
 import threading
 from collections import deque
 from dataclasses import dataclass
+from itertools import compress, repeat
+
+import numpy as np
 
 from .accrual import PhiAccrual
 from .flight import flight_recorder
@@ -505,52 +508,175 @@ class HealthMonitor:
         the hot path pays one lock acquisition, not one per vote).
         ``timeout_hint`` is the sessions' consensus_timeout — it raises
         the peers' staleness thresholds to the scope's timeout config.
-        This is THE hot recording path (every admitted vote lands here);
-        the body is deliberately inlined flat — no per-peer helper
-        calls."""
+        This is THE hot recording path (every admitted vote lands here).
+        While the call cannot overflow the free room it is the plain
+        loop (:meth:`_admit_loop_locked`); past it, the same end state is
+        worked out without a card for any identity the call itself evicts
+        (:meth:`_admit_evicting_locked`). Returns how many new identities
+        got no card for that reason."""
         if not counts:
-            return
-        max_peers = self._max_peers
-        fresh: "list[bytes] | None" = None
+            return 0
+        skipped = 0
         with self._lock:
             if now > self.latest_now:
                 self.latest_now = now
             peers = self._peers
-            for identity, n in counts.items():
-                card = peers.get(identity)
-                if card is None:
-                    card = PeerScorecard(
-                        identity, first_seen=now, last_seen=now
-                    )
-                    peers[identity] = card
-                    if len(peers) > max_peers:
-                        self._evict_locked()
-                    if fresh is None:
-                        fresh = [identity]
-                    else:
-                        fresh.append(identity)
-                # φ-accrual heartbeat: one arrival observation per batch
-                # tick (the accrual coalesces same-tick arrivals itself).
-                accrual = card.accrual
-                if accrual is None:
-                    accrual = card.accrual = PhiAccrual(
-                        window=self._phi_window,
-                        min_samples=self._phi_min_samples,
-                    )
-                accrual.heartbeat(now)
-                card.votes_admitted += n
-                if now > card.last_seen:
-                    card.last_seen = now
-                if timeout_hint > card.timeout_hint:
-                    card.timeout_hint = timeout_hint
+            done = None
+            if len(counts) > self._max_peers - len(peers):
+                # The new identities may overflow the free room: the
+                # replay is exact either way.
+                done = self._admit_evicting_locked(counts, now, timeout_hint)
+            if done is None:
+                fresh = self._admit_loop_locked(counts, now, timeout_hint)
+            else:
+                fresh, skipped = done
         self._m_heartbeats.inc(len(counts))
         # Labelled phi gauges for first-seen peers are installed OUTSIDE
         # the monitor lock: register_gauge takes registry locks, and a
         # scrape-side provider takes this monitor's lock — never hold
-        # both from the same side.
-        if fresh is not None and self._phi_registries:
+        # both from the same side. Past the label cap every install is a
+        # no-op, so the walk stops there.
+        if fresh and self._phi_registries:
             for identity in fresh:
+                if len(self._phi_labelled) >= _MAX_PHI_LABELS:
+                    break
                 self._install_phi_gauge(identity)
+        return skipped
+
+    def _admit_loop_locked(
+        self, counts: "dict[bytes, int]", now: int, timeout_hint: float
+    ) -> "list[bytes]":
+        """The admission loop (lock held): each identity's card, a new one
+        appended (past the cap, an eviction) where it has none, then
+        :meth:`_admit_card`. Returns the new identities in call order."""
+        max_peers = self._max_peers
+        fresh: "list[bytes]" = []
+        peers = self._peers
+        for identity, n in counts.items():
+            card = peers.get(identity)
+            if card is None:
+                card = PeerScorecard(identity, first_seen=now, last_seen=now)
+                peers[identity] = card
+                if len(peers) > max_peers:
+                    self._evict_locked()
+                fresh.append(identity)
+            self._admit_card(card, n, now, timeout_hint)
+        return fresh
+
+    def _admit_card(
+        self, card: PeerScorecard, n: int, now: int, timeout_hint: float
+    ) -> None:
+        """One identity's admissions of a call on its card."""
+        # φ-accrual heartbeat: one arrival observation per batch tick
+        # (the accrual coalesces same-tick arrivals itself).
+        accrual = card.accrual
+        if accrual is None:
+            accrual = card.accrual = PhiAccrual(
+                window=self._phi_window,
+                min_samples=self._phi_min_samples,
+            )
+        accrual.heartbeat(now)
+        card.votes_admitted += n
+        if now > card.last_seen:
+            card.last_seen = now
+        if timeout_hint > card.timeout_hint:
+            card.timeout_hint = timeout_hint
+
+    def _admit_evicting_locked(
+        self, counts: "dict[bytes, int]", now: int, timeout_hint: float
+    ) -> "tuple[list[bytes], int] | None":
+        """:meth:`_admit_loop_locked`'s end state when the call's new
+        identities overflow the free room, with cards built or updated
+        only for what the loop would still hold when it returns.
+
+        The loop appends each new identity to the dict and, once past the
+        cap, drops the ``max(1, cap // 8)`` cards first by (last_seen,
+        dict position); an identity it admits first raises its card's
+        last_seen to at least ``now``. Those raises are the only changes
+        of that order, so the drops are replayed on (rank of last_seen,
+        position) keys, one partition a drop, and an existing identity
+        evicted before its turn comes back as a new one, as in the loop.
+        Returns (the new identities in call order, how many of them the
+        call evicts), or None where a time is not a machine integer (the
+        caller then runs the loop)."""
+        peers = self._peers
+        keys = list(peers)
+        cards = list(peers.values())
+        times = np.array([card.last_seen for card in cards] + [now])
+        if times.dtype.kind != "i":
+            return None
+        n0, cap = len(keys), self._max_peers
+        idents = list(counts)
+        m = len(idents)
+        position = dict(zip(keys, range(n0)))
+        home = np.array(list(map(position.get, idents, repeat(-1, m))), np.int64)
+        # Universe of cards: the existing ones (0..n0-1), then entry t's
+        # new card at n0 + t. Keys: rank of last_seen, then position.
+        size = n0 + m
+        _, rank = np.unique(times, return_inverse=True)
+        rank = rank.reshape(-1).astype(np.int64)
+        rank_now = rank[-1]
+        seen_key = np.empty(size, np.int64)
+        seen_key[:n0] = rank[:-1]
+        pos_key = np.empty(size, np.int64)
+        pos_key[:n0] = np.arange(n0)
+        live = np.zeros(size, bool)
+        live[:n0] = True
+        touched = np.zeros(n0, bool)
+        inserted = np.zeros(m, bool)
+        drop = max(1, cap // 8)
+        length, next_pos, t = n0, n0, 0
+        while t < m:
+            need = cap - length + 1  # insertions up to the next drop
+            span = min(m - t, 2 * need + 64)
+            while True:
+                h = home[t:t + span]
+                ins = h < 0
+                old = np.nonzero(~ins)[0]
+                ins[old] = ~live[h[old]]
+                cum = np.cumsum(ins)
+                if cum[-1] >= need or t + span == m:
+                    break
+                span = min(m - t, 2 * span)
+            stop = t + span if cum[-1] < need else t + int(np.searchsorted(cum, need)) + 1
+            ins = ins[: stop - t]
+            hit = h[: stop - t][~ins]
+            touched[hit] = True
+            seen_key[hit] = np.maximum(seen_key[hit], rank_now)
+            new_t = t + np.nonzero(ins)[0]
+            u = n0 + new_t
+            inserted[new_t] = True
+            live[u] = True
+            seen_key[u] = rank_now
+            pos_key[u] = next_pos + np.arange(len(u))
+            next_pos += len(u)
+            length += len(u)
+            if length > cap:
+                cand = np.nonzero(live)[0]
+                order_key = seen_key[cand] * (size + 1) + pos_key[cand]
+                live[cand[np.argpartition(order_key, drop - 1)[:drop]]] = False
+                length -= drop
+            t = stop
+        for j in np.nonzero(~live[:n0])[0].tolist():
+            del peers[keys[j]]
+        for j in np.nonzero(touched & live[:n0])[0].tolist():
+            self._admit_card(cards[j], counts[keys[j]], now, timeout_hint)
+        kept = inserted & live[n0:]
+        window, min_samples = self._phi_window, self._phi_min_samples
+        raise_hint = timeout_hint > 0.0  # a new card's hint
+        admitted = list(counts.values())
+        for t in np.nonzero(kept)[0].tolist():
+            identity = idents[t]
+            # _admit_card on a new card, inlined.
+            accrual = PhiAccrual(window=window, min_samples=min_samples)
+            accrual.heartbeat(now)
+            card = PeerScorecard(identity, now, now, 0 + admitted[t])
+            card.accrual = accrual
+            if raise_hint:
+                card.timeout_hint = timeout_hint
+            peers[identity] = card
+        fresh = list(compress(idents, inserted.tolist()))
+        return fresh, int(inserted.sum() - kept.sum())
 
     def note_invalid_signature(self, identity: bytes, now: int) -> None:
         """A vote claiming ``identity`` failed signature admission. The

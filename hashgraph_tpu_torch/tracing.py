@@ -50,7 +50,12 @@ tracer unless a component was given its own):
   ``engine.register.flushed_slots`` (the slots those flushes wrote) and
   ``engine.register.forced_flushes`` (flushes that a vote-carrying
   session's row load forced before the loop's end), which explain
-  ``engine.register``;
+  ``engine.register``; ``engine.wire.walked_rows`` (live rows of a wire
+  frame that the dangling guard's exact per-row walk decided; the rest
+  took the frame-wide array passes) and ``engine.wire.admit_cards_skipped``
+  (identities a wire frame admitted whose health card was never built
+  because the same admission evicts it), which explain
+  ``engine.wire.guard`` and ``engine.wire.admit_health``;
 - ``wal.*`` — the durability subsystem (:mod:`hashgraph_tpu_torch.wal`):
   ``wal.append_records`` and ``wal.append_bytes`` (log growth),
   ``wal.fsync`` (durability syscalls — the throughput/durability dial),

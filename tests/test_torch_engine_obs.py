@@ -34,8 +34,9 @@ every scope with the learner's snapshot.
 Left out by name: the tracer's port-only span and counter names
 (``PORT_ONLY_TRACER``: the hot calls' stage spans, the device batch's
 phase spans, the timeout sweep's spans, the two pid-resolution counters,
-the three counters of registration's deferred slot writes and the sweep's
-reached and failed counters), which the JAX engine does not record.
+the three counters of registration's deferred slot writes, the sweep's
+reached and failed counters and the wire apply's walked-row and
+skipped-card counters), which the JAX engine does not record.
 
 Masked, because they are wall times, durations or generated ids: the
 timelines' ``first_vote_latency_s`` and ``decision_latency_s`` (their
@@ -100,6 +101,7 @@ PORT_ONLY_TRACER = tuple(f"span.{name}.calls" for name in PORT_ONLY_SPANS) + (
     "engine.pid_lookup_rebuilds", "engine.pid_tables_rebuilt",
     "engine.register.flushes", "engine.register.flushed_slots",
     "engine.register.forced_flushes", "engine.timeouts_reached", "engine.timeouts_failed",
+    "engine.wire.walked_rows", "engine.wire.admit_cards_skipped",
 )
 SIZE_HISTOGRAMS = ("hashgraph_ingest_batch_size", "hashgraph_chain_suffix_length")
 COUNTED_HISTOGRAMS = (

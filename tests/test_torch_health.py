@@ -334,3 +334,75 @@ def test_attribution_report_reads_the_ports_registry():
         state=state, profiler=ref_profiler.ContinuousProfiler())
     assert ours == theirs and ours["device"]["votes_per_dispatch"] == 16.0
     assert "stages" in attribution.attribution_report()
+
+
+# ── The batched admission that builds only surviving cards ────────────
+
+
+def _monitor_state(monitor, registry):
+    cards = []
+    for key, card in monitor._peers.items():
+        acc = card.accrual
+        cards.append((
+            key, card.identity, card.first_seen, card.last_seen, card.votes_admitted,
+            card.invalid_signatures, card.timeout_hint, type(card.timeout_hint).__name__,
+            None if acc is None else (acc.last_heartbeat, list(acc._intervals), acc._sum,
+                                      acc._sumsq),
+        ))
+    return {
+        "cards": cards,
+        "heartbeats": monitor._registry.counter(health.LIVENESS_HEARTBEATS_TOTAL).value,
+        "labelled": sorted(monitor._phi_labelled),
+        "gauges": sorted(registry.export_state()["gauges"]) if registry is not None else None,
+    }
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_admission_without_evicted_cards_equals_the_loop(seed):
+    """``note_admitted`` past the free room (cards only for what the call
+    keeps) against the plain loop, on random caps, existing peers seen at
+    mixed times (some after the call's tick), new and returning
+    identities, int and float timeout hints, with and without phi
+    registries: equal dict order, cards with their accruals, evictions,
+    heartbeats and labelled phi gauges."""
+    rng = np.random.default_rng(seed)
+    for trial in range(60):
+        cap = int(rng.choice([1, 2, 3, 7, 8, 9, 16, 33]))
+        pool = [bytes([k % 250 + 1, k // 250 + 1]) * 16 for k in range(4 * cap + 12)]
+        with_gauges = bool(rng.random() < 0.5)
+        pair = []
+        for _ in range(2):
+            registry = obs.MetricsRegistry() if with_gauges else None
+            monitor = health.HealthMonitor(max_peers=cap, registry=obs.MetricsRegistry())
+            if registry is not None:
+                monitor.register_gauges(registry)
+            pair.append((monitor, registry))
+        loop_monitor = pair[1][0]
+        loop_monitor._admit_evicting_locked = lambda *args: None
+        skipped = 0
+        for _ in range(int(rng.integers(1, 6))):
+            now = int(rng.integers(0, 40))
+            seen = [(pool[int(i)], int(rng.integers(0, 60)))
+                    for i in rng.integers(0, len(pool), int(rng.integers(0, cap + 2)))]
+            counts = {pool[int(i)]: int(rng.integers(1, 4))
+                      for i in rng.integers(0, len(pool), int(rng.integers(1, 3 * cap + 6)))}
+            hint = [0.0, 12, 37.5, 60.0][int(rng.integers(0, 4))]
+            for monitor, _ in pair:
+                for identity, tick in seen:
+                    monitor.note_invalid_signature(identity, tick)
+                got = monitor.note_admitted(dict(counts), now, timeout_hint=hint)
+                if monitor is not loop_monitor:
+                    skipped += got
+            assert _monitor_state(*pair[0]) == _monitor_state(*pair[1])
+            assert len(pair[0][0]._peers) <= cap
+    assert skipped >= 0
+
+
+def test_admission_past_the_room_skips_evicted_cards():
+    """A call admitting four caps' worth of new identities keeps the last
+    cap's worth, in call order, and builds no card for the rest."""
+    monitor = health.HealthMonitor(max_peers=8, registry=obs.MetricsRegistry())
+    ids = [bytes([k + 1]) * 32 for k in range(32)]
+    skipped = monitor.note_admitted({i: 1 for i in ids}, 5)
+    assert list(monitor._peers) == ids[-monitor.peer_count():]
+    assert skipped == 32 - monitor.peer_count() > 0
